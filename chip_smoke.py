@@ -8,16 +8,29 @@ Phases, each printing one JSON line:
   build    compile the Hopper kernels of hydrainfer_tpu_torch/csrc (nvcc,
            sm_90a, one process per source) and report the build time;
   kernels  hold each kernel against its plain PyTorch version on the card at
-           llava-7b-lm shapes (int8 weights, int8 KV, block size 16) and time
-           it beside its bound and a PyTorch library call;
+           the shapes of both serving paths: K1-K4 at llava-7b-lm (serve) and
+           at qwen2-vl-2b-lm (vlm: GQA 6:1), int8 weights, int8 KV, block
+           size 16; K5 at the vlm phase's encode shape and in its causal
+           form; and time each beside its bound and a PyTorch library call;
   tiny     serve tiny-lm in f32 through OfflineEngine on the card and on the
            CPU with the same weights: the greedy tokens must be identical;
   serve    serve llava-7b-lm (full width, int8 weights, int8 KV) through
            OfflineEngine on the card: every request must finish with its
            token count, every kernel must have launched in the measured run,
            a K=16 fused window must have run, and one prefill's logits must
-           agree with the same model run through the plain PyTorch versions.
-Then the card's name and power limit, a "kernels" JSON line, and as the last
+           agree with the same model run through the plain PyTorch versions;
+  vlm      serve Qwen2-VL-2B (full width: bf16 vision tower, LM with int8
+           weights and int8 KV) through OfflineEngine(node_type="EPD"): eight
+           image requests of four sizes, encoded, prefilled (chunks mixing
+           with decodes) and decoded; every request must finish with its
+           token count, all five kernels must have launched in the measured
+           round, a K=16 window must have run, one encode's features
+           through K5 must agree with the tower run through the plain
+           attention, and one image-bearing prefill's logits must agree with
+           the same model run through the plain versions of K1-K4.
+Then the card's name and power limit, a "kernels" JSON line (one row per
+kernel and serving path: that path's shapes and its measured round's
+launches), and as the last
 line {"ok": true, "device": {...}}. Any failed phase exits non-zero without
 that line. Details (per-shape timings, ptxas reports, the profile) go to
 --out-dir (default chip_smoke_out/). Imports nothing of JAX or of the JAX
@@ -46,7 +59,17 @@ KERNEL_SOURCES = {
                   "hydrainfer_tpu/ops/pallas/kv_writer.py:133"),
     "quant_matmul": ("hydrainfer_tpu_torch/csrc/quant_matmul.cu",
                      "hydrainfer_tpu/ops/pallas/quant_matmul.py:64"),
+    "mha_varlen": ("hydrainfer_tpu_torch/csrc/mha_varlen.cu",
+                   "hydrainfer_tpu/ops/pallas/mha_varlen.py:128"),
 }
+SERVE_KERNELS = ("mha_decode", "paged_attention", "kv_writer", "quant_matmul")
+# the vlm phase's images (height, width), two of each size: 64, 144, 256
+# and 384 image tokens, 6784 patches in all
+VLM_IMAGES = [(224, 224), (336, 336), (448, 448), (448, 672)] * 2
+# Qwen2-VL-2B: the vision tower of its config.json (head_dim 80, merger out
+# 1536), the qwen2-vl-2b-lm language model and its M-RoPE sections
+VLM_VISION = dict(depth=32, embed_dim=1280, hidden_size=1536, num_heads=16)
+VLM_ARCH, VLM_MROPE = "qwen2-vl-2b-lm", (16, 24, 24)
 
 
 def emit(obj) -> None:
@@ -95,9 +118,27 @@ def phase_build() -> dict:
 
 # -------------------------------------------------------------- phase: kernels
 
-def _llava_cfg():
+# K1-K4 run on both serving paths; the kernels phase checks and times each
+# at the shapes its path gives it. decode: K1's window, (q_len, kv_len) per
+# sequence; mixed: K2's batch (prefill chunks, a chunked continuation,
+# decodes), padded to T rows; kv_rows: K3's (T, real rows).
+_VLM_PROMPTS = [64 + (h // 28) * (w // 28) for h, w in VLM_IMAGES]   # 128..448
+PATH_SHAPES = {
+    "serve": dict(arch="llava-7b-lm",
+                  decode=[(1, 130 + 7 * s) for s in range(8)],
+                  mixed=[(128, 128), (128, 128), (64, 192), (1, 150), (1, 161),
+                         (1, 144), (100, 100), (1, 139)], T=512, kv_rows=(512, 452)),
+    # 16 tokens into the decode; the 2048-token budget's first chunks
+    "vlm": dict(arch=VLM_ARCH,
+                decode=[(1, n + 16) for n in _VLM_PROMPTS],
+                mixed=[(n, n) for n in _VLM_PROMPTS[:6]] + [(160, 448), (1, 145)],
+                T=2048, kv_rows=(2048, 1601)),
+}
+
+
+def _arch_cfg(path: str):
     from hydrainfer_tpu_torch.models.random_init import ARCH_CONFIGS
-    return ARCH_CONFIGS["llava-7b-lm"]
+    return ARCH_CONFIGS[PATH_SHAPES[path]["arch"]]
 
 
 def _paged_case(gen, seq_specs, n_blocks, bs, kvh, d, kv_scale, dev):
@@ -123,14 +164,15 @@ def _paged_case(gen, seq_specs, n_blocks, bs, kvh, d, kv_scale, dev):
             torch.tensor([S], dtype=torch.int32, device=dev))
 
 
-def check_quant_matmul(gen, dev) -> dict:
+def check_quant_matmul(gen, dev, path) -> dict:
     import torch
     from hydrainfer_tpu_torch.ops.cuda.quant_matmul import (quant_matmul_int8,
                                                             quant_matmul_int8_plain)
-    cfg = _llava_cfg()
+    cfg = _arch_cfg(path)
     H, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     qkv = (cfg.n_qo_heads + 2 * cfg.n_kv_heads) * cfg.head_dim
-    projections = {"qkv": (H, qkv, torch.bfloat16), "o": (H, H, torch.bfloat16),
+    o = cfg.n_qo_heads * cfg.head_dim
+    projections = {"qkv": (H, qkv, torch.bfloat16), "o": (o, H, torch.bfloat16),
                    "gate_up": (H, 2 * I, torch.bfloat16), "down": (I, H, torch.bfloat16),
                    "lm_head": (H, V, torch.float32)}
     rows, max_err, ok = [], 0.0, True
@@ -169,13 +211,15 @@ def check_quant_matmul(gen, dev) -> dict:
                          "tol": tol, "ms": ms, "plain_ms": plain_ms,
                          "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by})
         del ws
-    save("quant_matmul.json", rows)
+    save(f"quant_matmul_{path}.json", rows)
     # the kernels line reports one decode step's five projections at M = 16
     step = [r for r in rows if r["M"] == 16]
     lib = [r["library_ms"] for r in step]
-    return {"name": "quant_matmul", "ok": bool(ok), "max_abs_err": max_err,
+    return {"name": "quant_matmul", "path": path, "ok": bool(ok), "max_abs_err": max_err,
             "tolerance": "1e-2 x max|plain| (bf16 out), 1e-4 x max|plain| (f32 logits)",
-            "shape": "qkv+o+gate_up+down+lm_head at M=16, summed",
+            "shape": f"{PATH_SHAPES[path]['arch']}: qkv {H}x{qkv}, "
+                     f"o {o}x{H}, gate_up {H}x{2 * I}, down {I}x{H}, lm_head {H}x{V} "
+                     "(f32 out) at M=16, summed",
             "ms": sum(r["ms"] for r in step),
             "plain_ms": sum(r["plain_ms"] for r in step),
             "bound_ms": sum(r["bound_ms"] for r in step),
@@ -184,52 +228,57 @@ def check_quant_matmul(gen, dev) -> dict:
             "library_ms": sum(lib) if all(v is not None for v in lib) else None}
 
 
-def check_attention(gen, dev) -> list:
+def check_attention(gen, dev, path) -> list:
     import torch
     import torch.nn.functional as F
     from hydrainfer_tpu_torch.ops.cuda.mha_decode import (
         mha_decode_attention, mha_decode_attention_plain)
     from hydrainfer_tpu_torch.ops.cuda.paged_attention import (
         paged_attention_varlen, paged_attention_varlen_plain)
-    cfg = _llava_cfg()
+    cfg, shp = _arch_cfg(path), PATH_SHAPES[path]
     H, kvh, D, bs, kv_scale = cfg.n_qo_heads, cfg.n_kv_heads, cfg.head_dim, 16, 0.05
     sm = 1.0 / math.sqrt(D)
+    heads = f"{H} q / {kvh} kv heads x d{D}, int8 KV, BS 16"
 
     def dense_kv(pages, tables, kv_lens):
-        """K/V of each sequence gathered dense and dequantized (bf16)."""
+        """K/V of each sequence gathered dense, dequantized (bf16) and
+        repeated over each kv head's query heads: (H, n, D) each."""
         ks, vs = [], []
         for s in range(tables.shape[0]):
             n = int(kv_lens[s])
             rows = pages[tables[s].clamp(min=0).long()].reshape(-1, 2 * kvh, D)[:n]
-            ks.append((rows[:, 0::2].float() * kv_scale).to(torch.bfloat16))
-            vs.append((rows[:, 1::2].float() * kv_scale).to(torch.bfloat16))
+            for plane, out in ((rows[:, 0::2], ks), (rows[:, 1::2], vs)):
+                out.append((plane.float() * kv_scale).to(torch.bfloat16)
+                           .transpose(0, 1).repeat_interleave(H // kvh, 0))
         return ks, vs
 
     out = []
-    # K1: the serve phase's decode window: 8 sequences, ~128-token prompts
-    specs = [(1, 130 + 7 * s) for s in range(8)]
+    # K1: a decode window of 8 sequences
+    specs = shp["decode"]
+    S = len(specs)
     pages, tables, kv_lens, _, ns = _paged_case(gen, specs, 512, bs, kvh, D,
                                                 kv_scale, dev)
-    q = torch.randn((8, H, D), generator=gen).to(dev, torch.bfloat16)
+    q = torch.randn((S, H, D), generator=gen).to(dev, torch.bfloat16)
     got = mha_decode_attention(q, pages, kv_lens, tables, ns, sm, kv_scale)
     ref = mha_decode_attention_plain(q, pages, kv_lens, tables, ns, sm, kv_scale)
     err = (got.float() - ref.float()).abs().max().item()
     ks, vs = dense_kv(pages, tables, kv_lens)
-    L = max(k.shape[0] for k in ks)
-    kd = torch.zeros((8, H, L, D), dtype=torch.bfloat16, device=dev)
+    L = max(k.shape[1] for k in ks)
+    kd = torch.zeros((S, H, L, D), dtype=torch.bfloat16, device=dev)
     vd = torch.zeros_like(kd)
-    mask = torch.zeros((8, 1, 1, L), dtype=torch.bool, device=dev)
-    for s in range(8):
-        n = ks[s].shape[0]
-        kd[s, :, :n], vd[s, :, :n] = ks[s].transpose(0, 1), vs[s].transpose(0, 1)
+    mask = torch.zeros((S, 1, 1, L), dtype=torch.bool, device=dev)
+    for s in range(S):
+        n = ks[s].shape[1]
+        kd[s, :, :n], vd[s, :, :n] = ks[s], vs[s]
         mask[s, ..., :n] = True
     qd = q[:, :, None, :]
     n_kv = int(kv_lens.sum())
-    b_ms, b_by = bound_ms(q.numel() * 2 * 2 + n_kv * 2 * kvh * D + 8 * 4 * (1 + tables.shape[1]),
+    b_ms, b_by = bound_ms(q.numel() * 2 * 2 + n_kv * 2 * kvh * D + S * 4 * (1 + tables.shape[1]),
                           4.0 * H * D * n_kv)
-    out.append({"name": "mha_decode", "ok": err <= 3e-2, "max_abs_err": err,
+    out.append({"name": "mha_decode", "path": path, "ok": err <= 3e-2, "max_abs_err": err,
                 "tolerance": "3e-2 abs (bf16 K/V rounding in the plain version)",
-                "shape": "8 seqs x 32 heads x d128, kv 130..179, int8 KV, BS 16",
+                "shape": f"{S} seqs, kv {min(kv for _, kv in specs)}.."
+                         f"{max(kv for _, kv in specs)}, {heads}",
                 "ms": time_ms(lambda: mha_decode_attention(q, pages, kv_lens, tables,
                                                            ns, sm, kv_scale)),
                 "plain_ms": time_ms(lambda: mha_decode_attention_plain(
@@ -239,20 +288,17 @@ def check_attention(gen, dev) -> list:
                 "bound_ms": b_ms, "bound_by": b_by})
 
     # K2: a mixed batch: prefill chunks, a chunked continuation, decodes
-    specs = [(128, 128), (128, 128), (64, 192), (1, 150), (1, 161), (1, 144),
-             (100, 100), (1, 139)]
+    specs, T = shp["mixed"], shp["T"]
     pages, tables, kv_lens, cu, ns = _paged_case(gen, specs, 512, bs, kvh, D,
                                                  kv_scale, dev)
     T_real = int(cu[-1])
-    T = 512
     q = torch.randn((T, H, D), generator=gen).to(dev, torch.bfloat16)
     got = paged_attention_varlen(q, pages, kv_lens, tables, cu, ns, sm, kv_scale)
     ref = paged_attention_varlen_plain(q, pages, kv_lens, tables, cu, ns, sm, kv_scale)
     err = (got.float() - ref.float()).abs().max().item()
     ks, vs = dense_kv(pages, tables, kv_lens)
-    kcat = torch.cat(ks).transpose(0, 1)[None]
-    vcat = torch.cat(vs).transpose(0, 1)[None]
-    amask = torch.zeros((T_real, kcat.shape[2]), dtype=torch.bool, device=dev)
+    kcat, vcat = torch.cat(ks, 1)[None], torch.cat(vs, 1)[None]
+    amask = torch.zeros((T_real, kcat.shape[2]), dtype=torch.bool)
     visible = 0
     t0, c0 = 0, 0
     for (ql, kv) in specs:
@@ -261,14 +307,16 @@ def check_attention(gen, dev) -> list:
             amask[t0 + i, c0:c0 + n] = True
             visible += n
         t0, c0 = t0 + ql, c0 + kv
+    amask = amask.to(dev)
     qv = q[:T_real].transpose(0, 1)[None]
     n_kv = int(kv_lens.sum())
     b_ms, b_by = bound_ms(T_real * H * D * 2 * 2 + n_kv * 2 * kvh * D,
                           4.0 * H * D * visible)
-    out.append({"name": "paged_attention", "ok": err <= 3e-2, "max_abs_err": err,
+    out.append({"name": "paged_attention", "path": path, "ok": err <= 3e-2,
+                "max_abs_err": err,
                 "tolerance": "3e-2 abs (bf16 K/V rounding in the plain version)",
-                "shape": f"{T_real} tokens (T={T}) in 8 seqs: prefill, chunked "
-                         "continuation, decodes; 32 heads x d128, int8 KV, BS 16",
+                "shape": f"{T_real} tokens (T={T}) in {len(specs)} seqs: prefills, a "
+                         f"chunked continuation, decodes; {heads}",
                 "ms": time_ms(lambda: paged_attention_varlen(q, pages, kv_lens, tables,
                                                              cu, ns, sm, kv_scale)),
                 "plain_ms": time_ms(lambda: paged_attention_varlen_plain(
@@ -279,22 +327,24 @@ def check_attention(gen, dev) -> list:
     return out
 
 
-def check_kv_writer(gen, dev) -> dict:
+def check_kv_writer(gen, dev, path) -> dict:
     import torch
     from hydrainfer_tpu_torch.ops.cuda.kv_writer import (quantize_kv, write_kv_pages,
                                                          write_kv_pages_plain)
-    cfg = _llava_cfg()
-    kvh, D, bs, nb, kv_scale = cfg.n_kv_heads, cfg.head_dim, 16, 512, 0.05
-    T, T_real = 512, 452
+    cfg = _arch_cfg(path)
+    H, kvh, D, bs, nb, kv_scale = (cfg.n_qo_heads, cfg.n_kv_heads, cfg.head_dim, 16, 512,
+                                   0.05)
+    T, T_real = PATH_SHAPES[path]["kv_rows"]
     # the prefill/decode batch's slots: runs of consecutive slots in shuffled
     # blocks, the padded tail dropped
     blocks = torch.randperm(nb, generator=gen)[: -(-T // bs)]
     slots = (blocks[:, None] * bs + torch.arange(bs)[None]).reshape(-1)[:T]
     slots[T_real:] = -1
     slots = slots.to(torch.int32).to(dev)
-    qkv = torch.randn((T, 3 * kvh * D), generator=gen).to(dev, torch.bfloat16)
-    k = qkv[:, kvh * D: 2 * kvh * D].reshape(T, kvh, D).contiguous()
-    v = qkv[:, 2 * kvh * D:].reshape(T, kvh, D)      # strided rows, as in the model
+    # k and v are column ranges of the fused qkv projection's output
+    qkv = torch.randn((T, (H + 2 * kvh) * D), generator=gen).to(dev, torch.bfloat16)
+    k = qkv[:, H * D: (H + kvh) * D].reshape(T, kvh, D).contiguous()
+    v = qkv[:, (H + kvh) * D:].reshape(T, kvh, D)      # strided rows, as in the model
     got = torch.zeros((nb, bs, 2 * kvh, D), dtype=torch.int8, device=dev)
     ref = torch.zeros_like(got)
     write_kv_pages(got, k, v, slots, kv_scale)
@@ -303,10 +353,10 @@ def check_kv_writer(gen, dev) -> dict:
     rows = quantize_kv(torch.stack([k, v], 2).reshape(T, 2 * kvh, D), kv_scale)[:T_real]
     flat, idx = ref.view(-1, 2 * kvh, D), slots[:T_real].long()
     b_ms, b_by = bound_ms(T_real * 2 * kvh * D * 2 + T * 4 + T_real * 2 * kvh * D, 0.0)
-    return {"name": "kv_writer", "ok": err <= 1.0, "max_abs_err": err,
+    return {"name": "kv_writer", "path": path, "ok": err <= 1.0, "max_abs_err": err,
             "tolerance": "1 int8 step (the plain version's division may round "
                          "through a reciprocal)",
-            "shape": f"{T_real} of {T} rows -> int8 pages, 32 kv heads x d128, BS 16",
+            "shape": f"{T_real} of {T} rows -> int8 pages, {kvh} kv heads x d{D}, BS 16",
             "ms": time_ms(lambda: write_kv_pages(got, k, v, slots, kv_scale)),
             "plain_ms": time_ms(lambda: write_kv_pages_plain(ref, k, v, slots,
                                                              kv_scale), iters=5),
@@ -314,23 +364,131 @@ def check_kv_writer(gen, dev) -> dict:
             "bound_ms": b_ms, "bound_by": b_by}
 
 
+def check_mha_varlen(gen, dev) -> dict:
+    """K5 (a) in the ViT form at the vlm encode shape (T = 6784, 16 heads,
+    d80, bf16, v a strided view of the fused qkv as the tower passes it) and
+    (b) in the causal form over gathered pages, as
+    hydrainfer_tpu/ops/attention.py:paged_attention_varlen_prefill builds
+    it (Qwen2-VL-2B LM heads, d128)."""
+    import torch
+    import torch.nn.functional as F
+    from hydrainfer_tpu_torch.ops.cuda.mha_varlen import mha_varlen_flash, mha_varlen_plain
+    H = VLM_VISION["num_heads"]
+    D = VLM_VISION["embed_dim"] // H
+    sm = D ** -0.5
+    # one segment per image of the vlm encode (14 x 14 patches)
+    sizes = [(h // 14) * (w // 14) for h, w in VLM_IMAGES]
+    ids = torch.cat([torch.full((n,), i, dtype=torch.int32)
+                     for i, n in enumerate(sizes)]).to(dev)
+    T = ids.shape[0]
+    qkv = torch.randn((T, 3, H, D), generator=gen).to(dev, torch.bfloat16)
+    q, k, v = qkv[:, 0].contiguous(), qkv[:, 1].contiguous(), qkv[:, 2]
+    got = mha_varlen_flash(q, k, v, ids, sm)
+    ref = mha_varlen_plain(q, k, v, ids, sm)[0]
+    err = (got.float() - ref.float()).abs().max().item()
+    tol = 3e-2 * max(1e-3, ref.float().abs().max().item())
+    pairs = sum(n * n for n in sizes)
+    b_ms, b_by = bound_ms(4 * T * H * D * 2 + 4 * T, 4.0 * H * D * pairs)
+    qs, ks, vs = (t.transpose(0, 1)[None] for t in (q, k, v))
+    mask = ids[:, None] == ids[None, :]
+    ms = time_ms(lambda: mha_varlen_flash(q, k, v, ids, sm))
+    plain_ms = time_ms(lambda: mha_varlen_plain(q, k, v, ids, sm), iters=3)
+    # library yardsticks, each held to the plain version first; library_ms is
+    # the fastest that ran. SDPA with the block-diagonal mask computes all
+    # T^2 scores; SDPA over jagged nested q/k/v and aten's varlen flash
+    # forward (one segment per image) compute sum n_i^2, as K5 does.
+    offsets = torch.tensor([0] + sizes, device=dev).cumsum(0)
+    vc, cu = v.contiguous(), offsets.int()
+
+    def jagged():
+        qn, kn, vn = (torch.nested.nested_tensor_from_jagged(t, offsets).transpose(1, 2)
+                      for t in (q, k, vc))
+        return lambda: F.scaled_dot_product_attention(qn, kn, vn)
+
+    # name: (make the call, its output as (T, H, D))
+    forms = {
+        "SDPA, block-diagonal bool mask": (
+            lambda: lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask),
+            lambda o: o[0].transpose(0, 1)),
+        "SDPA on jagged nested q/k/v": (jagged, lambda o: o.transpose(1, 2).values()),
+        "aten._flash_attention_forward, varlen": (
+            lambda: lambda: torch.ops.aten._flash_attention_forward(
+                q, k, vc, cu, cu, max(sizes), max(sizes), 0.0, False, False, scale=sm)[0],
+            lambda o: o),
+    }
+    library = {}
+    for name, (make, flat) in forms.items():
+        try:
+            fn = make()
+            lerr = (flat(fn()).float() - ref.float()).abs().max().item()
+            library[name] = {"err": lerr, "ms": time_ms(fn) if lerr <= tol else None}
+        except Exception as e:          # not in this torch build: say so
+            library[name] = {"error": repr(e)[:200]}
+    timed = {n: r["ms"] for n, r in library.items() if r.get("ms") is not None}
+    lib = min(timed, key=timed.get) if timed else None
+    lib_ms = timed[lib] if timed else None
+
+    # (b) the causal form: gathered pages with segment ids (-1 past each
+    # kv_len) and cache positions; q rows carry their cache position
+    specs = [(128, 128), (64, 192), (1, 150), (100, 100), (1, 77)]
+    Hq, Dq = 12, 128
+    max_kv = max(kv for _, kv in specs)
+    S = len(specs)
+    kv_pos = torch.arange(max_kv, dtype=torch.int32).repeat(S)
+    kv_len = torch.tensor([kv for _, kv in specs], dtype=torch.int32).repeat_interleave(max_kv)
+    kv_seg = torch.where(kv_pos < kv_len,
+                         torch.arange(S, dtype=torch.int32).repeat_interleave(max_kv), -1)
+    q_ids = torch.cat([torch.full((ql,), s, dtype=torch.int32)
+                       for s, (ql, _) in enumerate(specs)] + [torch.full((7,), -1)])
+    q_pos = torch.cat([torch.arange(kv - ql, kv, dtype=torch.int32) for ql, kv in specs]
+                      + [torch.zeros(7, dtype=torch.int32)])
+    on = lambda t: t.to(torch.int32).to(dev)
+    cq = torch.randn((q_ids.shape[0], Hq, Dq), generator=gen).to(dev, torch.bfloat16)
+    ck, cv = (torch.randn((S * max_kv, Hq, Dq), generator=gen).to(dev, torch.bfloat16)
+              for _ in range(2))
+    cargs = dict(kv_seq_ids=on(kv_seg), q_pos=on(q_pos), kv_pos=on(kv_pos))
+    cgot = mha_varlen_flash(cq, ck, cv, on(q_ids), Dq ** -0.5, **cargs)
+    cref = mha_varlen_plain(cq, ck, cv, on(q_ids), Dq ** -0.5, **cargs)[0]
+    cerr = (cgot.float() - cref.float()).abs().max().item()
+    ctol = 3e-2 * max(1e-3, cref.float().abs().max().item())
+    pad_zero = bool((cgot[on(q_ids) < 0] == 0).all())
+    save("mha_varlen.json", {"vit": {"T": T, "images": sizes, "err": err, "tol": tol,
+                                     "library": library},
+                             "causal": {"specs": specs, "err": cerr, "tol": ctol,
+                                        "padding_rows_zero": pad_zero}})
+    return {"name": "mha_varlen", "path": "vlm",
+            "ok": bool(err <= tol and cerr <= ctol and pad_zero),
+            "max_abs_err": max(err, cerr), "causal_max_abs_err": cerr,
+            "tolerance": "3e-2 x max|plain| (bf16 P and output rounding)",
+            "shape": f"ViT form: {T} patches of 8 images, {H} heads x d{D}, bf16; "
+                     "causal form: 5 seqs over gathered pages, 12 heads x d128",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms, "library": lib,
+            "library_forms_ms": {n: r.get("ms") for n, r in library.items()}}
+
+
 def phase_kernels() -> tuple:
     import torch
     gen = torch.Generator().manual_seed(SEED)
     dev = torch.device("cuda")
-    results = check_attention(gen, dev) + [check_kv_writer(gen, dev),
-                                           check_quant_matmul(gen, dev)]
+    results = []
+    for path in PATH_SHAPES:
+        results += check_attention(gen, dev, path) + [check_kv_writer(gen, dev, path),
+                                                      check_quant_matmul(gen, dev, path)]
+    results.append(check_mha_varlen(gen, dev))
     torch.cuda.synchronize()
     save("kernels.json", results)
     ok = all(r["ok"] for r in results)
     return {"phase": "kernels", "ok": ok,
-            "checks": {r["name"]: {"ok": r["ok"], "max_abs_err": r["max_abs_err"],
-                                   "ms": r["ms"]} for r in results}}, results
+            "checks": {f"{r['name']}@{r['path']}": {
+                "ok": r["ok"], "max_abs_err": r["max_abs_err"], "ms": r["ms"]}
+                for r in results}}, results
 
 
 # ------------------------------------------------------------------ serving
 
-def _engine(factory, device, n_requests, block_size, n_blocks, token_budget):
+def _engine(factory, device, n_requests, block_size, n_blocks, token_budget,
+            node_type="PD", n_image_blocks=-1):
     from hydrainfer_tpu_torch.cluster.node import NodeConfig
     from hydrainfer_tpu_torch.engine.request_processor import RequestProcessorConfig
     from hydrainfer_tpu_torch.engine.scheduler import BatchSchedulerConfig
@@ -338,8 +496,9 @@ def _engine(factory, device, n_requests, block_size, n_blocks, token_budget):
     cfg = NodeConfig(
         batch_scheduler=BatchSchedulerConfig(max_running_requests=n_requests),
         request_processor=RequestProcessorConfig(num_request_process_workers=1),
-        kv_block_size=block_size, n_kv_blocks=n_blocks, multi_step_decode=16)
-    engine = OfflineEngine(cfg, model_factory=factory, node_type="PD", device=device)
+        kv_block_size=block_size, n_kv_blocks=n_blocks, n_image_blocks=n_image_blocks,
+        multi_step_decode=16)
+    engine = OfflineEngine(cfg, model_factory=factory, node_type=node_type, device=device)
     engine.node.batch_scheduler.token_budget = token_budget
     return engine
 
@@ -382,8 +541,11 @@ def phase_tiny(devices=("cuda", "cpu")) -> dict:
             "requests_differing": n_diff}
 
 
-def _prefill_logits(lm, tokens, device):
-    """One 64-token prefill of `lm` on a scratch cache; returns f32 logits."""
+def _prefill_logits(lm, tokens, device, positions=None, positions_hw=None,
+                    image_features=None, image_dst_idx=None):
+    """One prefill of `lm` on a scratch cache; returns f32 logits. Rope
+    positions default to 0..T-1; an image-bearing prefill passes its M-RoPE
+    streams and the features spliced at image_dst_idx."""
     import torch
     from hydrainfer_tpu_torch.models.decoder import decoder_forward
     from hydrainfer_tpu_torch.models.factory import LanguageModelBatch
@@ -397,14 +559,18 @@ def _prefill_logits(lm, tokens, device):
     i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=device)
     attn = PagedAttentionParams(
         q_seq_ids=i32([0] * T), q_local_ids=i32(list(range(T))),
-        positions=i32(list(range(T))), kv_lens=i32([T]),
+        positions=i32(list(range(T)) if positions is None else positions), kv_lens=i32([T]),
         block_tables=i32([list(range(1, nb))]),
         new_kv_slot_ids=i32([bs + t for t in range(T)]), cu_q_lens=i32([0, T]),
         num_seqs=i32([1]))
     batch = LanguageModelBatch(token_ids=i32(tokens), positions=attn.positions,
                                attention=attn, sample_token_idx=i32([T - 1]),
                                token_src_slots=i32([-1] * T),
-                               sample_dst_slots=i32([-1]))
+                               sample_dst_slots=i32([-1]),
+                               image_features=image_features,
+                               image_dst_idx=(None if image_dst_idx is None
+                                              else i32(image_dst_idx)),
+                               positions_hw=None if positions_hw is None else i32(positions_hw))
     table = torch.zeros(2, dtype=torch.int32, device=device)
     _, logits = decoder_forward(lm.weights, cache, batch, lm.cos_tab, lm.sin_tab,
                                 cfg, T, table, return_logits=True)
@@ -421,7 +587,7 @@ def _f32_weights(weights: dict) -> dict:
     return out
 
 
-def _plain_logits(lm, tokens, device):
+def _plain_logits(lm, tokens, device, **batch_kw):
     """The same prefill with every kernel wrapper swapped for its plain
     PyTorch version (the wrappers are looked up by name at call time)."""
     from hydrainfer_tpu_torch.ops import attention, cache_ops, quant
@@ -436,13 +602,47 @@ def _plain_logits(lm, tokens, device):
     try:
         for mod, name, fn in swaps:
             setattr(mod, name, fn)
-        return _prefill_logits(lm, tokens, device)
+        return _prefill_logits(lm, tokens, device, **batch_kw)
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
 
 
-def _profile_round(engine, reqs) -> dict:
+def _logits_check(lm, tokens, device, prefix, **batch_kw) -> dict:
+    """Full-width agreement on one prefill: the kernels against the plain
+    versions with f32 activations and an f32 KV cache (only the summation
+    order differs: with an int8 cache a sum-order difference of one ulp can
+    flip a rounding and move a K/V entry by a whole step), and the bf16
+    int8-KV serving path's distance from that f32 reference beside the bf16
+    plain path's."""
+    from dataclasses import replace
+    import torch
+    from hydrainfer_tpu_torch.models.llama import LlamaForCausalLM
+    lm32 = LlamaForCausalLM(_f32_weights(lm.weights), replace(lm.cfg, kv_scale=None))
+    with torch.no_grad():
+        ref32 = _plain_logits(lm32, tokens, device, **batch_kw)
+        got32 = _prefill_logits(lm32, tokens, device, **batch_kw)
+        got16 = _prefill_logits(lm, tokens, device, **batch_kw)
+        plain16 = _plain_logits(lm, tokens, device, **batch_kw)
+    del lm32
+    scale32 = ref32.abs().max().item()
+    err32 = (got32 - ref32).abs().max().item()
+    err16_kernel = (got16 - ref32).abs().max().item()
+    err16_plain = (plain16 - ref32).abs().max().item()
+    ok = (bool(torch.isfinite(got16).all() and torch.isfinite(got32).all())
+          and err32 <= 1e-3 * scale32
+          and err16_kernel <= 3 * max(err16_plain, 1e-3 * scale32))
+    return {"ok": ok, f"{prefix}_tokens": len(tokens),
+            f"{prefix}_f32_max_abs": scale32,
+            f"{prefix}_f32_kernel_vs_plain_err": err32,
+            f"{prefix}_bf16_kernel_vs_f32_err": err16_kernel,
+            f"{prefix}_bf16_plain_vs_f32_err": err16_plain,
+            f"{prefix}_tolerance": "f32 activations and KV: 1e-3 x max|logit| (sum "
+                                   "order over the layers); bf16 + int8 KV: 3x the "
+                                   "plain path's distance from f32"}
+
+
+def _profile_round(engine, reqs, name="serve_profile.json") -> dict:
     """One more round under torch.profiler: device time by kernel and the
     device's busy share of the round's wall time (the profiler's own host
     overhead lengthens the wall, so the share is a lower bound)."""
@@ -460,8 +660,7 @@ def _profile_round(engine, reqs) -> dict:
             rows.append({"kernel": e.key[:120], "count": e.count, "ms": us / 1e3})
     rows.sort(key=lambda r: -r["ms"])
     busy_ms = sum(r["ms"] for r in rows)
-    save("serve_profile.json", {"wall_s": wall, "device_busy_ms": busy_ms,
-                                "kernels": rows})
+    save(name, {"wall_s": wall, "device_busy_ms": busy_ms, "kernels": rows})
     if busy_ms == 0:
         return {"profile": "not measured (the profiler saw no device time)"}
     return {"profile_wall_s": wall, "profile_device_busy_share": busy_ms / 1e3 / wall,
@@ -522,32 +721,12 @@ def phase_serve(arch="llava-7b-lm", dev="cuda", n_requests=8, prompt_len=128,
         0 <= t < vocab for o in outs for t in o.output_token_ids)
     ttfts = sorted(o.ttft for o in outs)
 
-    # full-width agreement on one 64-token prefill: the kernels against the
-    # plain versions with f32 activations and an f32 KV cache (only the
-    # summation order differs: with an int8 cache a sum-order difference of
-    # one ulp can flip a rounding and move a K/V entry by a whole step), and
-    # the bf16 int8-KV serving path's distance from that f32 reference beside
-    # the bf16 plain path's
-    from dataclasses import replace
-    from hydrainfer_tpu_torch.models.llama import LlamaForCausalLM
-    lm32 = LlamaForCausalLM(_f32_weights(lm.weights), replace(lm.cfg, kv_scale=None))
-    tokens = [int(t) for t in rng.integers(10, 120, size=64)]
-    with torch.no_grad():
-        ref32 = _plain_logits(lm32, tokens, dev)
-        got32 = _prefill_logits(lm32, tokens, dev)
-        got16 = _prefill_logits(lm, tokens, dev)
-        plain16 = _plain_logits(lm, tokens, dev)
-    del lm32
-    scale32 = ref32.abs().max().item()
-    err32 = (got32 - ref32).abs().max().item()
-    err16_kernel = (got16 - ref32).abs().max().item()
-    err16_plain = (plain16 - ref32).abs().max().item()
-    logits_ok = (bool(torch.isfinite(got16).all() and torch.isfinite(got32).all())
-                 and err32 <= 1e-3 * scale32
-                 and err16_kernel <= 3 * max(err16_plain, 1e-3 * scale32))
+    logits = _logits_check(lm, [int(t) for t in rng.integers(10, 120, size=64)], dev,
+                           "prefill_logits")
     windows = measured_windows
-    ok = (tokens_ok and logits_ok and 16 in windows
-          and all(v > 0 for v in counts.values()))
+    # the text path runs K1-K4; K5 (the ViT's attention) is the vlm path's
+    ok = (tokens_ok and logits.pop("ok") and 16 in windows
+          and all(counts[k] > 0 for k in SERVE_KERNELS))
     result = {"phase": "serve", "ok": bool(ok), "gpu": gpu_name_and_limit(),
               "arch": arch,
               "weights": "int8", "kv_cache": "int8 (scale 0.05)",
@@ -557,15 +736,248 @@ def phase_serve(arch="llava-7b-lm", dev="cuda", n_requests=8, prompt_len=128,
               "elapsed_s": elapsed, "p50_ttft_s": ttfts[len(ttfts) // 2],
               "weight_init_s": init_s, "param_bytes": factory.param_bytes(),
               "fused_windows": sorted(set(windows)),
-              "n_k16_windows": windows.count(16), "launches": counts,
-              "prefill_logits_f32_max_abs": scale32,
-              "prefill_logits_f32_kernel_vs_plain_err": err32,
-              "prefill_logits_bf16_kernel_vs_f32_err": err16_kernel,
-              "prefill_logits_bf16_plain_vs_f32_err": err16_plain,
-              "logits_tolerance": "f32 activations and KV: 1e-3 x max|logit| "
-                                  "(sum order over 32 layers); bf16 + int8 KV: "
-                                  "3x the plain path's distance from f32",
+              "n_k16_windows": windows.count(16), "launches": counts, **logits,
               "peak_memory_bytes": torch.cuda.max_memory_allocated(), **profiled}
+    return result, counts
+
+
+# ---------------------------------------------------------------- phase: vlm
+
+def _qwen2vl_factory(dev, seed=SEED):
+    """Qwen2-VL-2B at full width with random weights from a seeded generator:
+    the port's Qwen2VLVisionModel (bf16) and its qwen2-vl-2b-lm language model
+    (int8 weights, int8 KV at scale 0.05, M-RoPE sections [16, 24, 24]), with
+    SimpleTokenizer (one token per character, "<image>" = token 9)."""
+    from dataclasses import replace
+    import torch
+    from hydrainfer_tpu_torch.models.factory import ModelFactory, VisionModelConfig
+    from hydrainfer_tpu_torch.models.qwen2_vl import (Qwen2VisionConfig,
+                                                      Qwen2VLImageProcessorAdapter,
+                                                      Qwen2VLImageTokenCalculator,
+                                                      Qwen2VLVisionModel)
+    from hydrainfer_tpu_torch.models.random_init import RandomWeightFactory
+    from hydrainfer_tpu_torch.models.tokenizer import SimpleTokenizer
+
+    vcfg = Qwen2VisionConfig(**VLM_VISION)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    init = lambda *shape: (torch.randn(shape, generator=gen, device=dev) * 0.02).to(
+        torch.bfloat16)
+    ones = lambda n: torch.ones(n, dtype=torch.bfloat16, device=dev)
+    zeros = lambda n: torch.zeros(n, dtype=torch.bfloat16, device=dev)
+    E, M = vcfg.embed_dim, int(vcfg.embed_dim * vcfg.mlp_ratio)
+    vw = {"patch_embed": init(vcfg.patch_dim, E), "blocks": [
+        {"ln1": (ones(E), zeros(E)), "qkv": (init(E, 3 * E), zeros(3 * E)),
+         "proj": (init(E, E), zeros(E)), "ln2": (ones(E), zeros(E)),
+         "fc1": (init(E, M), zeros(M)), "fc2": (init(M, E), zeros(E))}
+        for _ in range(vcfg.depth)]}
+    vw["merger"] = {"ln_q": (ones(E), zeros(E)), "mlp0": (init(4 * E, 4 * E), zeros(4 * E)),
+                    "mlp2": (init(4 * E, vcfg.hidden_size), zeros(vcfg.hidden_size))}
+    lm_factory = RandomWeightFactory(VLM_ARCH, dtype=torch.bfloat16, quantization="int8",
+                                     kv_scale=0.05, device=dev, seed=seed)
+    lm_factory.cfg = replace(lm_factory.cfg, mrope_section=VLM_MROPE)
+
+    class Factory(ModelFactory):
+        def __init__(self):
+            self.vision_model = Qwen2VLVisionModel(vw, vcfg)
+            self.lm_factory = lm_factory
+            self.cfg = lm_factory.cfg
+
+        def getVisionModel(self):
+            return self.vision_model
+
+        def getLanguageModel(self):
+            return lm_factory.getLanguageModel()
+
+        def getVisionModelConfig(self):
+            return VisionModelConfig("<image>", 9, Qwen2VLImageTokenCalculator(
+                vcfg.patch_size, vcfg.spatial_merge_size))
+
+        def getLanguageModelConfig(self):
+            return lm_factory.getLanguageModelConfig()
+
+        def getProcessor(self):
+            return Qwen2VLImageProcessorAdapter(vcfg)
+
+        def getTokenizer(self):
+            return SimpleTokenizer()
+
+    return Factory()
+
+
+def _vlm_requests(rng, max_tokens, tag):
+    """One request per VLM_IMAGES entry: random pixels, a 64-character prompt
+    around <image> (text on both sides), greedy, ignore_eos."""
+    import numpy as np
+    from PIL import Image
+    from hydrainfer_tpu_torch.request import Request, SamplingParameters
+    letters = list("abcdefghijklmnopqrstuvwxyz ")
+    reqs = []
+    for i, (h, w) in enumerate(VLM_IMAGES):
+        img = Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+        text = "".join(rng.choice(letters, size=64))
+        reqs.append(Request(request_id=f"{tag}{i}", prompt=text[:24] + "<image>" + text[24:],
+                            image=img, sampling_params=SamplingParameters(
+                                max_tokens=max_tokens, ignore_eos=True)))
+    return reqs
+
+
+def _features_check(factory, reqs, dev) -> dict:
+    """One encode of the measured round's eight images: the bf16 tower
+    through K5 and through the plain attention, each against an f32 run of
+    the same weights through the plain attention; and the f32 tower through
+    K5 against that f32 reference."""
+    import numpy as np
+    import torch
+    from hydrainfer_tpu_torch.models.factory import VisionModelParameters
+    from hydrainfer_tpu_torch.models.qwen2_vl import Qwen2VLVisionModel
+    from hydrainfer_tpu_torch.ops import attention
+    from hydrainfer_tpu_torch.ops.cuda.mha_varlen import mha_varlen_plain
+    proc = factory.getProcessor()
+    patches = np.concatenate([proc.process(r.image) for r in reqs])
+    params = VisionModelParameters(original_image_sizes=[(r.image.height, r.image.width)
+                                                         for r in reqs])
+    vm = factory.getVisionModel()
+    f32 = lambda x: (x.float() if isinstance(x, torch.Tensor) else
+                     type(x)(f32(v) for v in x) if isinstance(x, (tuple, list)) else
+                     {k: f32(v) for k, v in x.items()})
+    vm32 = Qwen2VLVisionModel(f32(vm.weights), vm.cfg)
+    kernel = attention.mha_varlen_flash
+
+    def plain(q, k, v, ids, sm, **kw):
+        return mha_varlen_plain(q, k, v, ids, sm, **kw)[0]
+
+    def run(model, use_plain):
+        attention.mha_varlen_flash = plain if use_plain else kernel
+        try:
+            return model.forward(patches, params).image_features.float()
+        finally:
+            attention.mha_varlen_flash = kernel
+
+    with torch.no_grad():
+        ref32 = run(vm32, True)
+        got32 = run(vm32, False)
+        got16 = run(vm, False)
+        plain16 = run(vm, True)
+    del vm32
+    scale = ref32.abs().max().item()
+    err32 = (got32 - ref32).abs().max().item()
+    err16_kernel = (got16 - ref32).abs().max().item()
+    err16_plain = (plain16 - ref32).abs().max().item()
+    ok = (bool(torch.isfinite(got16).all()) and err32 <= 1e-3 * scale
+          and err16_kernel <= 3 * max(err16_plain, 1e-3 * scale))
+    return {"features_ok": ok, "features_shape": list(got16.shape[1:]),
+            "features_f32_max_abs": scale, "features_f32_kernel_vs_plain_err": err32,
+            "features_bf16_kernel_vs_f32_err": err16_kernel,
+            "features_bf16_plain_vs_f32_err": err16_plain,
+            "features_tolerance": "f32: 1e-3 x max|feature| (sum order over 32 "
+                                  "layers); bf16: 3x the plain path's distance from f32"}
+
+
+def _image_prefill_check(factory, req, rng, dev) -> dict:
+    """One image-bearing prefill of the LM at full width: 24 text tokens, the
+    image's tokens (features from the bf16 tower) and 40 text tokens, with
+    the request processor's M-RoPE streams; logits held as the serve phase
+    holds its prefill's (_logits_check)."""
+    from types import SimpleNamespace
+    import torch
+    from hydrainfer_tpu_torch.engine.request_processor import RequestProcessor
+    from hydrainfer_tpu_torch.models.factory import VisionModelParameters
+    size = (req.image.height, req.image.width)
+    with torch.no_grad():
+        feats = factory.getVisionModel().forward(
+            factory.getProcessor().process(req.image),
+            VisionModelParameters(original_image_sizes=[size])).image_features[0]
+    vcfg = factory.getVisionModelConfig()
+    image_id, calc = vcfg.image_token_id, vcfg.image_token_calculator
+    text = [int(t) for t in rng.integers(10, 120, size=64)]
+    tokens = text[:24] + [image_id] * calc.get_num_image_tokens(size) + text[24:]
+    pt, ph, pw, _ = RequestProcessor._mrope_positions(
+        SimpleNamespace(image_token_id=image_id, image_token_calculator=calc), tokens,
+        [size])
+    return _logits_check(factory.getLanguageModel(), tokens, dev, "image_prefill_logits",
+                         positions=pt, positions_hw=[ph, pw], image_features=feats,
+                         image_dst_idx=[i for i, t in enumerate(tokens) if t == image_id])
+
+
+def phase_vlm(dev="cuda", max_tokens=32) -> tuple:
+    import numpy as np
+    import torch
+    from hydrainfer_tpu_torch.engine import executor as ex
+    from hydrainfer_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    dev = torch.device(dev)
+    t0 = time.perf_counter()
+    factory = _qwen2vl_factory(dev)
+    factory.getLanguageModel()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = len(VLM_IMAGES)
+    engine = _engine(factory, dev, n, 16, 512, 2048, node_type="EPD", n_image_blocks=64)
+    rng = np.random.default_rng(SEED + 2)
+
+    windows, encodes = [], []
+    orig_window, orig_embed = ex.FillExecutor._multi_step_window, ex.ImageEmbedExecutor.execute
+
+    def spy_window(self, batch, n_steps):
+        k, ks = orig_window(self, batch, n_steps)
+        windows.append(k)
+        return k, ks
+
+    def spy_embed(self, batch):
+        # the encode's wall time: the card is synchronised around it
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fut = orig_embed(self, batch)
+        torch.cuda.synchronize()
+        encodes.append({"images": len(batch), "s": time.perf_counter() - t})
+        return fut
+
+    ex.FillExecutor._multi_step_window = spy_window
+    ex.ImageEmbedExecutor.execute = spy_embed
+    try:
+        engine.generate(_vlm_requests(rng, max_tokens, "warm"), timeout_s=600)
+        windows.clear()
+        encodes.clear()
+        reqs = _vlm_requests(rng, max_tokens, "vlm")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t1 = time.perf_counter()
+        outs = engine.generate(reqs, timeout_s=600)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t1
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        measured = {"windows": list(windows), "encodes": list(encodes)}
+        profiled = _profile_round(engine, _vlm_requests(rng, max_tokens, "prof"),
+                                  "vlm_profile.json")
+    finally:
+        ex.FillExecutor._multi_step_window = orig_window
+        ex.ImageEmbedExecutor.execute = orig_embed
+
+    n_tokens = [len(o.output_token_ids) for o in outs]
+    vocab = factory.cfg.vocab_size
+    tokens_ok = all(k == max_tokens for k in n_tokens) and all(
+        0 <= t < vocab for o in outs for t in o.output_token_ids)
+    ttfts = sorted(o.ttft for o in outs)
+    features = _features_check(factory, reqs, dev)
+    logits = _image_prefill_check(factory, reqs[1], rng, dev)
+    calc = factory.getVisionModelConfig().image_token_calculator
+    image_tokens = [calc.get_num_image_tokens(s) for s in VLM_IMAGES]
+    ok = (tokens_ok and features["features_ok"] and logits.pop("ok")
+          and 16 in measured["windows"] and all(v > 0 for v in counts.values()))
+    result = {"phase": "vlm", "ok": bool(ok), "gpu": gpu_name_and_limit(),
+              "model": "Qwen2-VL-2B: ViT {depth} x {embed_dim}, {num_heads} heads; LM ".format(
+                  **VLM_VISION) + VLM_ARCH,
+              "vision": "bf16", "weights": "int8", "kv_cache": "int8 (scale 0.05)",
+              "n_requests": n, "images": VLM_IMAGES, "image_tokens": image_tokens,
+              "prompt_text_chars": 64, "max_tokens": max_tokens, "token_budget": 2048,
+              "tokens_per_request": n_tokens, "tokens_per_s": sum(n_tokens) / elapsed,
+              "elapsed_s": elapsed, "p50_ttft_s": ttfts[len(ttfts) // 2],
+              "encodes": measured["encodes"], "weight_init_s": init_s,
+              "lm_param_bytes": factory.lm_factory.param_bytes(),
+              "fused_windows": sorted(set(measured["windows"])),
+              "n_k16_windows": measured["windows"].count(16), "launches": counts,
+              "peak_memory_bytes": peak, **features, **logits, **profiled}
     return result, counts
 
 
@@ -584,7 +996,7 @@ def gpu_name_and_limit() -> str:
 def main() -> int:
     global OUT_DIR
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="build,kernels,tiny,serve")
+    ap.add_argument("--phases", default="build,kernels,tiny,serve,vlm")
     ap.add_argument("--out-dir", default=OUT_DIR,
                     help="where the detail files go")
     args = ap.parse_args()
@@ -607,7 +1019,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    failed, kernel_rows, counts = [], [], {}
+    failed, kernel_rows, counts = [], [], {"serve": {}, "vlm": {}}
     for phase in phases:
         try:
             if phase == "build":
@@ -617,7 +1029,9 @@ def main() -> int:
             elif phase == "tiny":
                 res = phase_tiny()
             elif phase == "serve":
-                res, counts = phase_serve()
+                res, counts["serve"] = phase_serve()
+            elif phase == "vlm":
+                res, counts["vlm"] = phase_vlm()
             else:
                 raise ValueError(f"unknown phase {phase}")
         except Exception as e:
@@ -631,12 +1045,15 @@ def main() -> int:
     kernels = []
     for r in kernel_rows:
         source, replaces = KERNEL_SOURCES[r["name"]]
+        # one row per kernel and path: timed at that path's shapes, launches
+        # from that path's measured round
         kernels.append({"name": r["name"], "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": counts.get(r["name"], 0),
+                        "replaces": replaces, "path": r["path"],
+                        "launches": counts[r["path"]].get(r["name"], 0),
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                        "ok": r["ok"]})
+                        "shape": r["shape"], "ok": r["ok"]})
     emit({"kernels": kernels})
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)

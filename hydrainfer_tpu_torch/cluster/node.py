@@ -1,22 +1,28 @@
 """Engine node (port of hydrainfer_tpu/cluster/node.py:AsyncEPDNode, node
-types holding a language model: P, D, PD).
+types holding a language model: P, D, PD, EP, EPD).
 
-One node owns one device: it sizes the KV pool, runs the scheduler -> batch
-builder -> model step loop, and keeps a bounded pipeline of dispatched fill
-steps whose sampled tokens are read back asynchronously (CUDA events; see
+One node owns one device: it sizes the KV pool and, when it encodes or
+prefills, the image-feature cache; it runs the scheduler -> batch builder ->
+model step loop, and keeps a bounded pipeline of dispatched fill steps whose
+sampled tokens are read back asynchronously (CUDA events; see
 engine/executor.py:FillFuture). The pipeline is the JAX package's
 "incremental" mode: completed windows are drained first, then at most the
 backlog overflow, oldest first, so at least one later window stays queued on
-the card through every blocking read. Migration is limited to the colocated
-self graph (the PD hand-off to itself); cross-node transfer, the vision
-encoder and speculative decoding are later slices.
+the card through every blocking read. Each step dispatches its fills before
+its encode, so resident decodes never queue behind a ViT forward they do not
+depend on (an image's own prefill runs in a later step). Migration is limited
+to the colocated self graph (the EP and PD hand-offs to itself); cross-node
+transfer, the chunked encode of fixed-resolution towers and speculative
+decoding are later slices.
 """
 import time
 from dataclasses import dataclass, field
 from typing import Optional
 
-from ..engine.executor import FillExecutor
-from ..engine.isa import EmptyInstruction, Fill, MigrateRequest
+import torch
+
+from ..engine.executor import FillExecutor, ImageEmbedExecutor
+from ..engine.isa import EmptyInstruction, EPMigrate, Fill, ImageEmbed, MigrateRequest
 from ..engine.rcb import BatchRequest, RequestControlBlock
 from ..engine.request_processor import (RequestProcessParameters,
                                         RequestProcessor, RequestProcessorConfig,
@@ -39,6 +45,7 @@ class NodeConfig:
     request_processor: RequestProcessorConfig = field(default_factory=RequestProcessorConfig)
     kv_block_size: int = 16
     n_kv_blocks: int = -1             # -1 = size from free device memory
+    n_image_blocks: int = -1
     hbm_utilization: float = 0.9
     tpot_slo: float = 0.4
     # tokens per scheduled batch (the JAX node's default when its budget
@@ -89,8 +96,9 @@ def adaptive_postprocess_k(n_running: int, n_waiting: int, max_running: int,
 
 class AsyncEPDNode:
     def __init__(self, config: NodeConfig, context: NodeContext):
-        if context.node_type.has_vision_model:
-            raise NotImplementedError("encode (E) nodes are not ported yet")
+        if not context.node_type.has_language_model:
+            raise NotImplementedError("an encode-only (E) node hands off to other "
+                                      "nodes, which is not ported yet")
         if config.spec_ngram_k > 0:
             raise NotImplementedError("speculative decoding is not ported yet")
         self.config = config
@@ -102,17 +110,25 @@ class AsyncEPDNode:
     # ---------------- init ----------------
 
     def init(self, model_factory: ModelFactory) -> None:
+        nt = self.context.node_type
         self.model_factory = model_factory
         self.language_config = model_factory.getLanguageModelConfig()
+        self.vision_config = model_factory.getVisionModelConfig()
         # prefix-hash granularity must equal the KV block size
         self.config.request_processor.block_size = self.config.kv_block_size
-        self.worker = VanillaWorker(model_factory)
+        self.worker = VanillaWorker(model_factory, enable_vision=nt.has_vision_model)
         self._init_caches()
-        self.fill_executor = FillExecutor(self.kv_cache_manager, self.worker,
-                                          self.config.token_table_size)
+        self.fill_executor = FillExecutor(
+            self.kv_cache_manager, self.worker, self.config.token_table_size,
+            image_cache_manager=self.image_cache_manager,
+            mrope=bool(self.language_config.mrope_section))
+        self.image_embed_executor = (
+            ImageEmbedExecutor(self.image_cache_manager, self.worker)
+            if nt.has_vision_model and self.image_cache_manager is not None else None)
         self.batch_scheduler = BatchScheduler(self.config.batch_scheduler,
                                               self.kv_cache_manager,
-                                              self.config.token_budget)
+                                              self.config.token_budget,
+                                              image_cache_manager=self.image_cache_manager)
         self.request_processor = RequestProcessor(self.config.request_processor,
                                                   model_factory)
         self.request_processor.register_observer(
@@ -122,27 +138,55 @@ class AsyncEPDNode:
                     f"token budget {self.config.token_budget})")
 
     def _init_caches(self) -> None:
+        nt = self.context.node_type
         lc = self.language_config
         lm = self.worker.language_model
+        model_dtype = str(lm.dtype).replace("torch.", "")
         # combined-head layout (K even / V odd); the cache is int8 exactly
         # when the model quantizes K/V on write
-        kv_dtype = ("int8" if lm.cfg.kv_scale is not None
-                    else str(lm.dtype).replace("torch.", ""))
+        kv_dtype = "int8" if lm.cfg.kv_scale is not None else model_dtype
         kv_cfg = TokenCacheBlockManagerConfig(
             n_layers=lc.n_layers, n_tensors=1,
             n_blocks=max(self.config.n_kv_blocks, 1),
             block_size=self.config.kv_block_size,
             n_heads=2 * lc.n_kv_heads, head_dim=lc.head_dim, dtype=kv_dtype)
-        if self.config.n_kv_blocks == -1:
+        # one image-cache slot per feature token: n_qo_heads * head_dim values
+        # hold its LM-hidden feature; a block holds a 336x336 image's tokens
+        with_images = nt.has_image_cache and self.vision_config is not None
+        img_cfg = None
+        if with_images:
+            block = self.vision_config.image_token_calculator \
+                .get_num_image_tokens((336, 336)) or 576
+            img_cfg = TokenCacheBlockManagerConfig(
+                n_layers=1, n_tensors=1, n_blocks=max(self.config.n_image_blocks, 1),
+                block_size=block, n_heads=lc.n_qo_heads, head_dim=lc.head_dim,
+                dtype=model_dtype)
+        auto_kv = self.config.n_kv_blocks == -1
+        auto_img = with_images and self.config.n_image_blocks == -1
+        if auto_kv or auto_img:
             if self.device.type == "cuda":
-                # leave 10% of the usable free memory as activation headroom
-                kv_cfg.n_blocks = max(1, TokenCacheBlockManager.compute_n_blocks(
-                    kv_cfg, device=self.device,
-                    utilization=0.9 * self.config.hbm_utilization))
+                # activation headroom per resident model, then the cache split
+                # of the JAX node (its 0.1 / 0.8 image / KV shares)
+                free, _ = torch.cuda.mem_get_info(self.device)
+                free = free * self.config.hbm_utilization
+                frac = 1.0 - 0.1 * nt.has_vision_model - 0.1 * nt.has_language_model
+                img_frac, kv_frac = (0.1 * frac, 0.8 * frac) if with_images else (0.0, frac)
+                if auto_kv:
+                    kv_cfg.n_blocks = max(1, TokenCacheBlockManager.compute_n_blocks(
+                        kv_cfg, int(free * kv_frac)))
+                if auto_img:
+                    img_cfg.n_blocks = max(1, TokenCacheBlockManager.compute_n_blocks(
+                        img_cfg, int(free * img_frac)))
             else:
-                kv_cfg.n_blocks = 1024
-            logger.info(f"{self.name} cache sizing: {kv_cfg.n_blocks} kv blocks")
+                if auto_kv:
+                    kv_cfg.n_blocks = 1024
+                if auto_img:
+                    img_cfg.n_blocks = 64
+            logger.info(f"{self.name} cache sizing: {kv_cfg.n_blocks} kv blocks, "
+                        f"{img_cfg.n_blocks if img_cfg else 0} image blocks")
         self.kv_cache_manager = TokenCacheBlockManager(kv_cfg, self.device, self.name)
+        self.image_cache_manager = (TokenCacheBlockManager(img_cfg, self.device, self.name)
+                                    if img_cfg is not None else None)
 
     def update_migrate_graph(self, graph: MigrateGraph) -> None:
         self.context.migrate_graph = graph
@@ -164,10 +208,12 @@ class AsyncEPDNode:
             self.flush_fills()
             return
 
-        fills, empties, migrates = BatchRequest(), BatchRequest(), BatchRequest()
+        fills, embeds, empties, migrates = (BatchRequest() for _ in range(4))
         for rcb, inst in batch:
             if isinstance(inst, Fill):
                 fills.append(rcb)
+            elif isinstance(inst, ImageEmbed):
+                embeds.append(rcb)
             elif isinstance(inst, MigrateRequest):
                 migrates.append(rcb)
             elif isinstance(inst, EmptyInstruction):
@@ -186,9 +232,13 @@ class AsyncEPDNode:
                 self.fill_executor.execute(fills, n_steps=n_steps))
         else:
             self.flush_fills()
+        # the encode after the fills: decode windows stay ahead of it in the
+        # device queue
+        if len(embeds):
+            self.image_embed_executor.execute(embeds)
         empties.step()
         self._drain_pipeline()
-        for b in (fills, empties):
+        for b in (embeds, fills, empties):
             self._finish_or_requeue(b)
 
     def _load_k(self, k_max: int) -> int:
@@ -230,10 +280,12 @@ class AsyncEPDNode:
             self._pending_fills.pop(0).get()
 
     def _execute_batch_migrate(self, batch: BatchRequest) -> None:
-        """The PD hand-off of the colocated self graph: the target is this
-        node, so the PullCache that follows has nothing to move."""
-        for rcb, _ in batch:
-            targets = self.context.migrate_graph.pd_table.get(self.name, [])
+        """The EP and PD hand-offs of the colocated self graph: the target is
+        this node, so the PullCache that follows has nothing to move."""
+        graph = self.context.migrate_graph
+        for rcb, inst in batch:
+            table = graph.ep_table if isinstance(inst, EPMigrate) else graph.pd_table
+            targets = table.get(self.name, [])
             if [t.name for t in targets] != [self.name]:
                 raise NotImplementedError("migration to another node is not "
                                           "ported yet")
@@ -244,6 +296,8 @@ class AsyncEPDNode:
     def _free_cache(self, rcb: RequestControlBlock) -> None:
         if rcb.virtual_kv_cache is not None:
             self.kv_cache_manager.realloc(rcb.virtual_kv_cache, 0)
+        if rcb.virtual_image_cache is not None and self.image_cache_manager is not None:
+            self.image_cache_manager.realloc(rcb.virtual_image_cache, 0)
         self.fill_executor.release_slot(rcb)
         self.batch_scheduler.release_reservation(rcb)
 

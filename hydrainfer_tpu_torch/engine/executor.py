@@ -1,9 +1,12 @@
-"""Fill executor (port of hydrainfer_tpu/engine/executor.py:FillExecutor).
+"""Fill and image-embed executors (port of hydrainfer_tpu/engine/executor.py:
+FillExecutor and ImageEmbedExecutor).
 
 FillExecutor registers finished blocks in the prefix cache, packs the padded
 batch, runs the language-model step with the KV cache updated in place, then
 on the host scatters each sampled token into its sample_dst decode Fill and
-feeds the output-token processors.
+feeds the output-token processors. ImageEmbedExecutor runs the vision tower
+over a batch's images and writes the features into the image cache, where
+the image-bearing prefills gather them.
 
 Async overlap: the step's kernels are queued on the current CUDA stream and
 the call returns before the card finishes. The sampled tokens are copied into
@@ -14,13 +17,16 @@ reads its input token from the device token table, where the previous step
 wrote it.
 """
 import time
+from typing import Optional
 
 import numpy as np
 import torch
 
 from ..memory import TokenCacheBlockManager
+from ..models.factory import VisionModelParameters
+from ..ops.cache_ops import write_token_cache
 from ..utils import hostprof
-from .isa import Fill
+from .isa import Fill, ImageEmbedFill
 from .params_builder import LanguageModelBatchBuilder
 from .rcb import BatchRequest
 from .worker import Worker
@@ -82,8 +88,12 @@ def _tokens_done(rcb) -> bool:
 
 class FillExecutor:
     def __init__(self, kv_cache_manager: TokenCacheBlockManager, worker: Worker,
-                 token_table_size: int = 4096):
+                 token_table_size: int = 4096,
+                 image_cache_manager: Optional[TokenCacheBlockManager] = None,
+                 mrope: bool = False):
         self.kv = kv_cache_manager
+        self.image = image_cache_manager
+        self.mrope = mrope
         self.worker = worker
         # device-resident async-decode feedback buffer: one slot per resident
         # request holding its latest sampled token, plus a trailing discard
@@ -134,7 +144,10 @@ class FillExecutor:
             return 1, None
         ks = []
         for rcb, inst in batch:
-            if (not isinstance(inst, Fill) or len(inst.position_ids) != 1
+            # an ImageEmbedFill is excluded even at one token: each fused step
+            # would splice its image features in again
+            if (not isinstance(inst, Fill) or isinstance(inst, ImageEmbedFill)
+                    or len(inst.position_ids) != 1
                     or not inst.sample or inst.is_chunked):
                 return 1, None
             ks.append(self._decode_chain_len(inst, n_steps))
@@ -161,10 +174,13 @@ class FillExecutor:
     @staticmethod
     def _decode_chain_len(inst, limit: int) -> int:
         """Length of the consecutive single-token-decode Fill run starting at
-        inst: position and cache slot advance by exactly 1 per node."""
+        inst: rope position and cache slot advance by exactly 1 per node (a
+        constant offset between them is fine: M-RoPE compresses rope
+        positions below cache ids)."""
         k, node = 0, inst
         prev_p, prev_c = inst.position_ids[0] - 1, inst.cache_ids[0] - 1
         while (k < limit and isinstance(node, Fill)
+               and not isinstance(node, ImageEmbedFill)
                and len(node.position_ids) == 1 and node.sample
                and not node.is_chunked
                and node.position_ids[0] == prev_p + 1
@@ -184,7 +200,7 @@ class FillExecutor:
             for rcb, _ in batch:
                 self.acquire_slot(rcb)
         with hostprof.span("fill.build"):
-            builder = LanguageModelBatchBuilder(self.kv)
+            builder = LanguageModelBatchBuilder(self.kv, self.image, self.mrope)
             builder.add_batch(batch)
             plan = builder.build()
 
@@ -199,7 +215,8 @@ class FillExecutor:
         with hostprof.span("fill.dispatch"):
             out = self.worker.execute_language_model(
                 self.kv.cache_array, self.token_table, flat, plan.dims,
-                n_steps=n_steps, fused_k=fused_k)
+                n_steps=n_steps, fused_k=fused_k,
+                image_cache=self.image.cache_array if self.image is not None else None)
 
         # advance each request through ITS window (ks[i] steps), collecting
         # per-step instruction rows for the host-side token resolution; rows
@@ -216,6 +233,45 @@ class FillExecutor:
                         rcb.step()
                 plan.step_insts = rows
         return FillFuture(plan, out.sample_token_ids, n_steps)
+
+
+class ImageEmbedExecutor:
+    """Encodes a batch's images in one vision-tower call and scatters the
+    features into the image cache (one cache slot per feature token, its
+    n_heads * head_dim values holding the LM-hidden feature). The JAX
+    executor's chunked encode and its power-of-two image padding serve
+    fixed-resolution towers only and are not needed here."""
+
+    def __init__(self, image_cache_manager: TokenCacheBlockManager, worker: Worker):
+        self.image = image_cache_manager
+        self.worker = worker
+        self.n_heads = image_cache_manager.config.n_heads
+        self.head_dim = image_cache_manager.config.head_dim
+
+    def _prep(self, batch: BatchRequest):
+        """The batch's patches stacked, its image-cache slots, its sizes."""
+        pixel_values, slot_ids, images_size = [], [], []
+        for rcb, inst in batch:
+            pixel_values.append(np.asarray(inst.pixel_values))
+            inst.pixel_values = None
+            slot_ids.extend(self.image.v2p(rcb.virtual_image_cache, inst.cache_ids))
+            images_size.extend(inst.images_size)
+        return np.concatenate(pixel_values, axis=0), slot_ids, images_size
+
+    def _scatter(self, feats: torch.Tensor, slot_ids) -> None:
+        rows = feats.reshape(-1, self.n_heads, self.head_dim)
+        slots = torch.tensor(slot_ids, dtype=torch.int32, device=rows.device)
+        write_token_cache(self.image.cache_array, 0, slots, rows)
+
+    def execute(self, batch: BatchRequest) -> Future:
+        if len(batch) == 0:
+            return EmptyFuture()
+        stacked, slot_ids, images_size = self._prep(batch)
+        out = self.worker.execute_vision_model(
+            stacked, VisionModelParameters(original_image_sizes=images_size))
+        self._scatter(out.image_features, slot_ids)   # (n_images, n_tok, hidden)
+        batch.step()
+        return EmptyFuture()
 
 
 def postprocess_plan(plan, sampled: np.ndarray) -> None:

@@ -1,17 +1,18 @@
-"""Instruction set — the scheduling IR (port of hydrainfer_tpu/engine/isa.py,
-text requests).
+"""Instruction set — the scheduling IR (port of hydrainfer_tpu/engine/isa.py).
 
-A request becomes a doubly-linked instruction list:
+A request becomes a doubly-linked instruction list, for an image request
 
-    Fill(prefill) → PDMigrate → PullCache → Fill(decode) → Fill(decode) →
-    ... → (tail sentinel)
+    ImageEmbed → EPMigrate → PullCache → ImageEmbedFill(prefill) →
+    PDMigrate → PullCache → Fill(decode) → Fill(decode) → ... → (tail)
+
+and for a text request the same without the first three.
 
 Fill unifies prefill and decode: a decode Fill is just a 1-token Fill whose
 token id is filled in by its predecessor's `sample_dst` link at execution
 time. `chunk_prefill` splits a Fill in place for chunked prefill and for
 prefix-cache skips.
 """
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 
 class Instruction:
@@ -54,6 +55,9 @@ class Fill(Instruction):
         self.sample_dst = sample_dst
         self.hashes = hashes
         self.is_chunked = False
+        # M-RoPE h/w position streams ([h_list, w_list]); None = both equal
+        # to position_ids (text tokens, or a model without M-RoPE)
+        self.mrope_hw = None
 
     def n_tokens(self) -> int:
         return len(self.token_ids)
@@ -75,19 +79,85 @@ class TextFill(Fill):
             hashes=self.hashes,
         )
         self.insert_next(rest)
-        self.token_ids = self.token_ids[:chunk_size]
-        self.position_ids = self.position_ids[:chunk_size]
-        self.cache_ids = self.cache_ids[:chunk_size]
-        self.sample_dst = None
-        self.is_chunked = True
+        _split_common(self, rest, chunk_size)
 
     def __repr__(self):
         return "TF"
 
 
+def _split_common(head: Fill, rest: Fill, chunk_size: int) -> None:
+    """Cut `head` to its first chunk_size tokens; `rest` holds the others."""
+    if head.mrope_hw is not None:
+        rest.mrope_hw = [a[chunk_size:] for a in head.mrope_hw]
+        head.mrope_hw = [a[:chunk_size] for a in head.mrope_hw]
+    head.token_ids = head.token_ids[:chunk_size]
+    head.position_ids = head.position_ids[:chunk_size]
+    head.cache_ids = head.cache_ids[:chunk_size]
+    head.sample_dst = None
+    head.is_chunked = True
+
+
+class ImageEmbedFill(Fill):
+    """Prefill whose token stream holds image-token runs; their embeddings are
+    overwritten by the cached vision features.
+
+    image_token_cache_ids: virtual image-cache slots feeding this chunk
+    image_token_mask:      per-token flag, True at image positions
+    """
+
+    def __init__(self, image_token_cache_ids: List[int],
+                 image_token_mask: List[bool], token_ids: Optional[List[int]],
+                 position_ids: List[int], cache_ids: List[int], sample: bool,
+                 sample_dst: Optional[Fill], hashes: Optional[List[int]]):
+        super().__init__(token_ids, position_ids, cache_ids, sample, sample_dst, hashes)
+        self.image_token_cache_ids = image_token_cache_ids
+        self.image_token_mask = image_token_mask
+
+    def chunk_prefill(self, chunk_size: int) -> None:
+        assert 0 < chunk_size < len(self.token_ids), \
+            f"invalid chunk size {chunk_size} for {len(self.token_ids)} tokens"
+        n_img = sum(self.image_token_mask[:chunk_size])
+        rest = ImageEmbedFill(
+            image_token_cache_ids=self.image_token_cache_ids[n_img:],
+            image_token_mask=self.image_token_mask[chunk_size:],
+            token_ids=self.token_ids[chunk_size:],
+            position_ids=self.position_ids[chunk_size:],
+            cache_ids=self.cache_ids[chunk_size:],
+            sample=self.sample,
+            sample_dst=self.sample_dst,
+            hashes=self.hashes,
+        )
+        self.insert_next(rest)
+        self.image_token_cache_ids = self.image_token_cache_ids[:n_img]
+        self.image_token_mask = self.image_token_mask[:chunk_size]
+        _split_common(self, rest, chunk_size)
+
+    def __repr__(self):
+        return "EF"
+
+
+class ImageEmbed(Instruction):
+    """Run the vision tower and write its features into the image cache."""
+
+    def __init__(self, pixel_values, cache_ids: List[int],
+                 images_size: List[Tuple[int, int]], hashes: Optional[List[int]]):
+        self.pixel_values = pixel_values     # numpy (n_patches, patch_dim)
+        self.cache_ids = cache_ids
+        self.images_size = images_size
+        self.hashes = hashes
+
+    def __repr__(self):
+        return "IE"
+
+
 class MigrateRequest(Instruction):
     def __repr__(self):
         return "MR"
+
+
+class EPMigrate(MigrateRequest):
+    def __repr__(self):
+        return "EPMR"
 
 
 class PDMigrate(MigrateRequest):

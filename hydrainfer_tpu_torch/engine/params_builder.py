@@ -1,9 +1,11 @@
 """Ragged batch -> padded flat fill buffer (port of
 hydrainfer_tpu/engine/params_builder.py, the Python packer).
 
-Every array is padded to a shape bucket (tokens to TOKEN_BUCKETS, sequences
-to SEQ_BUCKETS, block-table width to a power of two), and all int32 fields go
-into one flat buffer so a step costs one host-to-device copy. The JAX
+Every array is padded to a shape bucket (tokens and image-feature tokens to
+TOKEN_BUCKETS, sequences to SEQ_BUCKETS, block-table width to a power of
+two), and all int32 fields go into one flat buffer so a step costs one
+host-to-device copy: the core fields, each image feature's image-cache slot
+and destination token, and under M-RoPE the h/w position streams. The JAX
 package's high-water floors on S and MB exist to bound its compile-key set;
 PyTorch compiles nothing, so they are not carried over. The native C++ packer
 (csrc/hostops.cpp) is a later slice.
@@ -16,7 +18,7 @@ import numpy as np
 
 from ..memory import TokenCacheBlockManager
 from ..models.factory import FillDims, pack_fill_batch
-from .isa import Fill
+from .isa import Fill, ImageEmbedFill
 from .rcb import BatchRequest, RequestControlBlock
 
 TOKEN_BUCKETS = [8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192]
@@ -52,8 +54,16 @@ class FillBatchPlan:
 
 
 class LanguageModelBatchBuilder:
-    def __init__(self, kv_cache_manager: TokenCacheBlockManager):
+    def __init__(self, kv_cache_manager: TokenCacheBlockManager,
+                 image_cache_manager: Optional[TokenCacheBlockManager] = None,
+                 mrope: bool = False):
         self.kv = kv_cache_manager
+        self.image = image_cache_manager
+        self.image_slot_ids: List[int] = []
+        self.image_dst_idx: List[int] = []
+        self._mrope = mrope
+        self._pos_h: List[int] = []
+        self._pos_w: List[int] = []
         self.seq_rcbs: List[RequestControlBlock] = []
         self.seq_insts: List[Fill] = []
         self._n_tokens = 0
@@ -65,6 +75,15 @@ class LanguageModelBatchBuilder:
         if sp is not None and sp.temperature > 0:
             raise NotImplementedError("stochastic sampling is not ported yet")
         n = len(inst.position_ids)
+        if isinstance(inst, ImageEmbedFill) and inst.image_token_cache_ids:
+            self.image_slot_ids.extend(self.image.v2p(rcb.virtual_image_cache,
+                                                      inst.image_token_cache_ids))
+            self.image_dst_idx.extend(self._n_tokens + i for i, is_img
+                                      in enumerate(inst.image_token_mask) if is_img)
+        if self._mrope:
+            hw = inst.mrope_hw or [inst.position_ids, inst.position_ids]
+            self._pos_h.extend(hw[0])
+            self._pos_w.extend(hw[1])
         self.seq_rcbs.append(rcb)
         self.seq_insts.append(inst)
         self._n_tokens += n
@@ -83,13 +102,16 @@ class LanguageModelBatchBuilder:
             T=T, S=bucket_of(n_seqs, SEQ_BUCKETS), MB=_next_pow2(self._max_blocks),
             # prefill-carrying batches bound max_q by T; all-decode batches
             # keep max_q = 1 (they go to the decode kernel)
-            max_q=T if self._max_q > 1 else 1)
+            max_q=T if self._max_q > 1 else 1,
+            # text-only batches carry no image gather
+            Ti=bucket_of(len(self.image_slot_ids), TOKEN_BUCKETS) if self.image_slot_ids else 0,
+            mrope=self._mrope)
         return FillBatchPlan(flat=self._build_python(dims), dims=dims,
                              seq_rcbs=self.seq_rcbs, seq_insts=self.seq_insts,
                              n_tokens=self._n_tokens, n_seqs=n_seqs)
 
     def _build_python(self, dims: FillDims) -> np.ndarray:
-        T, S, MB = dims.T, dims.S, dims.MB
+        T, S, MB, Ti = dims.T, dims.S, dims.MB, dims.Ti
         token_ids: List[int] = []
         token_src: List[int] = []
         positions: List[int] = []
@@ -138,4 +160,8 @@ class LanguageModelBatchBuilder:
             token_src_slots=pad_i32(token_src, T, fill=-1),
             kv_lens=pad_i32(kv_lens, S), sample_token_idx=sample_idx,
             sample_dst_slots=dst_slots, block_tables=tables, cu_q_lens=cu,
-            num_seqs=np.asarray([len(self.seq_insts)], np.int32))
+            num_seqs=np.asarray([len(self.seq_insts)], np.int32),
+            image_slot_ids=pad_i32(self.image_slot_ids, Ti),
+            image_dst_idx=pad_i32(self.image_dst_idx, Ti, fill=-1),
+            positions_hw=(np.stack([pad_i32(self._pos_h, T), pad_i32(self._pos_w, T)])
+                          if self._mrope else None))

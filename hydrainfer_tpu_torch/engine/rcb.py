@@ -15,6 +15,7 @@ class RequestControlBlock:
         self.request_metadata: Optional[RequestMetadata] = None
         self.instructions: Optional[InstructionList] = None
         self.virtual_kv_cache: Optional[VirtualTokenCache] = None
+        self.virtual_image_cache: Optional[VirtualTokenCache] = None
         self.sid: int = -1
         # device token-table slot for async decode feedback (assigned by the
         # fill executor while the request is resident on a node)

@@ -1,5 +1,4 @@
-"""Continuous-batching scheduler (port of hydrainfer_tpu/engine/scheduler.py,
-text requests).
+"""Continuous-batching scheduler (port of hydrainfer_tpu/engine/scheduler.py).
 
   - waiting deque with PullCache queue-jumping (appendleft);
   - admission up to max_running_requests minus in-flight migrations, plus an
@@ -12,19 +11,22 @@ text requests).
     the head chunk;
   - allocation failures become back-pressure (the request is deferred), not
     crashes;
-  - batch packing under the token budget, prefills first, with chunked
-    prefill of the marginal request;
+  - image-cache allocation for encodes (ImageEmbed), deferred like KV;
+  - batch packing under the image budget (at most encode_chunk_images per
+    step while fills are resident, so encodes interleave with decode
+    windows) and the token budget, prefills first, with chunked prefill of
+    the marginal request;
   - queueing-latency stamps on entry to and exit from the waiting queue.
 """
 import time
 from collections import deque
 from dataclasses import dataclass
-from typing import List
+from typing import List, Optional
 
 from ..memory import TokenCacheBlockManager
 from ..utils.counter import IncreasingAllocator
 from ..utils.logger import getLogger
-from .isa import Fill, PullCache
+from .isa import Fill, ImageEmbed, PullCache
 from .rcb import BatchRequest, RequestControlBlock
 
 logger = getLogger(__name__)
@@ -33,6 +35,9 @@ logger = getLogger(__name__)
 @dataclass
 class BatchSchedulerConfig:
     max_running_requests: int = 16
+    # with fills resident, admit at most this many images per step instead
+    # of the full image budget; 0 = no cap
+    encode_chunk_images: int = 2
 
 
 @dataclass
@@ -44,10 +49,15 @@ class BatchSchedulerMetrics:
 class BatchScheduler:
     def __init__(self, config: BatchSchedulerConfig,
                  kv_cache_manager: TokenCacheBlockManager,
-                 token_budget: int = 2048):
+                 token_budget: int = 2048,
+                 image_cache_manager: Optional[TokenCacheBlockManager] = None):
         self.config = config
         self.kv_cache_manager = kv_cache_manager
+        self.image_cache_manager = image_cache_manager
         self.token_budget = token_budget
+        # images per step: the JAX node's default when its budget profiler
+        # is off
+        self.image_budget = 8
 
         self.waiting: deque = deque()
         self.running: List[RequestControlBlock] = []
@@ -73,14 +83,16 @@ class BatchScheduler:
 
     def _stamp_queue_begin(self, rcb: RequestControlBlock) -> None:
         m = rcb.metric
-        if not m.prefill_queueing:
+        if isinstance(rcb.current_instruction(), ImageEmbed):
+            m.encode_queueing.append(time.perf_counter())
+        elif not m.prefill_queueing:
             m.prefill_queueing.append(time.perf_counter())
         elif not m.decode_queueing:
             m.decode_queueing.append(time.perf_counter())
 
     def _stamp_queue_end(self, rcb: RequestControlBlock) -> None:
         m = rcb.metric
-        for span in (m.prefill_queueing, m.decode_queueing):
+        for span in (m.encode_queueing, m.prefill_queueing, m.decode_queueing):
             if len(span) == 1:
                 span.append(time.perf_counter())
                 return
@@ -201,6 +213,18 @@ class BatchScheduler:
                     deferred.append(rcb)
                     continue
                 self.kv_cache_manager.realloc(vc, target)
+            elif isinstance(inst, ImageEmbed):
+                if rcb.virtual_image_cache is None:
+                    rcb.virtual_image_cache = \
+                        self.image_cache_manager.allocate_virtual_cache()
+                vc = rcb.virtual_image_cache
+                target = max(vc.n_cache_tokens, max(inst.cache_ids) + 1)
+                bs = self.image_cache_manager.block_size
+                n_more = -(-target // bs) - len(vc.block_table)
+                if n_more > self.image_cache_manager.n_available_blocks():
+                    deferred.append(rcb)
+                    continue
+                self.image_cache_manager.realloc(vc, target)
             runnable.append(rcb)
         if deferred:
             self._oom_deferrals += 1
@@ -211,16 +235,29 @@ class BatchScheduler:
         self.running = runnable
 
         # 2. classify
-        prefill_seqs, decode_seqs, this_step, next_step = [], [], [], []
+        embed_seqs, prefill_seqs, decode_seqs, this_step, next_step = [], [], [], [], []
         for rcb in self.running:
             inst = rcb.current_instruction()
             if isinstance(inst, Fill):
                 (decode_seqs if len(inst.token_ids) == 1 else prefill_seqs).append(rcb)
+            elif isinstance(inst, ImageEmbed):
+                embed_seqs.append(rcb)
             else:
                 this_step.append(rcb)  # migrations always run
 
-        # 3. pack under the token budget, prefills first; the marginal
-        # prefill is chunked to fill the budget
+        # 3. pack encodes under the image budget (sub-batched while fills are
+        # resident), then fills under the token budget, prefills first; the
+        # marginal prefill is chunked to fill the budget
+        n_images = 0
+        image_budget = self.image_budget
+        if self.config.encode_chunk_images > 0 and (prefill_seqs or decode_seqs):
+            image_budget = min(image_budget, self.config.encode_chunk_images)
+        for rcb in embed_seqs:
+            if n_images < image_budget:
+                this_step.append(rcb)
+                n_images += len(rcb.current_instruction().images_size)
+            else:
+                next_step.append(rcb)
         n_tokens = 0
         for rcb in prefill_seqs + decode_seqs:
             inst = rcb.current_instruction()

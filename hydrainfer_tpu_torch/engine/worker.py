@@ -1,6 +1,8 @@
-"""Model execution worker (port of hydrainfer_tpu/engine/worker.py,
-language model only)."""
-from ..models.factory import ModelFactory
+"""Model execution worker (port of hydrainfer_tpu/engine/worker.py)."""
+from typing import Optional
+
+from ..models.factory import (LanguageModel, ModelFactory, VisionModel,
+                              VisionModelOutput, VisionModelParameters)
 
 
 class Worker:
@@ -9,19 +11,33 @@ class Worker:
         decode window). The executor clamps its window to 1 otherwise."""
         return False
 
+    def execute_vision_model(self, pixel_values,
+                             params: VisionModelParameters) -> VisionModelOutput:
+        raise NotImplementedError
+
     def execute_language_model(self, cache, token_table, flat, dims,
-                               n_steps: int = 1, fused_k=None):
+                               n_steps: int = 1, fused_k=None, image_cache=None):
         raise NotImplementedError
 
 
 class VanillaWorker(Worker):
-    def __init__(self, model_factory: ModelFactory):
-        self.language_model = model_factory.getLanguageModel()
+    """Holds the node's models: the language model, and the vision tower
+    when the node encodes."""
+
+    def __init__(self, model_factory: ModelFactory, enable_vision: bool = False):
+        self.vision_model: Optional[VisionModel] = (
+            model_factory.getVisionModel() if enable_vision else None)
+        self.language_model: LanguageModel = model_factory.getLanguageModel()
 
     def supports_multi_step(self) -> bool:
         return bool(getattr(self.language_model, "supports_multi_step", False))
 
+    def execute_vision_model(self, pixel_values,
+                             params: VisionModelParameters) -> VisionModelOutput:
+        return self.vision_model.forward(pixel_values, params)
+
     def execute_language_model(self, cache, token_table, flat, dims,
-                               n_steps: int = 1, fused_k=None):
+                               n_steps: int = 1, fused_k=None, image_cache=None):
         return self.language_model.forward_flat(cache, token_table, flat, dims,
-                                                n_steps=n_steps, fused_k=fused_k)
+                                                n_steps=n_steps, fused_k=fused_k,
+                                                image_cache=image_cache)

@@ -1,8 +1,9 @@
 """Shared paged-attention decoder for Llama-family language models (port of
 hydrainfer_tpu/models/decoder.py, dense-MLP standard-attention form).
 
-One step runs embed -> a Python loop over the decoder layers -> the last
-layer with the token discard (only each sequence's sampled row goes through
+One step runs embed -> the image splice (vision features overwrite the
+embeddings at <image> positions) -> a Python loop over the decoder layers ->
+the last layer with the token discard (only each sequence's sampled row goes through
 the final MLP, norm and lm_head) -> greedy argmax -> scatter into the device
 token table. The KV cache and the token table are updated IN PLACE.
 
@@ -10,6 +11,12 @@ token table. The KV cache and the token table are updated IN PLACE.
 device work with no host synchronisation inside: each step's geometry is
 computed on the device from step 0's and every step reads its input token
 from the token table, where the previous step wrote it.
+
+Under M-RoPE (Qwen2-VL) the rope tables are gathered from three position
+streams (batch.positions and batch.positions_hw), and rope positions are
+compressed relative to cache positions after an image: the write slots and
+the attention masks therefore come from cache positions (kv_len - q_len +
+local id), never from `positions`.
 
 Weights: {"embed": (V, H), "layers": [per-layer dict], "norm": (H,),
 "lm_head": (H, V) tensor or QuantizedTensor}; each layer holds qkv_proj,
@@ -26,7 +33,7 @@ from ..ops.attention import paged_attention
 from ..ops.cache_ops import write_kv_cache
 from ..ops.norm import rms_norm
 from ..ops.quant import qmatmul, qmatmul_f32
-from ..ops.rope import apply_rotary_emb
+from ..ops.rope import apply_rotary_emb, mrope_gather
 from .factory import LanguageModelBatch
 
 
@@ -44,6 +51,10 @@ class DecoderConfig:
     rms_norm_eps: float = 1e-6
     qkv_bias: bool = False
     rope_interleaved: bool = False
+    tie_word_embeddings: bool = False
+    # multimodal RoPE (Qwen2-VL): per-axis frequency sections (t, h, w)
+    # summing to head_dim / 2; () = standard 1D rope (ops/rope.py:mrope_gather)
+    mrope_section: tuple = ()
     # int8 KV cache: K/V quantized with this static scale on write and
     # dequantized inside the attention kernels; None = cache in model dtype
     kv_scale: Optional[float] = None
@@ -98,14 +109,33 @@ def decoder_forward(weights: dict, cache: torch.Tensor, batch: LanguageModelBatc
     src = batch.token_src_slots
     token_ids = torch.where(src >= 0, token_table[src.clamp(min=0).long()],
                             batch.token_ids)
-    x = weights["embed"][token_ids.long()]
-    cos = cos_tab[batch.positions.long()]
-    sin = sin_tab[batch.positions.long()]
+    x = _splice_images(weights["embed"][token_ids.long()], batch)
+    if cfg.mrope_section and batch.positions_hw is not None:
+        cos, sin = mrope_gather(cos_tab, sin_tab, batch.positions,
+                                batch.positions_hw[0], batch.positions_hw[1],
+                                cfg.mrope_section)
+    else:
+        cos = cos_tab[batch.positions.long()]
+        sin = sin_tab[batch.positions.long()]
     layers = weights["layers"]
     for layer_id, lw in enumerate(layers[:-1]):
         x = _layer_body(x, cache, layer_id, lw, batch, cos, sin, cfg, max_q)
     return _last_layer_and_head(weights, cache, x, batch, cos, sin, cfg, max_q,
                                 token_table, return_logits)
+
+
+def _splice_images(x: torch.Tensor, batch: LanguageModelBatch) -> torch.Tensor:
+    """Overwrite the embeddings at image_dst_idx with the image features.
+    Padding destinations (-1) go to one extra row that is cut off again: a
+    negative index would wrap, and dropping them by a host-side filter would
+    cost a synchronisation."""
+    if batch.image_features is None:
+        return x
+    T = x.shape[0]
+    dst = torch.where(batch.image_dst_idx < 0, T, batch.image_dst_idx).long()
+    x = torch.cat([x, x.new_zeros((1, x.shape[1]))])
+    x.index_copy_(0, dst, batch.image_features.to(x.dtype))
+    return x[:T]
 
 
 def _last_layer_and_head(weights, cache, x, batch: LanguageModelBatch, cos, sin,
@@ -172,8 +202,12 @@ def decoder_forward_multi(weights: dict, cache: torch.Tensor,
         cache_pos = torch.clamp(kv[seq_of_tok] - 1, min=0)
         blk = a.block_tables[seq_of_tok, (cache_pos // bs).long()]
         slots = torch.where(act_tok & (blk >= 0), blk * bs + cache_pos % bs, -1)
+        hw = batch.positions_hw
+        if hw is not None:
+            # decode advances all three M-RoPE axes together
+            hw = hw + torch.where(valid_tok, s_seq[seq_of_tok], zero)[None, :]
         step = batch.replace(
-            positions=pos,
+            positions=pos, positions_hw=hw,
             attention=a.replace(positions=pos, kv_lens=kv, new_kv_slot_ids=slots),
             # step 0 takes its input however the host packed it; later steps
             # read the previous step's sampled token from the table

@@ -1,19 +1,40 @@
-"""Model contracts (port of hydrainfer_tpu/models/factory.py, text models).
+"""Model contracts (port of hydrainfer_tpu/models/factory.py).
 
 The LanguageModelBatch holds one fill step's device tensors, all padded to
 shape buckets. The host packs every int32 field into ONE flat buffer
 (`pack_fill_batch`), so a step costs a single host-to-device copy, and the
-device side slices it back (`unpack_fill_batch`). The layout is the JAX
-buffer's for a text batch with greedy sampling (its image, M-RoPE,
-speculative-verify and sampling tails are empty or absent).
+device side slices it back (`unpack_fill_batch`), gathering the step's image
+features from the image cache on the way. The layout is the JAX buffer's for
+greedy sampling: the core fields, the image slots and destinations (Ti each),
+then the M-RoPE h/w streams (2 * T) when the model uses M-RoPE (its
+speculative-verify and sampling tails are absent).
 """
 from dataclasses import dataclass, replace
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..ops.attention import PagedAttentionParams
+
+
+class ImageTokenCalculator:
+    """Number of feature tokens the vision tower emits for an image size."""
+
+    def get_num_image_tokens(self, image_size: Tuple[int, int]) -> int:
+        raise NotImplementedError
+
+    def get_image_grid(self, image_size: Tuple[int, int]):
+        """Merged-token grid (t, h, w) for M-RoPE positions; None for models
+        whose rope is 1D."""
+        return None
+
+
+@dataclass
+class VisionModelConfig:
+    image_token: str                      # e.g. "<image>"
+    image_token_id: int
+    image_token_calculator: ImageTokenCalculator
 
 
 @dataclass
@@ -26,14 +47,29 @@ class LanguageModelConfig:
     eos_token_id: int
     hidden_size: int = 0
     vocab_size: int = 0
+    # multimodal RoPE sections (t, h, w); non-empty turns on the per-batch
+    # h/w position streams end to end (Qwen2-VL M-RoPE)
+    mrope_section: tuple = ()
+
+
+@dataclass
+class VisionModelParameters:
+    return_last_layer_attention: bool = False
+    original_image_sizes: Optional[List[Tuple[int, int]]] = None
+
+
+@dataclass
+class VisionModelOutput:
+    image_features: Optional[torch.Tensor] = None  # (n_images, n_tokens, lm_hidden)
+    scores: Optional[torch.Tensor] = None
 
 
 @dataclass(frozen=True)
 class LanguageModelBatch:
     """One fill step's device-side inputs (all padded to shape buckets).
 
-    token_ids:        (T,) int32
-    positions:        (T,) int32
+    token_ids:        (T,) int32; image positions carry the image token id
+    positions:        (T,) int32 rope position (the t stream under M-RoPE)
     attention:        PagedAttentionParams for every layer
     sample_token_idx: (S,) int32 flat-token index whose logits are sampled
                       per sequence; -1 = this slot samples nothing
@@ -42,6 +78,11 @@ class LanguageModelBatch:
                       feedback path
     sample_dst_slots: (S,) int32 token-table slot receiving the sampled
                       token (-1 = discard)
+    image_features:   (Ti, hidden) features to splice into the embeddings, or
+                      None
+    image_dst_idx:    (Ti,) int32 flat-token index each feature overwrites;
+                      -1 = padding
+    positions_hw:     (2, T) int32 h/w position streams of M-RoPE, or None
     """
     token_ids: torch.Tensor
     positions: torch.Tensor
@@ -49,6 +90,9 @@ class LanguageModelBatch:
     sample_token_idx: torch.Tensor
     token_src_slots: torch.Tensor
     sample_dst_slots: torch.Tensor
+    image_features: Optional[torch.Tensor] = None
+    image_dst_idx: Optional[torch.Tensor] = None
+    positions_hw: Optional[torch.Tensor] = None
 
     def replace(self, **kw) -> "LanguageModelBatch":
         return replace(self, **kw)
@@ -66,26 +110,47 @@ class FillDims:
     S: int          # padded sequence count
     MB: int         # padded blocks-per-seq
     max_q: int = 1  # padded longest q chunk
+    Ti: int = 0     # padded image-feature token count
+    mrope: bool = False  # the buffer carries the (2, T) M-RoPE h/w tail
 
 
 def pack_fill_batch(token_ids, positions, q_seq_ids, q_local_ids,
                     new_kv_slot_ids, token_src_slots, kv_lens,
                     sample_token_idx, sample_dst_slots, block_tables,
-                    cu_q_lens, num_seqs) -> np.ndarray:
+                    cu_q_lens, num_seqs, image_slot_ids=(), image_dst_idx=(),
+                    positions_hw=None) -> np.ndarray:
     """Host side: concatenate every int32 field into ONE flat buffer."""
     parts = [token_ids, positions, q_seq_ids, q_local_ids, new_kv_slot_ids,
              token_src_slots, kv_lens, sample_token_idx, sample_dst_slots,
-             np.asarray(block_tables).reshape(-1), cu_q_lens, num_seqs]
+             np.asarray(block_tables).reshape(-1), cu_q_lens, num_seqs,
+             image_slot_ids, image_dst_idx]
+    if positions_hw is not None:
+        parts.append(np.asarray(positions_hw).reshape(-1))
     return np.concatenate([np.asarray(p, np.int32) for p in parts])
 
 
-def unpack_fill_batch(flat: torch.Tensor, dims: FillDims) -> LanguageModelBatch:
-    """Device side: slice the flat buffer back into the batch (views, no copy)."""
-    T, S, MB = dims.T, dims.S, dims.MB
-    sizes = [T, T, T, T, T, T, S, S, S, S * MB, S + 1, 1]
+def unpack_fill_batch(flat: torch.Tensor, dims: FillDims,
+                      image_cache: Optional[torch.Tensor] = None,
+                      hidden: int = 0) -> LanguageModelBatch:
+    """Device side: slice the flat buffer back into the batch (views, no
+    copy) and gather this step's image features from the image cache
+    (n_layers=1, 1, n_blocks, block_size, n_heads, head_dim): each feature
+    row spans one slot's n_heads * head_dim values, cut to `hidden`."""
+    T, S, MB, Ti = dims.T, dims.S, dims.MB, dims.Ti
+    sizes = [T, T, T, T, T, T, S, S, S, S * MB, S + 1, 1, Ti, Ti]
+    if dims.mrope:
+        sizes.append(2 * T)
+    parts = torch.split(flat[:sum(sizes)], sizes)
     (token_ids, positions, q_seq_ids, q_local_ids, new_kv_slot_ids,
      token_src_slots, kv_lens, sample_token_idx, sample_dst_slots, tables,
-     cu_q_lens, num_seqs) = torch.split(flat[:sum(sizes)], sizes)
+     cu_q_lens, num_seqs, image_slot_ids, image_dst_idx) = parts[:14]
+    feats = dst = None
+    if Ti > 0:
+        rows = image_cache[0, 0].reshape(-1, image_cache.shape[-2] * image_cache.shape[-1])
+        # padded slots (-1) read row 0; their destination is -1, so the
+        # decoder drops them
+        feats = rows[image_slot_ids.clamp(min=0).long()][:, :hidden]
+        dst = image_dst_idx
     return LanguageModelBatch(
         token_ids=token_ids,
         positions=positions,
@@ -97,7 +162,26 @@ def unpack_fill_batch(flat: torch.Tensor, dims: FillDims) -> LanguageModelBatch:
         sample_token_idx=sample_token_idx,
         token_src_slots=token_src_slots,
         sample_dst_slots=sample_dst_slots,
+        image_features=feats,
+        image_dst_idx=dst,
+        positions_hw=parts[14].reshape(2, T) if dims.mrope else None,
     )
+
+
+@dataclass
+class ModelFactoryConfig:
+    """How a checkpoint-backed factory loads its model."""
+    path: str = ""
+    dtype: str = "auto"             # auto (as stored) | bf16 | fp32 | fp16
+    quantization: str = "none"      # weight-only: none | int8
+    kv_cache_dtype: str = "auto"    # auto (= model dtype) | int8
+    kv_scale: float = 0.05          # static scale of an int8 KV cache
+
+
+class VisionModel:
+    def forward(self, pixel_values: torch.Tensor,
+                params: VisionModelParameters) -> VisionModelOutput:
+        raise NotImplementedError
 
 
 class LanguageModel:
@@ -106,7 +190,7 @@ class LanguageModel:
 
     def forward_flat(self, cache: torch.Tensor, token_table: torch.Tensor,
                      flat: torch.Tensor, dims: FillDims, n_steps: int = 1,
-                     fused_k=None) -> LanguageModelOutput:
+                     fused_k=None, image_cache=None) -> LanguageModelOutput:
         raise NotImplementedError
 
 
@@ -121,13 +205,27 @@ class Tokenizer:
         return "".join(self.decode(t) for t in token_ids)
 
 
+class ImageProcessor:
+    def process(self, image) -> np.ndarray:
+        raise NotImplementedError
+
+
 class ModelFactory:
+    def getVisionModel(self) -> VisionModel:
+        raise NotImplementedError
+
     def getLanguageModel(self) -> LanguageModel:
         raise NotImplementedError
+
+    def getVisionModelConfig(self) -> Optional[VisionModelConfig]:
+        """None for text-only factories."""
+        return None
 
     def getLanguageModelConfig(self) -> LanguageModelConfig:
         raise NotImplementedError
 
+    def getProcessor(self) -> Optional[ImageProcessor]:
+        return None
+
     def getTokenizer(self) -> Tokenizer:
         raise NotImplementedError
-

@@ -1,5 +1,6 @@
 """Llama-family causal LM over the paged cache (port of
-hydrainfer_tpu/models/llama.py:LlamaForCausalLM).
+hydrainfer_tpu/models/llama.py: LlamaForCausalLM, decoder_config_from_hf and
+convert_llama_weights; Qwen2 text decoders are the same with a qkv bias).
 
 The weights stay a plain per-layer dict (no stacking: the layer loop is a
 Python loop), and `forward_flat` takes the engine's single flat int32 buffer.
@@ -14,6 +15,55 @@ from ..ops.quant import quantize_tree
 from .decoder import (DecoderConfig, decoder_forward, decoder_forward_multi,
                       init_rope_tables)
 from .factory import FillDims, LanguageModel, LanguageModelOutput, unpack_fill_batch
+from .weight_loader import WeightStore
+
+
+def decoder_config_from_hf(cfg: dict) -> DecoderConfig:
+    hidden = cfg["hidden_size"]
+    heads = cfg["num_attention_heads"]
+    return DecoderConfig(
+        n_layers=cfg["num_hidden_layers"],
+        hidden_size=hidden,
+        intermediate_size=cfg["intermediate_size"],
+        n_qo_heads=heads,
+        n_kv_heads=cfg.get("num_key_value_heads", heads),
+        head_dim=cfg.get("head_dim") or hidden // heads,
+        vocab_size=cfg["vocab_size"],
+        max_position_embeddings=cfg.get("max_position_embeddings", 4096),
+        rope_theta=float(cfg.get("rope_theta", 10000.0)),
+        rms_norm_eps=float(cfg.get("rms_norm_eps", 1e-6)),
+        qkv_bias=(cfg.get("model_type") == "qwen2"
+                  or bool(cfg.get("attention_bias", False))),
+        tie_word_embeddings=bool(cfg.get("tie_word_embeddings", False)),
+    )
+
+
+def convert_llama_weights(store: WeightStore, cfg: DecoderConfig,
+                          prefix: str = "model.", lm_head_name: str = "lm_head") -> dict:
+    """HF checkpoint names -> the decoder's weight dict (fused qkv, gate_up)."""
+    w = {"embed": store.get(f"{prefix}embed_tokens.weight"), "layers": []}
+    for layer in range(cfg.n_layers):
+        p = f"{prefix}layers.{layer}."
+        qkv, qkv_b = store.fused_linear(
+            [p + "self_attn.q_proj", p + "self_attn.k_proj", p + "self_attn.v_proj"],
+            bias=True)
+        lw = {
+            "qkv_proj": qkv,
+            "o_proj": store.linear(p + "self_attn.o_proj"),
+            "gate_up": store.fused_linear([p + "mlp.gate_proj", p + "mlp.up_proj"]),
+            "down": store.linear(p + "mlp.down_proj"),
+            "input_norm": store.get(p + "input_layernorm.weight"),
+            "post_norm": store.get(p + "post_attention_layernorm.weight"),
+        }
+        if cfg.qkv_bias and qkv_b is not None:
+            lw["qkv_bias"] = qkv_b
+        w["layers"].append(lw)
+    w["norm"] = store.get(f"{prefix}norm.weight")
+    if cfg.tie_word_embeddings or not store.has(f"{lm_head_name}.weight"):
+        w["lm_head"] = w["embed"].t().contiguous()
+    else:
+        w["lm_head"] = store.linear(lm_head_name)
+    return w
 
 
 class LlamaForCausalLM(LanguageModel):
@@ -31,11 +81,13 @@ class LlamaForCausalLM(LanguageModel):
 
     def forward_flat(self, cache: torch.Tensor, token_table: torch.Tensor,
                      flat: torch.Tensor, dims: FillDims, n_steps: int = 1,
-                     fused_k: Optional[torch.Tensor] = None) -> LanguageModelOutput:
+                     fused_k: Optional[torch.Tensor] = None,
+                     image_cache: Optional[torch.Tensor] = None) -> LanguageModelOutput:
         """One fill step (n_steps == 1, any mix of prefill and decode) or a
         fused window of n_steps decode steps. The cache and the token table
-        are updated in place; returns the sampled tokens, (n_steps * S,)."""
-        batch = unpack_fill_batch(flat, dims)
+        are updated in place; returns the sampled tokens, (n_steps * S,).
+        image_cache is read only when the batch carries image features."""
+        batch = unpack_fill_batch(flat, dims, image_cache, self.cfg.hidden_size)
         if n_steps > 1:
             tokens = decoder_forward_multi(self.weights, cache, batch, self.cos_tab,
                                            self.sin_tab, self.cfg, n_steps,

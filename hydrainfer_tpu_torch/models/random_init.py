@@ -24,6 +24,13 @@ ARCH_CONFIGS = {
         n_layers=32, hidden_size=4096, intermediate_size=11008,
         n_qo_heads=32, n_kv_heads=32, head_dim=128, vocab_size=32064,
         max_position_embeddings=4096),
+    # Qwen2-VL-2B language tower (its M-RoPE sections [16, 24, 24] come with
+    # the checkpoint's rope_scaling, not with the architecture)
+    "qwen2-vl-2b-lm": DecoderConfig(
+        n_layers=28, hidden_size=1536, intermediate_size=8960,
+        n_qo_heads=12, n_kv_heads=2, head_dim=128, vocab_size=151936,
+        max_position_embeddings=32768, qkv_bias=True, rope_theta=1e6,
+        tie_word_embeddings=True),
     # CPU-runnable smoke size
     "tiny-lm": DecoderConfig(
         n_layers=2, hidden_size=128, intermediate_size=256,
@@ -94,7 +101,8 @@ class RandomWeightFactory(ModelFactory):
         return LanguageModelConfig(
             n_layers=c.n_layers, max_position_embeddings=c.max_position_embeddings,
             n_qo_heads=c.n_qo_heads, n_kv_heads=c.n_kv_heads, head_dim=c.head_dim,
-            eos_token_id=2, hidden_size=c.hidden_size, vocab_size=c.vocab_size)
+            eos_token_id=2, hidden_size=c.hidden_size, vocab_size=c.vocab_size,
+            mrope_section=c.mrope_section)
 
     def getTokenizer(self):
         from .tokenizer import SimpleTokenizer

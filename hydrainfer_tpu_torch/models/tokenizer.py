@@ -1,7 +1,35 @@
-"""Tokenizers (port of hydrainfer_tpu/models/tokenizer.py:SimpleTokenizer)."""
+"""Tokenizers (port of hydrainfer_tpu/models/tokenizer.py: SimpleTokenizer and
+HFTokenizerAdapter)."""
 from typing import List
 
 from .factory import Tokenizer
+
+
+class HFTokenizerAdapter(Tokenizer):
+    """A transformers tokenizer behind the engine's Tokenizer contract."""
+
+    def __init__(self, hf_tokenizer):
+        self.tok = hf_tokenizer
+
+    def encode(self, prompt: str) -> List[int]:
+        return self.tok.encode(prompt)
+
+    def decode(self, token_id: int) -> str:
+        tid = int(token_id)
+        if tid < 0 or tid in (self.tok.all_special_ids or []):
+            return ""
+        token = self.tok.convert_ids_to_tokens(tid)
+        if token is None:
+            return ""
+        text = self.tok.convert_tokens_to_string([token])
+        # SentencePiece drops the word-boundary marker of a lone token
+        if isinstance(token, str) and token.startswith("▁") and not text.startswith(" "):
+            text = " " + text
+        return text
+
+    def decode_ids(self, token_ids: List[int]) -> str:
+        ids = [int(t) for t in token_ids if int(t) >= 0]
+        return self.tok.decode(ids, skip_special_tokens=True) if ids else ""
 
 
 class SimpleTokenizer(Tokenizer):

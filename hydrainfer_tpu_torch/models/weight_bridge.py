@@ -7,6 +7,10 @@ leaf already turned into numpy (a quantized leaf is any object with `.q` and
 nothing of the JAX package: the caller does the JAX-side conversion, e.g.
 ``jax.tree_util.tree_map(np.asarray, tree)``, BEFORE handing the tree to the
 JAX model (whose weight packing consumes it).
+
+`from_jax_vision_numpy` does the same for a Qwen2-VL vision tower's weights
+in the layout of hydrainfer_tpu/models/qwen2_vl.py:convert_qwen2_vision_weights
+(patch_embed, blocks of (weight, bias) pairs, merger), numpy leaves again.
 """
 import numpy as np
 import torch
@@ -42,3 +46,17 @@ def from_jax_numpy(tree: dict, device=None) -> dict:
     out["layers"] = [{k: _leaf(v, device) for k, v in lw.items() if v is not None}
                      for lw in tree["layers"]]
     return out
+
+
+def _nested(x, device):
+    if isinstance(x, dict):
+        return {k: _nested(v, device) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_nested(v, device) for v in x)
+    return _tensor(x, device)
+
+
+def from_jax_vision_numpy(tree: dict, device=None) -> dict:
+    """{"patch_embed", "blocks": [{ln1, qkv, proj, ln2, fc1, fc2}], "merger":
+    {ln_q, mlp0, mlp2}} of numpy leaves -> the same structure of tensors."""
+    return _nested(tree, resolve_device(device))

@@ -1,7 +1,10 @@
-"""Activation ops (port of hydrainfer_tpu/ops/activation.py:silu_and_mul).
+"""Activation ops (port of hydrainfer_tpu/ops/activation.py).
 
 The fused gate activation takes the concatenated [gate, up] projection and
-returns silu(gate) * up, with the silu taken in f32.
+returns silu(gate) * up, with the silu taken in f32. quick_gelu (the CLIP-style
+x * sigmoid(1.702 x) of the ViT blocks) and the exact, erf-based GELU (the
+Qwen2-VL merger's jax.nn.gelu(approximate=False)) also compute in f32 and
+return the input's dtype.
 """
 import torch
 import torch.nn.functional as F
@@ -10,3 +13,12 @@ import torch.nn.functional as F
 def silu_and_mul(gate_up: torch.Tensor) -> torch.Tensor:
     gate, up = gate_up.chunk(2, dim=-1)
     return F.silu(gate.float()).to(up.dtype) * up
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    xf = x.float()
+    return (xf * torch.sigmoid(1.702 * xf)).to(x.dtype)
+
+
+def gelu_exact(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x.float(), approximate="none").to(x.dtype)

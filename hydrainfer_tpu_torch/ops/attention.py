@@ -11,13 +11,20 @@ The dispatcher `paged_attention` sends all-decode batches (max_q == 1) to
 kernel K1 (ops/cuda/mha_decode.py) and mixed or prefill batches to kernel K2
 (ops/cuda/paged_attention.py); each takes its plain PyTorch version for CPU
 tensors. `paged_attention_plain` is the port of `paged_attention_jnp`.
+
+`mha_varlen` is the ViT towers' segment-masked attention over the patches of
+all images in a batch: kernel K5 (ops/cuda/mha_varlen.py) for CUDA tensors,
+its plain version `mha_varlen_plain` for CPU tensors or when the scores are
+asked for (the focal token-pruning form), as the JAX dispatcher does.
 """
+import math
 from dataclasses import dataclass, replace
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from .cuda.mha_decode import mha_decode_attention
+from .cuda.mha_varlen import mha_varlen_flash, mha_varlen_plain
 from .cuda.paged_attention import dense_paged_attention, paged_attention_varlen
 
 
@@ -79,3 +86,16 @@ def paged_attention(q: torch.Tensor, cache: torch.Tensor, layer_id: int,
     return paged_attention_varlen(q, pages, params.kv_lens, tables,
                                   params.cu_q_lens, params.num_seqs, sm_scale,
                                   kv_scale, max_q=max_q)
+
+
+def mha_varlen(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               seq_ids: torch.Tensor, sm_scale: Optional[float] = None,
+               return_scores: bool = False
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Bidirectional attention within segments. q/k/v: (T, H, D) flat across
+    images; seq_ids: (T,) int32 image index per patch (-1 = padding).
+    Returns (out, the (H, T, T) probabilities if return_scores else None)."""
+    if return_scores:
+        return mha_varlen_plain(q, k, v, seq_ids, sm_scale, return_scores=True)
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    return mha_varlen_flash(q, k, v, seq_ids, scale), None

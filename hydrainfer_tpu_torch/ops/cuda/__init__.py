@@ -7,6 +7,7 @@ the wrapper's ``launches`` attribute.
 """
 from .kv_writer import write_kv_pages
 from .mha_decode import mha_decode_attention
+from .mha_varlen import mha_varlen_flash
 from .paged_attention import paged_attention_varlen
 from .quant_matmul import quant_matmul_int8
 
@@ -15,6 +16,7 @@ WRAPPERS = {
     "paged_attention": paged_attention_varlen,
     "kv_writer": write_kv_pages,
     "quant_matmul": quant_matmul_int8,
+    "mha_varlen": mha_varlen_flash,
 }
 
 

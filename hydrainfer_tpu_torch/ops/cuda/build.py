@@ -23,7 +23,7 @@ import torch
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-KERNELS = ("mha_decode", "paged_attention", "kv_writer", "quant_matmul")
+KERNELS = ("mha_decode", "paged_attention", "kv_writer", "quant_matmul", "mha_varlen")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v"]
 
@@ -40,6 +40,8 @@ SIGNATURES = {
     "kv_writer": ("hydra_kv_write",
                   [_P, _P, _L, _L, _P, _P] + [_I] * 5 + [_F, _P]),
     "quant_matmul": ("hydra_quant_matmul", [_P] * 4 + [_I] * 5 + [_P]),
+    "mha_varlen": ("hydra_mha_varlen",
+                   [_P] * 4 + [_L] * 4 + [_P] * 5 + [_I] * 4 + [_F, _I, _P]),
 }
 
 _lock = threading.Lock()

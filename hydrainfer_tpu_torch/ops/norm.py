@@ -1,6 +1,6 @@
-"""Normalization ops (port of hydrainfer_tpu/ops/norm.py:rms_norm).
+"""Normalization ops (port of hydrainfer_tpu/ops/norm.py).
 
-Accumulates in f32 and returns the input's dtype, as the JAX op does.
+Both accumulate in f32 and return the input's dtype, as the JAX ops do.
 """
 import torch
 
@@ -10,3 +10,12 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.
     var = xf.square().mean(dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
     return (out * weight.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    out = (xf - mean) * torch.rsqrt(var + eps)
+    return (out * weight.float() + bias.float()).to(x.dtype)

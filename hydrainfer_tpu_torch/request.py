@@ -1,6 +1,6 @@
-"""Request types (port of hydrainfer_tpu/request.py, text requests)."""
+"""Request types (port of hydrainfer_tpu/request.py)."""
 from dataclasses import dataclass, field
-from typing import List, Union
+from typing import List, Optional, Union
 
 
 @dataclass
@@ -19,6 +19,8 @@ class SamplingParameters:
 class Request:
     request_id: Union[int, str] = 0
     prompt: str = ""
+    image: Optional[object] = None              # PIL.Image
+    image_base64: Optional[str] = None
     sampling_params: SamplingParameters = field(default_factory=SamplingParameters)
 
 
@@ -26,6 +28,8 @@ class Request:
 class RequestMetadata:
     n_prompt_tokens: int
     n_text_tokens: int
+    n_images: int = 0
+    n_image_tokens: int = 0
 
 
 @dataclass

@@ -6,7 +6,7 @@ from setuptools import Extension, setup
 setup(
     name="hydrainfer_tpu",
     version="0.1.0",
-    packages=["hydrainfer_tpu"],
+    packages=["hydrainfer_tpu", "hydrainfer_tpu_torch"],
     ext_modules=[
         Extension(
             "hydrainfer_tpu._C.hostops",

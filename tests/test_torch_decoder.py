@@ -4,7 +4,9 @@ tiny-lm in f32 with the JAX random-init weights carried over through numpy
 (models/weight_bridge.py): one mixed prefill/decode step must give the same
 logits (1e-4: f32, summation order only), tokens, KV cache (1e-5; int8 KV
 exactly equal) and token table; then a fused K-step decode window with one
-sequence masked early must give the same tokens and cache. The block
+sequence masked early must give the same tokens and cache; a step through
+the image-feature and M-RoPE tails of the flat buffer must give the same
+logits, tokens and cache. The block
 allocator, prefix cache and cache manager must make the same choices as the
 JAX ones for the same call sequence.
 """
@@ -29,7 +31,8 @@ from hydrainfer_tpu_torch.memory import (TokenCacheBlockManager,
                                          TokenCacheBlockManagerConfig)
 from hydrainfer_tpu_torch.models.decoder import (decoder_forward,
                                                  decoder_forward_multi)
-from hydrainfer_tpu_torch.models.factory import FillDims, unpack_fill_batch
+from hydrainfer_tpu_torch.models.factory import (FillDims, pack_fill_batch,
+                                                 unpack_fill_batch)
 from hydrainfer_tpu_torch.models.llama import LlamaForCausalLM
 from hydrainfer_tpu_torch.models.random_init import ARCH_CONFIGS
 from hydrainfer_tpu_torch.models.weight_bridge import from_jax_numpy
@@ -225,3 +228,61 @@ def test_cache_manager_matches_jax_manager():
         log.append((list(c.block_table), mgr.n_available_blocks(),
                     mgr.v2p(b, [0, 5, 12]), mgr.metrics().prefix_cache_hit_rate))
     assert log_p == log_j
+
+
+@pytest.mark.parametrize("quant,kv_scale", [("none", None), ("int8", 0.05)],
+                         ids=["f32", "int8w_int8kv"])
+def test_image_and_mrope_step_matches_jax(quant, kv_scale):
+    """One step through the flat buffer's image and M-RoPE tails: sequence 0
+    is a 10-token prefill whose tokens 2-5 are a 2x2 image (features gathered
+    from an image cache, four padding rows with destination -1), its text
+    after the image at compressed rope positions; sequence 1 a decode whose
+    rope position lags its cache position."""
+    from dataclasses import replace
+    from hydrainfer_tpu.models.llama import LlamaForCausalLM as JaxLlama
+    cfg, jcfg = (replace(c, mrope_section=(4, 6, 6))
+                 for c in (ARCH_CONFIGS["tiny-lm"], JAX_ARCHS["tiny-lm"]))
+    tree = init_decoder_weights(jcfg, jax.random.PRNGKey(2), jnp.float32,
+                                quantization=quant)
+    weights = from_jax_numpy(jax.tree_util.tree_map(np.asarray, tree), "cpu")
+    jlm = JaxLlama(tree, jcfg, quant, kv_scale=kv_scale)
+    lm = LlamaForCausalLM(weights, cfg, quant, kv_scale=kv_scale)
+
+    T, S, MB, Ti = 16, 2, 4, 8
+    pad = lambda v, n=T, fill=0: np.asarray(list(v) + [fill] * (n - len(v)), np.int32)
+    pt = [0, 1, 2, 2, 2, 2, 4, 5, 6, 7, 5]
+    ph = [0, 1, 2, 2, 3, 3, 4, 5, 6, 7, 5]
+    pw = [0, 1, 2, 3, 2, 3, 4, 5, 6, 7, 5]
+    tables = np.full((S, MB), -1, np.int32)
+    tables[0, :3], tables[1, :2] = [1, 2, 3], [5, 6]
+    slots = [tables[0, c // BS] * BS + c % BS for c in range(10)] + [6 * BS + 2]
+    flat = pack_fill_batch(
+        pad([20, 31, 9, 9, 9, 9, 42, 53, 64, 75, 0]), pad(pt),
+        pad([0] * 10 + [1], fill=-1), pad(list(range(10)) + [0]), pad(slots, fill=-1),
+        pad([-1] * 10 + [5], fill=-1), np.asarray([10, 7], np.int32),
+        np.asarray([9, 10], np.int32), np.asarray([0, 1], np.int32), tables,
+        np.asarray([0, 10, 11], np.int32), np.asarray([2], np.int32),
+        image_slot_ids=pad([5, 6, 7, 8], Ti), image_dst_idx=pad([2, 3, 4, 5], Ti, -1),
+        positions_hw=np.stack([pad(ph), pad(pw)]))
+    image_cache = np.random.default_rng(3).standard_normal(
+        (1, 1, 4, 4, cfg.n_qo_heads, cfg.head_dim)).astype(np.float32)
+    cache0 = caches(cfg, kv_scale is not None, seed=2)
+
+    jdims = JaxFillDims(T=T, S=S, MB=MB, Ti=Ti, max_q=T, mrope=True)
+    jbatch = jax_unpack(jnp.asarray(flat), jnp.asarray(image_cache), jdims, cfg.hidden_size)
+    jcache, jtt, jtok, jlogits = jax_decoder_forward(
+        jlm.weights, jnp.asarray(cache0), jbatch, jlm.cos_tab, jlm.sin_tab, jlm.cfg, T,
+        return_logits=True, token_table=jnp.asarray(table0()))
+    cache, tt = torch.from_numpy(cache0.copy()), torch.from_numpy(table0())
+    batch = unpack_fill_batch(torch.from_numpy(flat),
+                              FillDims(T=T, S=S, MB=MB, max_q=T, Ti=Ti, mrope=True),
+                              torch.from_numpy(image_cache), cfg.hidden_size)
+    tok, logits = decoder_forward(lm.weights, cache, batch, lm.cos_tab, lm.sin_tab,
+                                  lm.cfg, T, tt, return_logits=True)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(jtok))
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(jtt))
+    if kv_scale is None:
+        np.testing.assert_allclose(cache.numpy(), np.asarray(jcache), rtol=1e-5, atol=1e-5)
+    else:
+        np.testing.assert_array_equal(cache.numpy(), np.asarray(jcache))

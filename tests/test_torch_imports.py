@@ -17,6 +17,8 @@ from hydrainfer_tpu_torch.cluster.node import NodeConfig
 from hydrainfer_tpu_torch.entrypoint.offline import OfflineEngine
 from hydrainfer_tpu_torch.memory import (TokenCacheBlockManager,
                                          TokenCacheBlockManagerConfig)
+from hydrainfer_tpu_torch.models.factory import ModelFactoryConfig
+from hydrainfer_tpu_torch.models.qwen2_vl import Qwen2VLModelFactory
 from hydrainfer_tpu_torch.models.random_init import RandomWeightFactory
 from hydrainfer_tpu_torch.utils.device import resolve_device
 
@@ -44,7 +46,9 @@ def test_port_and_chip_smoke_import_no_jax():
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert "hydrainfer_tpu_torch.entrypoint.offline" in res["imported"]
-    assert "hydrainfer_tpu_torch.ops.cuda.build" in res["imported"]
+    for name in ("ops.cuda.build", "ops.cuda.mha_varlen", "models.qwen2_vl",
+                 "models.weight_loader"):
+        assert "hydrainfer_tpu_torch." + name in res["imported"]
     assert res["bad"] == []
 
 
@@ -57,6 +61,8 @@ def test_entry_points_default_to_the_card():
         resolve_device(None)
     with pytest.raises(RuntimeError, match="CUDA"):
         RandomWeightFactory("tiny-lm")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Qwen2VLModelFactory(ModelFactoryConfig(path="no-checkpoint-needed"))
     cfg = TokenCacheBlockManagerConfig(n_layers=1, n_blocks=4, block_size=4,
                                        n_heads=2, head_dim=8, dtype="float32")
     with pytest.raises(RuntimeError, match="CUDA"):

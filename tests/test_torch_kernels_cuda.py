@@ -5,18 +5,22 @@ elsewhere. The file imports nothing of JAX, so it also runs where JAX is not
 installed (`python -m pytest --noconftest tests/test_torch_kernels_cuda.py`).
 Inputs are made from a seed with numpy. Tolerances: f32 1e-4 (summation
 order); bf16 outputs 2e-2 (bf16 rounding of the output and, in the plain
-attention, of the dequantized K/V); the int8 KV write within one step (the
-plain version's division may round through a reciprocal).
+attention, of the dequantized K/V; in K5, of the probabilities fed to the
+tensor cores); the int8 KV write within one step (the plain version's
+division may round through a reciprocal). K5 runs in its ViT form (T not a
+multiple of 64, tiles of padding only), its causal form and with V a
+strided view of a fused qkv, at D 32, 64, 80 and 128, in bf16 and f32.
 """
 import numpy as np
 import pytest
 import torch
 
-from hydrainfer_tpu_torch.ops.cuda import (mha_decode_attention,
+from hydrainfer_tpu_torch.ops.cuda import (mha_decode_attention, mha_varlen_flash,
                                            paged_attention_varlen,
                                            quant_matmul_int8, write_kv_pages)
 from hydrainfer_tpu_torch.ops.cuda.kv_writer import write_kv_pages_plain
 from hydrainfer_tpu_torch.ops.cuda.mha_decode import mha_decode_attention_plain
+from hydrainfer_tpu_torch.ops.cuda.mha_varlen import mha_varlen_plain
 from hydrainfer_tpu_torch.ops.cuda.paged_attention import \
     paged_attention_varlen_plain
 from hydrainfer_tpu_torch.ops.cuda.quant_matmul import quant_matmul_int8_plain
@@ -135,3 +139,64 @@ def test_k4_gemm(dev, M, K, N, x_dtype, out_dtype):
     torch.cuda.synchronize()
     tol = 1e-4 if out_dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
+
+
+def _check_k5(dev, dtype, q, k, v, ids, kv_ids=None, q_pos=None, kv_pos=None):
+    on = lambda t: None if t is None else torch.from_numpy(t).to(dev)
+    args = dict(kv_seq_ids=on(kv_ids), q_pos=on(q_pos), kv_pos=on(kv_pos))
+    q, k, v = (torch.from_numpy(a).to(dev, dtype) for a in (q, k, v))
+    sm = q.shape[-1] ** -0.5
+    got = mha_varlen_flash(q, k, v, on(ids), sm, **args)
+    ref = mha_varlen_plain(q, k, v, on(ids), sm, **args)[0]
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
+    assert bool((got[torch.from_numpy(ids < 0).to(dev)] == 0).all())
+
+
+@pytest.mark.parametrize("segments,pad", [([100, 28, 60], 12), ([70], 130)],
+                         ids=["three_images_T200", "padding_tiles"])
+@pytest.mark.parametrize("D", [32, 64, 80, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_k5_vit(dev, segments, pad, D, dtype):
+    rng = np.random.default_rng(4)
+    ids = np.asarray(sum(([i] * n for i, n in enumerate(segments)), []) + [-1] * pad,
+                     np.int32)
+    q, k, v = (rng.standard_normal((len(ids), 3, D)).astype(np.float32) for _ in range(3))
+    _check_k5(dev, dtype, q, k, v, ids)
+
+
+@pytest.mark.parametrize("D", [32, 64, 80, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_k5_causal(dev, D, dtype):
+    """Built as hydrainfer_tpu/ops/attention.py:paged_attention_varlen_prefill
+    builds it: gathered kv rows with segment ids (-1 past each kv_len) and
+    cache positions; q rows carry their cache position; 5 padded q rows."""
+    rng = np.random.default_rng(5)
+    specs = [(70, 70), (1, 90), (33, 150), (5, 5)]
+    max_kv = max(kv for _, kv in specs)
+    kv_pos = np.tile(np.arange(max_kv, dtype=np.int32), len(specs))
+    kv_ids = np.repeat(np.arange(len(specs), dtype=np.int32), max_kv)
+    kv_ids = np.where(kv_pos < np.repeat([kv for _, kv in specs], max_kv), kv_ids, -1)
+    ids = np.concatenate([[s] * ql for s, (ql, _) in enumerate(specs)] + [[-1] * 5])
+    q_pos = np.concatenate([np.arange(kv - ql, kv) for ql, kv in specs] + [[0] * 5])
+    H = 2
+    q = rng.standard_normal((len(ids), H, D)).astype(np.float32)
+    k, v = (rng.standard_normal((len(kv_ids), H, D)).astype(np.float32) for _ in range(2))
+    _check_k5(dev, dtype, q, k, v, ids.astype(np.int32), kv_ids.astype(np.int32),
+              q_pos.astype(np.int32), kv_pos)
+
+
+def test_k5_strided_v(dev):
+    """V as a strided view of a fused qkv projection, as the ViT passes it."""
+    rng = np.random.default_rng(6)
+    ids = np.asarray([0] * 90 + [1] * 40, np.int32)
+    H, D = 4, 80
+    qkv = torch.from_numpy(rng.standard_normal((len(ids), 3, H, D)).astype(np.float32))
+    qkv = qkv.to(dev, torch.bfloat16)
+    q, k, v = qkv[:, 0].contiguous(), qkv[:, 1].contiguous(), qkv[:, 2]
+    i = torch.from_numpy(ids).to(dev)
+    got = mha_varlen_flash(q, k, v, i, D ** -0.5)
+    ref = mha_varlen_plain(q, k, v.contiguous(), i, D ** -0.5)[0]
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), ref.float(), rtol=2e-2, atol=2e-2)

@@ -4,7 +4,10 @@ Inputs are made from a seed with numpy and fed to both packages. Tolerances:
 f32 elementwise ops and f32 matmuls agree to 1e-5 (only the summation order
 differs); int8 quantization and cache writes agree exactly. The kernel-bearing
 modules (K3 kv writer, K4 int8 GEMM) are held against the JAX Pallas kernels
-run in interpret mode, as the JAX package's own tests run them.
+run in interpret mode, as the JAX package's own tests run them (K5 has its
+own file, test_torch_mha_varlen.py). The ViT's layer_norm, quick_gelu and
+exact GELU, and the image-feature scatter write_token_cache, are held here
+too.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -23,8 +26,9 @@ from hydrainfer_tpu.ops.pallas.quant_matmul import quant_matmul_int8 as jax_qmm
 from hydrainfer_tpu_torch.models.decoder import init_rope_tables
 from hydrainfer_tpu_torch.models.random_init import ARCH_CONFIGS
 from hydrainfer_tpu_torch.ops import activation, cache_ops, norm, quant, rope
-from hydrainfer_tpu_torch.ops.cuda import (launch_counts, quant_matmul_int8,
-                                           reset_launch_counts, write_kv_pages)
+from hydrainfer_tpu_torch.ops.cuda import (launch_counts, mha_varlen_flash,
+                                           quant_matmul_int8, reset_launch_counts,
+                                           write_kv_pages)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -178,4 +182,35 @@ def test_cpu_calls_take_the_plain_version_and_count_no_launch():
     quant_matmul_int8(x, q, torch.ones(8))
     cache0, k, v, slots, _ = _kv_case(rng, 6, "decode")
     write_kv_pages(t(cache0)[0, 0], t(k), t(v), t(slots))
+    qkv = t(rng.standard_normal((5, 3, 2, 16)).astype(np.float32))
+    mha_varlen_flash(qkv[:, 0], qkv[:, 1], qkv[:, 2], t(np.zeros(5, np.int32)), 0.25)
     assert all(n == 0 for n in launch_counts().values())
+
+
+def test_layer_norm():
+    rng = np.random.default_rng(9)
+    x, w, b = (rng.standard_normal(s).astype(np.float32) for s in ((7, 80), 80, 80))
+    close(norm.layer_norm(t(x), t(w), t(b), 1e-6),
+          jnorm.layer_norm(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), 1e-6))
+
+
+def test_quick_gelu_and_exact_gelu():
+    import jax
+    x = np.random.default_rng(10).standard_normal((5, 40)).astype(np.float32) * 3
+    close(activation.quick_gelu(t(x)), jact.quick_gelu(jnp.asarray(x)))
+    close(activation.gelu_exact(t(x)), jax.nn.gelu(jnp.asarray(x), approximate=False))
+
+
+def test_write_token_cache_matches_jax():
+    """The image-feature scatter: one tensor, padding slots (-1) dropped
+    (JAX maps them out of range; a negative index would wrap)."""
+    rng = np.random.default_rng(11)
+    cache0 = rng.standard_normal((1, 1, 5, 6, 4, 8)).astype(np.float32)
+    vals = rng.standard_normal((9, 4, 8)).astype(np.float32)
+    slots = rng.permutation(30)[:9].astype(np.int32)
+    slots[[2, 7]] = -1
+    ref = jcache.write_token_cache(jnp.asarray(cache0), 0, jnp.asarray(slots),
+                                   (jnp.asarray(vals),), 6)
+    cache = t(cache0)
+    cache_ops.write_token_cache(cache, 0, t(slots), t(vals))
+    np.testing.assert_array_equal(cache.numpy(), np.asarray(ref))
