@@ -3,17 +3,22 @@
 
     python3 chip_smoke.py                 # every phase, one card
     python3 chip_smoke.py --phases build,kernels --out-dir DIR
+    python3 chip_smoke.py --phases build,kernels,mla      # the quick MLA check
 
 Phases, each printing one JSON line:
   build    compile the Hopper kernels of hydrainfer_tpu_torch/csrc (nvcc,
            sm_90a, one process per source) and report the build time;
   kernels  hold each kernel against its plain PyTorch version on the card at
-           the shapes of both serving paths: K1-K4 at llava-7b-lm (serve) and
-           at qwen2-vl-2b-lm (vlm: GQA 6:1), int8 weights, int8 KV, block
-           size 16; K5 at the vlm phase's encode shape and in its causal
-           form; and time each beside its bound and a PyTorch library call;
-  tiny     serve tiny-lm in f32 through OfflineEngine on the card and on the
-           CPU with the same weights: the greedy tokens must be identical;
+           the shapes of the three serving paths: K1-K4 at llava-7b-lm
+           (serve) and at qwen2-vl-2b-lm (vlm: GQA 6:1), int8 weights, int8
+           KV, block size 16; K5 at the vlm phase's encode shape and in its
+           causal form; K6 (latent attention), K3's single-plane write and K4
+           at mla-2b-lm (mla: 16 heads over one 576-wide int8 plane), K6 in
+           a decode and a mixed form, bf16 and f32; and time each beside its
+           bound and a PyTorch library call;
+  tiny     serve tiny-lm and mla-tiny-lm in f32 through OfflineEngine on the
+           card and on the CPU with the same weights: the greedy tokens must
+           be identical;
   serve    serve llava-7b-lm (full width, int8 weights, int8 KV) through
            OfflineEngine on the card: every request must finish with its
            token count, every kernel must have launched in the measured run,
@@ -27,7 +32,14 @@ Phases, each printing one JSON line:
            round, a K=16 window must have run, one encode's features
            through K5 must agree with the tower run through the plain
            attention, and one image-bearing prefill's logits must agree with
-           the same model run through the plain versions of K1-K4.
+           the same model run through the plain versions of K1-K4;
+  mla      serve mla-2b-lm (DeepSeek-V2-Lite-shaped MLA, full width, int8
+           o_proj/gate_up/down/lm_head, int8 single-plane latent KV) through
+           OfflineEngine: 32 requests, chunked prefill mixing with decodes,
+           K=16 windows; every request must finish with its token count, K6,
+           K3 and K4 must have launched in the measured round and K1 and K2
+           never, and one prefill's logits through the kernels must agree
+           with the plain versions.
 Then the card's name and power limit, a "kernels" JSON line (one row per
 kernel and serving path: that path's shapes and its measured round's
 launches), and as the last
@@ -48,6 +60,10 @@ import traceback
 OUT_DIR = "chip_smoke_out"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core peak
+# a bf16 + int8-KV prefill through the kernels may lie at most this many times
+# as far from the f32 run as the same prefill through the plain versions (the
+# kernels compute K/V and scales in f32 where the plain versions round to bf16)
+LOGITS_RATIO = 1.1
 SEED = 0
 
 KERNEL_SOURCES = {
@@ -61,8 +77,15 @@ KERNEL_SOURCES = {
                      "hydrainfer_tpu/ops/pallas/quant_matmul.py:64"),
     "mha_varlen": ("hydrainfer_tpu_torch/csrc/mha_varlen.cu",
                    "hydrainfer_tpu/ops/pallas/mha_varlen.py:128"),
+    # the same pallas_call in its CKV = 1 (single-plane latent) form
+    "paged_attention_latent": ("hydrainfer_tpu_torch/csrc/paged_attention_latent.cu",
+                               "hydrainfer_tpu/ops/pallas/paged_attention.py:405"),
 }
 SERVE_KERNELS = ("mha_decode", "paged_attention", "kv_writer", "quant_matmul")
+VLM_KERNELS = SERVE_KERNELS + ("mha_varlen",)
+# the MLA path's kernels; K1 and K2 must not run on it
+MLA_KERNELS = ("paged_attention_latent", "kv_writer", "quant_matmul")
+MLA_ARCH, MLA_REQUESTS, MLA_PROMPT, MLA_TOKENS = "mla-2b-lm", 32, 128, 128
 # the vlm phase's images (height, width), two of each size: 64, 144, 256
 # and 384 image tokens, 6784 patches in all
 VLM_IMAGES = [(224, 224), (336, 336), (448, 448), (448, 672)] * 2
@@ -118,10 +141,11 @@ def phase_build() -> dict:
 
 # -------------------------------------------------------------- phase: kernels
 
-# K1-K4 run on both serving paths; the kernels phase checks and times each
-# at the shapes its path gives it. decode: K1's window, (q_len, kv_len) per
-# sequence; mixed: K2's batch (prefill chunks, a chunked continuation,
-# decodes), padded to T rows; kv_rows: K3's (T, real rows).
+# K1-K4 run on the serve and vlm paths, K6, K3 and K4 on the mla path; the
+# kernels phase checks and times each at the shapes its path gives it.
+# decode: K1's (K6's) window, (q_len, kv_len) per sequence; mixed: K2's (K6's)
+# batch (prefill chunks, a chunked continuation, decodes), padded to T rows;
+# kv_rows: K3's (T, real rows); gemm_m: the M of K4's kernels-line row.
 _VLM_PROMPTS = [64 + (h // 28) * (w // 28) for h, w in VLM_IMAGES]   # 128..448
 PATH_SHAPES = {
     "serve": dict(arch="llava-7b-lm",
@@ -133,6 +157,12 @@ PATH_SHAPES = {
                 decode=[(1, n + 16) for n in _VLM_PROMPTS],
                 mixed=[(n, n) for n in _VLM_PROMPTS[:6]] + [(160, 448), (1, 145)],
                 T=2048, kv_rows=(2048, 1601)),
+    # 32 decoding sequences at kv 129-253; one 2048-token budget of 15 whole
+    # prompts, a chunk and 16 decodes; the decode window's 32 latent rows
+    "mla": dict(arch=MLA_ARCH,
+                decode=[(1, 129 + 4 * s) for s in range(32)],
+                mixed=[(128, 128)] * 15 + [(112, 112)] + [(1, 129 + 8 * i) for i in range(16)],
+                T=2048, kv_rows=(32, 32), gemm_m=32),
 }
 
 
@@ -170,11 +200,17 @@ def check_quant_matmul(gen, dev, path) -> dict:
                                                             quant_matmul_int8_plain)
     cfg = _arch_cfg(path)
     H, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
-    qkv = (cfg.n_qo_heads + 2 * cfg.n_kv_heads) * cfg.head_dim
-    o = cfg.n_qo_heads * cfg.head_dim
-    projections = {"qkv": (H, qkv, torch.bfloat16), "o": (o, H, torch.bfloat16),
-                   "gate_up": (H, 2 * I, torch.bfloat16), "down": (I, H, torch.bfloat16),
-                   "lm_head": (H, V, torch.float32)}
+    m_row = PATH_SHAPES[path].get("gemm_m", 16)
+    projections = {}
+    if cfg.mla_kv_lora:
+        # an MLA layer's q_proj, kv_a, w_uk and w_uv stay bf16 (quantize_tree's keys)
+        o = cfg.n_qo_heads * cfg.mla_v_dim
+    else:
+        o = cfg.n_qo_heads * cfg.head_dim
+        projections["qkv"] = (H, (cfg.n_qo_heads + 2 * cfg.n_kv_heads) * cfg.head_dim,
+                              torch.bfloat16)
+    projections.update({"o": (o, H, torch.bfloat16), "gate_up": (H, 2 * I, torch.bfloat16),
+                        "down": (I, H, torch.bfloat16), "lm_head": (H, V, torch.float32)})
     rows, max_err, ok = [], 0.0, True
     for name, (K, N, out_dtype) in projections.items():
         w = torch.randint(-127, 128, (K, N), generator=gen, dtype=torch.int8).to(dev)
@@ -182,7 +218,7 @@ def check_quant_matmul(gen, dev, path) -> dict:
         # rotate weight copies so repeated launches do not find w in L2
         n_copies = max(1, math.ceil(120e6 / (K * N)))
         ws = [w] + [w.clone() for _ in range(n_copies - 1)]
-        for M in (1, 16, 48, 2048):
+        for M in sorted({1, 16, 48, 2048, m_row}):
             x = torch.randn((M, K), generator=gen).to(dev, torch.bfloat16)
             got = quant_matmul_int8(x, w, scale, out_dtype)
             ref = quant_matmul_int8_plain(x, w, scale, out_dtype)
@@ -212,14 +248,14 @@ def check_quant_matmul(gen, dev, path) -> dict:
                          "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by})
         del ws
     save(f"quant_matmul_{path}.json", rows)
-    # the kernels line reports one decode step's five projections at M = 16
-    step = [r for r in rows if r["M"] == 16]
+    # the kernels line reports one decode step's int8 projections at M = m_row
+    step = [r for r in rows if r["M"] == m_row]
     lib = [r["library_ms"] for r in step]
     return {"name": "quant_matmul", "path": path, "ok": bool(ok), "max_abs_err": max_err,
             "tolerance": "1e-2 x max|plain| (bf16 out), 1e-4 x max|plain| (f32 logits)",
-            "shape": f"{PATH_SHAPES[path]['arch']}: qkv {H}x{qkv}, "
-                     f"o {o}x{H}, gate_up {H}x{2 * I}, down {I}x{H}, lm_head {H}x{V} "
-                     "(f32 out) at M=16, summed",
+            "shape": f"{PATH_SHAPES[path]['arch']}: " + ", ".join(
+                f"{n} {k}x{n_}" for n, (k, n_, _) in projections.items())
+                     + f" (lm_head f32 out) at M={m_row}, summed",
             "ms": sum(r["ms"] for r in step),
             "plain_ms": sum(r["plain_ms"] for r in step),
             "bound_ms": sum(r["bound_ms"] for r in step),
@@ -327,6 +363,163 @@ def check_attention(gen, dev, path) -> list:
     return out
 
 
+def _latent_case(gen, seq_specs, n_blocks, bs, d, kv_scale, dev):
+    """An int8 single-plane pool (n_blocks, bs, 1, d) holding each sequence's
+    kv_len latent rows, plus the flattened query geometry."""
+    import torch
+    S = len(seq_specs)
+    mb = max(-(-kv // bs) for _, kv in seq_specs)
+    tables = torch.zeros((S, mb), dtype=torch.int32)
+    perm = torch.randperm(n_blocks - 1, generator=gen)[: S * mb] + 1
+    for s, (_, kv) in enumerate(seq_specs):
+        n = -(-kv // bs)
+        tables[s, :n] = perm[s * mb: s * mb + n].to(torch.int32)
+    vals = torch.randn((n_blocks, bs, 1, d), generator=gen)
+    pages = torch.clamp(torch.round(vals / kv_scale), -127, 127).to(torch.int8).to(dev)
+    cu = [0]
+    for q, _ in seq_specs:
+        cu.append(cu[-1] + q)
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
+    return (pages, tables.to(dev), i32([kv for _, kv in seq_specs]), i32(cu), i32([S]))
+
+
+def _sdpa_backends(q, kv, mask, ref, tol, scale):
+    """One SDPA call over the gathered dense plane with K = V, under each
+    backend in turn and in two MQA forms (enable_gqa over the one plane, or
+    the plane expanded over the heads without a copy): {"SDPA backend/form":
+    {"err", "ms"} or {"error"}}. Flash attention takes no mask and no D above
+    256, so it is expected to refuse; the caller names what served."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    H = q.shape[1]
+    wide = kv.expand(kv.shape[0], H, *kv.shape[2:])
+    calls = {"gqa": lambda: F.scaled_dot_product_attention(
+                 q, kv, kv, attn_mask=mask, scale=scale, enable_gqa=True),
+             "expand": lambda: F.scaled_dot_product_attention(
+                 q, wide, wide, attn_mask=mask, scale=scale)}
+    out = {}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        for form, fn in calls.items():
+            name = f"SDPA {backend.name.lower()}/{form}"
+            try:
+                with sdpa_kernel(backend):
+                    err = (fn().float() - ref).abs().max().item()
+                    out[name] = {"err": err, "ms": time_ms(fn) if err <= tol else None}
+            except Exception as e:          # this backend refuses the call: say so
+                out[name] = {"error": repr(e)[:200]}
+    return out
+
+
+def check_latent(gen, dev) -> list:
+    """K6 on the mla path: a decode window of 32 sequences (kv 129-253) and
+    one mixed 2048-token batch, each with bf16 queries (the serving form) and
+    f32 queries, over an int8 plane of 16 heads x 576. The bf16 form is held
+    against the plain version run in f32 on the same inputs, the f32 form
+    against the plain version as it is."""
+    import torch
+    from hydrainfer_tpu_torch.ops.cuda.paged_attention import \
+        paged_attention_varlen_plain as latent_plain      # K6's plain version
+    from hydrainfer_tpu_torch.ops.cuda.paged_attention_latent import \
+        paged_attention_latent
+    cfg, shp = _arch_cfg("mla"), PATH_SHAPES["mla"]
+    H, D, bs, kv_scale = cfg.n_qo_heads, cfg.head_dim, 16, 0.05
+    sm = 1.0 / math.sqrt(cfg.mla_nope_dim + cfg.mla_rope_dim)
+    forms = {}
+    for form in ("decode", "mixed"):
+        specs = shp[form]
+        T = len(specs) if form == "decode" else shp["T"]
+        pages, tables, kv_lens, cu, ns = _latent_case(gen, specs, 1024, bs, D, kv_scale,
+                                                      dev)
+        geo = (pages, kv_lens, tables, cu, ns, sm, kv_scale)
+        T_real = int(cu[-1])
+        q32 = torch.randn((T, H, D), generator=gen).to(dev)
+        q16 = q32.to(torch.bfloat16)
+        got16 = paged_attention_latent(q16, *geo)
+        ref16 = latent_plain(q16.float(), *geo)
+        err16 = (got16.float() - ref16).abs().max().item()
+        tol16 = 2e-2 * max(1.0, ref16.abs().max().item())
+        got32 = paged_attention_latent(q32, *geo)
+        ref32 = latent_plain(q32, *geo)
+        err32 = (got32 - ref32).abs().max().item()
+        tol32 = 1e-4 * max(1.0, ref32.abs().max().item())
+        pad_zero = bool((got16[T_real:] == 0).all() and (got32[T_real:] == 0).all())
+        # the library yardstick: the plane of each sequence gathered dense and
+        # dequantized (bf16); decode: sequences batched, padded and masked;
+        # mixed: all sequences side by side under one bool mask
+        dense = [(pages[tables[s].long()].reshape(-1, D)[: int(kv_lens[s])].float()
+                  * kv_scale).to(torch.bfloat16) for s in range(len(specs))]
+        visible = sum(kvl - ql + i + 1 for ql, kvl in specs for i in range(ql))
+        if form == "decode":
+            L = max(x.shape[0] for x in dense)
+            kv = torch.zeros((len(specs), 1, L, D), dtype=torch.bfloat16, device=dev)
+            mask = torch.zeros((len(specs), 1, 1, L), dtype=torch.bool)
+            for s, x in enumerate(dense):
+                kv[s, 0, :x.shape[0]] = x
+                mask[s, ..., :x.shape[0]] = True
+            qv, rv = q16[:, :, None, :], ref16[:, :, None, :]   # (S, H, 1, D)
+        else:
+            kv = torch.cat(dense)[None, None]                     # (1, 1, sum kv, D)
+            mask = torch.zeros((T_real, kv.shape[2]), dtype=torch.bool)
+            t0, c0 = 0, 0
+            for ql, kvl in specs:
+                for i in range(ql):
+                    mask[t0 + i, c0:c0 + kvl - ql + i + 1] = True
+                t0, c0 = t0 + ql, c0 + kvl
+            qv = q16[:T_real].transpose(0, 1)[None]               # (1, H, T_real, D)
+            rv = ref16[:T_real].transpose(0, 1)[None]
+        lib = _sdpa_backends(qv, kv, mask.to(dev), rv, tol16, sm)
+        # aten's memory-efficient varlen forward with a bottom-right causal
+        # mask computes only the visible pairs, as K6 does
+        flat = torch.cat(dense)[None, :, None, :].expand(1, -1, H, D)
+        cu_k = torch.tensor([0] + [kvl for _, kvl in specs], device=dev).cumsum(0).int()
+        try:
+            fn = lambda: torch.ops.aten._efficient_attention_forward(
+                q16[None, :T_real], flat, flat, None, cu[:len(specs) + 1], cu_k,
+                max(ql for ql, _ in specs), max(kvl for _, kvl in specs), 0.0, 2, False,
+                scale=sm)[0][0]
+            err = (fn().float() - ref16[:T_real]).abs().max().item()
+            lib["aten._efficient_attention_forward/varlen"] = {
+                "err": err, "ms": time_ms(fn) if err <= tol16 else None}
+        except Exception as e:          # not in this torch build: say so
+            lib["aten._efficient_attention_forward/varlen"] = {"error": repr(e)[:200]}
+        timed = {n: r["ms"] for n, r in lib.items() if r.get("ms") is not None}
+        lib_name = min(timed, key=timed.get) if timed else None
+        n_kv = int(kv_lens.sum())
+        b_ms, b_by = bound_ms(2 * T_real * H * D * 2 + n_kv * D
+                              + 4 * (tables.numel() + 2 * len(specs) + 2),
+                              4.0 * H * D * visible)
+        forms[form] = {
+            "ok": bool(err16 <= tol16 and err32 <= tol32 and pad_zero),
+            "max_abs_err": err16, "f32_max_abs_err": err32, "tol": tol16,
+            "f32_tol": tol32, "padding_rows_zero": pad_zero,
+            "shape": f"{T_real} tokens (T={T}) in {len(specs)} seqs, kv "
+                     f"{min(kv for _, kv in specs)}..{max(kv for _, kv in specs)}; "
+                     f"{H} q heads over one int8 plane x d{D}, BS 16",
+            "ms": time_ms(lambda: paged_attention_latent(q16, *geo)),
+            "f32_ms": time_ms(lambda: paged_attention_latent(q32, *geo)),
+            "plain_ms": time_ms(lambda: latent_plain(q16, *geo), iters=5),
+            "bound_ms": b_ms, "bound_by": b_by, "visible_pairs": visible,
+            "library_ms": timed[lib_name] if lib_name else None,
+            "library": f"{lib_name}, K = V = the gathered dense plane" if lib_name else None,
+            "library_backends": lib}
+        del pages, q16, q32, kv, mask
+    save("paged_attention_latent.json", forms)
+    # the decode window carries most of the path's launches: it is the row
+    row = dict(forms["decode"])
+    return [{"name": "paged_attention_latent", "path": "mla",
+             "ok": forms["decode"]["ok"] and forms["mixed"]["ok"],
+             "max_abs_err": max(forms["decode"]["max_abs_err"],
+                                forms["mixed"]["max_abs_err"]),
+             "tolerance": "bf16: 2e-2 x max(1, max|plain|) against the plain version in "
+                          "f32 on the same inputs (bf16 P and output rounding); f32: "
+                          "1e-4 x the same (sum order)",
+             **{k: row[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "library")},
+             "mixed_ms": forms["mixed"]["ms"], "mixed_bound_ms": forms["mixed"]["bound_ms"],
+             "mixed_library_ms": forms["mixed"]["library_ms"]}]
+
+
 def check_kv_writer(gen, dev, path) -> dict:
     import torch
     from hydrainfer_tpu_torch.ops.cuda.kv_writer import (quantize_kv, write_kv_pages,
@@ -341,22 +534,30 @@ def check_kv_writer(gen, dev, path) -> dict:
     slots = (blocks[:, None] * bs + torch.arange(bs)[None]).reshape(-1)[:T]
     slots[T_real:] = -1
     slots = slots.to(torch.int32).to(dev)
-    # k and v are column ranges of the fused qkv projection's output
-    qkv = torch.randn((T, (H + 2 * kvh) * D), generator=gen).to(dev, torch.bfloat16)
-    k = qkv[:, H * D: (H + kvh) * D].reshape(T, kvh, D).contiguous()
-    v = qkv[:, (H + kvh) * D:].reshape(T, kvh, D)      # strided rows, as in the model
-    got = torch.zeros((nb, bs, 2 * kvh, D), dtype=torch.int8, device=dev)
+    if cfg.mla_kv_lora:
+        # single-plane form: the (T, 1, D) [c_kv | k_pe] rows as they are
+        k, v = torch.randn((T, 1, D), generator=gen).to(dev, torch.bfloat16), None
+        planes, form = 1, "single-plane latent rows"
+        both = k
+    else:
+        # k and v are column ranges of the fused qkv projection's output
+        qkv = torch.randn((T, (H + 2 * kvh) * D), generator=gen).to(dev, torch.bfloat16)
+        k = qkv[:, H * D: (H + kvh) * D].reshape(T, kvh, D).contiguous()
+        v = qkv[:, (H + kvh) * D:].reshape(T, kvh, D)   # strided rows, as in the model
+        planes, form = 2 * kvh, f"{kvh} kv heads"
+        both = torch.stack([k, v], 2).reshape(T, 2 * kvh, D)
+    got = torch.zeros((nb, bs, planes, D), dtype=torch.int8, device=dev)
     ref = torch.zeros_like(got)
     write_kv_pages(got, k, v, slots, kv_scale)
     write_kv_pages_plain(ref, k, v, slots, kv_scale)
     err = (got.float() - ref.float()).abs().max().item()
-    rows = quantize_kv(torch.stack([k, v], 2).reshape(T, 2 * kvh, D), kv_scale)[:T_real]
-    flat, idx = ref.view(-1, 2 * kvh, D), slots[:T_real].long()
-    b_ms, b_by = bound_ms(T_real * 2 * kvh * D * 2 + T * 4 + T_real * 2 * kvh * D, 0.0)
+    rows = quantize_kv(both, kv_scale)[:T_real]
+    flat, idx = ref.view(-1, planes, D), slots[:T_real].long()
+    b_ms, b_by = bound_ms(T_real * planes * D * 2 + T * 4 + T_real * planes * D, 0.0)
     return {"name": "kv_writer", "path": path, "ok": err <= 1.0, "max_abs_err": err,
             "tolerance": "1 int8 step (the plain version's division may round "
                          "through a reciprocal)",
-            "shape": f"{T_real} of {T} rows -> int8 pages, {kvh} kv heads x d{D}, BS 16",
+            "shape": f"{T_real} of {T} rows -> int8 pages, {form} x d{D}, BS 16",
             "ms": time_ms(lambda: write_kv_pages(got, k, v, slots, kv_scale)),
             "plain_ms": time_ms(lambda: write_kv_pages_plain(ref, k, v, slots,
                                                              kv_scale), iters=5),
@@ -473,8 +674,10 @@ def phase_kernels() -> tuple:
     dev = torch.device("cuda")
     results = []
     for path in PATH_SHAPES:
-        results += check_attention(gen, dev, path) + [check_kv_writer(gen, dev, path),
-                                                      check_quant_matmul(gen, dev, path)]
+        attention = check_latent(gen, dev) if path == "mla" else check_attention(gen, dev,
+                                                                                   path)
+        results += attention + [check_kv_writer(gen, dev, path),
+                                check_quant_matmul(gen, dev, path)]
     results.append(check_mha_varlen(gen, dev))
     torch.cuda.synchronize()
     save("kernels.json", results)
@@ -513,32 +716,36 @@ def _requests(rng, n, prompt_len, max_tokens, tag):
             for i in range(n)]
 
 
-def phase_tiny(devices=("cuda", "cpu")) -> dict:
+def phase_tiny(devices=("cuda", "cpu"), archs=("tiny-lm", "mla-tiny-lm")) -> dict:
+    """Each arch in f32 on the card and on the CPU with the same weights
+    (mla-tiny-lm: K6's f32 path at D 24, K3's single-plane write)."""
     import numpy as np
     import torch
     from hydrainfer_tpu_torch.models.random_init import (ARCH_CONFIGS,
                                                          RandomWeightFactory,
                                                          init_decoder_weights)
-    weights = init_decoder_weights(ARCH_CONFIGS["tiny-lm"], SEED, torch.float32,
-                                   device="cpu")
 
-    def on(device):
+    def on(arch, weights, device):
         w = {k: (v.to(device) if k != "layers" else
                  [{n: t.to(device) for n, t in lw.items()} for lw in v])
              for k, v in weights.items()}
-        factory = RandomWeightFactory("tiny-lm", dtype=torch.float32, device=device,
+        factory = RandomWeightFactory(arch, dtype=torch.float32, device=device,
                                       weights=w)
         engine = _engine(factory, device, 6, 4, 512, 24)
         reqs = _requests(np.random.default_rng(SEED), 6, 40, 24, "tiny")
         return [o.output_token_ids for o in engine.generate(reqs, timeout_s=300)]
 
-    gpu, cpu = (on(d) for d in devices)
-    same = gpu == cpu
-    n_diff = sum(a != b for a, b in zip(gpu, cpu))
-    save("tiny_tokens.json", {"gpu": gpu, "cpu": cpu})
-    return {"phase": "tiny", "ok": bool(same and all(len(t) == 24 for t in gpu)),
-            "requests": len(gpu), "tokens_per_request": 24,
-            "requests_differing": n_diff}
+    res, ok, tokens = {"phase": "tiny"}, True, {}
+    for arch in archs:
+        weights = init_decoder_weights(ARCH_CONFIGS[arch], SEED, torch.float32,
+                                       device="cpu")
+        gpu, cpu = (on(arch, weights, d) for d in devices)
+        tokens[arch] = {"gpu": gpu, "cpu": cpu}
+        ok &= gpu == cpu and all(len(t) == 24 for t in gpu)
+        res[arch] = {"requests": len(gpu), "tokens_per_request": 24,
+                     "requests_differing": sum(a != b for a, b in zip(gpu, cpu))}
+    save("tiny_tokens.json", tokens)
+    return {**res, "ok": bool(ok)}
 
 
 def _prefill_logits(lm, tokens, device, positions=None, positions_hw=None,
@@ -553,7 +760,8 @@ def _prefill_logits(lm, tokens, device, positions=None, positions_hw=None,
     cfg = lm.cfg
     T, bs = len(tokens), 16
     nb = -(-T // bs) + 1
-    cache = torch.zeros((cfg.n_layers, 1, nb, bs, 2 * cfg.n_kv_heads, cfg.head_dim),
+    planes = 1 if cfg.mla_kv_lora else 2 * cfg.n_kv_heads
+    cache = torch.zeros((cfg.n_layers, 1, nb, bs, planes, cfg.head_dim),
                         dtype=torch.int8 if cfg.kv_scale is not None else lm.dtype,
                         device=device)
     i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=device)
@@ -591,12 +799,14 @@ def _plain_logits(lm, tokens, device, **batch_kw):
     """The same prefill with every kernel wrapper swapped for its plain
     PyTorch version (the wrappers are looked up by name at call time)."""
     from hydrainfer_tpu_torch.ops import attention, cache_ops, quant
-    from hydrainfer_tpu_torch.ops.cuda import (kv_writer, mha_decode,
-                                               paged_attention, quant_matmul)
+    from hydrainfer_tpu_torch.ops.cuda import (kv_writer, mha_decode, paged_attention,
+                                               quant_matmul)
     swaps = [(quant, "quant_matmul_int8", quant_matmul.quant_matmul_int8_plain),
              (cache_ops, "write_kv_pages", kv_writer.write_kv_pages_plain),
              (attention, "mha_decode_attention", mha_decode.mha_decode_attention_plain),
              (attention, "paged_attention_varlen",
+              paged_attention.paged_attention_varlen_plain),
+             (attention, "paged_attention_latent",
               paged_attention.paged_attention_varlen_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     try:
@@ -614,7 +824,7 @@ def _logits_check(lm, tokens, device, prefix, **batch_kw) -> dict:
     order differs: with an int8 cache a sum-order difference of one ulp can
     flip a rounding and move a K/V entry by a whole step), and the bf16
     int8-KV serving path's distance from that f32 reference beside the bf16
-    plain path's."""
+    plain path's: at most LOGITS_RATIO times it."""
     from dataclasses import replace
     import torch
     from hydrainfer_tpu_torch.models.llama import LlamaForCausalLM
@@ -631,15 +841,16 @@ def _logits_check(lm, tokens, device, prefix, **batch_kw) -> dict:
     err16_plain = (plain16 - ref32).abs().max().item()
     ok = (bool(torch.isfinite(got16).all() and torch.isfinite(got32).all())
           and err32 <= 1e-3 * scale32
-          and err16_kernel <= 3 * max(err16_plain, 1e-3 * scale32))
+          and err16_kernel <= LOGITS_RATIO * max(err16_plain, 1e-3 * scale32))
     return {"ok": ok, f"{prefix}_tokens": len(tokens),
             f"{prefix}_f32_max_abs": scale32,
             f"{prefix}_f32_kernel_vs_plain_err": err32,
             f"{prefix}_bf16_kernel_vs_f32_err": err16_kernel,
             f"{prefix}_bf16_plain_vs_f32_err": err16_plain,
+            f"{prefix}_bf16_ratio": err16_kernel / max(err16_plain, 1e-30),
             f"{prefix}_tolerance": "f32 activations and KV: 1e-3 x max|logit| (sum "
-                                   "order over the layers); bf16 + int8 KV: 3x the "
-                                   "plain path's distance from f32"}
+                                   f"order over the layers); bf16 + int8 KV: {LOGITS_RATIO}x "
+                                   "the plain path's distance from f32"}
 
 
 def _profile_round(engine, reqs, name="serve_profile.json") -> dict:
@@ -664,12 +875,18 @@ def _profile_round(engine, reqs, name="serve_profile.json") -> dict:
     if busy_ms == 0:
         return {"profile": "not measured (the profiler saw no device time)"}
     return {"profile_wall_s": wall, "profile_device_busy_share": busy_ms / 1e3 / wall,
+            "profile_device_busy_ms": busy_ms,
             "profile_top_kernels": [{k: r[k] for k in ("kernel", "count", "ms")}
-                                    for r in rows[:6]]}
+                                    for r in rows[:8]]}
 
 
 def phase_serve(arch="llava-7b-lm", dev="cuda", n_requests=8, prompt_len=128,
-                max_tokens=32, token_budget=256) -> tuple:
+                max_tokens=32, token_budget=256, phase="serve", must_run=SERVE_KERNELS,
+                must_not_run=()) -> tuple:
+    """Text serving of `arch` (int8 weights, int8 KV at 0.05) through
+    OfflineEngine: a warm-up round, the measured round, a profiled round.
+    Every kernel of must_run has to launch in the measured round, and none of
+    must_not_run."""
     import numpy as np
     import torch
     from hydrainfer_tpu_torch.engine import executor as ex
@@ -703,15 +920,18 @@ def phase_serve(arch="llava-7b-lm", dev="cuda", n_requests=8, prompt_len=128,
         windows.clear()
         reqs = _requests(rng, n_requests, prompt_len, max_tokens, "serve")
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
         t1 = time.perf_counter()
         outs = engine.generate(reqs, timeout_s=600)
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t1
         counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
         measured_windows = list(windows)
         profiled = _profile_round(engine, _requests(rng, n_requests, prompt_len,
-                                                    max_tokens, "prof"))
+                                                    max_tokens, "prof"),
+                                  f"{phase}_profile.json")
     finally:
         ex.FillExecutor._multi_step_window = orig
 
@@ -724,10 +944,12 @@ def phase_serve(arch="llava-7b-lm", dev="cuda", n_requests=8, prompt_len=128,
     logits = _logits_check(lm, [int(t) for t in rng.integers(10, 120, size=64)], dev,
                            "prefill_logits")
     windows = measured_windows
-    # the text path runs K1-K4; K5 (the ViT's attention) is the vlm path's
+    # the llava text path runs K1-K4 (K5 is the ViT's, K6 the MLA path's);
+    # the MLA path runs K6, K3 and K4, and never K1 or K2
     ok = (tokens_ok and logits.pop("ok") and 16 in windows
-          and all(counts[k] > 0 for k in SERVE_KERNELS))
-    result = {"phase": "serve", "ok": bool(ok), "gpu": gpu_name_and_limit(),
+          and all(counts[k] > 0 for k in must_run)
+          and all(counts[k] == 0 for k in must_not_run))
+    result = {"phase": phase, "ok": bool(ok), "gpu": gpu_name_and_limit(),
               "arch": arch,
               "weights": "int8", "kv_cache": "int8 (scale 0.05)",
               "n_requests": n_requests, "prompt_len": prompt_len,
@@ -737,8 +959,18 @@ def phase_serve(arch="llava-7b-lm", dev="cuda", n_requests=8, prompt_len=128,
               "weight_init_s": init_s, "param_bytes": factory.param_bytes(),
               "fused_windows": sorted(set(windows)),
               "n_k16_windows": windows.count(16), "launches": counts, **logits,
-              "peak_memory_bytes": torch.cuda.max_memory_allocated(), **profiled}
+              "peak_memory_bytes": peak, **profiled}
     return result, counts
+
+
+def phase_mla(dev="cuda") -> tuple:
+    """mla-2b-lm at full width (27 layers, depth not cut), seeded random
+    weights: bf16 with int8 o_proj/gate_up/down/lm_head, int8 latent KV at
+    scale 0.05; 32 requests x 128-token prompts x 128 greedy tokens, token
+    budget 2048, block size 16, K=16 windows."""
+    return phase_serve(MLA_ARCH, dev, MLA_REQUESTS, MLA_PROMPT, MLA_TOKENS, 2048,
+                       phase="mla", must_run=MLA_KERNELS,
+                       must_not_run=("mha_decode", "paged_attention"))
 
 
 # ---------------------------------------------------------------- phase: vlm
@@ -964,7 +1196,7 @@ def phase_vlm(dev="cuda", max_tokens=32) -> tuple:
     calc = factory.getVisionModelConfig().image_token_calculator
     image_tokens = [calc.get_num_image_tokens(s) for s in VLM_IMAGES]
     ok = (tokens_ok and features["features_ok"] and logits.pop("ok")
-          and 16 in measured["windows"] and all(v > 0 for v in counts.values()))
+          and 16 in measured["windows"] and all(counts[k] > 0 for k in VLM_KERNELS))
     result = {"phase": "vlm", "ok": bool(ok), "gpu": gpu_name_and_limit(),
               "model": "Qwen2-VL-2B: ViT {depth} x {embed_dim}, {num_heads} heads; LM ".format(
                   **VLM_VISION) + VLM_ARCH,
@@ -996,7 +1228,7 @@ def gpu_name_and_limit() -> str:
 def main() -> int:
     global OUT_DIR
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="build,kernels,tiny,serve,vlm")
+    ap.add_argument("--phases", default="build,kernels,tiny,serve,vlm,mla")
     ap.add_argument("--out-dir", default=OUT_DIR,
                     help="where the detail files go")
     args = ap.parse_args()
@@ -1019,8 +1251,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    failed, kernel_rows, counts = [], [], {"serve": {}, "vlm": {}}
+    failed, kernel_rows, counts = [], [], {"serve": {}, "vlm": {}, "mla": {}}
     for phase in phases:
+        t0 = time.perf_counter()
         try:
             if phase == "build":
                 res = phase_build()
@@ -1032,11 +1265,14 @@ def main() -> int:
                 res, counts["serve"] = phase_serve()
             elif phase == "vlm":
                 res, counts["vlm"] = phase_vlm()
+            elif phase == "mla":
+                res, counts["mla"] = phase_mla()
             else:
                 raise ValueError(f"unknown phase {phase}")
         except Exception as e:
             traceback.print_exc()
             res = {"phase": phase, "ok": False, "error": repr(e)}
+        res["phase_s"] = time.perf_counter() - t0
         emit(res)
         if not res["ok"]:
             failed.append(phase)
@@ -1053,6 +1289,7 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                        **({"library": r["library"]} if r.get("library") else {}),
                         "shape": r["shape"], "ok": r["ok"]})
     emit({"kernels": kernels})
     if failed:

@@ -142,14 +142,17 @@ class AsyncEPDNode:
         lc = self.language_config
         lm = self.worker.language_model
         model_dtype = str(lm.dtype).replace("torch.", "")
-        # combined-head layout (K even / V odd); the cache is int8 exactly
-        # when the model quantizes K/V on write
+        # combined-head layout (K even / V odd), or one plane per token for
+        # an MLA latent cache (exactly kv_lora + rope wide: the JAX node's
+        # padding to 128 lanes serves the TPU kernel's DMA only); the cache is
+        # int8 exactly when the model quantizes K/V on write
         kv_dtype = "int8" if lm.cfg.kv_scale is not None else model_dtype
         kv_cfg = TokenCacheBlockManagerConfig(
             n_layers=lc.n_layers, n_tensors=1,
             n_blocks=max(self.config.n_kv_blocks, 1),
             block_size=self.config.kv_block_size,
-            n_heads=2 * lc.n_kv_heads, head_dim=lc.head_dim, dtype=kv_dtype)
+            n_heads=lc.n_kv_heads if lc.kv_single_plane else 2 * lc.n_kv_heads,
+            head_dim=lc.head_dim, dtype=kv_dtype)
         # one image-cache slot per feature token: n_qo_heads * head_dim values
         # hold its LM-hidden feature; a block holds a 336x336 image's tokens
         with_images = nt.has_image_cache and self.vision_config is not None

@@ -6,7 +6,11 @@
 // ops/cache_ops.py:write_kv_cache. One block per token row: it reads the row's
 // K and V heads once, quantizes or casts them, and stores them interleaved
 // (K at even combined heads, V at odd) into the row's slot of the layer's
-// pages, in place. A slot below 0 is a padded token and is dropped.
+// pages, in place. A slot below 0 is a padded token and is dropped. With a
+// null v the write is single-plane: the row's n_kv_heads planes of k are
+// stored as they are, with the same quantize (the MLA latent cache: one
+// [c_kv | k_pe] vector per token, the JAX MLA layer's quantize plus
+// ops/cache_ops.py:write_token_cache).
 //
 // Bound on H100: bytes. It reads T*2*KVH*D inputs and writes the same count of
 // cache elements, with no reuse; the TPU kernel's whole-page/single-row DMA
@@ -38,10 +42,17 @@ __global__ void kv_write_kernel(const IN* __restrict__ k, const IN* __restrict__
   const int t = blockIdx.x;
   const int slot = slot_ids[t];
   if (slot < 0) return;
+  const IN* krow = k + t * k_row_stride;
+  if (v == nullptr) {  // single plane: the row as it is
+    const int n = n_kv_heads * head_dim;
+    OUT* dst = pages + static_cast<long long>(slot) * n;
+    for (int i = threadIdx.x; i < n; i += blockDim.x)
+      dst[i] = store_kv<OUT>(to_f32(krow[i]), scale);
+    return;
+  }
   const int ckv = 2 * n_kv_heads;
   const int n = ckv * head_dim;
   OUT* dst = pages + static_cast<long long>(slot) * n;
-  const IN* krow = k + t * k_row_stride;
   const IN* vrow = v + t * v_row_stride;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const int c = i / head_dim;

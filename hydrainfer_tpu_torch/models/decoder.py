@@ -1,5 +1,6 @@
 """Shared paged-attention decoder for Llama-family language models (port of
-hydrainfer_tpu/models/decoder.py, dense-MLP standard-attention form).
+hydrainfer_tpu/models/decoder.py, dense-MLP form, with standard attention or
+DeepSeek's multi-head latent attention).
 
 One step runs embed -> the image splice (vision features overwrite the
 embeddings at <image> positions) -> a Python loop over the decoder layers ->
@@ -21,7 +22,11 @@ local id), never from `positions`.
 Weights: {"embed": (V, H), "layers": [per-layer dict], "norm": (H,),
 "lm_head": (H, V) tensor or QuantizedTensor}; each layer holds qkv_proj,
 o_proj, gate_up, down (tensors or QuantizedTensors), input_norm, post_norm
-and optionally qkv_bias.
+and optionally qkv_bias. An MLA layer (cfg.mla_kv_lora > 0) holds q_proj,
+kv_a, kv_a_norm, w_uk (r, H, dn) and w_uv (r, H, dv) in place of qkv_proj;
+its KV cache is the single-plane latent cache (L, 1, NB, BS, 1, r + dr), one
+[c_kv | k_pe] vector per token. Its rope weights are stored pair-interleaved
+(HF rope_interleave) and its softmax scale is 1/sqrt(nope + rope).
 """
 from dataclasses import dataclass
 from typing import Optional
@@ -30,7 +35,7 @@ import torch
 
 from ..ops.activation import silu_and_mul
 from ..ops.attention import paged_attention
-from ..ops.cache_ops import write_kv_cache
+from ..ops.cache_ops import write_kv_cache, write_latent_cache
 from ..ops.norm import rms_norm
 from ..ops.quant import qmatmul, qmatmul_f32
 from ..ops.rope import apply_rotary_emb, mrope_gather
@@ -58,11 +63,21 @@ class DecoderConfig:
     # int8 KV cache: K/V quantized with this static scale on write and
     # dequantized inside the attention kernels; None = cache in model dtype
     kv_scale: Optional[float] = None
+    # Multi-head Latent Attention (DeepSeek V2/V3; 0 = off): the cache holds
+    # one [c_kv (mla_kv_lora) | rotated k_pe (mla_rope_dim)] vector per token,
+    # so head_dim = mla_kv_lora + mla_rope_dim and n_kv_heads = 1
+    mla_kv_lora: int = 0
+    mla_rope_dim: int = 0
+    mla_nope_dim: int = 0
+    mla_v_dim: int = 0
+    # width of the rope tables when it differs from head_dim (MLA ropes only
+    # mla_rope_dim of each head); 0 = head_dim
+    rope_head_dim: int = 0
 
 
 def init_rope_tables(cfg: DecoderConfig, device=None):
-    """(max_position, head_dim // 2) f32 cos and sin tables."""
-    d = cfg.head_dim
+    """(max_position, rope_dim // 2) f32 cos and sin tables."""
+    d = cfg.rope_head_dim or cfg.head_dim
     inv = 1.0 / (cfg.rope_theta ** (torch.arange(0, d, 2, dtype=torch.float32) / d))
     t = torch.arange(cfg.max_position_embeddings, dtype=torch.float32)
     freqs = torch.outer(t, inv)
@@ -72,6 +87,9 @@ def init_rope_tables(cfg: DecoderConfig, device=None):
 def _attention_block(x, cache, layer_id, lw, batch: LanguageModelBatch, cos, sin,
                      cfg: DecoderConfig, max_q: int):
     """Pre-norm attention of one layer: returns x + o_proj(attention)."""
+    if cfg.mla_kv_lora > 0:
+        return _mla_attention_block(x, cache, layer_id, lw, batch, cos, sin, cfg,
+                                    max_q)
     T = x.shape[0]
     Hq, Hkv, D = cfg.n_qo_heads, cfg.n_kv_heads, cfg.head_dim
     h = rms_norm(x, lw["input_norm"], cfg.rms_norm_eps)
@@ -87,6 +105,47 @@ def _attention_block(x, cache, layer_id, lw, batch: LanguageModelBatch, cos, sin
     attn = paged_attention(q, cache, layer_id, batch.attention, 1.0 / (D ** 0.5),
                            max_q, kv_scale=cfg.kv_scale)
     return x + qmatmul(attn.reshape(T, Hq * D), lw["o_proj"])
+
+
+def _deinterleave(x: torch.Tensor) -> torch.Tensor:
+    """[x0, x1, x2, x3, ...] -> [x0, x2, ..., x1, x3, ...]: pair-interleaved
+    rope weights reordered for the rotate-half rope."""
+    return torch.cat([x[..., 0::2], x[..., 1::2]], dim=-1)
+
+
+def _mla_attention_block(x, cache, layer_id, lw, batch: LanguageModelBatch, cos,
+                         sin, cfg: DecoderConfig, max_q: int):
+    """The attention half of hydrainfer_tpu/models/decoder.py:_mla_layer, in
+    the absorbed form: q_nope is projected into the latent space with W_UK,
+    scores are taken against the cached [c_kv | k_pe] vectors directly (one
+    plane serving as K and V, kernel K6), and the first kv_lora columns of the
+    output, the latent context, are expanded per head with W_UV. The JAX layer
+    pads q and the cached vector to a 128-lane cache width; the port's cache
+    is exactly kv_lora + rope wide, so nothing is padded."""
+    T = x.shape[0]
+    H = cfg.n_qo_heads
+    r, dr = cfg.mla_kv_lora, cfg.mla_rope_dim
+    dn, dv = cfg.mla_nope_dim, cfg.mla_v_dim
+    eps = cfg.rms_norm_eps
+    h = rms_norm(x, lw["input_norm"], eps)
+    q = qmatmul(h, lw["q_proj"]).reshape(T, H, dn + dr)
+    q_nope, q_pe = q[..., :dn], q[..., dn:]
+    ckv = qmatmul(h, lw["kv_a"])                              # (T, r + dr)
+    c_kv = rms_norm(ckv[:, :r], lw["kv_a_norm"], eps)
+    k_pe = ckv[:, None, r:]                                   # (T, 1, dr)
+    q_pe = apply_rotary_emb(_deinterleave(q_pe), cos, sin, False)
+    k_pe = apply_rotary_emb(_deinterleave(k_pe), cos, sin, False)
+    # absorbed latent query: W_UK is (r, H, dn)
+    q_lat = torch.einsum("thn,rhn->thr", q_nope, lw["w_uk"])
+    q_full = torch.cat([q_lat, q_pe], dim=-1)                # (T, H, r + dr)
+    kv_vec = torch.cat([c_kv[:, None, :], k_pe], dim=-1)     # (T, 1, r + dr)
+    # in place, with the int8 quantize fused in (kernel K3's single-plane form)
+    write_latent_cache(cache, layer_id, batch.attention.new_kv_slot_ids, kv_vec,
+                       cfg.kv_scale)
+    attn = paged_attention(q_full, cache, layer_id, batch.attention,
+                           1.0 / ((dn + dr) ** 0.5), max_q, kv_scale=cfg.kv_scale)
+    out = torch.einsum("thr,rhv->thv", attn[..., :r], lw["w_uv"])
+    return x + qmatmul(out.reshape(T, H * dv), lw["o_proj"])
 
 
 def _mlp(h: torch.Tensor, lw: dict) -> torch.Tensor:
@@ -142,7 +201,9 @@ def _last_layer_and_head(weights, cache, x, batch: LanguageModelBatch, cos, sin,
                          cfg: DecoderConfig, max_q: int, token_table,
                          return_logits: bool):
     # the last layer's attention sees all T tokens (their KV must be written);
-    # then only the sampled rows continue through the MLP and the head
+    # then only the sampled rows continue through the MLP and the head. (The
+    # JAX MLA last layer runs its MLP over all T rows and discards after it;
+    # the MLP is row-wise, so discarding first gives the same numbers.)
     lw = weights["layers"][-1]
     x = _attention_block(x, cache, cfg.n_layers - 1, lw, batch, cos, sin, cfg,
                          max_q)

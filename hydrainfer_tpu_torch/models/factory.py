@@ -50,6 +50,9 @@ class LanguageModelConfig:
     # multimodal RoPE sections (t, h, w); non-empty turns on the per-batch
     # h/w position streams end to end (Qwen2-VL M-RoPE)
     mrope_section: tuple = ()
+    # the KV cache holds one plane per token (the MLA latent vector) instead
+    # of interleaved K/V heads
+    kv_single_plane: bool = False
 
 
 @dataclass

@@ -36,6 +36,20 @@ ARCH_CONFIGS = {
         n_layers=2, hidden_size=128, intermediate_size=256,
         n_qo_heads=4, n_kv_heads=2, head_dim=32, vocab_size=1024,
         max_position_embeddings=2048),
+    # DeepSeek-V2-Lite-shaped MLA decoder with a dense MLP in place of the
+    # MoE body: latent dim 512 + 64 = 576 (head_dim), 16 q heads over one
+    # single-plane latent cache
+    "mla-2b-lm": DecoderConfig(
+        n_layers=27, hidden_size=2048, intermediate_size=5472,
+        n_qo_heads=16, n_kv_heads=1, head_dim=576, vocab_size=32064,
+        max_position_embeddings=4096, rope_head_dim=64,
+        mla_kv_lora=512, mla_rope_dim=64, mla_nope_dim=128, mla_v_dim=128),
+    # CPU-runnable MLA smoke size
+    "mla-tiny-lm": DecoderConfig(
+        n_layers=2, hidden_size=64, intermediate_size=128,
+        n_qo_heads=4, n_kv_heads=1, head_dim=24, vocab_size=512,
+        max_position_embeddings=1024, rope_head_dim=8,
+        mla_kv_lora=16, mla_rope_dim=8, mla_nope_dim=16, mla_v_dim=16),
 }
 
 
@@ -53,16 +67,31 @@ def init_decoder_weights(cfg: DecoderConfig, seed: int = 0,
     qkv_out = (cfg.n_qo_heads + 2 * cfg.n_kv_heads) * cfg.head_dim
     w = {"embed": init(cfg.vocab_size, H), "layers": []}
     for _ in range(cfg.n_layers):
-        lw = {
-            "qkv_proj": init(H, qkv_out),
-            "o_proj": init(cfg.n_qo_heads * cfg.head_dim, H),
+        if cfg.mla_kv_lora > 0:
+            # MLA attention block, plain-q form (no q-LoRA)
+            r, dr = cfg.mla_kv_lora, cfg.mla_rope_dim
+            dn, dv, Hq = cfg.mla_nope_dim, cfg.mla_v_dim, cfg.n_qo_heads
+            lw = {
+                "q_proj": init(H, Hq * (dn + dr)),
+                "kv_a": init(H, r + dr),
+                "kv_a_norm": torch.ones(r, dtype=dtype, device=device),
+                "w_uk": init(r, Hq, dn),
+                "w_uv": init(r, Hq, dv),
+                "o_proj": init(Hq * dv, H),
+            }
+        else:
+            lw = {
+                "qkv_proj": init(H, qkv_out),
+                "o_proj": init(cfg.n_qo_heads * cfg.head_dim, H),
+            }
+            if cfg.qkv_bias:
+                lw["qkv_bias"] = torch.zeros(qkv_out, dtype=dtype, device=device)
+        lw.update({
             "gate_up": init(H, 2 * cfg.intermediate_size),
             "down": init(cfg.intermediate_size, H),
             "input_norm": torch.ones(H, dtype=dtype, device=device),
             "post_norm": torch.ones(H, dtype=dtype, device=device),
-        }
-        if cfg.qkv_bias:
-            lw["qkv_bias"] = torch.zeros(qkv_out, dtype=dtype, device=device)
+        })
         w["layers"].append(quantize_tree({"layers": [lw]}, quantization)["layers"][0])
     w["norm"] = torch.ones(H, dtype=dtype, device=device)
     w["lm_head"] = init(H, cfg.vocab_size)
@@ -102,7 +131,7 @@ class RandomWeightFactory(ModelFactory):
             n_layers=c.n_layers, max_position_embeddings=c.max_position_embeddings,
             n_qo_heads=c.n_qo_heads, n_kv_heads=c.n_kv_heads, head_dim=c.head_dim,
             eos_token_id=2, hidden_size=c.hidden_size, vocab_size=c.vocab_size,
-            mrope_section=c.mrope_section)
+            mrope_section=c.mrope_section, kv_single_plane=c.mla_kv_lora > 0)
 
     def getTokenizer(self):
         from .tokenizer import SimpleTokenizer

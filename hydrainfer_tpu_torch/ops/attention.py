@@ -3,14 +3,19 @@ hydrainfer_tpu/ops/attention.py).
 
 Cache layout, shared with the kernels:
   (n_layers, 1, n_blocks, block_size, 2*n_kv_heads, head_dim)
-with K at even combined-head indices and V at odd. Tokens of all sequences
+with K at even combined-head indices and V at odd; or, for MLA, the
+single-plane latent cache (n_layers, 1, n_blocks, block_size, 1, head_dim)
+whose one vector per token serves as both K and V. Tokens of all sequences
 are flattened to one (T,) axis with each sequence's tokens contiguous; a batch
 mixes prefill chunks and decode steps freely.
 
-The dispatcher `paged_attention` sends all-decode batches (max_q == 1) to
-kernel K1 (ops/cuda/mha_decode.py) and mixed or prefill batches to kernel K2
-(ops/cuda/paged_attention.py); each takes its plain PyTorch version for CPU
-tensors. `paged_attention_plain` is the port of `paged_attention_jnp`.
+The dispatcher `paged_attention` sends every batch over a single-plane cache
+to kernel K6 (ops/cuda/paged_attention_latent.py), all-decode windows
+included, as the JAX chain does; over a combined-head cache, all-decode
+batches (max_q == 1) go to kernel K1 (ops/cuda/mha_decode.py) and mixed or
+prefill batches to kernel K2 (ops/cuda/paged_attention.py). Each takes its
+plain PyTorch version for CPU tensors. `paged_attention_plain` is the port of
+`paged_attention_jnp`, single-plane gather included.
 
 `mha_varlen` is the ViT towers' segment-masked attention over the patches of
 all images in a batch: kernel K5 (ops/cuda/mha_varlen.py) for CUDA tensors,
@@ -26,6 +31,7 @@ import torch
 from .cuda.mha_decode import mha_decode_attention
 from .cuda.mha_varlen import mha_varlen_flash, mha_varlen_plain
 from .cuda.paged_attention import dense_paged_attention, paged_attention_varlen
+from .cuda.paged_attention_latent import paged_attention_latent
 
 
 @dataclass(frozen=True)
@@ -76,10 +82,15 @@ def paged_attention_plain(q: torch.Tensor, cache: torch.Tensor, layer_id: int,
 def paged_attention(q: torch.Tensor, cache: torch.Tensor, layer_id: int,
                     params: PagedAttentionParams, sm_scale: float, max_q: int,
                     kv_scale: Optional[float] = None) -> torch.Tensor:
-    """Dispatcher: all-decode windows (max_q == 1, row i = sequence i) to K1,
+    """Dispatcher: a single-plane (MLA latent) cache to K6 for every batch;
+    otherwise all-decode windows (max_q == 1, row i = sequence i) to K1 and
     mixed prefill/decode batches to K2."""
     pages = cache[layer_id, 0]
     tables = params.block_tables.clamp(min=0)
+    if cache.shape[-2] == 1:
+        return paged_attention_latent(q, pages, params.kv_lens, tables,
+                                      params.cu_q_lens, params.num_seqs, sm_scale,
+                                      kv_scale, max_q=max_q)
     if max_q == 1:
         return mha_decode_attention(q, pages, params.kv_lens, tables,
                                     params.num_seqs, sm_scale, kv_scale)

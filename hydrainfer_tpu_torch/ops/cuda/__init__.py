@@ -9,6 +9,7 @@ from .kv_writer import write_kv_pages
 from .mha_decode import mha_decode_attention
 from .mha_varlen import mha_varlen_flash
 from .paged_attention import paged_attention_varlen
+from .paged_attention_latent import paged_attention_latent
 from .quant_matmul import quant_matmul_int8
 
 WRAPPERS = {
@@ -17,6 +18,7 @@ WRAPPERS = {
     "kv_writer": write_kv_pages,
     "quant_matmul": quant_matmul_int8,
     "mha_varlen": mha_varlen_flash,
+    "paged_attention_latent": paged_attention_latent,
 }
 
 

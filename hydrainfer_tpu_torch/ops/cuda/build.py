@@ -23,7 +23,8 @@ import torch
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-KERNELS = ("mha_decode", "paged_attention", "kv_writer", "quant_matmul", "mha_varlen")
+KERNELS = ("mha_decode", "paged_attention", "kv_writer", "quant_matmul", "mha_varlen",
+           "paged_attention_latent")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v"]
 
@@ -42,6 +43,8 @@ SIGNATURES = {
     "quant_matmul": ("hydra_quant_matmul", [_P] * 4 + [_I] * 5 + [_P]),
     "mha_varlen": ("hydra_mha_varlen",
                    [_P] * 4 + [_L] * 4 + [_P] * 5 + [_I] * 4 + [_F, _I, _P]),
+    "paged_attention_latent": ("hydra_paged_attention_latent",
+                               [_P] * 7 + [_I] * 6 + [_F] * 2 + [_I, _I, _P]),
 }
 
 _lock = threading.Lock()

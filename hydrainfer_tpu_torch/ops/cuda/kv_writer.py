@@ -2,8 +2,11 @@
 
 Replaces hydrainfer_tpu/ops/pallas/kv_writer.py:write_kv_pages, and fuses the
 int8 quantize of models/decoder.py:_write_kv and the K/V interleave of
-ops/cache_ops.py:write_kv_cache into the same pass. The pages are updated in
-place. Bound on H100: bytes (every row is read once and written once).
+ops/cache_ops.py:write_kv_cache into the same pass. Its single-plane form (no
+v) writes MLA's latent rows as they are, with the same quantize: the port of
+the JAX MLA layer's quantize plus ops/cache_ops.py:write_token_cache. The
+pages are updated in place. Bound on H100: bytes (every row is read once and
+written once).
 """
 from typing import Optional
 
@@ -29,26 +32,43 @@ def _check_scale(pages: torch.Tensor, kv_scale: Optional[float]) -> None:
                          f"int8 cache (cache {pages.dtype}, kv_scale {kv_scale})")
 
 
-def write_kv_pages_plain(pages: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         slot_ids: torch.Tensor,
+def scatter_rows(flat: torch.Tensor, slot_ids: torch.Tensor,
+                 rows: torch.Tensor) -> torch.Tensor:
+    """flat[slot_ids[i]] = rows[i] for every slot >= 0, in place, without a
+    host synchronisation (no nonzero): a padding row (slot < 0) repeats the
+    first real row's write, same slot and same values, or, when no row is
+    real, writes row 0 back as it was. Duplicate writes of equal values leave
+    one result whatever their order."""
+    keep = slot_ids >= 0
+    first = torch.argmax(keep.to(torch.int32))          # 0 when no row is real
+    slot0 = slot_ids[first].clamp(min=0).long()
+    row0 = torch.where(keep[first], rows[first], flat[slot0])
+    idx = torch.where(keep, slot_ids.long(), slot0)
+    vals = torch.where(keep.view(-1, *([1] * (rows.dim() - 1))), rows, row0)
+    return flat.index_copy_(0, idx, vals)
+
+
+def write_kv_pages_plain(pages: torch.Tensor, k: torch.Tensor,
+                         v: Optional[torch.Tensor], slot_ids: torch.Tensor,
                          kv_scale: Optional[float] = None) -> torch.Tensor:
-    """The plain version: quantize (int8 cache) or cast, interleave, scatter."""
+    """The plain version: quantize (int8 cache) or cast, interleave (unless
+    single-plane), scatter."""
     _check_scale(pages, kv_scale)
-    kv = _interleave(k, v)
+    kv = k if v is None else _interleave(k, v)
     kv = quantize_kv(kv, kv_scale) if kv_scale is not None else kv.to(pages.dtype)
-    flat = pages.view(-1, pages.shape[-2], pages.shape[-1])
-    keep = torch.nonzero(slot_ids >= 0).squeeze(1)
-    flat.index_copy_(0, slot_ids[keep].long(), kv[keep])
+    scatter_rows(pages.view(-1, pages.shape[-2], pages.shape[-1]), slot_ids, kv)
     return pages
 
 
-def write_kv_pages(pages: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+def write_kv_pages(pages: torch.Tensor, k: torch.Tensor, v: Optional[torch.Tensor],
                    slot_ids: torch.Tensor,
                    kv_scale: Optional[float] = None) -> torch.Tensor:
     """Write token rows into one layer's pages, in place.
 
-    pages:    (NB, BS, 2*KVH, D) f32/bf16/int8, K even / V odd heads
-    k, v:     (T, KVH, D) f32/bf16; rows may be strided, heads contiguous
+    pages:    (NB, BS, 2*KVH, D) f32/bf16/int8, K even / V odd heads; or, in
+              the single-plane form (v None), (NB, BS, C, D) taking k as is
+    k, v:     (T, KVH, D) f32/bf16 (k: (T, C, D) when v is None); rows may be
+              strided, heads contiguous
     slot_ids: (T,) int32 physical slot (block * BS + offset); < 0 = dropped
     kv_scale: the static int8 scale (required iff the cache is int8)
     """
@@ -56,22 +76,26 @@ def write_kv_pages(pages: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return write_kv_pages_plain(pages, k, v, slot_ids, kv_scale)
     _check_scale(pages, kv_scale)
     T, kvh, d = k.shape
-    if v.shape != k.shape or pages.shape[-2:] != (2 * kvh, d) \
+    planes = kvh if v is None else 2 * kvh
+    if (v is not None and v.shape != k.shape) or pages.shape[-2:] != (planes, d) \
             or slot_ids.shape != (T,):
         raise ValueError(f"shape mismatch: pages {tuple(pages.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)}, slots "
-                         f"{tuple(slot_ids.shape)}")
-    if k.dtype != v.dtype or slot_ids.dtype != torch.int32:
+                         f"{tuple(k.shape)}, v {None if v is None else tuple(v.shape)}, "
+                         f"slots {tuple(slot_ids.shape)}")
+    rows = (k,) if v is None else (k, v)
+    if any(t.dtype != k.dtype for t in rows) or slot_ids.dtype != torch.int32:
         raise TypeError("k and v must share a dtype; slot_ids must be int32")
-    for t in (k, v):
+    for t in rows:
         if t.stride(-1) != 1 or t.stride(-2) != d:
             raise ValueError("k/v heads must be contiguous within a row")
+        if t.device != pages.device:
+            raise ValueError("k, v and pages must share a device")
     build.check_cuda(pages, slot_ids)
-    if k.device != pages.device or v.device != pages.device:
-        raise ValueError("k, v and pages must share a device")
     in_code = build.dtype_code(k, (torch.float32, torch.bfloat16))
     cache_code = build.dtype_code(pages, (torch.float32, torch.bfloat16, torch.int8))
-    build.launch("kv_writer", k.data_ptr(), v.data_ptr(), k.stride(0), v.stride(0),
+    # a null v pointer selects the single-plane form
+    build.launch("kv_writer", k.data_ptr(), None if v is None else v.data_ptr(),
+                 k.stride(0), 0 if v is None else v.stride(0),
                  slot_ids.data_ptr(), pages.data_ptr(), T, kvh, d, in_code,
                  cache_code, float(kv_scale or 1.0))
     write_kv_pages.launches += 1

@@ -24,15 +24,21 @@ def dense_paged_attention(q: torch.Tensor, pages: torch.Tensor,
     """Gather-dense masked attention (the port of
     hydrainfer_tpu/ops/attention.py:paged_attention_jnp, dense form).
 
-    q: (T, H, D); pages: (NB, BS, 2*KVH, D); block_tables: (S, MB), -1 padded;
-    q_seq_ids/q_local_ids: (T,) with -1 seq = padding; q_lens: (S,).
+    q: (T, H, D); pages: (NB, BS, 2*KVH, D), or (NB, BS, 1, D) for the
+    single-plane latent cache, whose one vector per token is both K and V;
+    block_tables: (S, MB), -1 padded; q_seq_ids/q_local_ids: (T,) with -1
+    seq = padding; q_lens: (S,).
     """
     T, H, D = q.shape
     S, MB = block_tables.shape
-    kvh = pages.shape[-2] // 2
-    pg = pages[block_tables.clamp(min=0).long()]          # (S, MB, BS, 2KVH, D)
-    k = pg[..., 0::2, :].reshape(S, -1, kvh, D)
-    v = pg[..., 1::2, :].reshape(S, -1, kvh, D)
+    pg = pages[block_tables.clamp(min=0).long()]          # (S, MB, BS, CKV, D)
+    if pages.shape[-2] == 1:
+        kvh = 1
+        k = v = pg.reshape(S, -1, 1, D)
+    else:
+        kvh = pages.shape[-2] // 2
+        k = pg[..., 0::2, :].reshape(S, -1, kvh, D)
+        v = pg[..., 1::2, :].reshape(S, -1, kvh, D)
     if kv_scale is not None:
         k = (k.float() * kv_scale).to(q.dtype)
         v = (v.float() * kv_scale).to(q.dtype)

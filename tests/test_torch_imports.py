@@ -47,7 +47,7 @@ def test_port_and_chip_smoke_import_no_jax():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert "hydrainfer_tpu_torch.entrypoint.offline" in res["imported"]
     for name in ("ops.cuda.build", "ops.cuda.mha_varlen", "models.qwen2_vl",
-                 "models.weight_loader"):
+                 "models.weight_loader", "ops.cuda.paged_attention_latent"):
         assert "hydrainfer_tpu_torch." + name in res["imported"]
     assert res["bad"] == []
 

@@ -9,13 +9,23 @@ attention, of the dequantized K/V; in K5, of the probabilities fed to the
 tensor cores); the int8 KV write within one step (the plain version's
 division may round through a reciprocal). K5 runs in its ViT form (T not a
 multiple of 64, tiles of padding only), its causal form and with V a
-strided view of a fused qkv, at D 32, 64, 80 and 128, in bf16 and f32.
+strided view of a fused qkv, at D 32, 64, 80 and 128, in bf16 and f32. K6
+runs decode and mixed batches over a single-plane latent cache at mla-2b-lm's
+D576 and softmax scale 1/sqrt(192), with 16 and 8 heads (bf16 q, int8 and
+bf16 planes), and at small f32 D (24, 48), with a 75-page table, padded rows
+and sequences, and NaN in every page and slot it must not read; its bf16 form
+is held against the plain version run in f32 on the same bf16 inputs, within
+2e-2 x max|plain| (bf16 P and output rounding), a bound that a reference
+missing one 64-row kv tile breaks. K3's
+single-plane form writes latent rows with the int8 quantize rounding half to
+even and drops negative slots.
 """
 import numpy as np
 import pytest
 import torch
 
 from hydrainfer_tpu_torch.ops.cuda import (mha_decode_attention, mha_varlen_flash,
+                                           paged_attention_latent,
                                            paged_attention_varlen,
                                            quant_matmul_int8, write_kv_pages)
 from hydrainfer_tpu_torch.ops.cuda.kv_writer import write_kv_pages_plain
@@ -200,3 +210,133 @@ def test_k5_strided_v(dev):
     ref = mha_varlen_plain(q, k, v.contiguous(), i, D ** -0.5)[0]
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), ref.float(), rtol=2e-2, atol=2e-2)
+
+
+def latent_case(seq_specs, H, D, bs, dtype, seed=0, pad_tokens=3, pad_seqs=1):
+    """A single-plane cache (NB, BS, 1, D) holding each sequence's kv_len
+    latent rows in shuffled pages; every other page, and every slot past a
+    sequence's kv_len, holds NaN (bf16/f32 planes) or -128 (int8, never
+    written by the quantize). Returns q (T + pad_tokens rows), the poisoned
+    pages, the same pages with the poison zeroed, and the geometry with
+    pad_seqs empty sequences."""
+    rng = np.random.default_rng(seed)
+    S = len(seq_specs) + pad_seqs
+    mb = max(-(-kv // bs) for _, kv in seq_specs)
+    nb = S * mb + 3
+    perm = rng.permutation(np.arange(1, nb))
+    tables = np.zeros((S, mb), np.int32)
+    live = np.zeros((nb, bs), bool)
+    for s, (_, kv) in enumerate(seq_specs):
+        n = -(-kv // bs)
+        tables[s, :n] = perm[s * mb: s * mb + n]
+        for i in range(kv):
+            live[tables[s, i // bs], i % bs] = True
+    vals = rng.standard_normal((nb, bs, 1, D)).astype(np.float32)
+    if dtype == torch.int8:
+        clean = np.clip(np.round(vals / SCALE), -127, 127).astype(np.int8)
+        poison = -128
+    else:
+        clean = vals
+        poison = np.nan
+    poisoned = np.where(live[:, :, None, None], clean, poison).astype(clean.dtype)
+    clean = np.where(live[:, :, None, None], clean, 0).astype(clean.dtype)
+    T = sum(q for q, _ in seq_specs)
+    q = rng.standard_normal((T + pad_tokens, H, D)).astype(np.float32)
+    cu = np.concatenate([[0], np.cumsum([q_ for q_, _ in seq_specs]),
+                         [T] * pad_seqs]).astype(np.int32)
+    kv_lens = np.asarray([kv for _, kv in seq_specs] + [0] * pad_seqs, np.int32)
+    conv = (lambda a: torch.from_numpy(a)) if dtype == torch.int8 else \
+        (lambda a: torch.from_numpy(a).to(dtype))
+    i32 = lambda a: torch.from_numpy(np.asarray(a, np.int32))
+    return (torch.from_numpy(q), conv(poisoned), conv(clean), i32(kv_lens),
+            torch.from_numpy(tables), i32(cu), i32([len(seq_specs)]))
+
+
+LATENT = [
+    ("d576_int8_bf16q", 16, 576, 16, torch.int8, torch.bfloat16),
+    ("d576_bf16_bf16q", 16, 576, 16, torch.bfloat16, torch.bfloat16),
+    ("d576_int8_f32q", 16, 576, 16, torch.int8, torch.float32),
+    ("d576_h8_bf16_bf16q", 8, 576, 4, torch.bfloat16, torch.bfloat16),
+    ("d48_h8_f32", 8, 48, 4, torch.float32, torch.float32),
+    ("d24_h4_int8_f32q", 4, 24, 4, torch.int8, torch.float32),
+]
+LATENT_SPECS = {
+    "decode": [(1, 300), (1, 1), (1, 17), (1, 129), (1, 64)],    # 75 pages at BS 4
+    "mixed": [(40, 40), (1, 300), (7, 23), (1, 9), (20, 120), (3, 3)],
+}
+
+
+@pytest.mark.parametrize("batch", sorted(LATENT_SPECS))
+@pytest.mark.parametrize("name,H,D,bs,kv_dtype,q_dtype", LATENT, ids=[a[0] for a in LATENT])
+def test_k6_latent(dev, batch, name, H, D, bs, kv_dtype, q_dtype):
+    specs = LATENT_SPECS[batch]
+    q, pages, clean, kv_lens, tables, cu, ns = latent_case(specs, H, D, bs, kv_dtype,
+                                                           seed=7)
+    scale = SCALE if kv_dtype == torch.int8 else None
+    sm = 192 ** -0.5 if D == 576 else D ** -0.5        # mla-2b-lm: 1/sqrt(nope + rope)
+    geo = [kv_lens.to(dev), tables.to(dev), cu.to(dev), ns.to(dev)]
+    qd = q.to(dev, q_dtype)
+    got = paged_attention_latent(qd, pages.to(dev), *geo, sm, scale)
+    # the plain version in f32 on the same (rounded) inputs, NaN-free pages
+    ref_pages = clean.to(dev) if kv_dtype == torch.int8 else clean.to(dev).float()
+    ref = paged_attention_varlen_plain(qd.float(), ref_pages, *geo, sm, scale)
+    torch.cuda.synchronize()
+    n = int(cu[-1])
+    assert bool(torch.isfinite(got.float()).all())
+    if q_dtype == torch.float32:
+        torch.testing.assert_close(got[:n], ref[:n], rtol=1e-4, atol=1e-4)
+    else:
+        bound = 2e-2 * ref[:n].abs().max().item()
+        assert (got[:n].float() - ref[:n]).abs().max().item() <= bound
+        if batch == "decode":
+            # the bound is tight enough to catch a kernel that skips one kv
+            # tile: the first sequence (kv 300) without its rows 64..127
+            drop = 64 // bs
+            t = tables.clone()
+            t[0, drop:-drop] = tables[0, 2 * drop:]
+            kl = kv_lens.clone()
+            kl[0] -= 64
+            miss = paged_attention_varlen_plain(qd.float(), ref_pages, kl.to(dev),
+                                                t.to(dev), *geo[2:], sm, scale)
+            assert (miss[0] - ref[0]).abs().max().item() > bound
+    assert bool((got[n:] == 0).all())                  # padding rows: zeros
+
+
+def test_k6_counts_its_launches(dev):
+    q, pages, _, kv_lens, tables, cu, ns = latent_case([(1, 20), (3, 9)], 16, 576, 16,
+                                                       torch.int8, pad_tokens=0,
+                                                       pad_seqs=0)
+    paged_attention_latent.launches = 0
+    paged_attention_latent(q.to(dev, torch.bfloat16), pages.to(dev), kv_lens.to(dev),
+                           tables.to(dev), cu.to(dev), ns.to(dev), 0.07, SCALE)
+    torch.cuda.synchronize()
+    assert paged_attention_latent.launches == 1
+
+
+@pytest.mark.parametrize("cache_dtype,in_dtype", [
+    (torch.int8, torch.bfloat16), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.float32)])
+def test_k3_single_plane_write(dev, cache_dtype, in_dtype):
+    """The latent write: rows as they are (no interleave), int8 rounding half
+    to even (scale 0.25 makes x / scale exactly k + 0.5), dropped negative
+    slots leave their rows untouched."""
+    rng = np.random.default_rng(8)
+    T, D, bs, nb, scale = 29, 576, 16, 6, 0.25
+    slots = rng.permutation(nb * bs)[:T].astype(np.int32)
+    slots[[0, 11, 28]] = -1
+    half = (rng.integers(-200, 200, (T, 1, D)) + 0.5) * scale     # exact in bf16
+    x = torch.from_numpy(half.astype(np.float32)).to(dev, in_dtype)
+    q8 = cache_dtype == torch.int8
+    got = torch.full((nb, bs, 1, D), 7, dtype=cache_dtype, device=dev)
+    ref = got.clone()
+    s = torch.from_numpy(slots).to(dev)
+    write_kv_pages(got, x, None, s, scale if q8 else None)
+    write_kv_pages_plain(ref, x, None, s, scale if q8 else None)
+    torch.cuda.synchronize()
+    expect = np.full((nb * bs, 1, D), 7, np.float32)
+    keep = slots >= 0
+    rows = np.clip(np.round(half / scale), -127, 127) if q8 else \
+        x.float().cpu().numpy()
+    expect[slots[keep]] = rows[keep]
+    np.testing.assert_array_equal(got.float().cpu().numpy().reshape(-1, 1, D), expect)
+    np.testing.assert_array_equal(ref.float().cpu().numpy().reshape(-1, 1, D), expect)
