@@ -127,6 +127,31 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
+    """Mean ms per call of `calls` calls captured in one CUDA graph and
+    replayed `replays` times: the card's time without the host's launch cost,
+    which is most of time_ms for a kernel of a few tens of microseconds."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):       # warm up off the capturing stream
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
+
+
 # ---------------------------------------------------------------- phase: build
 
 def phase_build() -> dict:
@@ -332,6 +357,7 @@ def check_attention(gen, dev, path) -> list:
     got = paged_attention_varlen(q, pages, kv_lens, tables, cu, ns, sm, kv_scale)
     ref = paged_attention_varlen_plain(q, pages, kv_lens, tables, cu, ns, sm, kv_scale)
     err = (got.float() - ref.float()).abs().max().item()
+    pad_zero = bool((got[T_real:] == 0).all())
     ks, vs = dense_kv(pages, tables, kv_lens)
     kcat, vcat = torch.cat(ks, 1)[None], torch.cat(vs, 1)[None]
     amask = torch.zeros((T_real, kcat.shape[2]), dtype=torch.bool)
@@ -345,22 +371,80 @@ def check_attention(gen, dev, path) -> list:
         t0, c0 = t0 + ql, c0 + kv
     amask = amask.to(dev)
     qv = q[:T_real].transpose(0, 1)[None]
+    q_flat = q[:T_real]
+    # the varlen forms: each sequence's K/V rows side by side, (sum kv, KVH, D)
+    # for flash (GQA in the call), repeated over the query heads for the
+    # memory-efficient form; bottom-right causal masks, as K2's
+    k_flat = kcat[0, ::H // kvh].transpose(0, 1).contiguous()
+    v_flat = vcat[0, ::H // kvh].transpose(0, 1).contiguous()
+    k_rep, v_rep = (x[0].transpose(0, 1).contiguous()[None] for x in (kcat, vcat))
+    cu_q = cu[:len(specs) + 1]
+    cu_k = torch.tensor([0] + [kvl for _, kvl in specs], device=dev).cumsum(0).int()
+    max_q, max_k = max(ql for ql, _ in specs), max(kvl for _, kvl in specs)
+    library, lib = _fastest({
+        "SDPA, dense bool mask over all sequences' pairs": (
+            lambda: lambda: F.scaled_dot_product_attention(qv, kcat, vcat, attn_mask=amask),
+            lambda o: o[0].transpose(0, 1)),
+        "aten._flash_attention_forward, varlen, causal (GQA)": (
+            lambda: lambda: torch.ops.aten._flash_attention_forward(
+                q_flat, k_flat, v_flat, cu_q, cu_k, max_q, max_k, 0.0, True, False,
+                scale=sm)[0],
+            lambda o: o),
+        "aten._efficient_attention_forward, varlen, bottom-right causal": (
+            lambda: lambda: torch.ops.aten._efficient_attention_forward(
+                q_flat[None], k_rep, v_rep, None, cu_q, cu_k, max_q, max_k, 0.0, 2, False,
+                scale=sm)[0],
+            lambda o: o[0]),
+    }, ref[:T_real], 3e-2)
+    save(f"paged_attention_{path}.json", {"specs": specs, "err": err,
+                                          "padding_rows_zero": pad_zero,
+                                          "library": library})
     n_kv = int(kv_lens.sum())
     b_ms, b_by = bound_ms(T_real * H * D * 2 * 2 + n_kv * 2 * kvh * D,
                           4.0 * H * D * visible)
-    out.append({"name": "paged_attention", "path": path, "ok": err <= 3e-2,
+    kernel = lambda: paged_attention_varlen(q, pages, kv_lens, tables, cu, ns, sm, kv_scale)
+    out.append({"name": "paged_attention", "path": path, "ok": err <= 3e-2 and pad_zero,
                 "max_abs_err": err,
                 "tolerance": "3e-2 abs (bf16 K/V rounding in the plain version)",
                 "shape": f"{T_real} tokens (T={T}) in {len(specs)} seqs: prefills, a "
                          f"chunked continuation, decodes; {heads}",
-                "ms": time_ms(lambda: paged_attention_varlen(q, pages, kv_lens, tables,
-                                                             cu, ns, sm, kv_scale)),
+                "ms": time_ms(kernel),
+                "graph_ms": graph_ms(kernel),
                 "plain_ms": time_ms(lambda: paged_attention_varlen_plain(
                     q, pages, kv_lens, tables, cu, ns, sm, kv_scale), iters=5),
-                "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                    qv, kcat, vcat, attn_mask=amask)),
+                "library_ms": library[lib]["ms"] if lib else None,
+                "library_graph_ms": library[lib].get("graph_ms") if lib else None,
+                "library": f"{lib}; K/V gathered and dequantized outside the timed call"
+                           if lib else None,
+                "library_forms_ms": {n: r.get("ms") for n, r in library.items()},
                 "bound_ms": b_ms, "bound_by": b_by})
     return out
+
+
+def _fastest(calls: dict, ref, tol: float):
+    """Library yardsticks: {name: (make the call, its output in ref's
+    layout)}. Each is held to the plain version's `ref` first (max abs error
+    within tol) and timed only if it agrees; a call this torch build refuses
+    is recorded as such. The fastest is also timed from a CUDA graph
+    (graph_ms). Returns ({name: {"err", "ms"} or {"error"}}, the fastest name
+    or None)."""
+    library, fns = {}, {}
+    for name, (make, flat) in calls.items():
+        try:
+            fns[name] = make()
+            err = (flat(fns[name]()).float() - ref.float()).abs().max().item()
+            library[name] = {"err": err, "ms": time_ms(fns[name]) if err <= tol else None}
+        except Exception as e:          # not in this torch build: say so
+            library[name] = {"error": repr(e)[:200]}
+    timed = {n: r["ms"] for n, r in library.items() if r.get("ms") is not None}
+    if not timed:
+        return library, None
+    lib = min(timed, key=timed.get)
+    try:
+        library[lib]["graph_ms"] = graph_ms(fns[lib])
+    except Exception as e:              # a call that cannot be captured
+        library[lib]["graph_error"] = repr(e)[:200]
+    return library, lib
 
 
 def _latent_case(gen, seq_specs, n_blocks, bs, d, kv_scale, dev):
@@ -593,6 +677,7 @@ def check_mha_varlen(gen, dev) -> dict:
     qs, ks, vs = (t.transpose(0, 1)[None] for t in (q, k, v))
     mask = ids[:, None] == ids[None, :]
     ms = time_ms(lambda: mha_varlen_flash(q, k, v, ids, sm))
+    ms_graph = graph_ms(lambda: mha_varlen_flash(q, k, v, ids, sm))
     plain_ms = time_ms(lambda: mha_varlen_plain(q, k, v, ids, sm), iters=3)
     # library yardsticks, each held to the plain version first; library_ms is
     # the fastest that ran. SDPA with the block-diagonal mask computes all
@@ -606,8 +691,7 @@ def check_mha_varlen(gen, dev) -> dict:
                       for t in (q, k, vc))
         return lambda: F.scaled_dot_product_attention(qn, kn, vn)
 
-    # name: (make the call, its output as (T, H, D))
-    forms = {
+    library, lib = _fastest({
         "SDPA, block-diagonal bool mask": (
             lambda: lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask),
             lambda o: o[0].transpose(0, 1)),
@@ -616,18 +700,8 @@ def check_mha_varlen(gen, dev) -> dict:
             lambda: lambda: torch.ops.aten._flash_attention_forward(
                 q, k, vc, cu, cu, max(sizes), max(sizes), 0.0, False, False, scale=sm)[0],
             lambda o: o),
-    }
-    library = {}
-    for name, (make, flat) in forms.items():
-        try:
-            fn = make()
-            lerr = (flat(fn()).float() - ref.float()).abs().max().item()
-            library[name] = {"err": lerr, "ms": time_ms(fn) if lerr <= tol else None}
-        except Exception as e:          # not in this torch build: say so
-            library[name] = {"error": repr(e)[:200]}
-    timed = {n: r["ms"] for n, r in library.items() if r.get("ms") is not None}
-    lib = min(timed, key=timed.get) if timed else None
-    lib_ms = timed[lib] if timed else None
+    }, ref, tol)
+    lib_ms = library[lib]["ms"] if lib else None
 
     # (b) the causal form: gathered pages with segment ids (-1 past each
     # kv_len) and cache positions; q rows carry their cache position
@@ -663,8 +737,9 @@ def check_mha_varlen(gen, dev) -> dict:
             "tolerance": "3e-2 x max|plain| (bf16 P and output rounding)",
             "shape": f"ViT form: {T} patches of 8 images, {H} heads x d{D}, bf16; "
                      "causal form: 5 seqs over gathered pages, 12 heads x d128",
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_ms, "library": lib,
+            "ms": ms, "graph_ms": ms_graph, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms, "library": lib,
+            "library_graph_ms": library[lib].get("graph_ms") if lib else None,
             "library_forms_ms": {n: r.get("ms") for n, r in library.items()}}
 
 
@@ -1290,6 +1365,7 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         **({"library": r["library"]} if r.get("library") else {}),
+                        **{k: r[k] for k in ("graph_ms", "library_graph_ms") if k in r},
                         "shape": r["shape"], "ok": r["ok"]})
     emit({"kernels": kernels})
     if failed:

@@ -6,7 +6,9 @@ positions are given, kv_pos[j] <= q_pos[i]. The ViT towers call it over the
 patches of every image in a batch (one segment per image); the causal form
 (separate kv ids and positions) is the one the JAX package builds over
 gathered pages. Bound on H100: operations at ViT sizes, bytes at small T.
-This module also holds the plain version, the port of
+bf16 inputs take a flash-attention forward on mma.sync with 128-row q tiles
+and K/V tiles staged by cp.async in a ring ahead of their use; f32 inputs
+take a scalar FMA form. This module also holds the plain version, the port of
 hydrainfer_tpu/ops/attention.py:_mha_varlen_dense with the kernel's kv ids
 and positions added.
 """
@@ -18,7 +20,8 @@ import torch
 from . import build
 
 NEG_INF = -0.7 * torch.finfo(torch.float32).max
-TILE = 64          # rows per tile of the kernel's tile-range pre-pass
+TILE = 64          # the smallest tile of the kernel's tile-range pre-pass
+STAT = 5           # ints the pre-pass records per tile
 
 
 def mha_varlen_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -101,8 +104,12 @@ def mha_varlen_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must share a device")
     code = build.dtype_code(q, (torch.float32, torch.bfloat16))
+    if q.dtype == torch.bfloat16:
+        # the kernel copies rows in 16-byte pieces
+        q, k, v = (t if t.data_ptr() % 16 == 0 and t.stride(0) % 8 == 0
+                   else t.clone(memory_format=torch.contiguous_format) for t in (q, k, v))
     out = torch.empty((Tq, H, D), dtype=q.dtype, device=q.device)
-    stats = torch.empty(3 * (-(-Tq // TILE) + -(-Tk // TILE)), dtype=torch.int32,
+    stats = torch.empty(STAT * (-(-Tq // TILE) + -(-Tk // TILE)), dtype=torch.int32,
                         device=q.device)
     ptr = lambda t: t.data_ptr() if t is not None else None
     build.launch("mha_varlen", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -3,9 +3,14 @@
 Replaces hydrainfer_tpu/ops/pallas/paged_attention.py:layered_paged_attention
 (CKV-even form): token t of sequence s sits at cache position
 kv_len - q_len + (t - cu_q_lens[s]) and attends causally to the sequence's
-pages. Bound on H100: operations for long prefill chunks, bytes for short
-ones. This module also holds the dense gather-and-mask attention that is the
-plain version of K1 and K2 and of ops/attention.py:paged_attention_plain.
+pages. Bound on H100: bytes at the serving paths' shapes, and in practice
+the latency of a block's few kv tiles. bf16 queries over an int8 or bf16
+cache take the tensor-core form: 64 (token, query head) rows of one kv head
+a block, Q.K^T and P.V on mma.sync, K/V tiles of 64 rows staged by cp.async
+in two stages, ahead of their use. f32 queries and an f32 cache take a
+scalar FMA form. This module also holds the dense gather-and-mask attention
+that is the plain version of K1 and K2 and of
+ops/attention.py:paged_attention_plain.
 """
 from typing import Optional
 
@@ -112,7 +117,8 @@ def paged_attention_varlen(q: torch.Tensor, kv_pages: torch.Tensor,
     q: (T, Hq, D) f32/bf16; kv_pages: (NB, BS, 2*KVH, D) f32/bf16/int8;
     kv_lens: (S,) i32; page_indices: (S, MB) i32 (>= 0); cu_q_lens: (S+1,) i32;
     num_seqs: (1,) i32 -> (T, Hq, D). max_q bounds the plain version's
-    per-sequence padding (the kernel does not need it).
+    per-sequence padding (the kernel does not need it). bf16 queries over an
+    int8 or bf16 cache need D a multiple of 16 up to 128.
     """
     if q.device.type == "cpu":
         return paged_attention_varlen_plain(q, kv_pages, kv_lens, page_indices,
@@ -132,7 +138,13 @@ def paged_attention_varlen(q: torch.Tensor, kv_pages: torch.Tensor,
     build.check_cuda(q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs)
     q_code = build.dtype_code(q, (torch.float32, torch.bfloat16))
     kv_code = build.dtype_code(kv_pages, (torch.float32, torch.bfloat16, torch.int8))
-    out = torch.zeros_like(q)
+    tensor_cores = q.dtype == torch.bfloat16 and kv_pages.dtype != torch.float32
+    if tensor_cores and (D % 16 or D > 128):
+        raise ValueError(f"head_dim {D} not supported for bf16 queries over an "
+                         f"{kv_pages.dtype} cache (a multiple of 16 up to 128)")
+    # the tensor-core form writes every row, padding included; the FMA form
+    # leaves rows past the last sequence as it finds them
+    out = torch.empty_like(q) if tensor_cores else torch.zeros_like(q)
     scale = float(kv_scale) if kv_scale is not None else 1.0
     build.launch("paged_attention", q.data_ptr(), kv_pages.data_ptr(),
                  kv_lens.data_ptr(), page_indices.data_ptr(), cu_q_lens.data_ptr(),

@@ -3,10 +3,11 @@
 Cases come from tests/ops/test_paged_attention.py:build_case (numpy, seeded):
 single and multi-sequence prefill, decode with history, mixed
 prefill/decode/chunked batches, padded tokens and sequences, multi-page walks,
-GQA ratio 4, an int8 KV cache with a static scale, and block tables wider than
-64 pages. K2 (ops/cuda/paged_attention.py) is held against the JAX Pallas
-layered kernel in interpret mode; the dispatcher and `paged_attention_plain`
-against `paged_attention_jnp`. Tolerance 1e-4 (f32; summation order only).
+GQA ratios 4 and 6, a 70-token chunk starting mid-tile, an int8 KV cache with
+a static scale, and block tables wider than 64 pages. K2
+(ops/cuda/paged_attention.py) is held against the JAX Pallas layered kernel
+in interpret mode; the dispatcher and `paged_attention_plain` against
+`paged_attention_jnp`. Tolerance 1e-4 (f32; summation order only).
 K1 has its own file, test_torch_mha_decode.py; the kernels themselves are
 held against these plain versions on the card in test_torch_kernels_cuda.py.
 """
@@ -55,6 +56,11 @@ CASES = {
     "multi_page": ([(1, 37), (2, 21)], {}),
     "gqa_ratio_4": ([(3, 8), (1, 5)], dict(H=8, KVH=2)),
     "wide_table": ([(4, 300), (1, 270)], dict(n_blocks=160)),  # 75 pages
+    # the GQA ratio of qwen2-vl-2b-lm's 12 q / 2 kv heads
+    "gqa_ratio_6": ([(5, 9), (1, 7), (2, 2)], dict(H=12, KVH=2)),
+    # a chunk longer than K2's 64-row tensor-core tile, starting at cache
+    # position 31 (off a tile boundary), beside a decode
+    "long_chunk_mid_tile": ([(70, 101), (1, 9)], {}),
 }
 
 
@@ -73,8 +79,16 @@ def test_plain_matches_paged_attention_jnp(name, int8):
     np.testing.assert_allclose(got.numpy()[:n], np.asarray(ref)[:n], **TOL)
 
 
+# Pallas block sizes: (8 q rows, 2 pages) unless named. At those sizes the
+# JAX kernel gets the rows of a 17- to 70-token chunk past its first q block
+# wrong in interpret mode (against paged_attention_jnp; ROADMAP section 3),
+# so the long chunk runs at the kernel's default sizes, where it agrees.
+PALLAS_BLOCKS = {"long_chunk_mid_tile": dict(num_queries_per_block=None,
+                                             num_kv_pages_per_block=None)}
+
 K2_CASES = [(name, False) for name in sorted(CASES)] + [
-    (name, True) for name in ("mixed_chunked", "padded", "gqa_ratio_4", "wide_table")]
+    (name, True) for name in ("mixed_chunked", "padded", "gqa_ratio_4", "wide_table",
+                              "gqa_ratio_6", "long_chunk_mid_tile")]
 
 
 @pytest.mark.parametrize("name,int8", K2_CASES)
@@ -86,8 +100,8 @@ def test_k2_matches_layered_pallas_kernel(name, int8):
     ref = layered_paged_attention(
         jnp.asarray(q), jnp.asarray(cache), jnp.asarray([0], jnp.int32),
         params.kv_lens, jnp.maximum(params.block_tables, 0), params.cu_q_lens,
-        params.num_seqs, sm_scale=sm, k_scale=scale, v_scale=scale,
-        num_queries_per_block=8, num_kv_pages_per_block=2, interpret=True)
+        params.num_seqs, sm_scale=sm, k_scale=scale, v_scale=scale, interpret=True,
+        **PALLAS_BLOCKS.get(name, dict(num_queries_per_block=8, num_kv_pages_per_block=2)))
     p = port_params(params)
     got = paged_attention_varlen(t(q), t(cache)[0, 0], p.kv_lens,
                                  p.block_tables.clamp(min=0), p.cu_q_lens,

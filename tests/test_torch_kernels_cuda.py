@@ -7,9 +7,16 @@ Inputs are made from a seed with numpy. Tolerances: f32 1e-4 (summation
 order); bf16 outputs 2e-2 (bf16 rounding of the output and, in the plain
 attention, of the dequantized K/V; in K5, of the probabilities fed to the
 tensor cores); the int8 KV write within one step (the plain version's
-division may round through a reciprocal). K5 runs in its ViT form (T not a
-multiple of 64, tiles of padding only), its causal form and with V a
-strided view of a fused qkv, at D 32, 64, 80 and 128, in bf16 and f32. K6
+division may round through a reciprocal). K2's tensor-core form (bf16 q
+over int8 and bf16 caches) runs at qwen2-vl-2b-lm's GQA 6:1 x d128 and at
+d64 and d80, with chunks longer than its 64-row q tile, continuations that
+start off a tile boundary, a 75-page table and NaN in every page and slot it
+must not read. K5 runs in its ViT form (T not a multiple of its q tile,
+segments spanning several tiles, tiles of padding only), its causal form and
+with V a strided view of a fused qkv, at D 32, 64, 80 and 128, in bf16 and
+f32. The bf16 forms of K2 and K5 are held against the plain version run in
+f32 on the same bf16 inputs within 2e-2 x max|plain|, a bound that a
+reference missing one kv tile breaks (test_torch_kernel_bounds.py). K6
 runs decode and mixed batches over a single-plane latent cache at mla-2b-lm's
 D576 and softmax scale 1/sqrt(192), with 16 and 8 heads (bf16 q, int8 and
 bf16 planes), and at small f32 D (24, 48), with a 75-page table, padded rows
@@ -112,6 +119,54 @@ def test_k2_mixed(dev, name, H, KVH, D, bs, kv_dtype, q_dtype):
     assert bool((got[int(cu[-1]):] == 0).all())
 
 
+def hold_bf16(got, ref, n):
+    """A bf16 kernel output against the plain version run in f32 on the same
+    bf16 inputs: rows below n within 2e-2 x max|plain| (bf16 P and output
+    rounding), finite everywhere, rows from n on exactly zero."""
+    bound = 2e-2 * ref[:n].abs().max().item()
+    assert bool(torch.isfinite(got.float()).all())
+    assert (got[:n].float() - ref[:n]).abs().max().item() <= bound
+    assert bool((got[n:] == 0).all())
+
+
+K2_MMA = [
+    ("vlm_gqa6_int8", 12, 2, 128, 16, torch.int8),     # qwen2-vl-2b-lm's heads
+    ("mha_int8_bs4", 8, 8, 128, 4, torch.int8),        # a 75-page table
+    ("gqa2_bf16_d64", 4, 2, 64, 16, torch.bfloat16),
+    ("gqa6_bf16_d80", 6, 1, 80, 16, torch.bfloat16),
+]
+# chunks longer than one q tile (130 tokens), continuations starting off a
+# tile boundary (64 over 192, 37 over 101), decodes, a short prefill
+K2_SPECS = [(130, 130), (64, 192), (37, 101), (1, 300), (1, 9), (7, 23), (3, 3)]
+
+
+@pytest.mark.parametrize("name,H,KVH,D,bs,kv_dtype", K2_MMA, ids=[a[0] for a in K2_MMA])
+def test_k2_tensor_cores(dev, name, H, KVH, D, bs, kv_dtype):
+    """The bf16-q form over combined-head pages holding NaN (-128 for int8)
+    in every page and slot it must not read, NaN query padding rows and a
+    padded sequence."""
+    q, pages, clean, kv_lens, tables, cu, ns = poisoned_case(
+        K2_SPECS, H, D, bs, kv_dtype, seed=9, planes=2 * KVH, nan_q=True)
+    scale = SCALE if kv_dtype == torch.int8 else None
+    geo = [kv_lens.to(dev), tables.to(dev), cu.to(dev), ns.to(dev)]
+    qd = q.to(dev, torch.bfloat16)
+    got = paged_attention_varlen(qd, pages.to(dev), *geo, D ** -0.5, scale)
+    ref_pages = clean.to(dev) if kv_dtype == torch.int8 else clean.to(dev).float()
+    ref = paged_attention_varlen_plain(qd.float(), ref_pages, *geo, D ** -0.5, scale)
+    torch.cuda.synchronize()
+    hold_bf16(got, ref, int(cu[-1]))
+
+
+def test_k2_counts_its_launches(dev):
+    q, pages, _, kv_lens, tables, cu, ns = poisoned_case([(70, 90), (1, 20)], 12, 128, 16,
+                                                         torch.int8, planes=4)
+    paged_attention_varlen.launches = 0
+    paged_attention_varlen(q.to(dev, torch.bfloat16), pages.to(dev), kv_lens.to(dev),
+                           tables.to(dev), cu.to(dev), ns.to(dev), 0.09, SCALE)
+    torch.cuda.synchronize()
+    assert paged_attention_varlen.launches == 1
+
+
 @pytest.mark.parametrize("cache_dtype,in_dtype", [
     (torch.int8, torch.bfloat16), (torch.float32, torch.float32),
     (torch.bfloat16, torch.bfloat16)])
@@ -212,13 +267,76 @@ def test_k5_strided_v(dev):
     torch.testing.assert_close(got.float(), ref.float(), rtol=2e-2, atol=2e-2)
 
 
-def latent_case(seq_specs, H, D, bs, dtype, seed=0, pad_tokens=3, pad_seqs=1):
-    """A single-plane cache (NB, BS, 1, D) holding each sequence's kv_len
-    latent rows in shuffled pages; every other page, and every slot past a
-    sequence's kv_len, holds NaN (bf16/f32 planes) or -128 (int8, never
-    written by the quantize). Returns q (T + pad_tokens rows), the poisoned
-    pages, the same pages with the poison zeroed, and the geometry with
-    pad_seqs empty sequences."""
+def vit_case(segments, pad, H, D, seed):
+    """Fused qkv rows (T, 3, H, D) of `segments` images and `pad` padding
+    rows (NaN in q, k and v) and their segment ids."""
+    rng = np.random.default_rng(seed)
+    ids = np.asarray(sum(([i] * n for i, n in enumerate(segments)), []) + [-1] * pad,
+                     np.int32)
+    qkv = rng.standard_normal((len(ids), 3, H, D)).astype(np.float32)
+    qkv[ids < 0] = np.nan
+    return qkv, ids
+
+
+# segments not aligned to the 128-row q tile, one spanning five and a half
+# tiles; the Qwen2-VL tower's 16 heads x d80; a q tile of padding only
+K5_MMA = [("long_segments", [700, 130, 60], 20, 2),
+          ("qwen2vl_heads", [256, 64, 144], 0, 16),
+          ("padding_tile", [70], 130, 2)]
+
+
+@pytest.mark.parametrize("D", [64, 80, 128])
+@pytest.mark.parametrize("name,segments,pad,H", K5_MMA, ids=[a[0] for a in K5_MMA])
+def test_k5_tensor_cores(dev, name, segments, pad, H, D):
+    """The bf16 form with V a strided view of the fused qkv, as the ViT
+    passes it, held against the plain version in f32 on the same bf16
+    inputs with the padding rows zeroed."""
+    qkv, ids = vit_case(segments, pad, H, D, seed=10)
+    x = torch.from_numpy(qkv).to(dev, torch.bfloat16)
+    q, k, v = x[:, 0].contiguous(), x[:, 1].contiguous(), x[:, 2]
+    i = torch.from_numpy(ids).to(dev)
+    got = mha_varlen_flash(q, k, v, i, D ** -0.5)
+    clean = torch.nan_to_num(x.float(), nan=0.0)
+    ref = mha_varlen_plain(clean[:, 0], clean[:, 1], clean[:, 2], i, D ** -0.5)[0]
+    torch.cuda.synchronize()
+    n = int((ids >= 0).sum())          # the padding rows come last
+    hold_bf16(got, ref, n)
+
+
+@pytest.mark.parametrize("D", [80, 128])
+def test_k5_tensor_cores_causal(dev, D):
+    """The causal form with chunks longer than one q tile, held as above."""
+    rng = np.random.default_rng(11)
+    specs = [(200, 200), (1, 90), (64, 192), (5, 5)]
+    max_kv = max(kv for _, kv in specs)
+    kv_pos = np.tile(np.arange(max_kv, dtype=np.int32), len(specs))
+    kv_ids = np.repeat(np.arange(len(specs), dtype=np.int32), max_kv)
+    kv_ids = np.where(kv_pos < np.repeat([kv for _, kv in specs], max_kv), kv_ids, -1)
+    ids = np.concatenate([[s] * ql for s, (ql, _) in enumerate(specs)] + [[-1] * 9])
+    q_pos = np.concatenate([np.arange(kv - ql, kv) for ql, kv in specs] + [[0] * 9])
+    H = 3
+    q = rng.standard_normal((len(ids), H, D)).astype(np.float32)
+    k, v = (rng.standard_normal((len(kv_ids), H, D)).astype(np.float32) for _ in range(2))
+    v[kv_ids < 0] = np.nan              # gathered past each kv_len: never read as such
+    on = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(dev)
+    args = dict(kv_seq_ids=on(kv_ids), q_pos=on(q_pos), kv_pos=on(kv_pos))
+    qb, kb, vb = (torch.from_numpy(a).to(dev, torch.bfloat16) for a in (q, k, v))
+    got = mha_varlen_flash(qb, kb, vb, on(ids), D ** -0.5, **args)
+    ref = mha_varlen_plain(qb.float(), kb.float(), torch.nan_to_num(vb.float(), nan=0.0),
+                           on(ids), D ** -0.5, **args)[0]
+    torch.cuda.synchronize()
+    hold_bf16(got, ref, int((ids >= 0).sum()))
+
+
+def poisoned_case(seq_specs, H, D, bs, dtype, seed=0, pad_tokens=3, pad_seqs=1, planes=1,
+                  nan_q=False):
+    """A cache (NB, BS, planes, D) holding each sequence's kv_len rows in
+    shuffled pages (planes = 1: K6's single latent plane; 2 x KVH: K2's
+    combined heads); every other page, and every slot past a sequence's
+    kv_len, holds NaN (bf16/f32) or -128 (int8, never written by the
+    quantize). Returns q (T + pad_tokens rows; those past T NaN with nan_q), the
+    poisoned pages, the same pages with the poison zeroed, and the geometry
+    with pad_seqs empty sequences."""
     rng = np.random.default_rng(seed)
     S = len(seq_specs) + pad_seqs
     mb = max(-(-kv // bs) for _, kv in seq_specs)
@@ -231,7 +349,7 @@ def latent_case(seq_specs, H, D, bs, dtype, seed=0, pad_tokens=3, pad_seqs=1):
         tables[s, :n] = perm[s * mb: s * mb + n]
         for i in range(kv):
             live[tables[s, i // bs], i % bs] = True
-    vals = rng.standard_normal((nb, bs, 1, D)).astype(np.float32)
+    vals = rng.standard_normal((nb, bs, planes, D)).astype(np.float32)
     if dtype == torch.int8:
         clean = np.clip(np.round(vals / SCALE), -127, 127).astype(np.int8)
         poison = -128
@@ -242,6 +360,8 @@ def latent_case(seq_specs, H, D, bs, dtype, seed=0, pad_tokens=3, pad_seqs=1):
     clean = np.where(live[:, :, None, None], clean, 0).astype(clean.dtype)
     T = sum(q for q, _ in seq_specs)
     q = rng.standard_normal((T + pad_tokens, H, D)).astype(np.float32)
+    if nan_q:
+        q[T:] = np.nan
     cu = np.concatenate([[0], np.cumsum([q_ for q_, _ in seq_specs]),
                          [T] * pad_seqs]).astype(np.int32)
     kv_lens = np.asarray([kv for _, kv in seq_specs] + [0] * pad_seqs, np.int32)
@@ -270,7 +390,7 @@ LATENT_SPECS = {
 @pytest.mark.parametrize("name,H,D,bs,kv_dtype,q_dtype", LATENT, ids=[a[0] for a in LATENT])
 def test_k6_latent(dev, batch, name, H, D, bs, kv_dtype, q_dtype):
     specs = LATENT_SPECS[batch]
-    q, pages, clean, kv_lens, tables, cu, ns = latent_case(specs, H, D, bs, kv_dtype,
+    q, pages, clean, kv_lens, tables, cu, ns = poisoned_case(specs, H, D, bs, kv_dtype,
                                                            seed=7)
     scale = SCALE if kv_dtype == torch.int8 else None
     sm = 192 ** -0.5 if D == 576 else D ** -0.5        # mla-2b-lm: 1/sqrt(nope + rope)
@@ -303,7 +423,7 @@ def test_k6_latent(dev, batch, name, H, D, bs, kv_dtype, q_dtype):
 
 
 def test_k6_counts_its_launches(dev):
-    q, pages, _, kv_lens, tables, cu, ns = latent_case([(1, 20), (3, 9)], 16, 576, 16,
+    q, pages, _, kv_lens, tables, cu, ns = poisoned_case([(1, 20), (3, 9)], 16, 576, 16,
                                                        torch.int8, pad_tokens=0,
                                                        pad_seqs=0)
     paged_attention_latent.launches = 0
