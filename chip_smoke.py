@@ -336,16 +336,43 @@ def check_attention(gen, dev, path) -> list:
     n_kv = int(kv_lens.sum())
     b_ms, b_by = bound_ms(q.numel() * 2 * 2 + n_kv * 2 * kvh * D + S * 4 * (1 + tables.shape[1]),
                           4.0 * H * D * n_kv)
+    # the varlen forms over the same gathered K/V: one query row a sequence,
+    # (sum kv, KVH, D) for flash (GQA in the call), repeated over the query
+    # heads for the memory-efficient form; no mask (a decode row sees all)
+    k_flat = torch.cat([k[::H // kvh].transpose(0, 1) for k in ks]).contiguous()
+    v_flat = torch.cat([v[::H // kvh].transpose(0, 1) for v in vs]).contiguous()
+    k_rep, v_rep = (torch.cat([x.transpose(0, 1) for x in xs]).contiguous()[None]
+                    for xs in (ks, vs))
+    cu_q = torch.arange(S + 1, dtype=torch.int32, device=dev)
+    cu_k = torch.tensor([0] + [kvl for _, kvl in specs], device=dev).cumsum(0).int()
+    library, lib = _fastest({
+        "SDPA, dense K/V and bool mask": (
+            lambda: lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask),
+            lambda o: o[:, :, 0]),
+        "aten._flash_attention_forward, varlen, q_len 1 (GQA)": (
+            lambda: lambda: torch.ops.aten._flash_attention_forward(
+                q, k_flat, v_flat, cu_q, cu_k, 1, L, 0.0, False, False, scale=sm)[0],
+            lambda o: o),
+        "aten._efficient_attention_forward, varlen": (
+            lambda: lambda: torch.ops.aten._efficient_attention_forward(
+                q[None], k_rep, v_rep, None, cu_q, cu_k, 1, L, 0.0, 0, False,
+                scale=sm)[0],
+            lambda o: o[0]),
+    }, ref, 3e-2)
+    save(f"mha_decode_{path}.json", {"specs": specs, "err": err, "library": library})
+    kernel = lambda: mha_decode_attention(q, pages, kv_lens, tables, ns, sm, kv_scale)
     out.append({"name": "mha_decode", "path": path, "ok": err <= 3e-2, "max_abs_err": err,
                 "tolerance": "3e-2 abs (bf16 K/V rounding in the plain version)",
                 "shape": f"{S} seqs, kv {min(kv for _, kv in specs)}.."
                          f"{max(kv for _, kv in specs)}, {heads}",
-                "ms": time_ms(lambda: mha_decode_attention(q, pages, kv_lens, tables,
-                                                           ns, sm, kv_scale)),
+                "ms": time_ms(kernel), "graph_ms": graph_ms(kernel),
                 "plain_ms": time_ms(lambda: mha_decode_attention_plain(
                     q, pages, kv_lens, tables, ns, sm, kv_scale), iters=5),
-                "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                    qd, kd, vd, attn_mask=mask)),
+                "library_ms": library[lib]["ms"] if lib else None,
+                "library_graph_ms": library[lib].get("graph_ms") if lib else None,
+                "library": f"{lib}; K/V gathered and dequantized outside the timed call"
+                           if lib else None,
+                "library_forms_ms": {n: r.get("ms") for n, r in library.items()},
                 "bound_ms": b_ms, "bound_by": b_by})
 
     # K2: a mixed batch: prefill chunks, a chunked continuation, decodes
@@ -467,40 +494,40 @@ def _latent_case(gen, seq_specs, n_blocks, bs, d, kv_scale, dev):
     return (pages, tables.to(dev), i32([kv for _, kv in seq_specs]), i32(cu), i32([S]))
 
 
-def _sdpa_backends(q, kv, mask, ref, tol, scale):
+def _sdpa_calls(q, kv, mask, scale) -> dict:
     """One SDPA call over the gathered dense plane with K = V, under each
     backend in turn and in two MQA forms (enable_gqa over the one plane, or
-    the plane expanded over the heads without a copy): {"SDPA backend/form":
-    {"err", "ms"} or {"error"}}. Flash attention takes no mask and no D above
-    256, so it is expected to refuse; the caller names what served."""
+    the plane expanded over the heads without a copy), as `_fastest` takes
+    them (output in SDPA's (B, H, L, D) layout). Flash attention takes no
+    mask and no D above 256, so it is expected to refuse."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     H = q.shape[1]
     wide = kv.expand(kv.shape[0], H, *kv.shape[2:])
-    calls = {"gqa": lambda: F.scaled_dot_product_attention(
+    forms = {"gqa": lambda: F.scaled_dot_product_attention(
                  q, kv, kv, attn_mask=mask, scale=scale, enable_gqa=True),
              "expand": lambda: F.scaled_dot_product_attention(
                  q, wide, wide, attn_mask=mask, scale=scale)}
-    out = {}
+    calls = {}
     for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
                     SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
-        for form, fn in calls.items():
-            name = f"SDPA {backend.name.lower()}/{form}"
-            try:
-                with sdpa_kernel(backend):
-                    err = (fn().float() - ref).abs().max().item()
-                    out[name] = {"err": err, "ms": time_ms(fn) if err <= tol else None}
-            except Exception as e:          # this backend refuses the call: say so
-                out[name] = {"error": repr(e)[:200]}
-    return out
+        for form, fn in forms.items():
+            def make(backend=backend, fn=fn):
+                def call():
+                    with sdpa_kernel(backend):
+                        return fn()
+                return call
+            calls[f"SDPA {backend.name.lower()}/{form}"] = make
+    return calls
 
 
 def check_latent(gen, dev) -> list:
-    """K6 on the mla path: a decode window of 32 sequences (kv 129-253) and
-    one mixed 2048-token batch, each with bf16 queries (the serving form) and
-    f32 queries, over an int8 plane of 16 heads x 576. The bf16 form is held
-    against the plain version run in f32 on the same inputs, the f32 form
-    against the plain version as it is."""
+    """K6 on the mla path: a decode window of 32 sequences (kv 129-253, the
+    split-KV decode form, max_q = 1) and one mixed 2048-token batch (the
+    64-row form), each with bf16 queries (the serving form) and f32 queries,
+    over an int8 plane of 16 heads x 576. The bf16 form is held against the
+    plain version run in f32 on the same inputs, the f32 form against the
+    plain version as it is."""
     import torch
     from hydrainfer_tpu_torch.ops.cuda.paged_attention import \
         paged_attention_varlen_plain as latent_plain      # K6's plain version
@@ -513,24 +540,28 @@ def check_latent(gen, dev) -> list:
     for form in ("decode", "mixed"):
         specs = shp[form]
         T = len(specs) if form == "decode" else shp["T"]
+        max_q = max(ql for ql, _ in specs)
         pages, tables, kv_lens, cu, ns = _latent_case(gen, specs, 1024, bs, D, kv_scale,
                                                       dev)
         geo = (pages, kv_lens, tables, cu, ns, sm, kv_scale)
         T_real = int(cu[-1])
         q32 = torch.randn((T, H, D), generator=gen).to(dev)
         q16 = q32.to(torch.bfloat16)
-        got16 = paged_attention_latent(q16, *geo)
+        kernel = lambda: paged_attention_latent(q16, *geo, max_q=max_q)
+        got16 = kernel()
         ref16 = latent_plain(q16.float(), *geo)
         err16 = (got16.float() - ref16).abs().max().item()
         tol16 = 2e-2 * max(1.0, ref16.abs().max().item())
-        got32 = paged_attention_latent(q32, *geo)
+        got32 = paged_attention_latent(q32, *geo, max_q=max_q)
         ref32 = latent_plain(q32, *geo)
         err32 = (got32 - ref32).abs().max().item()
         tol32 = 1e-4 * max(1.0, ref32.abs().max().item())
         pad_zero = bool((got16[T_real:] == 0).all() and (got32[T_real:] == 0).all())
-        # the library yardstick: the plane of each sequence gathered dense and
-        # dequantized (bf16); decode: sequences batched, padded and masked;
-        # mixed: all sequences side by side under one bool mask
+        # the library yardsticks: the plane of each sequence gathered dense
+        # and dequantized (bf16); decode: sequences batched, padded and
+        # masked; mixed: all sequences side by side under one bool mask;
+        # aten's memory-efficient varlen forward with a bottom-right causal
+        # mask computes only the visible pairs, as K6 does
         dense = [(pages[tables[s].long()].reshape(-1, D)[: int(kv_lens[s])].float()
                   * kv_scale).to(torch.bfloat16) for s in range(len(specs))]
         visible = sum(kvl - ql + i + 1 for ql, kvl in specs for i in range(ql))
@@ -541,7 +572,7 @@ def check_latent(gen, dev) -> list:
             for s, x in enumerate(dense):
                 kv[s, 0, :x.shape[0]] = x
                 mask[s, ..., :x.shape[0]] = True
-            qv, rv = q16[:, :, None, :], ref16[:, :, None, :]   # (S, H, 1, D)
+            qv, sdpa_flat = q16[:, :, None, :], (lambda o: o[:, :, 0])   # (S, H, 1, D)
         else:
             kv = torch.cat(dense)[None, None]                     # (1, 1, sum kv, D)
             mask = torch.zeros((T_real, kv.shape[2]), dtype=torch.bool)
@@ -551,24 +582,17 @@ def check_latent(gen, dev) -> list:
                     mask[t0 + i, c0:c0 + kvl - ql + i + 1] = True
                 t0, c0 = t0 + ql, c0 + kvl
             qv = q16[:T_real].transpose(0, 1)[None]               # (1, H, T_real, D)
-            rv = ref16[:T_real].transpose(0, 1)[None]
-        lib = _sdpa_backends(qv, kv, mask.to(dev), rv, tol16, sm)
-        # aten's memory-efficient varlen forward with a bottom-right causal
-        # mask computes only the visible pairs, as K6 does
+            sdpa_flat = lambda o: o[0].transpose(0, 1)
+        calls = {n: (make, sdpa_flat)
+                 for n, make in _sdpa_calls(qv, kv, mask.to(dev), sm).items()}
         flat = torch.cat(dense)[None, :, None, :].expand(1, -1, H, D)
         cu_k = torch.tensor([0] + [kvl for _, kvl in specs], device=dev).cumsum(0).int()
-        try:
-            fn = lambda: torch.ops.aten._efficient_attention_forward(
-                q16[None, :T_real], flat, flat, None, cu[:len(specs) + 1], cu_k,
-                max(ql for ql, _ in specs), max(kvl for _, kvl in specs), 0.0, 2, False,
-                scale=sm)[0][0]
-            err = (fn().float() - ref16[:T_real]).abs().max().item()
-            lib["aten._efficient_attention_forward/varlen"] = {
-                "err": err, "ms": time_ms(fn) if err <= tol16 else None}
-        except Exception as e:          # not in this torch build: say so
-            lib["aten._efficient_attention_forward/varlen"] = {"error": repr(e)[:200]}
-        timed = {n: r["ms"] for n, r in lib.items() if r.get("ms") is not None}
-        lib_name = min(timed, key=timed.get) if timed else None
+        calls["aten._efficient_attention_forward/varlen"] = (
+            lambda: lambda: torch.ops.aten._efficient_attention_forward(
+                q16[None, :T_real], flat, flat, None, cu[:len(specs) + 1], cu_k, max_q,
+                max(kvl for _, kvl in specs), 0.0, 2, False, scale=sm)[0],
+            lambda o: o[0])
+        lib, lib_name = _fastest(calls, ref16[:T_real], tol16)
         n_kv = int(kv_lens.sum())
         b_ms, b_by = bound_ms(2 * T_real * H * D * 2 + n_kv * D
                               + 4 * (tables.numel() + 2 * len(specs) + 2),
@@ -580,28 +604,29 @@ def check_latent(gen, dev) -> list:
             "shape": f"{T_real} tokens (T={T}) in {len(specs)} seqs, kv "
                      f"{min(kv for _, kv in specs)}..{max(kv for _, kv in specs)}; "
                      f"{H} q heads over one int8 plane x d{D}, BS 16",
-            "ms": time_ms(lambda: paged_attention_latent(q16, *geo)),
-            "f32_ms": time_ms(lambda: paged_attention_latent(q32, *geo)),
+            "ms": time_ms(kernel), "graph_ms": graph_ms(kernel),
+            "f32_ms": time_ms(lambda: paged_attention_latent(q32, *geo, max_q=max_q)),
             "plain_ms": time_ms(lambda: latent_plain(q16, *geo), iters=5),
             "bound_ms": b_ms, "bound_by": b_by, "visible_pairs": visible,
-            "library_ms": timed[lib_name] if lib_name else None,
+            "library_ms": lib[lib_name]["ms"] if lib_name else None,
+            "library_graph_ms": lib[lib_name].get("graph_ms") if lib_name else None,
             "library": f"{lib_name}, K = V = the gathered dense plane" if lib_name else None,
             "library_backends": lib}
-        del pages, q16, q32, kv, mask
+        del pages, q16, q32, kv, mask, calls
     save("paged_attention_latent.json", forms)
     # the decode window carries most of the path's launches: it is the row
-    row = dict(forms["decode"])
+    row, mixed = forms["decode"], forms["mixed"]
     return [{"name": "paged_attention_latent", "path": "mla",
-             "ok": forms["decode"]["ok"] and forms["mixed"]["ok"],
-             "max_abs_err": max(forms["decode"]["max_abs_err"],
-                                forms["mixed"]["max_abs_err"]),
+             "ok": row["ok"] and mixed["ok"],
+             "max_abs_err": max(row["max_abs_err"], mixed["max_abs_err"]),
              "tolerance": "bf16: 2e-2 x max(1, max|plain|) against the plain version in "
                           "f32 on the same inputs (bf16 P and output rounding); f32: "
                           "1e-4 x the same (sum order)",
-             **{k: row[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
-                                    "library_ms", "library")},
-             "mixed_ms": forms["mixed"]["ms"], "mixed_bound_ms": forms["mixed"]["bound_ms"],
-             "mixed_library_ms": forms["mixed"]["library_ms"]}]
+             **{k: row[k] for k in ("shape", "ms", "graph_ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms", "library_graph_ms",
+                                    "library")},
+             **{f"mixed_{k}": mixed[k] for k in ("ms", "graph_ms", "bound_ms", "library_ms",
+                                                 "library_graph_ms")}}]
 
 
 def check_kv_writer(gen, dev, path) -> dict:
@@ -1365,7 +1390,10 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         **({"library": r["library"]} if r.get("library") else {}),
-                        **{k: r[k] for k in ("graph_ms", "library_graph_ms") if k in r},
+                        **{k: r[k] for k in ("graph_ms", "library_graph_ms", "mixed_ms",
+                                             "mixed_graph_ms", "mixed_bound_ms",
+                                             "mixed_library_ms", "mixed_library_graph_ms")
+                           if k in r},
                         "shape": r["shape"], "ok": r["ok"]})
     emit({"kernels": kernels})
     if failed:

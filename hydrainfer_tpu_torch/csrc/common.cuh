@@ -77,6 +77,29 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// 16 int8 values -> 16 bf16 values (exact), two 16-byte shared stores. Each
+// byte b becomes the float 2^23 + (b + 128) by placing b ^ 0x80 in the low
+// mantissa byte of 2^23; subtracting 2^23 + 128 leaves b exactly. Byte
+// permutes and adds run at full rate where an int-to-float conversion does
+// not.
+__device__ __forceinline__ void int8x16_to_bf16(const int8_t* src, __nv_bfloat16* dst) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(src);
+  const uint32_t w[4] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u, raw.z ^ 0x80808080u,
+                         raw.w ^ 0x80808080u};
+  uint32_t out[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float f[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      f[j] = __uint_as_float(__byte_perm(w[i], 0x4B000000u, 0x7650 + j)) - 8388736.0f;
+    out[2 * i] = pack_bf16(f[0], f[1]);
+    out[2 * i + 1] = pack_bf16(f[2], f[3]);
+  }
+  reinterpret_cast<uint4*>(dst)[0] = make_uint4(out[0], out[1], out[2], out[3]);
+  reinterpret_cast<uint4*>(dst)[1] = make_uint4(out[4], out[5], out[6], out[7]);
+}
+
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
@@ -101,4 +124,93 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Raises a kernel's dynamic shared-memory limit once per size (not per
+// launch); fails for more than a block can have.
+template <typename K>
+int allow_smem(K kernel, size_t smem, size_t& allowed) {
+  if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > allowed) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    allowed = smem;
+  }
+  return 0;
+}
+
+// ------------------------------------------------------- split-KV (K1, K6)
+//
+// A decode row's kv range [0, kv_len) is cut into n_splits contiguous
+// ranges of ceil(kv_len / n_splits) rows; split i covers [lo, hi), empty
+// past the end. n_splits comes from shapes only (the wrappers'
+// ops/cuda/split_kv.py:num_splits, which mirrors this arithmetic in
+// split_range); the cut itself reads kv_len on the device, so no host sync.
+// Each split block leaves, per (row, head), its partial softmax state in f32:
+// m (the running max of the scores in log2 units), l (the sum of 2^(s - m))
+// and acc[D] (the sum of 2^(s - m) v, unscaled). A split that saw no row
+// writes m = -inf, l = 0 and no acc.
+__device__ __forceinline__ void split_range(int kv_len, int n_splits, int i, int& lo,
+                                            int& hi) {
+  const int chunk = (kv_len + n_splits - 1) / n_splits;
+  lo = min(kv_len, i * chunk);
+  hi = min(kv_len, lo + chunk);
+}
+
+// The second launch: out[r] = sum_i acc_i[r] 2^(m_i - M) / sum_i l_i 2^(m_i - M)
+// x v_scale, M = max_i m_i, over the splits in a fixed order (deterministic,
+// no atomics). Splits with m = -inf are skipped, their acc never read; a row
+// whose splits are all empty comes out as zeros, and so, when cu_q_lens is
+// given, does every row from cu_q_lens[num_seqs] x heads_per_token on (the
+// padding tokens, which no split block wrote).
+// acc (n_splits, n_rows, D) f32, ml (n_splits, n_rows, 2) f32 -> out (n_rows, D).
+template <typename OutT>
+__global__ void __launch_bounds__(256)
+split_merge_kernel(const float* __restrict__ acc, const float* __restrict__ ml,
+                   OutT* __restrict__ out, const int32_t* __restrict__ cu_q_lens,
+                   const int32_t* __restrict__ num_seqs, int heads_per_token, int n_rows,
+                   int n_splits, int D, float v_scale) {
+  const int d4 = D / 4;
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= static_cast<long long>(n_rows) * d4) return;
+  const int r = static_cast<int>(i / d4), c = static_cast<int>(i - static_cast<long long>(r) * d4) * 4;
+  const int live_end =
+      cu_q_lens != nullptr ? cu_q_lens[num_seqs[0]] * heads_per_token : n_rows;
+  float M = -INFINITY;
+  if (r < live_end)
+    for (int s = 0; s < n_splits; ++s)
+      M = fmaxf(M, ml[(static_cast<long long>(s) * n_rows + r) * 2]);
+  float den = 0.0f, num[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (M != -INFINITY) {
+    for (int s = 0; s < n_splits; ++s) {
+      const long long sr = static_cast<long long>(s) * n_rows + r;
+      const float m = ml[sr * 2];
+      if (m == -INFINITY) continue;
+      const float w = exp2f(m - M);
+      den += ml[sr * 2 + 1] * w;
+      const float4 a = *reinterpret_cast<const float4*>(acc + sr * D + c);
+      num[0] += a.x * w;
+      num[1] += a.y * w;
+      num[2] += a.z * w;
+      num[3] += a.w * w;
+    }
+  }
+  const float inv = den > 0.0f ? v_scale / den : 0.0f;
+  OutT* o = out + static_cast<long long>(r) * D + c;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) o[k] = from_f32<OutT>(num[k] * inv);
+}
+
+template <typename OutT>
+int launch_split_merge(const float* acc, const float* ml, void* out, const void* cu_q_lens,
+                       const void* num_seqs, int heads_per_token, int n_rows, int n_splits,
+                       int D, float v_scale, cudaStream_t s) {
+  const long long n = static_cast<long long>(n_rows) * (D / 4);
+  const int blocks = static_cast<int>((n + 255) / 256);
+  if (blocks == 0) return 0;
+  split_merge_kernel<OutT><<<blocks, 256, 0, s>>>(
+      acc, ml, static_cast<OutT*>(out), static_cast<const int32_t*>(cu_q_lens),
+      static_cast<const int32_t*>(num_seqs), heads_per_token, n_rows, n_splits, D, v_scale);
+  return launch_status();
 }

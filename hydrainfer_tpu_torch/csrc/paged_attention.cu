@@ -60,29 +60,6 @@ constexpr int kKv = 64;            // kv rows per tile
 constexpr int kMmaThreads = 128;   // four warps, one m16 strip each
 constexpr int kPad = 8;            // bf16 tile row padding (16 bytes): conflict-free ldmatrix
 
-// 16 int8 values -> 16 bf16 values (exact), two 16-byte shared stores. Each
-// byte b becomes the float 2^23 + (b + 128) by placing b ^ 0x80 in the low
-// mantissa byte of 2^23; subtracting 2^23 + 128 leaves b exactly. Byte
-// permutes and adds run at full rate where an int-to-float conversion does
-// not.
-__device__ __forceinline__ void int8x16_to_bf16(const int8_t* src, __nv_bfloat16* dst) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(src);
-  const uint32_t w[4] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u, raw.z ^ 0x80808080u,
-                         raw.w ^ 0x80808080u};
-  uint32_t out[8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float f[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      f[j] = __uint_as_float(__byte_perm(w[i], 0x4B000000u, 0x7650 + j)) - 8388736.0f;
-    out[2 * i] = pack_bf16(f[0], f[1]);
-    out[2 * i + 1] = pack_bf16(f[2], f[3]);
-  }
-  reinterpret_cast<uint4*>(dst)[0] = make_uint4(out[0], out[1], out[2], out[3]);
-  reinterpret_cast<uint4*>(dst)[1] = make_uint4(out[4], out[5], out[6], out[7]);
-}
-
 template <int D, typename KVT>
 struct MmaLayout {
   static constexpr bool kInt8 = std::is_same<KVT, int8_t>::value;
@@ -371,15 +348,10 @@ int launch_mma(const Args& a, float scale_log2, float v_scale, cudaStream_t s) {
   const int n_slots = a.n_tokens / bq + a.n_seqs;
   const dim3 grid(n_slots + (a.n_tokens + kRows - 1) / kRows, a.n_kv_heads);
   const size_t smem = MmaLayout<D, KVT>::RING + sizeof(int) * a.pages_per_seq;
-  if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = paged_attention_mma_kernel<D, KVT>;
   static size_t allowed = 48 * 1024;   // raised once per size, not per launch
-  if (smem > allowed) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    allowed = smem;
-  }
+  const int err = allow_smem(kernel, smem, allowed);
+  if (err != 0) return err;
   kernel<<<grid, kMmaThreads, smem, s>>>(
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const KVT*>(a.pages),
       static_cast<const int32_t*>(a.kv_lens), static_cast<const int32_t*>(a.page_indices),

@@ -34,8 +34,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signatures of the entry points (every one returns the launch's cudaError_t)
 SIGNATURES = {
-    "mha_decode": ("hydra_mha_decode",
-                   [_P, _P, _P, _P, _P, _P] + [_I] * 6 + [_F] * 3 + [_I, _I, _P]),
+    "mha_decode": ("hydra_mha_decode", [_P] * 8 + [_I] * 8 + [_F] * 3 + [_I, _I, _P]),
     "paged_attention": ("hydra_paged_attention",
                         [_P] * 7 + [_I] * 7 + [_F] * 3 + [_I, _I, _P]),
     "kv_writer": ("hydra_kv_write",
@@ -44,7 +43,7 @@ SIGNATURES = {
     "mha_varlen": ("hydra_mha_varlen",
                    [_P] * 4 + [_L] * 4 + [_P] * 5 + [_I] * 4 + [_F, _I, _P]),
     "paged_attention_latent": ("hydra_paged_attention_latent",
-                               [_P] * 7 + [_I] * 6 + [_F] * 2 + [_I, _I, _P]),
+                               [_P] * 9 + [_I] * 7 + [_F] * 2 + [_I, _I, _P]),
 }
 
 _lock = threading.Lock()
@@ -124,6 +123,11 @@ def launch(name: str, *args) -> None:
     err = kernel_fn(name)(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed (error {err})")
+
+
+def ptr(t) -> int:
+    """A tensor's device address, or 0 (NULL) for an absent operand."""
+    return 0 if t is None else t.data_ptr()
 
 
 def dtype_code(t: torch.Tensor, allowed: Iterable[torch.dtype]) -> int:

@@ -5,13 +5,16 @@ of q is sequence i's single query token; it attends over the sequence's
 kv_len cached tokens through the block table, with an int8 cache dequantized
 by one static scale. MHA and uniform GQA (up to 8 query heads per kv head),
 head_dim 32/64/128/256, heads in natural order. Bound on H100: bytes (each
-sequence's pages are read once for all of its heads).
+sequence's pages are read once for all of its heads), in practice latency.
+bf16 queries over an int8 or bf16 cache take the tensor-core form, split-KV
+over (sequence, kv head, split) with the split count from shapes alone
+(split_kv.num_splits); f32 queries or an f32 cache the scalar form.
 """
 from typing import Optional
 
 import torch
 
-from . import build
+from . import build, split_kv
 from .paged_attention import dense_paged_attention
 
 
@@ -58,11 +61,16 @@ def mha_decode_attention(q: torch.Tensor, kv_pages: torch.Tensor,
     build.check_cuda(q, kv_pages, kv_lens, page_indices, num_seqs)
     q_code = build.dtype_code(q, (torch.float32, torch.bfloat16))
     kv_code = build.dtype_code(kv_pages, (torch.float32, torch.bfloat16, torch.int8))
+    # the form from the dtypes, the split count from shapes
+    tensor_cores = q.dtype == torch.bfloat16 and kv_pages.dtype != torch.float32
+    n_splits = split_kv.num_splits(T * kvh, mb * bs) if tensor_cores else 1
     out = torch.empty_like(q)
+    part_acc, part_ml = split_kv.partials(n_splits, T, H, D, q.device)
     scale = float(kv_scale) if kv_scale is not None else 1.0
     build.launch("mha_decode", q.data_ptr(), kv_pages.data_ptr(), kv_lens.data_ptr(),
-                 page_indices.data_ptr(), num_seqs.data_ptr(), out.data_ptr(), T, H,
-                 kvh, D, bs, mb, float(sm_scale), scale, scale, q_code, kv_code)
+                 page_indices.data_ptr(), num_seqs.data_ptr(), out.data_ptr(),
+                 build.ptr(part_acc), build.ptr(part_ml), T, S, H, kvh, D, bs, mb, n_splits,
+                 float(sm_scale), scale, scale, q_code, kv_code)
     mha_decode_attention.launches += 1
     return out
 

@@ -7,19 +7,23 @@ both K and V, so it is an MQA of all query heads over one plane (D = 576 for
 mla-2b-lm). Token t of sequence s sits at cache position
 kv_len - q_len + (t - cu_q_lens[s]) and attends causally to the sequence's
 pages; an int8 plane is dequantized with one static scale for both roles.
-Bound on H100: bytes at decode, operations for long prefill chunks. The plain
-version is K2's `paged_attention_varlen_plain`, whose dense gather-and-mask
-attention takes a single-plane pool as K = V = the plane.
+Bound on H100: bytes (a mixed batch's queries and outputs; a decode window's
+plane), in practice latency at decode. bf16 queries take the tensor-core
+forms: 64 query rows a block for a batch with prefill chunks, split-KV over
+(sequence, split) for an all-decode window (max_q == 1), the split count
+from shapes alone (split_kv.num_splits). The plain version is K2's
+`paged_attention_varlen_plain`, whose dense gather-and-mask attention takes
+a single-plane pool as K = V = the plane.
 """
 from typing import Optional
 
 import torch
 
-from . import build
+from . import build, split_kv
 from .paged_attention import paged_attention_varlen_plain
 
-# head dim of the bf16 (tensor-core) path, mla-2b-lm's kv_lora + rope: the
-# four warps split it into whole 16-column k-steps; f32 queries take any D
+# head dim of the bf16 (tensor-core) forms, mla-2b-lm's kv_lora + rope: the
+# warps split it into whole 16-column k-steps; f32 queries take any D
 BF16_HEAD_DIM = 576
 
 
@@ -34,8 +38,8 @@ def paged_attention_latent(q: torch.Tensor, pages: torch.Tensor, kv_lens: torch.
     takes bf16 or int8 pages and D = BF16_HEAD_DIM); kv_lens: (S,) i32;
     page_indices: (S, MB) i32 (>= 0); cu_q_lens: (S+1,) i32; num_seqs: (1,)
     i32 -> (T, Hq, D), zeros past cu_q_lens[num_seqs]. Hq divides 16. max_q
-    bounds the plain version's per-sequence padding (the kernel does not need
-    it).
+    bounds every sequence's query tokens (the plain version's padding); the
+    kernel takes its split-KV decode form for max_q == 1.
     """
     if q.device.type == "cpu":
         return paged_attention_varlen_plain(q, pages, kv_lens, page_indices, cu_q_lens,
@@ -63,12 +67,17 @@ def paged_attention_latent(q: torch.Tensor, pages: torch.Tensor, kv_lens: torch.
                              "pages not 16-byte aligned")
     else:
         kv_code = build.dtype_code(pages, (torch.float32, torch.bfloat16, torch.int8))
+    # one block a sequence before the split: the form and the split count
+    # come from shapes and max_q, never from kv_lens
+    n_splits = (split_kv.num_splits(S, mb * bs)
+                if q.dtype == torch.bfloat16 and max_q == 1 else 1)
     out = torch.empty_like(q)
+    part_acc, part_ml = split_kv.partials(n_splits, T, H, D, q.device)
     build.launch("paged_attention_latent", q.data_ptr(), pages.data_ptr(),
                  kv_lens.data_ptr(), page_indices.data_ptr(), cu_q_lens.data_ptr(),
-                 num_seqs.data_ptr(), out.data_ptr(), T, S, H, D, bs, mb,
-                 float(sm_scale), float(kv_scale if kv_scale is not None else 1.0),
-                 q_code, kv_code)
+                 num_seqs.data_ptr(), out.data_ptr(), build.ptr(part_acc),
+                 build.ptr(part_ml), T, S, H, D, bs, mb, n_splits, float(sm_scale),
+                 float(kv_scale if kv_scale is not None else 1.0), q_code, kv_code)
     paged_attention_latent.launches += 1
     return out
 

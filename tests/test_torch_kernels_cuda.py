@@ -102,6 +102,52 @@ def test_k1_decode(dev, name, H, KVH, D, bs, kv_dtype, q_dtype):
     assert bool((got[len(specs):] == 0).all())
 
 
+# the tensor-core form: qwen2-vl-2b-lm's GQA 6:1 (6 splits at these 13
+# rows), llava-7b-lm's MHA (one split, no merge), GQA 8:1 (11 splits), D 256
+# at BS 4 (split boundaries mid-page) and D 32
+K1_MMA = [
+    ("vlm_gqa6_int8", 12, 2, 128, 16, torch.int8),
+    ("mha32_int8", 32, 32, 128, 16, torch.int8),
+    ("gqa8_bf16_d64", 8, 1, 64, 16, torch.bfloat16),
+    ("gqa4_int8_d256_bs4", 4, 1, 256, 4, torch.int8),
+    ("mha2_bf16_d32", 2, 2, 32, 16, torch.bfloat16),
+]
+# kv lengths on both sides of the 16-row sub-tiles, the 64 rows of a block's
+# first pass and the split boundaries, and a table over 128 pages
+K1_SPECS = [(1, kv) for kv in (0, 1, 15, 16, 17, 63, 64, 65, 464, 2070)]
+
+
+@pytest.mark.parametrize("name,H,KVH,D,bs,kv_dtype", K1_MMA, ids=[a[0] for a in K1_MMA])
+def test_k1_tensor_cores(dev, name, H, KVH, D, bs, kv_dtype):
+    """The bf16-q form over combined-head pages holding NaN (-128 for int8)
+    in every page and slot it must not read, NaN query padding rows, a
+    padded sequence; held within 2e-2 x max|plain| against the plain version
+    in f32 on the same bf16 inputs, padding rows zero."""
+    q, pages, clean, kv_lens, tables, _, ns = poisoned_case(
+        K1_SPECS, H, D, bs, kv_dtype, seed=13, planes=2 * KVH, nan_q=True)
+    scale = SCALE if kv_dtype == torch.int8 else None
+    geo = [kv_lens.to(dev), tables.to(dev), ns.to(dev)]
+    qd = q.to(dev, torch.bfloat16)
+    got = mha_decode_attention(qd, pages.to(dev), *geo, D ** -0.5, scale)
+    ref_pages = clean.to(dev) if kv_dtype == torch.int8 else clean.to(dev).float()
+    ref = mha_decode_attention_plain(torch.nan_to_num(qd.float()), ref_pages, *geo,
+                                     D ** -0.5, scale)
+    torch.cuda.synchronize()
+    hold_bf16(got, ref, len(K1_SPECS))
+
+
+def test_k1_counts_its_launches(dev):
+    """One count per wrapper call, with and without the merge launch."""
+    for H, KVH in ((12, 2), (32, 32)):
+        q, pages, _, kv_lens, tables, _, ns = poisoned_case([(1, 40), (1, 9)], H, 128, 16,
+                                                            torch.int8, planes=2 * KVH)
+        mha_decode_attention.launches = 0
+        mha_decode_attention(q.to(dev, torch.bfloat16), pages.to(dev), kv_lens.to(dev),
+                             tables.to(dev), ns.to(dev), 0.09, SCALE)
+        torch.cuda.synchronize()
+        assert mha_decode_attention.launches == 1
+
+
 @pytest.mark.parametrize("name,H,KVH,D,bs,kv_dtype,q_dtype", ATTN,
                          ids=[a[0] for a in ATTN])
 def test_k2_mixed(dev, name, H, KVH, D, bs, kv_dtype, q_dtype):
@@ -396,7 +442,8 @@ def test_k6_latent(dev, batch, name, H, D, bs, kv_dtype, q_dtype):
     sm = 192 ** -0.5 if D == 576 else D ** -0.5        # mla-2b-lm: 1/sqrt(nope + rope)
     geo = [kv_lens.to(dev), tables.to(dev), cu.to(dev), ns.to(dev)]
     qd = q.to(dev, q_dtype)
-    got = paged_attention_latent(qd, pages.to(dev), *geo, sm, scale)
+    got = paged_attention_latent(qd, pages.to(dev), *geo, sm, scale,
+                                 max_q=1 if batch == "decode" else None)
     # the plain version in f32 on the same (rounded) inputs, NaN-free pages
     ref_pages = clean.to(dev) if kv_dtype == torch.int8 else clean.to(dev).float()
     ref = paged_attention_varlen_plain(qd.float(), ref_pages, *geo, sm, scale)
@@ -431,6 +478,51 @@ def test_k6_counts_its_launches(dev):
                            tables.to(dev), cu.to(dev), ns.to(dev), 0.07, SCALE)
     torch.cuda.synchronize()
     assert paged_attention_latent.launches == 1
+
+
+def test_k6_decode_counts_its_launches(dev):
+    """The decode form counts one per wrapper call, its merge launch included."""
+    q, pages, _, kv_lens, tables, cu, ns = poisoned_case([(1, 20), (1, 9)], 16, 576, 16,
+                                                       torch.int8, pad_tokens=0,
+                                                       pad_seqs=0)
+    paged_attention_latent.launches = 0
+    paged_attention_latent(q.to(dev, torch.bfloat16), pages.to(dev), kv_lens.to(dev),
+                           tables.to(dev), cu.to(dev), ns.to(dev), 0.07, SCALE, max_q=1)
+    torch.cuda.synchronize()
+    assert paged_attention_latent.launches == 1
+
+
+LATENT_MMA = [a for a in LATENT if a[5] == torch.bfloat16]
+# chunks ending on and off the 4-token q tile (1, 3, 4, 5, 130 tokens),
+# continuations starting mid kv tile (at cache positions 38 and 64), a
+# decode among them
+K6_MIXED = [(1, 1), (3, 3), (4, 4), (5, 5), (130, 130), (7, 45), (6, 70), (1, 300)]
+# decode lengths on both sides of the 32-row kv tile and of the split
+# boundaries: 12 sequences (one padded) take 11 splits (ceil(kv / 11) rows
+# each: 10 rows fill 10 of them, 11 all, 12 six)
+K6_DECODE = [(1, kv) for kv in (1, 10, 11, 12, 31, 32, 33, 64, 65, 300, 353)]
+
+
+@pytest.mark.parametrize("form", ["mixed", "decode"])
+@pytest.mark.parametrize("name,H,D,bs,kv_dtype,q_dtype", LATENT_MMA,
+                         ids=[a[0] for a in LATENT_MMA])
+def test_k6_tile_and_split_edges(dev, form, name, H, D, bs, kv_dtype, q_dtype):
+    """K6's tensor-core forms at their tile and split boundaries, over pages
+    poisoned as test_k6_latent's, held within 2e-2 x max|plain| against the
+    plain version in f32; padding rows zero."""
+    specs = K6_MIXED if form == "mixed" else K6_DECODE
+    q, pages, clean, kv_lens, tables, cu, ns = poisoned_case(specs, H, D, bs, kv_dtype,
+                                                           seed=12, nan_q=True)
+    scale = SCALE if kv_dtype == torch.int8 else None
+    geo = [kv_lens.to(dev), tables.to(dev), cu.to(dev), ns.to(dev)]
+    qd = q.to(dev, q_dtype)
+    got = paged_attention_latent(qd, pages.to(dev), *geo, 192 ** -0.5, scale,
+                                 max_q=1 if form == "decode" else None)
+    ref_pages = clean.to(dev) if kv_dtype == torch.int8 else clean.to(dev).float()
+    ref = paged_attention_varlen_plain(torch.nan_to_num(qd.float()), ref_pages, *geo,
+                                       192 ** -0.5, scale)
+    torch.cuda.synchronize()
+    hold_bf16(got, ref, int(cu[-1]))
 
 
 @pytest.mark.parametrize("cache_dtype,in_dtype", [
