@@ -15,7 +15,9 @@ Phases, each printing one JSON line:
            causal form; K6 (latent attention), K3's single-plane write and K4
            at mla-2b-lm (mla: 16 heads over one 576-wide int8 plane), K6 in
            a decode and a mixed form, bf16 and f32; and time each beside its
-           bound and a PyTorch library call;
+           bound and a PyTorch library call, eager and from a CUDA graph (K4
+           per projection over M 1-2048, both its forms, with a decode-step
+           sum and a prefill-budget sum);
   tiny     serve tiny-lm and mla-tiny-lm in f32 through OfflineEngine on the
            card and on the CPU with the same weights: the greedy tokens must
            be identical;
@@ -154,12 +156,31 @@ def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
 
 # ---------------------------------------------------------------- phase: build
 
+def ptxas_entries(logs: dict) -> dict:
+    """{kernel: {entry function (mangled): {"registers", "spill_stores"}}}
+    from nvcc's -Xptxas -v report (each K4 form is its own entry)."""
+    import re
+    out = {}
+    for name, log in logs.items():
+        entries, cur = {}, None
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                cur = entries.setdefault(m.group(1), {})
+            elif cur is not None and "spill stores" in line:
+                cur["spill_stores"] = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+            elif cur is not None and "Used" in line and "registers" in line:
+                cur["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+        out[name] = entries
+    return out
+
+
 def phase_build() -> dict:
     from hydrainfer_tpu_torch.ops.cuda import build
     t0 = time.perf_counter()
     per_kernel = build.build_all()
     seconds = time.perf_counter() - t0
-    save("ptxas.json", build.build_logs)
+    save("ptxas.json", {"logs": build.build_logs, "entries": ptxas_entries(build.build_logs)})
     return {"phase": "build", "ok": True, "seconds": seconds,
             "per_kernel_s": per_kernel, "nvcc": build.nvcc_path()}
 
@@ -170,24 +191,26 @@ def phase_build() -> dict:
 # kernels phase checks and times each at the shapes its path gives it.
 # decode: K1's (K6's) window, (q_len, kv_len) per sequence; mixed: K2's (K6's)
 # batch (prefill chunks, a chunked continuation, decodes), padded to T rows;
-# kv_rows: K3's (T, real rows); gemm_m: the M of K4's kernels-line row.
+# kv_rows: K3's (T, real rows); gemm_m: the M of K4's kernels-line row;
+# budget: the path's token budget, the M of K4's prefill sum.
 _VLM_PROMPTS = [64 + (h // 28) * (w // 28) for h, w in VLM_IMAGES]   # 128..448
 PATH_SHAPES = {
     "serve": dict(arch="llava-7b-lm",
                   decode=[(1, 130 + 7 * s) for s in range(8)],
                   mixed=[(128, 128), (128, 128), (64, 192), (1, 150), (1, 161),
-                         (1, 144), (100, 100), (1, 139)], T=512, kv_rows=(512, 452)),
+                         (1, 144), (100, 100), (1, 139)], T=512, kv_rows=(512, 452),
+                  budget=256),
     # 16 tokens into the decode; the 2048-token budget's first chunks
     "vlm": dict(arch=VLM_ARCH,
                 decode=[(1, n + 16) for n in _VLM_PROMPTS],
                 mixed=[(n, n) for n in _VLM_PROMPTS[:6]] + [(160, 448), (1, 145)],
-                T=2048, kv_rows=(2048, 1601)),
+                T=2048, kv_rows=(2048, 1601), budget=2048),
     # 32 decoding sequences at kv 129-253; one 2048-token budget of 15 whole
     # prompts, a chunk and 16 decodes; the decode window's 32 latent rows
     "mla": dict(arch=MLA_ARCH,
                 decode=[(1, 129 + 4 * s) for s in range(32)],
                 mixed=[(128, 128)] * 15 + [(112, 112)] + [(1, 129 + 8 * i) for i in range(16)],
-                T=2048, kv_rows=(32, 32), gemm_m=32),
+                T=2048, kv_rows=(32, 32), gemm_m=32, budget=2048),
 }
 
 
@@ -220,73 +243,104 @@ def _paged_case(gen, seq_specs, n_blocks, bs, kvh, d, kv_scale, dev):
 
 
 def check_quant_matmul(gen, dev, path) -> dict:
+    """K4 at every int8 projection of the path (and its lm_head, f32 out),
+    over an M sweep across the skinny/wide boundary: held to the plain
+    version, timed eager and from a CUDA graph over rotating weight copies
+    (so no launch finds its weight in L2), beside its bound and the fastest
+    library form: torch._weight_int8pack_mm, or torch.mm on the weight
+    dequantized to bf16 outside the timed call (rotated the same way), each
+    held to the plain version first. The kernels line sums one decode step
+    (M = the decode batch) and one prefill budget (qkv, o, gate_up, down at
+    M = the path's token budget; the lm_head sees only the sampled rows)."""
     import torch
-    from hydrainfer_tpu_torch.ops.cuda.quant_matmul import (quant_matmul_int8,
+    from hydrainfer_tpu_torch.ops.cuda.quant_matmul import (plan, quant_matmul_int8,
                                                             quant_matmul_int8_plain)
-    cfg = _arch_cfg(path)
-    H, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    from hydrainfer_tpu_torch.models.random_init import int8_matmul_shapes
     m_row = PATH_SHAPES[path].get("gemm_m", 16)
-    projections = {}
-    if cfg.mla_kv_lora:
-        # an MLA layer's q_proj, kv_a, w_uk and w_uv stay bf16 (quantize_tree's keys)
-        o = cfg.n_qo_heads * cfg.mla_v_dim
-    else:
-        o = cfg.n_qo_heads * cfg.head_dim
-        projections["qkv"] = (H, (cfg.n_qo_heads + 2 * cfg.n_kv_heads) * cfg.head_dim,
-                              torch.bfloat16)
-    projections.update({"o": (o, H, torch.bfloat16), "gate_up": (H, 2 * I, torch.bfloat16),
-                        "down": (I, H, torch.bfloat16), "lm_head": (H, V, torch.float32)})
+    m_prefill = PATH_SHAPES[path]["budget"]
+    projections = int8_matmul_shapes(_arch_cfg(path))
     rows, max_err, ok = [], 0.0, True
-    for name, (K, N, out_dtype) in projections.items():
+    for name, (K, N) in projections.items():
+        out_dtype = torch.float32 if name == "lm_head" else torch.bfloat16
         w = torch.randint(-127, 128, (K, N), generator=gen, dtype=torch.int8).to(dev)
         scale = (torch.rand(N, generator=gen) + 0.5).div(127 * math.sqrt(K)).to(dev)
         # rotate weight copies so repeated launches do not find w in L2
         n_copies = max(1, math.ceil(120e6 / (K * N)))
         ws = [w] + [w.clone() for _ in range(n_copies - 1)]
-        for M in sorted({1, 16, 48, 2048, m_row}):
+        w_bf = (w.float() * scale[None, :]).to(torch.bfloat16)
+        n_bf = max(1, math.ceil(120e6 / (2 * K * N)))
+        w_bfs = [w_bf] + [w_bf.clone() for _ in range(n_bf - 1)]
+        w_t, sc_bf = w.t().contiguous(), scale.to(torch.bfloat16)
+        for M in sorted({1, 16, 48, 256, 2048, m_row, m_prefill}):
             x = torch.randn((M, K), generator=gen).to(dev, torch.bfloat16)
             got = quant_matmul_int8(x, w, scale, out_dtype)
             ref = quant_matmul_int8_plain(x, w, scale, out_dtype)
             err = (got.float() - ref.float()).abs().max().item()
             # bf16 output rounding (2^-9 relative) and f32 sum order
-            tol = (1e-2 if out_dtype == torch.bfloat16 else 1e-4) * \
-                max(1.0, ref.float().abs().max().item())
+            scale_ref = max(1.0, ref.float().abs().max().item())
+            tol = (1e-2 if out_dtype == torch.bfloat16 else 1e-4) * scale_ref
             ok &= err <= tol
             max_err = max(max_err, err)
-            it = iter(range(10 ** 9))
-            ms = time_ms(lambda: quant_matmul_int8(x, ws[next(it) % n_copies], scale,
-                                                   out_dtype))
+
+            def rotating(copies, fn):
+                it = iter(range(10 ** 9))
+                return lambda: fn(copies[next(it) % len(copies)])
+
+            kernel = rotating(ws, lambda wq: quant_matmul_int8(x, wq, scale, out_dtype))
+            ms = time_ms(kernel)
+            # K4's graph time where the kernels line reads it (the decode step
+            # and the prefill budget, not the lm_head at prefill M)
+            timed_graph = M == m_row or (M == m_prefill and name != "lm_head")
             plain_ms = time_ms(lambda: quant_matmul_int8_plain(x, w, scale, out_dtype),
                                iters=5)
-            lib_ms = None
-            try:
-                wt, sc = w.t().contiguous(), scale.to(torch.bfloat16)
-                torch._weight_int8pack_mm(x, wt, sc)
-                lib_ms = time_ms(lambda: torch._weight_int8pack_mm(x, wt, sc))
-            except Exception:
-                pass
+            # the library forms put out bf16: held within bf16 rounding
+            library, lib = _fastest({
+                "torch._weight_int8pack_mm": (
+                    lambda: lambda: torch._weight_int8pack_mm(x, w_t, sc_bf), lambda o: o),
+                "torch.mm, weight dequantized to bf16 outside the timed call": (
+                    lambda: rotating(w_bfs, lambda wb: torch.mm(x, wb)), lambda o: o),
+            }, ref, 1e-2 * scale_ref)
             out_bytes = torch.empty((), dtype=out_dtype).element_size()
             b_ms, b_by = bound_ms(M * K * 2 + K * N + N * 4 + M * N * out_bytes,
                                   2.0 * M * K * N)
-            rows.append({"proj": name, "M": M, "K": K, "N": N, "max_abs_err": err,
-                         "tol": tol, "ms": ms, "plain_ms": plain_ms,
-                         "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by})
-        del ws
+            p = plan(M, K, N)
+            rows.append({"proj": name, "M": M, "K": K, "N": N, "form": p.form, "bn": p.bn,
+                         "splits": p.splits, "max_abs_err": err, "tol": tol, "ms": ms,
+                         "graph_ms": graph_ms(kernel) if timed_graph else None,
+                         "plain_ms": plain_ms,
+                         "library_ms": library[lib]["ms"] if lib else None,
+                         "library_graph_ms": library[lib].get("graph_ms") if lib else None,
+                         "library": lib, "library_forms": library,
+                         "bound_ms": b_ms, "bound_by": b_by})
+        del ws, w_bfs, w_t
     save(f"quant_matmul_{path}.json", rows)
-    # the kernels line reports one decode step's int8 projections at M = m_row
+
+    def total(sel, key):
+        vals = [r[key] for r in sel]
+        return sum(vals) if all(v is not None for v in vals) else None
+
+    # the kernels line: one decode step's int8 projections at M = m_row, and
+    # one prefill budget's layer projections at M = m_prefill
     step = [r for r in rows if r["M"] == m_row]
-    lib = [r["library_ms"] for r in step]
+    pre = [r for r in rows if r["M"] == m_prefill and r["proj"] != "lm_head"]
     return {"name": "quant_matmul", "path": path, "ok": bool(ok), "max_abs_err": max_err,
             "tolerance": "1e-2 x max|plain| (bf16 out), 1e-4 x max|plain| (f32 logits)",
             "shape": f"{PATH_SHAPES[path]['arch']}: " + ", ".join(
-                f"{n} {k}x{n_}" for n, (k, n_, _) in projections.items())
-                     + f" (lm_head f32 out) at M={m_row}, summed",
-            "ms": sum(r["ms"] for r in step),
-            "plain_ms": sum(r["plain_ms"] for r in step),
-            "bound_ms": sum(r["bound_ms"] for r in step),
+                f"{n} {k}x{n_}" for n, (k, n_) in projections.items())
+                     + f" (lm_head f32 out) at M={m_row}, summed; prefill: the layer "
+                       f"projections at M={m_prefill}, summed",
+            "ms": total(step, "ms"), "graph_ms": total(step, "graph_ms"),
+            "plain_ms": total(step, "plain_ms"), "bound_ms": total(step, "bound_ms"),
             "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in step)
             else "operations",
-            "library_ms": sum(lib) if all(v is not None for v in lib) else None}
+            "library_ms": total(step, "library_ms"),
+            "library_graph_ms": total(step, "library_graph_ms"),
+            "library": "the fastest per projection of torch._weight_int8pack_mm and "
+                       "torch.mm on the weight dequantized to bf16 outside the timed call",
+            "prefill_ms": total(pre, "ms"), "prefill_graph_ms": total(pre, "graph_ms"),
+            "prefill_bound_ms": total(pre, "bound_ms"),
+            "prefill_library_ms": total(pre, "library_ms"),
+            "prefill_library_graph_ms": total(pre, "library_graph_ms")}
 
 
 def check_attention(gen, dev, path) -> list:
@@ -668,9 +722,11 @@ def check_kv_writer(gen, dev, path) -> dict:
                          "through a reciprocal)",
             "shape": f"{T_real} of {T} rows -> int8 pages, {form} x d{D}, BS 16",
             "ms": time_ms(lambda: write_kv_pages(got, k, v, slots, kv_scale)),
+            "graph_ms": graph_ms(lambda: write_kv_pages(got, k, v, slots, kv_scale)),
             "plain_ms": time_ms(lambda: write_kv_pages_plain(ref, k, v, slots,
                                                              kv_scale), iters=5),
             "library_ms": time_ms(lambda: flat.index_copy_(0, idx, rows)),
+            "library_graph_ms": graph_ms(lambda: flat.index_copy_(0, idx, rows)),
             "bound_ms": b_ms, "bound_by": b_by}
 
 
@@ -1392,7 +1448,10 @@ def main() -> int:
                         **({"library": r["library"]} if r.get("library") else {}),
                         **{k: r[k] for k in ("graph_ms", "library_graph_ms", "mixed_ms",
                                              "mixed_graph_ms", "mixed_bound_ms",
-                                             "mixed_library_ms", "mixed_library_graph_ms")
+                                             "mixed_library_ms", "mixed_library_graph_ms",
+                                             "prefill_ms", "prefill_graph_ms",
+                                             "prefill_bound_ms", "prefill_library_ms",
+                                             "prefill_library_graph_ms")
                            if k in r},
                         "shape": r["shape"], "ok": r["ok"]})
     emit({"kernels": kernels})

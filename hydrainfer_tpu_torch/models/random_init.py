@@ -53,6 +53,22 @@ ARCH_CONFIGS = {
 }
 
 
+def int8_matmul_shapes(cfg: DecoderConfig) -> dict:
+    """{name: (K, N)} of the matmuls that int8 quantization (`quantize_tree`'s
+    keys) covers: one layer's qkv (not in an MLA layer, whose q and latent
+    projections stay bf16), o, gate_up and down, then the lm_head."""
+    H = cfg.hidden_size
+    shapes = {}
+    if cfg.mla_kv_lora > 0:
+        o_in = cfg.n_qo_heads * cfg.mla_v_dim
+    else:
+        o_in = cfg.n_qo_heads * cfg.head_dim
+        shapes["qkv"] = (H, (cfg.n_qo_heads + 2 * cfg.n_kv_heads) * cfg.head_dim)
+    shapes.update({"o": (o_in, H), "gate_up": (H, 2 * cfg.intermediate_size),
+                   "down": (cfg.intermediate_size, H), "lm_head": (H, cfg.vocab_size)})
+    return shapes
+
+
 def init_decoder_weights(cfg: DecoderConfig, seed: int = 0,
                          dtype=torch.bfloat16, quantization: str = "none",
                          device=None) -> dict:

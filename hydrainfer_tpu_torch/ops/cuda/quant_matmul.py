@@ -3,14 +3,106 @@
 Replaces hydrainfer_tpu/ops/pallas/quant_matmul.py:quant_matmul_int8: x (M, K)
 bf16/f32 times w_q (K, N) int8, accumulated in f32 and scaled per output
 column; the int8 tile is converted inside the kernel, so the dequantized
-weight never exists in device memory. Bound on H100: the K*N weight bytes at
-decode sizes, tensor-core operations at prefill sizes.
+weight never exists in device memory.
+
+bf16 activations take one of two forms, chosen by `plan` from (M, K, N) only
+(no device call, no host sync, so the CPU tests reach it and a CUDA graph can
+capture the launch):
+
+- skinny (M <= 64, decode steps and the lm_head): bound by the K x N weight
+  read. A block owns a 64-, 128- or 256-column strip and one K slice;
+- wide (M > 64, prefill chunks): bound by tensor-core operations, wgmma
+  on output tiles of 128 x rows by 128 columns.
+
+Either form may cut K into `splits` slices (at most 8: one portable
+thread-block cluster) when the output tiles alone give too few blocks; the
+cluster sums the slices' partials in a fixed order in the same launch.
+`quant_matmul_int8_split_plain` is that arithmetic in PyTorch.
 """
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from . import build
+
+SMS = 132              # streaming multiprocessors of an H100 SXM
+MAX_SPLITS = 8         # the portable thread-block cluster size
+SKINNY_MAX_M = 64      # the skinny form's rows: eight n8 tiles of mma.sync
+STAGES = 4             # cp.async ring depth (csrc/quant_matmul.cu:STAGES)
+BK = 64                # the K tile of both forms
+WIDE_ROWS = 128        # the wide form's x rows a block
+MIN_SLICE_TILES = 4    # K tiles a split keeps at least
+MAX_SMEM = 227 * 1024  # dynamic shared memory a block may have
+FORM_CODES = {"skinny": 0, "wide": 1}
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+class Plan(NamedTuple):
+    """A launch of K4: the form, the output columns of a block (bn) and the
+    K slices of one output tile (splits: the blocks of one thread-block
+    cluster)."""
+    form: str
+    bn: int
+    splits: int
+
+    def blocks(self, M: int, N: int) -> int:
+        rows = 1 if self.form == "skinny" else _cdiv(M, WIDE_ROWS)
+        return self.splits * _cdiv(N, self.bn) * rows
+
+    def smem_bytes(self, M: int) -> int:
+        """Dynamic shared memory of a block: the ring of int8 weight tiles
+        (rows padded by 16 bytes) and bf16 x tiles (the skinny form's rows
+        padded by 8 values; the wide form's 1024-byte aligned, plus 1024
+        bytes to align them). The merge tile reuses the ring. The card tests
+        hold this to csrc/quant_matmul.cu:hydra_quant_matmul_smem."""
+        w_bytes = STAGES * BK * (self.bn + 16)
+        if self.form == "skinny":
+            rows = 8 * (1 if M <= 8 else 2 if M <= 16 else 4 if M <= 32 else 8)
+            return w_bytes + STAGES * rows * (BK + 8) * 2
+        return w_bytes + STAGES * WIDE_ROWS * BK * 2 + 1024
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(M: int, K: int, N: int) -> Plan:
+    """K4's launch for bf16 x, from shapes only. The skinny rules keep the
+    fastest of the candidate plans timed on an H100 at the serving paths'
+    decode shapes.
+
+    skinny (M <= 64): the widest outputs (lm_heads) take 2 slices, of
+    128-column strips where those alone are four waves of the card, else of
+    256-column strips; the others 128-column strips where those alone reach
+    the SM count, else 64, split to two blocks an SM. wide: 128-row by
+    128-column tiles, split to about 1.5 blocks an SM (at least 2 slices)
+    below four waves. Every slice keeps at least MIN_SLICE_TILES K tiles."""
+    k_tiles = _cdiv(K, BK)
+    if M <= SKINNY_MAX_M:
+        form = "skinny"
+        strips = _cdiv(N, 128)
+        if strips >= 4 * SMS:
+            bn, want = 128, 2
+        elif 2 * strips >= 3 * SMS:
+            bn, want = 256, 2
+        else:
+            bn = 128 if strips >= SMS else 64
+            tiles = _cdiv(N, bn)
+            want = 1 if tiles >= 2 * SMS else _cdiv(2 * SMS, tiles)
+    else:
+        form, bn = "wide", 128
+        tiles = _cdiv(N, bn) * _cdiv(M, WIDE_ROWS)
+        want = 1 if tiles >= 4 * SMS else max(2, round(1.5 * SMS / tiles))
+    return Plan(form, bn, max(1, min(MAX_SPLITS, want, k_tiles // MIN_SLICE_TILES)))
+
+
+def split_tiles(tiles: int, splits: int, i: int) -> Tuple[int, int]:
+    """K tiles [lo, hi) of split i: ceil(tiles / splits) each, empty past
+    the end, as csrc/quant_matmul.cu:split_tiles cuts them."""
+    per = _cdiv(tiles, splits)
+    lo = min(tiles, i * per)
+    return lo, min(tiles, lo + per)
 
 
 def quant_matmul_int8_plain(x: torch.Tensor, w_q: torch.Tensor,
@@ -19,6 +111,32 @@ def quant_matmul_int8_plain(x: torch.Tensor, w_q: torch.Tensor,
     """The plain version: (x @ float(w_q)) * scale in f32, cast to out_dtype."""
     out_dtype = out_dtype or x.dtype
     return ((x.float() @ w_q.float()) * scale.float()[None, :]).to(out_dtype)
+
+
+def quant_matmul_int8_split_plain(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
+                                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The kernel's arithmetic: K cut as `plan` cuts it, each slice's f32
+    partial product, the partials summed from slice 0 on, then scaled and
+    cast."""
+    out_dtype = out_dtype or x.dtype
+    parts = split_partials(x, w_q)
+    acc = parts[0]
+    for part in parts[1:]:
+        acc = acc + part
+    return (acc * scale.float()[None, :]).to(out_dtype)
+
+
+def split_partials(x: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """(splits, M, N) f32: each K slice's partial product, as `plan` cuts K."""
+    (M, K), N = x.shape, w_q.shape[1]
+    splits = plan(M, K, N).splits
+    parts = torch.zeros((splits, M, N), dtype=torch.float32, device=x.device)
+    for i in range(splits):
+        lo, hi = split_tiles(_cdiv(K, BK), splits, i)
+        k0, k1 = lo * BK, min(K, hi * BK)
+        if k0 < k1:
+            parts[i] = x[:, k0:k1].float() @ w_q[k0:k1].float()
+    return parts
 
 
 def quant_matmul_int8(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
@@ -39,8 +157,10 @@ def quant_matmul_int8(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
     x_code = build.dtype_code(x, (torch.float32, torch.bfloat16))
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     out_code = build.dtype_code(out, (torch.float32, torch.bfloat16))
+    p = plan(M, K, N)
     build.launch("quant_matmul", x.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
-                 out.data_ptr(), M, K, N, x_code, out_code)
+                 out.data_ptr(), M, K, N, x_code, out_code, FORM_CODES[p.form], p.bn,
+                 p.splits)
     quant_matmul_int8.launches += 1
     return out
 

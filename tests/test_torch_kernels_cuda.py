@@ -25,12 +25,19 @@ is held against the plain version run in f32 on the same bf16 inputs, within
 2e-2 x max|plain| (bf16 P and output rounding), a bound that a reference
 missing one 64-row kv tile breaks. K3's
 single-plane form writes latent rows with the int8 quantize rounding half to
-even and drops negative slots.
+even and drops negative slots. K4 runs at every int8 projection and lm_head
+of the three serving paths over M 1-2048 (both its skinny and its wide
+form, and their boundary at 64/65), at ragged N (200, 72) and K (5472, 200,
+104), with bf16 out held within 2e-2 and f32 logits within 1e-4 of the f32
+plain version (a result missing one K slice breaks the bf16 bound:
+test_torch_quant_matmul.py); two calls agree bit for bit, and so do two
+replays of a CUDA graph that captured it.
 """
 import numpy as np
 import pytest
 import torch
 
+from hydrainfer_tpu_torch.models.random_init import ARCH_CONFIGS, int8_matmul_shapes
 from hydrainfer_tpu_torch.ops.cuda import (mha_decode_attention, mha_varlen_flash,
                                            paged_attention_latent,
                                            paged_attention_varlen,
@@ -40,7 +47,8 @@ from hydrainfer_tpu_torch.ops.cuda.mha_decode import mha_decode_attention_plain
 from hydrainfer_tpu_torch.ops.cuda.mha_varlen import mha_varlen_plain
 from hydrainfer_tpu_torch.ops.cuda.paged_attention import \
     paged_attention_varlen_plain
-from hydrainfer_tpu_torch.ops.cuda.quant_matmul import quant_matmul_int8_plain
+from hydrainfer_tpu_torch.ops.cuda.quant_matmul import (FORM_CODES, plan,
+                                                        quant_matmul_int8_plain)
 
 pytestmark = pytest.mark.cuda
 SCALE = 0.05
@@ -236,20 +244,129 @@ def test_k3_write(dev, cache_dtype, in_dtype):
     assert err <= (1.0 if cache_dtype == torch.int8 else 0.0)
 
 
-@pytest.mark.parametrize("M,K,N", [(1, 256, 200), (17, 512, 384), (130, 384, 72)])
+def _k4_case(M, K, N, seed=3):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32))
+    w = torch.from_numpy(rng.integers(-127, 128, (K, N), dtype=np.int8))
+    scale = torch.from_numpy((rng.random(N) + 0.5).astype(np.float32) / (127 * K ** 0.5))
+    return x, w, scale
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 256, 200), (17, 512, 384), (130, 384, 72),
+                                   (16, 5472, 2048), (65, 5472, 72), (9, 200, 200),
+                                   (100, 104, 136)])
 @pytest.mark.parametrize("x_dtype,out_dtype", [
     (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
     (torch.float32, torch.float32)])
 def test_k4_gemm(dev, M, K, N, x_dtype, out_dtype):
-    rng = np.random.default_rng(3)
-    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(dev, x_dtype)
-    w = torch.from_numpy(rng.integers(-127, 128, (K, N)).astype(np.int8)).to(dev)
-    scale = torch.from_numpy((rng.random(N) + 0.5).astype(np.float32) / (127 * K ** 0.5)).to(dev)
+    """Small and ragged shapes: N = 200 and 72 (no multiple of 16: masked
+    scalar loads at the edge), K = 5472 (no multiple of 64), K = 200 and 104
+    (no multiple of 16), M on both sides of the skinny/wide boundary."""
+    x, w, scale = _k4_case(M, K, N)
+    x, w, scale = x.to(dev, x_dtype), w.to(dev), scale.to(dev)
     got = quant_matmul_int8(x, w, scale, out_dtype)
     ref = quant_matmul_int8_plain(x, w, scale, out_dtype)
     torch.cuda.synchronize()
     tol = 1e-4 if out_dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
+
+
+# every int8 projection of the three serving paths (K, N), and the lm_heads
+# (f32 logits): llava-7b-lm (serve), qwen2-vl-2b-lm (vlm), mla-2b-lm (mla)
+_K4_SHAPES = {f"{path}_{name}": kn
+              for path, arch in (("serve", "llava-7b-lm"), ("vlm", "qwen2-vl-2b-lm"),
+                                 ("mla", "mla-2b-lm"))
+              for name, kn in int8_matmul_shapes(ARCH_CONFIGS[arch]).items()}
+K4_PROJECTIONS = {k: v for k, v in _K4_SHAPES.items() if not k.endswith("lm_head")}
+K4_LM_HEADS = {k: v for k, v in _K4_SHAPES.items() if k.endswith("lm_head")}
+K4_M = [1, 8, 16, 17, 32, 64, 65, 256, 2048]
+
+
+def _check_k4_bf16(dev, M, K, N, out_dtype):
+    """bf16 x through K4 against the plain version in f32 on the same inputs:
+    2e-2 (bf16 out) or 1e-4 (f32 out), relative and absolute."""
+    x, w, scale = _k4_case(M, K, N, seed=M + K + N)
+    x, w, scale = x.to(dev, torch.bfloat16), w.to(dev), scale.to(dev)
+    got = quant_matmul_int8(x, w, scale, out_dtype)
+    ref = quant_matmul_int8_plain(x, w, scale, torch.float32)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and got.shape == (M, N)
+    tol = 1e-4 if out_dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), ref, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("M", K4_M)
+@pytest.mark.parametrize("proj", list(K4_PROJECTIONS))
+def test_k4_path_shapes(dev, proj, M):
+    _check_k4_bf16(dev, M, *K4_PROJECTIONS[proj], torch.bfloat16)
+
+
+@pytest.mark.parametrize("M", [1, 16, 32, 64, 65])
+@pytest.mark.parametrize("head", list(K4_LM_HEADS))
+def test_k4_lm_heads(dev, head, M):
+    _check_k4_bf16(dev, M, *K4_LM_HEADS[head], torch.float32)
+
+
+# a skinny split (serve's down at M = 16: 5 slices), a wide split (serve's o
+# at M = 256: 3 slices), one unsplit wide tile grid
+@pytest.mark.parametrize("M,K,N", [(16, 11008, 4096), (256, 4096, 4096), (2048, 1536, 2048)])
+def test_k4_is_deterministic(dev, M, K, N):
+    x, w, scale = _k4_case(M, K, N, seed=7)
+    x, w, scale = x.to(dev, torch.bfloat16), w.to(dev), scale.to(dev)
+    a = quant_matmul_int8(x, w, scale)
+    b = quant_matmul_int8(x, w, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("M,K,N,out_dtype", [(16, 11008, 4096, torch.bfloat16),
+                                             (32, 2048, 32064, torch.float32),
+                                             (256, 4096, 4096, torch.bfloat16)])
+def test_k4_graph_replay(dev, M, K, N, out_dtype):
+    """K4 captured in a CUDA graph and replayed twice gives the eager result
+    bit for bit (the split merge leaves no state behind)."""
+    x, w, scale = _k4_case(M, K, N, seed=8)
+    x, w, scale = x.to(dev, torch.bfloat16), w.to(dev), scale.to(dev)
+    eager = quant_matmul_int8(x, w, scale, out_dtype)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        quant_matmul_int8(x, w, scale, out_dtype)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = quant_matmul_int8(x, w, scale, out_dtype)
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+
+
+@pytest.mark.parametrize("M", [1, 8, 16, 17, 32, 64, 65, 256, 2048])
+def test_k4_plan_states_the_kernels_shared_memory(dev, M):
+    """Plan.smem_bytes (which the CPU tests hold within 227 KB) is the
+    dynamic shared memory the kernel asks for, at every plan of the path
+    shapes and at every strip width of the form."""
+    import ctypes
+    from hydrainfer_tpu_torch.ops.cuda import build
+    build.build_all(["quant_matmul"])
+    smem = ctypes.CDLL(str(build.library_path("quant_matmul"))).hydra_quant_matmul_smem
+    smem.argtypes, smem.restype = [ctypes.c_int] * 3, ctypes.c_int
+    plans = {plan(M, K, N) for K, N in _K4_SHAPES.values()}
+    form = plan(M, 4096, 4096).form
+    plans |= {p._replace(bn=bn) for p in plans for bn in
+              ((64, 128, 256) if form == "skinny" else (128,))}
+    for p in plans:
+        assert smem(FORM_CODES[p.form], p.bn, M) == p.smem_bytes(M), p
+
+
+def test_k4_counts_its_launches(dev):
+    x, w, scale = _k4_case(16, 512, 256)
+    x, w, scale = x.to(dev, torch.bfloat16), w.to(dev), scale.to(dev)
+    before = quant_matmul_int8.launches
+    quant_matmul_int8(x, w, scale)
+    assert quant_matmul_int8.launches == before + 1
 
 
 def _check_k5(dev, dtype, q, k, v, ids, kv_ids=None, q_pos=None, kv_pos=None):

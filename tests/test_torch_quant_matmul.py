@@ -1,0 +1,133 @@
+"""K4's plan and split-K arithmetic on the CPU (hydrainfer_tpu_torch/ops/cuda/quant_matmul.py).
+
+The kernel (csrc/quant_matmul.cu) takes its form, column strip and split
+count from `plan`, from shapes only. Here: `plan` gives the skinny form at
+M <= 64 and the wide form above it, at least 132 blocks at every decode shape
+of the three serving paths, at most 8 splits (one portable cluster) and a
+block's shared memory within 227 KB; the K tiles of the splits cover every
+tile once; the kernel's arithmetic in PyTorch (`quant_matmul_int8_split_plain`:
+K slices summed in a fixed order, then scaled and cast) gives the plain
+version within f32 rounding and the JAX Pallas kernel in interpret mode on the
+same numpy inputs; and the card tests' bf16 bound (2e-2, relative and
+absolute, tests/test_torch_kernels_cuda.py) holds a correctly rounded result
+and rejects one that lost a K slice, so the card tests would catch a dropped
+split. The wrapper passes the plan to the launch without reading data: on
+"meta" tensors, which hold none, any host read would raise.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hydrainfer_tpu.ops.pallas.quant_matmul import quant_matmul_int8 as jax_qmm
+from hydrainfer_tpu_torch.models.random_init import ARCH_CONFIGS, int8_matmul_shapes
+from hydrainfer_tpu_torch.ops.cuda import build
+from hydrainfer_tpu_torch.ops.cuda import quant_matmul as qmm
+
+# (K, N) of every int8 matmul on the serving paths, the lm_heads included
+SERVING_ARCHS = {"serve": "llava-7b-lm", "vlm": "qwen2-vl-2b-lm", "mla": "mla-2b-lm"}
+PATH_SHAPES = {f"{path}_{name}": kn for path, arch in SERVING_ARCHS.items()
+               for name, kn in int8_matmul_shapes(ARCH_CONFIGS[arch]).items()}
+M_SWEEP = [1, 8, 16, 17, 32, 64, 65, 256, 2048]
+
+
+@pytest.mark.parametrize("M", M_SWEEP)
+@pytest.mark.parametrize("shape", list(PATH_SHAPES))
+def test_plan_on_the_path_shapes(shape, M):
+    K, N = PATH_SHAPES[shape]
+    p = qmm.plan(M, K, N)
+    form, bn, splits = p.form, p.bn, p.splits
+    assert form == ("skinny" if M <= 64 else "wide")
+    assert bn in ((64, 128, 256) if form == "skinny" else (128,))
+    assert 1 <= splits <= qmm.MAX_SPLITS
+    if M <= 64:
+        assert p.blocks(M, N) >= qmm.SMS
+    assert p.smem_bytes(M) <= qmm.MAX_SMEM
+    # every split keeps at least one K tile
+    tiles = -(-K // qmm.BK)
+    assert all(qmm.split_tiles(tiles, splits, i)[1] > qmm.split_tiles(tiles, splits, i)[0]
+               for i in range(splits))
+
+
+@pytest.mark.parametrize("tiles", [1, 3, 24, 86, 172])
+@pytest.mark.parametrize("splits", [1, 2, 5, 8])
+def test_split_tiles_cover_every_tile_once(tiles, splits):
+    seen = np.zeros(tiles, np.int32)
+    for i in range(splits):
+        lo, hi = qmm.split_tiles(tiles, splits, i)
+        assert 0 <= lo <= hi <= tiles
+        seen[lo:hi] += 1
+    assert (seen == 1).all()
+
+
+def _case(M, K, N, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    w = rng.integers(-127, 128, (K, N), dtype=np.int8)
+    scale = ((rng.random(N) + 0.5) / (127 * K ** 0.5)).astype(np.float32)
+    return x, w, scale
+
+
+# skinny with 8 splits, skinny unsplit at a ragged N, wide with 4 splits, a
+# K that is no multiple of either form's K tile
+SPLIT_CASES = [(16, 2048, 256), (3, 200, 72), (100, 2048, 256), (65, 1000, 136)]
+
+
+@pytest.mark.parametrize("M,K,N", SPLIT_CASES)
+def test_split_plain_matches_the_plain_version(M, K, N):
+    x, w, scale = (torch.from_numpy(a) for a in _case(M, K, N))
+    got = qmm.quant_matmul_int8_split_plain(x, w, scale, torch.float32)
+    ref = qmm.quant_matmul_int8_plain(x, w, scale, torch.float32)
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-5 * ref.abs().max().item())
+
+
+@pytest.mark.parametrize("M,K,N", [(16, 512, 256), (100, 1024, 128)])
+def test_split_plain_matches_the_jax_kernel(M, K, N):
+    """Against hydrainfer_tpu's quant_matmul_int8 (the TPU kernel K4 replaces)
+    in interpret mode, 128 x 128 blocks, f32 in and out."""
+    x, w, scale = _case(M, K, N, seed=1)
+    assert qmm.plan(M, K, N).splits > 1
+    ref = np.asarray(jax_qmm(jnp.asarray(x), jnp.asarray(w), jnp.asarray(scale),
+                             block_k=128, block_n=128, interpret=True))
+    got = qmm.quant_matmul_int8_split_plain(*(torch.from_numpy(a) for a in (x, w, scale)),
+                                            torch.float32).numpy()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("M,K,N", [(16, 2048, 256), (100, 2048, 256), (32, 5472, 128)])
+def test_bf16_bound_catches_a_missing_split(M, K, N):
+    """bf16 x and bf16 out, as K4 serves: the kernel's arithmetic with the
+    output rounded to bf16 lies within the card tests' 2e-2 of the f32 plain
+    version; without any one of its K slices it does not."""
+    x, w, scale = _case(M, K, N, seed=2)
+    x = torch.from_numpy(x).to(torch.bfloat16)
+    w, scale = torch.from_numpy(w), torch.from_numpy(scale)
+    ref = qmm.quant_matmul_int8_plain(x, w, scale, torch.float32)
+    got = qmm.quant_matmul_int8_split_plain(x, w, scale, torch.bfloat16)
+    torch.testing.assert_close(got.float(), ref, rtol=2e-2, atol=2e-2)
+    splits = qmm.plan(M, K, N).splits
+    assert splits > 1
+    parts = qmm.split_partials(x, w)
+    for drop in range(splits):
+        # what a kernel that lost slice `drop` would give
+        kept = [parts[i] for i in range(splits) if i != drop]
+        miss = (sum(kept[1:], kept[0]) * scale[None, :]).to(torch.bfloat16)
+        with pytest.raises(AssertionError):
+            torch.testing.assert_close(miss.float(), ref, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("M,K,N", [(16, 11008, 4096), (32, 2048, 32064), (256, 4096, 4096),
+                                   (2048, 1536, 151936)])
+def test_wrapper_launches_the_plan_from_shapes(monkeypatch, M, K, N):
+    calls = []
+    monkeypatch.setattr(build, "launch", lambda name, *args: calls.append((name, args)))
+    meta = dict(device="meta")
+    out = qmm.quant_matmul_int8(torch.empty((M, K), dtype=torch.bfloat16, **meta),
+                                torch.empty((K, N), dtype=torch.int8, **meta),
+                                torch.empty((N,), dtype=torch.float32, **meta), torch.float32)
+    (name, args), = calls
+    p = qmm.plan(M, K, N)
+    # (x, w, scale, out, M, K, N, x dtype, out dtype, form, bn, splits)
+    assert name == "quant_matmul"
+    assert args[4:] == (M, K, N, 1, 0, qmm.FORM_CODES[p.form], p.bn, p.splits)
+    assert out.shape == (M, N) and out.dtype == torch.float32
