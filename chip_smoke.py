@@ -14,7 +14,9 @@ Phases, each printing one JSON line:
            KV, block size 16; K5 at the vlm phase's encode shape and in its
            causal form; K6 (latent attention), K3's single-plane write and K4
            at mla-2b-lm (mla: 16 heads over one 576-wide int8 plane), K6 in
-           a decode and a mixed form, bf16 and f32; and time each beside its
+           a decode and a mixed form, bf16 and f32; K3 at each path's decode
+           step and prefill budget, bit for bit the host's quantize, with
+           identical CUDA graph replays; and time each beside its
            bound and a PyTorch library call, eager and from a CUDA graph (K4
            per projection over M 1-2048, both its forms, with a decode-step
            sum and a prefill-budget sum);
@@ -23,7 +25,9 @@ Phases, each printing one JSON line:
            be identical;
   serve    serve llava-7b-lm (full width, int8 weights, int8 KV) through
            OfflineEngine on the card: every request must finish with its
-           token count, every kernel must have launched in the measured run,
+           token count, every kernel must have launched in the measured run
+           (K3's launches are also reported split into decode and prefill
+           steps, as the vlm and mla phases do),
            a K=16 fused window must have run, and one prefill's logits must
            agree with the same model run through the plain PyTorch versions;
   vlm      serve Qwen2-VL-2B (full width: bf16 vision tower, LM with int8
@@ -43,8 +47,8 @@ Phases, each printing one JSON line:
            never, and one prefill's logits through the kernels must agree
            with the plain versions.
 Then the card's name and power limit, a "kernels" JSON line (one row per
-kernel and serving path: that path's shapes and its measured round's
-launches), and as the last
+kernel and serving path, K3 one per path and form: that path's shapes and
+its measured round's launches), and as the last
 line {"ok": true, "device": {...}}. Any failed phase exits non-zero without
 that line. Details (per-shape timings, ptxas reports, the profile) go to
 --out-dir (default chip_smoke_out/). Imports nothing of JAX or of the JAX
@@ -191,26 +195,29 @@ def phase_build() -> dict:
 # kernels phase checks and times each at the shapes its path gives it.
 # decode: K1's (K6's) window, (q_len, kv_len) per sequence; mixed: K2's (K6's)
 # batch (prefill chunks, a chunked continuation, decodes), padded to T rows;
-# kv_rows: K3's (T, real rows); gemm_m: the M of K4's kernels-line row;
-# budget: the path's token budget, the M of K4's prefill sum.
+# kv_decode, kv_prefill: K3's (T, real rows) in a decode step (one row a
+# sequence, T as the path's measured round writes it) and in a prefill
+# budget; gemm_m: the M of K4's kernels-line row; budget: the path's token
+# budget, the M of K4's prefill sum.
 _VLM_PROMPTS = [64 + (h // 28) * (w // 28) for h, w in VLM_IMAGES]   # 128..448
 PATH_SHAPES = {
     "serve": dict(arch="llava-7b-lm",
                   decode=[(1, 130 + 7 * s) for s in range(8)],
                   mixed=[(128, 128), (128, 128), (64, 192), (1, 150), (1, 161),
-                         (1, 144), (100, 100), (1, 139)], T=512, kv_rows=(512, 452),
-                  budget=256),
+                         (1, 144), (100, 100), (1, 139)], T=512, kv_decode=(8, 8),
+                  kv_prefill=(512, 452), budget=256),
     # 16 tokens into the decode; the 2048-token budget's first chunks
     "vlm": dict(arch=VLM_ARCH,
                 decode=[(1, n + 16) for n in _VLM_PROMPTS],
                 mixed=[(n, n) for n in _VLM_PROMPTS[:6]] + [(160, 448), (1, 145)],
-                T=2048, kv_rows=(2048, 1601), budget=2048),
+                T=2048, kv_decode=(8, 8), kv_prefill=(2048, 1601), budget=2048),
     # 32 decoding sequences at kv 129-253; one 2048-token budget of 15 whole
-    # prompts, a chunk and 16 decodes; the decode window's 32 latent rows
+    # prompts, a chunk and 16 decodes (2048 latent rows, none padded)
     "mla": dict(arch=MLA_ARCH,
                 decode=[(1, 129 + 4 * s) for s in range(32)],
                 mixed=[(128, 128)] * 15 + [(112, 112)] + [(1, 129 + 8 * i) for i in range(16)],
-                T=2048, kv_rows=(32, 32), gemm_m=32, budget=2048),
+                T=2048, kv_decode=(32, 32), kv_prefill=(2048, 2048), gemm_m=32,
+                budget=2048),
 }
 
 
@@ -683,44 +690,74 @@ def check_latent(gen, dev) -> list:
                                                  "library_graph_ms")}}]
 
 
-def check_kv_writer(gen, dev, path) -> dict:
+KV_SENTINEL = -128      # never written by K3's quantize, which clips at -127
+
+
+def check_kv_writer(gen, dev, path, form) -> dict:
+    """K3 at the path's decode step or prefill budget (`form`), bf16 rows into
+    int8 pages holding a sentinel: bit for bit the host's quantize
+    clip(rint(x_f32 / f32(scale)), -127, 127) in the real rows' slots and
+    the sentinel everywhere else, within one step of the plain version, and
+    two replays of a CUDA graph that captured it leave identical pages."""
+    import numpy as np
     import torch
-    from hydrainfer_tpu_torch.ops.cuda.kv_writer import (quantize_kv, write_kv_pages,
-                                                         write_kv_pages_plain)
+    from hydrainfer_tpu_torch.ops.cuda.kv_writer import write_kv_pages, write_kv_pages_plain
     cfg = _arch_cfg(path)
     H, kvh, D, bs, nb, kv_scale = (cfg.n_qo_heads, cfg.n_kv_heads, cfg.head_dim, 16, 512,
                                    0.05)
-    T, T_real = PATH_SHAPES[path]["kv_rows"]
-    # the prefill/decode batch's slots: runs of consecutive slots in shuffled
-    # blocks, the padded tail dropped
-    blocks = torch.randperm(nb, generator=gen)[: -(-T // bs)]
-    slots = (blocks[:, None] * bs + torch.arange(bs)[None]).reshape(-1)[:T]
+    T, T_real = PATH_SHAPES[path][f"kv_{form}"]
+    # a prefill's slots: runs of consecutive slots in shuffled blocks, the
+    # padded tail dropped; a decode step's: one slot in each sequence's block
+    if form == "decode":
+        blocks = torch.randperm(nb, generator=gen)[:T]
+        slots = blocks * bs + torch.randint(bs, (T,), generator=gen)
+    else:
+        blocks = torch.randperm(nb, generator=gen)[: -(-T // bs)]
+        slots = (blocks[:, None] * bs + torch.arange(bs)[None]).reshape(-1)[:T]
     slots[T_real:] = -1
-    slots = slots.to(torch.int32).to(dev)
+    slots = slots.to(torch.int32)
     if cfg.mla_kv_lora:
         # single-plane form: the (T, 1, D) [c_kv | k_pe] rows as they are
         k, v = torch.randn((T, 1, D), generator=gen).to(dev, torch.bfloat16), None
-        planes, form = 1, "single-plane latent rows"
+        planes, what = 1, "single-plane latent rows"
         both = k
     else:
-        # k and v are column ranges of the fused qkv projection's output
+        # k as rope returns it; v a column range of the fused qkv projection
         qkv = torch.randn((T, (H + 2 * kvh) * D), generator=gen).to(dev, torch.bfloat16)
         k = qkv[:, H * D: (H + kvh) * D].reshape(T, kvh, D).contiguous()
         v = qkv[:, (H + kvh) * D:].reshape(T, kvh, D)   # strided rows, as in the model
-        planes, form = 2 * kvh, f"{kvh} kv heads"
+        planes, what = 2 * kvh, f"{kvh} kv heads"
         both = torch.stack([k, v], 2).reshape(T, 2 * kvh, D)
-    got = torch.zeros((nb, bs, planes, D), dtype=torch.int8, device=dev)
-    ref = torch.zeros_like(got)
+    keep = (slots >= 0).numpy()
+    host = np.clip(np.rint(both.float().cpu().numpy() / np.float32(kv_scale)), -127, 127)
+    expect = np.full((nb * bs, planes, D), KV_SENTINEL, np.int8)
+    expect[slots.numpy()[keep]] = host[keep].astype(np.int8)
+    slots = slots.to(dev)
+    got = torch.full((nb, bs, planes, D), KV_SENTINEL, dtype=torch.int8, device=dev)
+    ref = torch.full_like(got, KV_SENTINEL)
     write_kv_pages(got, k, v, slots, kv_scale)
     write_kv_pages_plain(ref, k, v, slots, kv_scale)
+    exact = bool(np.array_equal(got.cpu().numpy().reshape(expect.shape), expect))
     err = (got.float() - ref.float()).abs().max().item()
-    rows = quantize_kv(both, kv_scale)[:T_real]
-    flat, idx = ref.view(-1, planes, D), slots[:T_real].long()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        write_kv_pages(got, k, v, slots, kv_scale)
+    replays = []
+    for _ in range(2):
+        got.fill_(KV_SENTINEL)
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append(got.cpu())
+    replays_equal = bool(torch.equal(*replays))
+    rows = torch.from_numpy(host[keep].astype(np.int8)).to(dev)
+    flat, idx = ref.view(-1, planes, D), slots[slots >= 0].long()
     b_ms, b_by = bound_ms(T_real * planes * D * 2 + T * 4 + T_real * planes * D, 0.0)
-    return {"name": "kv_writer", "path": path, "ok": err <= 1.0, "max_abs_err": err,
-            "tolerance": "1 int8 step (the plain version's division may round "
-                         "through a reciprocal)",
-            "shape": f"{T_real} of {T} rows -> int8 pages, {form} x d{D}, BS 16",
+    return {"name": "kv_writer", "path": path, "form": form,
+            "ok": exact and err <= 1.0 and replays_equal, "max_abs_err": err,
+            "bit_exact_vs_host": exact, "graph_replays_equal": replays_equal,
+            "tolerance": "bit for bit the host's quantize; 1 int8 step from the plain "
+                         "version (its division may round through a reciprocal)",
+            "shape": f"{form}: {T_real} of {T} rows -> int8 pages, {what} x d{D}, BS 16",
             "ms": time_ms(lambda: write_kv_pages(got, k, v, slots, kv_scale)),
             "graph_ms": graph_ms(lambda: write_kv_pages(got, k, v, slots, kv_scale)),
             "plain_ms": time_ms(lambda: write_kv_pages_plain(ref, k, v, slots,
@@ -824,6 +861,12 @@ def check_mha_varlen(gen, dev) -> dict:
             "library_forms_ms": {n: r.get("ms") for n, r in library.items()}}
 
 
+def _launch_key(r: dict) -> str:
+    """The kernel's name in a path's launch counts; K3's rows add their form
+    (the split that KvWriteSplit counts)."""
+    return r["name"] + (f":{r['form']}" if "form" in r else "")
+
+
 def phase_kernels() -> tuple:
     import torch
     gen = torch.Generator().manual_seed(SEED)
@@ -832,14 +875,15 @@ def phase_kernels() -> tuple:
     for path in PATH_SHAPES:
         attention = check_latent(gen, dev) if path == "mla" else check_attention(gen, dev,
                                                                                    path)
-        results += attention + [check_kv_writer(gen, dev, path),
+        results += attention + [check_kv_writer(gen, dev, path, "decode"),
+                                check_kv_writer(gen, dev, path, "prefill"),
                                 check_quant_matmul(gen, dev, path)]
     results.append(check_mha_varlen(gen, dev))
     torch.cuda.synchronize()
     save("kernels.json", results)
     ok = all(r["ok"] for r in results)
     return {"phase": "kernels", "ok": ok,
-            "checks": {f"{r['name']}@{r['path']}": {
+            "checks": {f"{_launch_key(r)}@{r['path']}": {
                 "ok": r["ok"], "max_abs_err": r["max_abs_err"], "ms": r["ms"]}
                 for r in results}}, results
 
@@ -1036,6 +1080,45 @@ def _profile_round(engine, reqs, name="serve_profile.json") -> dict:
                                     for r in rows[:8]]}
 
 
+class KvWriteSplit:
+    """K3's launches in a serving round, split by the step they ran in:
+    decode (every query one token, max_q == 1) or prefill (chunks, alone or
+    mixed with decodes), and by the rows (T) each launch wrote. It wraps the
+    decoder's attention block, which writes its layer's K/V through K3, and
+    reads K3's own launch count around each call."""
+
+    def __init__(self):
+        from hydrainfer_tpu_torch.models import decoder
+        from hydrainfer_tpu_torch.ops.cuda import write_kv_pages
+        self.decoder, self.orig = decoder, decoder._attention_block
+        self.reset()
+
+        def spy(x, cache, layer_id, lw, batch, cos, sin, cfg, max_q):
+            before = write_kv_pages.launches
+            out = self.orig(x, cache, layer_id, lw, batch, cos, sin, cfg, max_q)
+            rows = self.rows["decode" if max_q == 1 else "prefill"]
+            rows[x.shape[0]] = rows.get(x.shape[0], 0) + write_kv_pages.launches - before
+            return out
+
+        decoder._attention_block = spy
+
+    def reset(self) -> None:
+        self.rows = {"decode": {}, "prefill": {}}
+
+    def restore(self) -> None:
+        self.decoder._attention_block = self.orig
+
+    def counts(self) -> dict:
+        """{"kv_writer:decode": n, "kv_writer:prefill": m}, beside the
+        wrappers' launch counts."""
+        return {f"kv_writer:{form}": sum(r.values()) for form, r in self.rows.items()}
+
+    def report(self) -> dict:
+        return {form: {"launches": sum(r.values()),
+                       "launches_by_rows": {str(t): n for t, n in sorted(r.items())}}
+                for form, r in self.rows.items()}
+
+
 def phase_serve(arch="llava-7b-lm", dev="cuda", n_requests=8, prompt_len=128,
                 max_tokens=32, token_budget=256, phase="serve", must_run=SERVE_KERNELS,
                 must_not_run=()) -> tuple:
@@ -1069,6 +1152,7 @@ def phase_serve(arch="llava-7b-lm", dev="cuda", n_requests=8, prompt_len=128,
         return n, ks
 
     ex.FillExecutor._multi_step_window = spy
+    k3 = KvWriteSplit()
     try:
         # warm-up round (cuBLAS and allocator set-up), then the measured round
         engine.generate(_requests(rng, n_requests, prompt_len, max_tokens, "warm"),
@@ -1078,11 +1162,13 @@ def phase_serve(arch="llava-7b-lm", dev="cuda", n_requests=8, prompt_len=128,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
+        k3.reset()
         t1 = time.perf_counter()
         outs = engine.generate(reqs, timeout_s=600)
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t1
-        counts = launch_counts()
+        counts = {**launch_counts(), **k3.counts()}
+        k3_split = k3.report()
         peak = torch.cuda.max_memory_allocated()
         measured_windows = list(windows)
         profiled = _profile_round(engine, _requests(rng, n_requests, prompt_len,
@@ -1090,6 +1176,7 @@ def phase_serve(arch="llava-7b-lm", dev="cuda", n_requests=8, prompt_len=128,
                                   f"{phase}_profile.json")
     finally:
         ex.FillExecutor._multi_step_window = orig
+        k3.restore()
 
     n_tokens = [len(o.output_token_ids) for o in outs]
     vocab = factory.cfg.vocab_size
@@ -1112,9 +1199,11 @@ def phase_serve(arch="llava-7b-lm", dev="cuda", n_requests=8, prompt_len=128,
               "max_tokens": max_tokens, "token_budget": token_budget,
               "tokens_per_request": n_tokens, "tokens_per_s": sum(n_tokens) / elapsed,
               "elapsed_s": elapsed, "p50_ttft_s": ttfts[len(ttfts) // 2],
+              "ttfts_s": ttfts,
               "weight_init_s": init_s, "param_bytes": factory.param_bytes(),
               "fused_windows": sorted(set(windows)),
-              "n_k16_windows": windows.count(16), "launches": counts, **logits,
+              "n_k16_windows": windows.count(16), "launches": counts,
+              "kv_writer_launches": k3_split, **logits,
               "peak_memory_bytes": peak, **profiled}
     return result, counts
 
@@ -1321,6 +1410,7 @@ def phase_vlm(dev="cuda", max_tokens=32) -> tuple:
 
     ex.FillExecutor._multi_step_window = spy_window
     ex.ImageEmbedExecutor.execute = spy_embed
+    k3 = KvWriteSplit()
     try:
         engine.generate(_vlm_requests(rng, max_tokens, "warm"), timeout_s=600)
         windows.clear()
@@ -1329,11 +1419,13 @@ def phase_vlm(dev="cuda", max_tokens=32) -> tuple:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
+        k3.reset()
         t1 = time.perf_counter()
         outs = engine.generate(reqs, timeout_s=600)
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t1
-        counts = launch_counts()
+        counts = {**launch_counts(), **k3.counts()}
+        k3_split = k3.report()
         peak = torch.cuda.max_memory_allocated()
         measured = {"windows": list(windows), "encodes": list(encodes)}
         profiled = _profile_round(engine, _vlm_requests(rng, max_tokens, "prof"),
@@ -1341,6 +1433,7 @@ def phase_vlm(dev="cuda", max_tokens=32) -> tuple:
     finally:
         ex.FillExecutor._multi_step_window = orig_window
         ex.ImageEmbedExecutor.execute = orig_embed
+        k3.restore()
 
     n_tokens = [len(o.output_token_ids) for o in outs]
     vocab = factory.cfg.vocab_size
@@ -1361,11 +1454,13 @@ def phase_vlm(dev="cuda", max_tokens=32) -> tuple:
               "prompt_text_chars": 64, "max_tokens": max_tokens, "token_budget": 2048,
               "tokens_per_request": n_tokens, "tokens_per_s": sum(n_tokens) / elapsed,
               "elapsed_s": elapsed, "p50_ttft_s": ttfts[len(ttfts) // 2],
+              "ttfts_s": ttfts,
               "encodes": measured["encodes"], "weight_init_s": init_s,
               "lm_param_bytes": factory.lm_factory.param_bytes(),
               "fused_windows": sorted(set(measured["windows"])),
               "n_k16_windows": measured["windows"].count(16), "launches": counts,
-              "peak_memory_bytes": peak, **features, **logits, **profiled}
+              "kv_writer_launches": k3_split, "peak_memory_bytes": peak, **features,
+              **logits, **profiled}
     return result, counts
 
 
@@ -1437,16 +1532,19 @@ def main() -> int:
     kernels = []
     for r in kernel_rows:
         source, replaces = KERNEL_SOURCES[r["name"]]
-        # one row per kernel and path: timed at that path's shapes, launches
-        # from that path's measured round
+        # one row per kernel and path (K3: per path and form): timed at that
+        # path's shapes, launches from that path's measured round
         kernels.append({"name": r["name"], "route": "cuda", "source": source,
                         "replaces": replaces, "path": r["path"],
-                        "launches": counts[r["path"]].get(r["name"], 0),
+                        **({"form": r["form"]} if "form" in r else {}),
+                        "launches": counts[r["path"]].get(_launch_key(r), 0),
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         **({"library": r["library"]} if r.get("library") else {}),
-                        **{k: r[k] for k in ("graph_ms", "library_graph_ms", "mixed_ms",
+                        **{k: r[k] for k in ("graph_ms", "library_graph_ms",
+                                             "bit_exact_vs_host", "graph_replays_equal",
+                                             "mixed_ms",
                                              "mixed_graph_ms", "mixed_bound_ms",
                                              "mixed_library_ms", "mixed_library_graph_ms",
                                              "prefill_ms", "prefill_graph_ms",

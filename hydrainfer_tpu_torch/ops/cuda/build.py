@@ -38,7 +38,7 @@ SIGNATURES = {
     "paged_attention": ("hydra_paged_attention",
                         [_P] * 7 + [_I] * 7 + [_F] * 3 + [_I, _I, _P]),
     "kv_writer": ("hydra_kv_write",
-                  [_P, _P, _L, _L, _P, _P] + [_I] * 5 + [_F, _P]),
+                  [_P, _P, _L, _L, _P, _P] + [_I] * 7 + [_L, _I, _L, _I, _F, _P]),
     "quant_matmul": ("hydra_quant_matmul", [_P] * 4 + [_I] * 8 + [_P]),
     "mha_varlen": ("hydra_mha_varlen",
                    [_P] * 4 + [_L] * 4 + [_P] * 5 + [_I] * 4 + [_F, _I, _P]),

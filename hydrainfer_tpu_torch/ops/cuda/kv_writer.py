@@ -7,12 +7,69 @@ v) writes MLA's latent rows as they are, with the same quantize: the port of
 the JAX MLA layer's quantize plus ops/cache_ops.py:write_token_cache. The
 pages are updated in place. Bound on H100: bytes (every row is read once and
 written once).
+
+The kernel's work item is one input vector of one (row, combined head).
+`plan` picks the vector's width and the grid from shapes, strides and
+addresses only (no device call, no host sync, so the CPU tests reach it and
+a CUDA graph can capture the launch): 16 bytes where every input address,
+row stride and head width allows it, else 8, 4 or 2 bytes, else one element.
+`divisor` gives the multiply-and-shift constants by which the kernel divides
+an item's index into its row and combined head.
 """
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from . import build
+
+THREADS = 128          # threads a block (csrc/kv_writer.cu:THREADS)
+VEC_BYTES = 16         # the widest load a thread issues
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def alignment(bits: int) -> int:
+    """The largest power of two, at most VEC_BYTES, that divides `bits`: the
+    OR of byte addresses and byte strides, so that it divides each of them."""
+    return min(VEC_BYTES, bits & -bits) if bits else VEC_BYTES
+
+
+class Plan(NamedTuple):
+    """A launch of K3: `vec` input elements an item, one item a thread,
+    `blocks` blocks of THREADS threads; the (mul, shift) of `divisor` for the
+    vectors of a cache row and of a head."""
+    vec: int
+    blocks: int
+    row_div: Tuple[int, int]
+    head_div: Tuple[int, int]
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(T: int, planes: int, D: int, in_size: int, out_size: int, in_align: int,
+         out_align: int) -> Plan:
+    """K3's launch for T rows of `planes` heads x D elements of in_size bytes
+    into a cache of out_size-byte elements. in_align: `alignment` of the
+    input addresses and row strides in bytes; out_align: of the pages'
+    address. The vector is the widest of 16, 8, 4, 2 bytes (or one element)
+    that divides D, in_align and, as stored (16-byte pieces at most),
+    out_align."""
+    vec = VEC_BYTES // in_size
+    while vec > 1 and (D % vec or in_align % (vec * in_size)
+                       or out_align % min(VEC_BYTES, vec * out_size)):
+        vec //= 2
+    return Plan(vec, _cdiv(T * planes * D // vec, THREADS), divisor(planes * D // vec),
+                divisor(D // vec))
+
+
+def divisor(d: int) -> Tuple[int, int]:
+    """(mul, shift) with i // d == (i * mul) >> shift for 0 <= i < 2^31, as
+    csrc/kv_writer.cu:Divisor divides: shift = 31 + ceil(log2 d), mul =
+    ceil(2^shift / d) < 2^32."""
+    shift = 31 + (d - 1).bit_length()
+    return _cdiv(1 << shift, d), shift
 
 
 def _interleave(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -93,11 +150,16 @@ def write_kv_pages(pages: torch.Tensor, k: torch.Tensor, v: Optional[torch.Tenso
     build.check_cuda(pages, slot_ids)
     in_code = build.dtype_code(k, (torch.float32, torch.bfloat16))
     cache_code = build.dtype_code(pages, (torch.float32, torch.bfloat16, torch.int8))
+    in_size = k.element_size()
+    k_ptr, v_ptr = k.data_ptr(), None if v is None else v.data_ptr()
+    k_stride, v_stride = k.stride(0), 0 if v is None else v.stride(0)
+    p = plan(T, planes, d, in_size, pages.element_size(),
+             alignment(k_ptr | (v_ptr or 0) | (k_stride | v_stride) * in_size),
+             alignment(pages.data_ptr()))
     # a null v pointer selects the single-plane form
-    build.launch("kv_writer", k.data_ptr(), None if v is None else v.data_ptr(),
-                 k.stride(0), 0 if v is None else v.stride(0),
-                 slot_ids.data_ptr(), pages.data_ptr(), T, kvh, d, in_code,
-                 cache_code, float(kv_scale or 1.0))
+    build.launch("kv_writer", k_ptr, v_ptr, k_stride, v_stride, slot_ids.data_ptr(),
+                 pages.data_ptr(), T, planes, d, in_code, cache_code, p.vec, p.blocks,
+                 *p.row_div, *p.head_div, float(kv_scale or 1.0))
     write_kv_pages.launches += 1
     return pages
 

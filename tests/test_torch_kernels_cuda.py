@@ -25,7 +25,14 @@ is held against the plain version run in f32 on the same bf16 inputs, within
 2e-2 x max|plain| (bf16 P and output rounding), a bound that a reference
 missing one 64-row kv tile breaks. K3's
 single-plane form writes latent rows with the int8 quantize rounding half to
-even and drops negative slots. K4 runs at every int8 projection and lm_head
+even and drops negative slots. K3 is held bit for bit to the host's quantize
+clip(rint(x_f32 / f32(scale)), -127, 127) (or cast), with a sentinel left
+in every slot it must not write: its paired form at 32 and 2 kv heads x
+d128 with v a strided view of a fused qkv, its single-plane form at 576, at
+T = 8 and 452 with padded rows; at every vector width its plan can pick (16
+down to 2 bytes or one element: D 20, views 1, 2 or 4 elements off, bf16
+and f32 in, int8, bf16 and f32 caches); and two replays of a CUDA graph
+that captured it leave identical pages. K4 runs at every int8 projection and lm_head
 of the three serving paths over M 1-2048 (both its skinny and its wide
 form, and their boundary at 64/65), at ragged N (200, 72) and K (5472, 200,
 104), with bf16 out held within 2e-2 and f32 logits within 1e-4 of the f32
@@ -42,6 +49,7 @@ from hydrainfer_tpu_torch.ops.cuda import (mha_decode_attention, mha_varlen_flas
                                            paged_attention_latent,
                                            paged_attention_varlen,
                                            quant_matmul_int8, write_kv_pages)
+from hydrainfer_tpu_torch.ops.cuda import kv_writer
 from hydrainfer_tpu_torch.ops.cuda.kv_writer import write_kv_pages_plain
 from hydrainfer_tpu_torch.ops.cuda.mha_decode import mha_decode_attention_plain
 from hydrainfer_tpu_torch.ops.cuda.mha_varlen import mha_varlen_plain
@@ -669,3 +677,141 @@ def test_k3_single_plane_write(dev, cache_dtype, in_dtype):
     expect[slots[keep]] = rows[keep]
     np.testing.assert_array_equal(got.float().cpu().numpy().reshape(-1, 1, D), expect)
     np.testing.assert_array_equal(ref.float().cpu().numpy().reshape(-1, 1, D), expect)
+
+
+K3_SENTINEL = -128      # never written by the quantize, which clips at -127
+
+
+def _k3_case(T, kvh, D, single, in_dtype, v_shift=0, k_shift=0, n_pad=2, seed=11):
+    """T rows in a fused buffer (k and v strided views of it, v `v_shift`
+    and a single-plane k `k_shift` elements off their places), n_pad of them
+    padded (slot -1), the others in shuffled slots of a pool with room to
+    spare. Returns k, v (None when single), the slots and the rows as the
+    cache must hold them, interleaved, as f32 numpy."""
+    rng = np.random.default_rng(seed)
+    planes = kvh if single else 2 * kvh
+    bs = 16
+    nb = -(-T // bs) + 3
+    slots = rng.permutation(nb * bs)[:T].astype(np.int32)
+    slots[rng.permutation(T)[:n_pad]] = -1
+    width = (kvh * D + k_shift) if single else (3 * kvh * D + v_shift)
+    buf = torch.from_numpy(rng.standard_normal((T, width)).astype(np.float32)).to(in_dtype)
+    if single:
+        k, v = buf[:, k_shift:].reshape(T, kvh, D), None
+        rows = k.float().numpy()
+    else:
+        k = buf[:, kvh * D: 2 * kvh * D].reshape(T, kvh, D)
+        v = buf[:, 2 * kvh * D + v_shift:].reshape(T, kvh, D)
+        rows = torch.stack([k, v], 2).reshape(T, planes, D).float().numpy()
+    return k, v, slots, rows, (nb, bs, planes, D)
+
+
+def _k3_expect(rows, slots, shape, cache_dtype, scale):
+    """The pages K3 must leave, on the host: the sentinel everywhere but the
+    real rows' slots; int8 rows clip(rint(x_f32 / f32(scale)), -127, 127)."""
+    expect = torch.full((shape[0] * shape[1],) + shape[2:], K3_SENTINEL, dtype=cache_dtype)
+    keep = slots >= 0
+    if cache_dtype == torch.int8:
+        q = np.clip(np.rint(rows / np.float32(scale)), -127, 127).astype(np.int8)
+        expect[torch.from_numpy(slots[keep]).long()] = torch.from_numpy(q[keep])
+    else:
+        expect[torch.from_numpy(slots[keep]).long()] = \
+            torch.from_numpy(rows[keep]).to(cache_dtype)
+    return expect.view(shape)
+
+
+def _k3_run(dev, k, v, slots, shape, cache_dtype, scale, expect_vec_bytes=None):
+    """One K3 launch over sentinel pages; asserts the plan's vector width."""
+    pages = torch.full(shape, K3_SENTINEL, dtype=cache_dtype, device=dev)
+    s = torch.from_numpy(slots).to(dev)
+    if expect_vec_bytes is not None:
+        in_bits = 0
+        for t in (k,) if v is None else (k, v):
+            in_bits |= t.data_ptr() | t.stride(0) * k.element_size()
+        p = kv_writer.plan(k.shape[0], shape[2], shape[3], k.element_size(),
+                           pages.element_size(), kv_writer.alignment(in_bits),
+                           kv_writer.alignment(pages.data_ptr()))
+        assert p.vec * k.element_size() == expect_vec_bytes
+    write_kv_pages(pages, k, v, s, scale)
+    torch.cuda.synchronize()
+    return pages.cpu()
+
+
+def _on(dev, k, v):
+    """k and v moved to the card as views of one moved buffer, so that
+    their offsets and strides survive the move."""
+    base = k._base if k._base is not None else k
+    moved = base.to(dev)
+    view = lambda t: None if t is None else moved.as_strided(
+        t.shape, t.stride(), t.storage_offset())
+    return view(k), view(v)
+
+
+@pytest.mark.parametrize("T", [8, 452])
+@pytest.mark.parametrize("kvh,D,single", [(32, 128, False), (2, 128, False),
+                                          (1, 576, True)])
+def test_k3_bit_exact_at_path_shapes(dev, kvh, D, single, T):
+    """llava-7b-lm's and qwen2-vl-2b-lm's paired form and mla-2b-lm's latent
+    plane, at a decode step and a prefill's rows, bf16 into int8: bit for
+    bit the host quantize, the sentinel left in every other slot."""
+    k, v, slots, rows, shape = _k3_case(T, kvh, D, single, torch.bfloat16, n_pad=2 + T // 9)
+    k, v = _on(dev, k, v)
+    got = _k3_run(dev, k, v, slots, shape, torch.int8, SCALE, expect_vec_bytes=16)
+    assert torch.equal(got, _k3_expect(rows, slots, shape, torch.int8, SCALE))
+
+
+@pytest.mark.parametrize("in_dtype,cache_dtype,kvh,D,single,v_shift,k_shift,vec_bytes", [
+    (torch.bfloat16, torch.int8, 2, 128, False, 0, 0, 16),
+    (torch.bfloat16, torch.int8, 2, 20, False, 0, 0, 8),      # odd head width
+    (torch.bfloat16, torch.int8, 2, 128, False, 4, 0, 8),     # v 8 bytes off
+    (torch.bfloat16, torch.int8, 2, 128, False, 2, 0, 4),
+    (torch.bfloat16, torch.int8, 2, 128, False, 1, 0, 2),
+    (torch.bfloat16, torch.bfloat16, 2, 128, False, 0, 0, 16),
+    (torch.bfloat16, torch.float32, 2, 128, False, 0, 0, 16),  # two 16-byte stores
+    (torch.float32, torch.float32, 2, 128, False, 0, 0, 16),
+    (torch.float32, torch.int8, 2, 128, False, 2, 0, 8),
+    (torch.float32, torch.bfloat16, 2, 128, False, 1, 0, 4),
+    (torch.float32, torch.int8, 3, 20, False, 0, 0, 16),
+    (torch.bfloat16, torch.int8, 1, 576, True, 0, 1, 2),      # misaligned latent rows
+    (torch.bfloat16, torch.int8, 1, 576, True, 0, 4, 8),
+])
+def test_k3_every_vector_width(dev, in_dtype, cache_dtype, kvh, D, single, v_shift, k_shift,
+                               vec_bytes):
+    k, v, slots, rows, shape = _k3_case(37, kvh, D, single, in_dtype, v_shift, k_shift,
+                                        n_pad=5)
+    k, v = _on(dev, k, v)
+    scale = SCALE if cache_dtype == torch.int8 else None
+    got = _k3_run(dev, k, v, slots, shape, cache_dtype, scale, expect_vec_bytes=vec_bytes)
+    assert torch.equal(got, _k3_expect(rows, slots, shape, cache_dtype, scale))
+
+
+@pytest.mark.parametrize("T,kvh,D,single", [(8, 32, 128, False), (452, 32, 128, False),
+                                            (32, 1, 576, True)])
+def test_k3_graph_replays_are_identical(dev, T, kvh, D, single):
+    k, v, slots, rows, shape = _k3_case(T, kvh, D, single, torch.bfloat16, n_pad=3)
+    k, v = _on(dev, k, v)
+    pages = torch.full(shape, K3_SENTINEL, dtype=torch.int8, device=dev)
+    s = torch.from_numpy(slots).to(dev)
+    write_kv_pages(pages, k, v, s, SCALE)             # built and loaded before capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        write_kv_pages(pages, k, v, s, SCALE)
+    replays = []
+    for _ in range(2):
+        pages.fill_(K3_SENTINEL)
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append(pages.cpu())
+    assert torch.equal(replays[0], replays[1])
+    assert torch.equal(replays[0], _k3_expect(rows, slots, shape, torch.int8, SCALE))
+
+
+def test_k3_counts_its_launches(dev):
+    k, v, slots, _, shape = _k3_case(8, 2, 128, False, torch.bfloat16)
+    k, v = _on(dev, k, v)
+    pages = torch.zeros(shape, dtype=torch.int8, device=dev)
+    write_kv_pages.launches = 0
+    write_kv_pages(pages, k, v, torch.from_numpy(slots).to(dev), SCALE)
+    torch.cuda.synchronize()
+    assert write_kv_pages.launches == 1
