@@ -21,8 +21,8 @@ Phases, each printing one JSON line:
            per projection over M 1-2048, both its forms, with a decode-step
            sum and a prefill-budget sum);
   tiny     serve tiny-lm and mla-tiny-lm in f32 through OfflineEngine on the
-           card and on the CPU with the same weights: the greedy tokens must
-           be identical;
+           card (decode steps from CUDA graphs) and on the CPU with the same
+           weights and key floors: the greedy tokens must be identical;
   serve    serve llava-7b-lm (full width, int8 weights, int8 KV) through
            OfflineEngine on the card: every request must finish with its
            token count, every kernel must have launched in the measured run
@@ -30,6 +30,8 @@ Phases, each printing one JSON line:
            steps, as the vlm and mla phases do),
            a K=16 fused window must have run, and one prefill's logits must
            agree with the same model run through the plain PyTorch versions;
+           then the same model serves the measured round's requests again
+           with CUDA graphs off (`eager_round`): the tokens must be identical;
   vlm      serve Qwen2-VL-2B (full width: bf16 vision tower, LM with int8
            weights and int8 KV) through OfflineEngine(node_type="EPD"): eight
            image requests of four sizes, encoded, prefilled (chunks mixing
@@ -46,6 +48,12 @@ Phases, each printing one JSON line:
            K3 and K4 must have launched in the measured round and K1 and K2
            never, and one prefill's logits through the kernels must agree
            with the plain versions.
+Every serving engine runs the boot warm-up (the shape-key floors raised to
+the serving envelope, the decode keys captured as CUDA graphs) and serves a
+warm-up round before the measured one; the measured round's decode steps are
+graph replays (their kernel launches counted), it may capture no key, and
+the graph pool must fit in the headroom an auto-sized KV pool leaves: each
+serving phase reports `graphs`.
 Then the card's name and power limit, a "kernels" JSON line (one row per
 kernel and serving path, K3 one per path and form: that path's shapes and
 its measured round's launches), and as the last
@@ -592,6 +600,7 @@ def check_latent(gen, dev) -> list:
     import torch
     from hydrainfer_tpu_torch.ops.cuda.paged_attention import \
         paged_attention_varlen_plain as latent_plain      # K6's plain version
+    from hydrainfer_tpu_torch.ops.cuda import split_kv
     from hydrainfer_tpu_torch.ops.cuda.paged_attention_latent import \
         paged_attention_latent
     cfg, shp = _arch_cfg("mla"), PATH_SHAPES["mla"]
@@ -674,11 +683,31 @@ def check_latent(gen, dev) -> list:
             "library": f"{lib_name}, K = V = the gathered dense plane" if lib_name else None,
             "library_backends": lib}
         del pages, q16, q32, kv, mask, calls
+    # the mla round's drain steps: 16 live sequences in a batch padded to the
+    # S = 32 floor (the split count from S = 32) against the same 16 in an
+    # S = 16 batch (their split count without the floor)
+    specs = shp["decode"][:16]
+    pages, tables, kv_lens, cu, ns = _latent_case(gen, specs, 1024, bs, D, kv_scale, dev)
+    q16 = torch.randn((16, H, D), generator=gen).to(dev, torch.bfloat16)
+    pad = lambda t, fill: torch.cat([t, torch.full((16,) + tuple(t.shape[1:]), fill,   # noqa: E731
+                                                   dtype=t.dtype, device=dev)])
+    drain, outs = {}, []
+    for S, geo in ((16, (pages, kv_lens, tables, cu, ns, sm, kv_scale)),
+                   (32, (pages, pad(kv_lens, 0), pad(tables, 0), pad(cu, int(cu[-1])), ns,
+                         sm, kv_scale))):
+        fn = lambda geo=geo: paged_attention_latent(q16, *geo, max_q=1)   # noqa: E731
+        outs.append(fn())
+        drain[f"splits_S{S}"] = split_kv.num_splits(S, tables.shape[1] * bs)
+        drain[f"graph_ms_S{S}"] = graph_ms(fn)
+    drain["max_abs_diff"] = (outs[0].float() - outs[1].float()).abs().max().item()
+    forms["drain_16_of_32"] = drain
     save("paged_attention_latent.json", forms)
     # the decode window carries most of the path's launches: it is the row
     row, mixed = forms["decode"], forms["mixed"]
     return [{"name": "paged_attention_latent", "path": "mla",
-             "ok": row["ok"] and mixed["ok"],
+             "ok": (row["ok"] and mixed["ok"]
+                    and drain["max_abs_diff"] <= 2e-2 * max(1.0, outs[0].abs().max().item())),
+             "drain_16_of_32": drain,
              "max_abs_err": max(row["max_abs_err"], mixed["max_abs_err"]),
              "tolerance": "bf16: 2e-2 x max(1, max|plain|) against the plain version in "
                           "f32 on the same inputs (bf16 P and output rounding); f32: "
@@ -891,7 +920,10 @@ def phase_kernels() -> tuple:
 # ------------------------------------------------------------------ serving
 
 def _engine(factory, device, n_requests, block_size, n_blocks, token_budget,
-            node_type="PD", n_image_blocks=-1):
+            node_type="PD", n_image_blocks=-1, cuda_graphs=True):
+    """An OfflineEngine with the boot warm-up on (the key floors raised to
+    the serving envelope, the decode keys met and, with cuda_graphs on the
+    card, captured)."""
     from hydrainfer_tpu_torch.cluster.node import NodeConfig
     from hydrainfer_tpu_torch.engine.request_processor import RequestProcessorConfig
     from hydrainfer_tpu_torch.engine.scheduler import BatchSchedulerConfig
@@ -900,7 +932,7 @@ def _engine(factory, device, n_requests, block_size, n_blocks, token_budget,
         batch_scheduler=BatchSchedulerConfig(max_running_requests=n_requests),
         request_processor=RequestProcessorConfig(num_request_process_workers=1),
         kv_block_size=block_size, n_kv_blocks=n_blocks, n_image_blocks=n_image_blocks,
-        multi_step_decode=16)
+        multi_step_decode=16, cuda_graphs=cuda_graphs, boot_warmup=True)
     engine = OfflineEngine(cfg, model_factory=factory, node_type=node_type, device=device)
     engine.node.batch_scheduler.token_budget = token_budget
     return engine
@@ -1056,14 +1088,19 @@ def _logits_check(lm, tokens, device, prefix, **batch_kw) -> dict:
 def _profile_round(engine, reqs, name="serve_profile.json") -> dict:
     """One more round under torch.profiler: device time by kernel and the
     device's busy share of the round's wall time (the profiler's own host
-    overhead lengthens the wall, so the share is a lower bound)."""
+    overhead lengthens the wall, so the share is a lower bound). Whether the
+    profiler sees the kernels inside replayed CUDA graphs: K3's kernels it
+    counted against K3's launches in the round (replays included)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from hydrainfer_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         engine.generate(reqs, timeout_s=600)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    k3_launches = launch_counts()["kv_writer"]
     rows = []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0) or 0
@@ -1071,11 +1108,15 @@ def _profile_round(engine, reqs, name="serve_profile.json") -> dict:
             rows.append({"kernel": e.key[:120], "count": e.count, "ms": us / 1e3})
     rows.sort(key=lambda r: -r["ms"])
     busy_ms = sum(r["ms"] for r in rows)
-    save(name, {"wall_s": wall, "device_busy_ms": busy_ms, "kernels": rows})
+    k3_seen = sum(r["count"] for r in rows if "kv_write_kernel" in r["kernel"])
+    save(name, {"wall_s": wall, "device_busy_ms": busy_ms, "kernels": rows,
+                "kv_writer_kernels_seen": k3_seen, "kv_writer_launches": k3_launches})
     if busy_ms == 0:
         return {"profile": "not measured (the profiler saw no device time)"}
     return {"profile_wall_s": wall, "profile_device_busy_share": busy_ms / 1e3 / wall,
             "profile_device_busy_ms": busy_ms,
+            "profile_sees_graph_kernels": k3_seen >= k3_launches,
+            "profile_kv_writer_seen_vs_launched": [k3_seen, k3_launches],
             "profile_top_kernels": [{k: r[k] for k in ("kernel", "count", "ms")}
                                     for r in rows[:8]]}
 
@@ -1085,9 +1126,13 @@ class KvWriteSplit:
     decode (every query one token, max_q == 1) or prefill (chunks, alone or
     mixed with decodes), and by the rows (T) each launch wrote. It wraps the
     decoder's attention block, which writes its layer's K/V through K3, and
-    reads K3's own launch count around each call."""
+    reads K3's own launch count around each call made outside a graph
+    capture. A replayed graph calls no Python: each replay since `reset` of
+    a node's graphs (all decode steps) adds the K3 launches its capture
+    recorded, at its key's T."""
 
     def __init__(self):
+        import torch
         from hydrainfer_tpu_torch.models import decoder
         from hydrainfer_tpu_torch.ops.cuda import write_kv_pages
         self.decoder, self.orig = decoder, decoder._attention_block
@@ -1096,36 +1141,128 @@ class KvWriteSplit:
         def spy(x, cache, layer_id, lw, batch, cos, sin, cfg, max_q):
             before = write_kv_pages.launches
             out = self.orig(x, cache, layer_id, lw, batch, cos, sin, cfg, max_q)
-            rows = self.rows["decode" if max_q == 1 else "prefill"]
-            rows[x.shape[0]] = rows.get(x.shape[0], 0) + write_kv_pages.launches - before
+            if not torch.cuda.is_current_stream_capturing():
+                rows = self.rows["decode" if max_q == 1 else "prefill"]
+                rows[x.shape[0]] = (rows.get(x.shape[0], 0)
+                                    + write_kv_pages.launches - before)
             return out
 
         decoder._attention_block = spy
 
-    def reset(self) -> None:
+    def reset(self, graphs=None) -> None:
         self.rows = {"decode": {}, "prefill": {}}
+        self.graphs = graphs
+        self.replays0 = ({key: g.replays for key, g in graphs.graphs.items()}
+                         if graphs is not None else {})
 
     def restore(self) -> None:
         self.decoder._attention_block = self.orig
 
+    def _rows(self) -> dict:
+        rows = {form: dict(r) for form, r in self.rows.items()}
+        if self.graphs is not None:
+            for (dims, _), g in self.graphs.graphs.items():
+                n = (g.replays - self.replays0.get((dims, _), 0)) * g.launches.get(
+                    "kv_writer", 0)
+                if n:
+                    rows["decode"][dims.T] = rows["decode"].get(dims.T, 0) + n
+        return rows
+
     def counts(self) -> dict:
         """{"kv_writer:decode": n, "kv_writer:prefill": m}, beside the
         wrappers' launch counts."""
-        return {f"kv_writer:{form}": sum(r.values()) for form, r in self.rows.items()}
+        return {f"kv_writer:{form}": sum(r.values()) for form, r in self._rows().items()}
 
     def report(self) -> dict:
         return {form: {"launches": sum(r.values()),
                        "launches_by_rows": {str(t): n for t, n in sorted(r.items())}}
-                for form, r in self.rows.items()}
+                for form, r in self._rows().items()}
+
+
+class GraphRounds:
+    """The `graphs` report of a serving phase: the keys its engine captured
+    at boot and in the warm-up round (each with the kernel launches one
+    replay runs), with the seconds spent capturing, the
+    keys captured and the replays in the measured round (no key may be
+    captured there: the warm-up round has met every one), and the graph
+    pool's bytes against the headroom an auto-sized KV pool leaves one
+    resident model (0.1 of the usable free memory, cluster/node.py)."""
+
+    def __init__(self, engine, free_bytes: int):
+        self.graphs = engine.node.fill_executor.graphs
+        self.headroom = int(0.1 * engine.node.config.hbm_utilization * free_bytes)
+        self.boot = (self.graphs.captures, self.graphs.capture_s)
+
+    def start_measured(self) -> None:
+        self.warm = (self.graphs.captures, self.graphs.capture_s)
+        self.replays0 = self.graphs.replays
+
+    def end_measured(self) -> None:
+        self.measured = (self.graphs.captures - self.warm[0],
+                         self.graphs.replays - self.replays0)
+
+    def report(self) -> dict:
+        g = self.graphs
+        pool = g.pool_bytes()
+        return {"keys_captured_at_boot": self.boot[0], "capture_s_at_boot": self.boot[1],
+                "keys_captured_in_warmup_round": self.warm[0] - self.boot[0],
+                "capture_s": g.capture_s, "keys_captured_in_measured_round": self.measured[0],
+                "replays_in_measured_round": self.measured[1], "pool_bytes": pool,
+                "auto_sizing_headroom_bytes": self.headroom,
+                # each key's kernel launches a replay runs
+                "keys": {f"T={d.T} S={d.S} MB={d.MB} mrope={d.mrope} n_steps={n}": gr.launches
+                         for (d, n), gr in sorted(g.graphs.items(), key=str)}}
+
+    def ok(self) -> bool:
+        return (self.measured[0] == 0 and self.measured[1] > 0
+                and self.graphs.pool_bytes() <= self.headroom)
+
+
+def _eager_round(factory, dev, n_blocks, token_budget, reqs, ref_outs, phase) -> dict:
+    """The serve phase's A/B: a second engine on the same model, with
+    cuda_graphs off and the same boot warm-up (the same key floors), serves a
+    warm-up round, the measured round's requests again and a profiled
+    round. Its greedy tokens must equal the graphs-on round's. Its own
+    prompts come from their own generator, so the phase's later checks draw
+    the data they drew without this round."""
+    import numpy as np
+    import torch
+    from hydrainfer_tpu_torch.request import Request, SamplingParameters
+    n, max_tokens = len(reqs), reqs[0].sampling_params.max_tokens
+    rng = np.random.default_rng(SEED + 1)
+    engine = _engine(factory, dev, n, 16, n_blocks, token_budget, cuda_graphs=False)
+    engine.generate(_requests(rng, n, len(reqs[0].prompt), max_tokens, "warm_eager"),
+                    timeout_s=600)
+    again = [Request(request_id=f"eager{i}", prompt=r.prompt,
+                     sampling_params=SamplingParameters(max_tokens=max_tokens,
+                                                        ignore_eos=True))
+             for i, r in enumerate(reqs)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = engine.generate(again, timeout_s=600)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    profiled = _profile_round(engine, _requests(rng, n, len(reqs[0].prompt), max_tokens,
+                                                "prof_eager"),
+                              f"{phase}_eager_profile.json")
+    ttfts = sorted(o.ttft for o in outs)
+    return {"cuda_graphs": False,
+            "tokens_per_s": sum(len(o.output_token_ids) for o in outs) / elapsed,
+            "elapsed_s": elapsed, "p50_ttft_s": ttfts[len(ttfts) // 2], "ttfts_s": ttfts,
+            "tokens_identical_to_graphs_round": [o.output_token_ids for o in outs]
+            == [o.output_token_ids for o in ref_outs],
+            **{k: v for k, v in profiled.items() if k != "profile_top_kernels"}}
 
 
 def phase_serve(arch="llava-7b-lm", dev="cuda", n_requests=8, prompt_len=128,
                 max_tokens=32, token_budget=256, phase="serve", must_run=SERVE_KERNELS,
-                must_not_run=()) -> tuple:
+                must_not_run=(), eager_round=True) -> tuple:
     """Text serving of `arch` (int8 weights, int8 KV at 0.05) through
-    OfflineEngine: a warm-up round, the measured round, a profiled round.
-    Every kernel of must_run has to launch in the measured round, and none of
-    must_not_run."""
+    OfflineEngine with CUDA graphs on: boot (the decode warm-up), a warm-up
+    round, the measured round, a profiled round. Every kernel of must_run has
+    to launch in the measured round, and none of must_not_run; the round must
+    replay graphs and capture none. With eager_round, the same model then
+    serves the measured round's requests with graphs off (_eager_round)."""
     import numpy as np
     import torch
     from hydrainfer_tpu_torch.engine import executor as ex
@@ -1140,7 +1277,11 @@ def phase_serve(arch="llava-7b-lm", dev="cuda", n_requests=8, prompt_len=128,
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_blocks = max(256, 2 * n_requests * (prompt_len + max_tokens) // 16)
+    free = torch.cuda.mem_get_info(dev)[0]
+    t0 = time.perf_counter()
     engine = _engine(factory, dev, n_requests, 16, n_blocks, token_budget)
+    boot_s = time.perf_counter() - t0
+    graphs = GraphRounds(engine, free)
     rng = np.random.default_rng(SEED)
 
     windows = []
@@ -1154,7 +1295,8 @@ def phase_serve(arch="llava-7b-lm", dev="cuda", n_requests=8, prompt_len=128,
     ex.FillExecutor._multi_step_window = spy
     k3 = KvWriteSplit()
     try:
-        # warm-up round (cuBLAS and allocator set-up), then the measured round
+        # warm-up round (cuBLAS and allocator set-up, the keys the boot
+        # warm-up did not meet), then the measured round
         engine.generate(_requests(rng, n_requests, prompt_len, max_tokens, "warm"),
                         timeout_s=600)
         windows.clear()
@@ -1162,11 +1304,13 @@ def phase_serve(arch="llava-7b-lm", dev="cuda", n_requests=8, prompt_len=128,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
-        k3.reset()
+        k3.reset(graphs.graphs)
+        graphs.start_measured()
         t1 = time.perf_counter()
         outs = engine.generate(reqs, timeout_s=600)
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t1
+        graphs.end_measured()
         counts = {**launch_counts(), **k3.counts()}
         k3_split = k3.report()
         peak = torch.cuda.max_memory_allocated()
@@ -1174,6 +1318,8 @@ def phase_serve(arch="llava-7b-lm", dev="cuda", n_requests=8, prompt_len=128,
         profiled = _profile_round(engine, _requests(rng, n_requests, prompt_len,
                                                     max_tokens, "prof"),
                                   f"{phase}_profile.json")
+        eager = (_eager_round(factory, dev, n_blocks, token_budget, reqs, outs, phase)
+                 if eager_round else None)
     finally:
         ex.FillExecutor._multi_step_window = orig
         k3.restore()
@@ -1189,9 +1335,10 @@ def phase_serve(arch="llava-7b-lm", dev="cuda", n_requests=8, prompt_len=128,
     windows = measured_windows
     # the llava text path runs K1-K4 (K5 is the ViT's, K6 the MLA path's);
     # the MLA path runs K6, K3 and K4, and never K1 or K2
-    ok = (tokens_ok and logits.pop("ok") and 16 in windows
+    ok = (tokens_ok and logits.pop("ok") and 16 in windows and graphs.ok()
           and all(counts[k] > 0 for k in must_run)
-          and all(counts[k] == 0 for k in must_not_run))
+          and all(counts[k] == 0 for k in must_not_run)
+          and (eager is None or eager["tokens_identical_to_graphs_round"]))
     result = {"phase": phase, "ok": bool(ok), "gpu": gpu_name_and_limit(),
               "arch": arch,
               "weights": "int8", "kv_cache": "int8 (scale 0.05)",
@@ -1200,11 +1347,13 @@ def phase_serve(arch="llava-7b-lm", dev="cuda", n_requests=8, prompt_len=128,
               "tokens_per_request": n_tokens, "tokens_per_s": sum(n_tokens) / elapsed,
               "elapsed_s": elapsed, "p50_ttft_s": ttfts[len(ttfts) // 2],
               "ttfts_s": ttfts,
-              "weight_init_s": init_s, "param_bytes": factory.param_bytes(),
+              "weight_init_s": init_s, "boot_s": boot_s,
+              "param_bytes": factory.param_bytes(),
               "fused_windows": sorted(set(windows)),
               "n_k16_windows": windows.count(16), "launches": counts,
-              "kv_writer_launches": k3_split, **logits,
-              "peak_memory_bytes": peak, **profiled}
+              "kv_writer_launches": k3_split, "graphs": graphs.report(), **logits,
+              "peak_memory_bytes": peak, **profiled,
+              **({"eager_round": eager} if eager is not None else {})}
     return result, counts
 
 
@@ -1215,7 +1364,7 @@ def phase_mla(dev="cuda") -> tuple:
     budget 2048, block size 16, K=16 windows."""
     return phase_serve(MLA_ARCH, dev, MLA_REQUESTS, MLA_PROMPT, MLA_TOKENS, 2048,
                        phase="mla", must_run=MLA_KERNELS,
-                       must_not_run=("mha_decode", "paged_attention"))
+                       must_not_run=("mha_decode", "paged_attention"), eager_round=False)
 
 
 # ---------------------------------------------------------------- phase: vlm
@@ -1388,7 +1537,11 @@ def phase_vlm(dev="cuda", max_tokens=32) -> tuple:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n = len(VLM_IMAGES)
+    free = torch.cuda.mem_get_info(dev)[0]
+    t0 = time.perf_counter()
     engine = _engine(factory, dev, n, 16, 512, 2048, node_type="EPD", n_image_blocks=64)
+    boot_s = time.perf_counter() - t0
+    graphs = GraphRounds(engine, free)
     rng = np.random.default_rng(SEED + 2)
 
     windows, encodes = [], []
@@ -1419,11 +1572,13 @@ def phase_vlm(dev="cuda", max_tokens=32) -> tuple:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
-        k3.reset()
+        k3.reset(graphs.graphs)
+        graphs.start_measured()
         t1 = time.perf_counter()
         outs = engine.generate(reqs, timeout_s=600)
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t1
+        graphs.end_measured()
         counts = {**launch_counts(), **k3.counts()}
         k3_split = k3.report()
         peak = torch.cuda.max_memory_allocated()
@@ -1444,7 +1599,7 @@ def phase_vlm(dev="cuda", max_tokens=32) -> tuple:
     logits = _image_prefill_check(factory, reqs[1], rng, dev)
     calc = factory.getVisionModelConfig().image_token_calculator
     image_tokens = [calc.get_num_image_tokens(s) for s in VLM_IMAGES]
-    ok = (tokens_ok and features["features_ok"] and logits.pop("ok")
+    ok = (tokens_ok and features["features_ok"] and logits.pop("ok") and graphs.ok()
           and 16 in measured["windows"] and all(counts[k] > 0 for k in VLM_KERNELS))
     result = {"phase": "vlm", "ok": bool(ok), "gpu": gpu_name_and_limit(),
               "model": "Qwen2-VL-2B: ViT {depth} x {embed_dim}, {num_heads} heads; LM ".format(
@@ -1455,11 +1610,12 @@ def phase_vlm(dev="cuda", max_tokens=32) -> tuple:
               "tokens_per_request": n_tokens, "tokens_per_s": sum(n_tokens) / elapsed,
               "elapsed_s": elapsed, "p50_ttft_s": ttfts[len(ttfts) // 2],
               "ttfts_s": ttfts,
-              "encodes": measured["encodes"], "weight_init_s": init_s,
+              "encodes": measured["encodes"], "weight_init_s": init_s, "boot_s": boot_s,
               "lm_param_bytes": factory.lm_factory.param_bytes(),
               "fused_windows": sorted(set(measured["windows"])),
               "n_k16_windows": measured["windows"].count(16), "launches": counts,
-              "kv_writer_launches": k3_split, "peak_memory_bytes": peak, **features,
+              "kv_writer_launches": k3_split, "graphs": graphs.report(),
+              "peak_memory_bytes": peak, **features,
               **logits, **profiled}
     return result, counts
 
@@ -1547,6 +1703,7 @@ def main() -> int:
                                              "mixed_ms",
                                              "mixed_graph_ms", "mixed_bound_ms",
                                              "mixed_library_ms", "mixed_library_graph_ms",
+                                             "drain_16_of_32",
                                              "prefill_ms", "prefill_graph_ms",
                                              "prefill_bound_ms", "prefill_library_ms",
                                              "prefill_library_graph_ms")

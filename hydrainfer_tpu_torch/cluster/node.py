@@ -10,7 +10,10 @@ engine/executor.py:FillFuture). The pipeline is the JAX package's
 backlog overflow, oldest first, so at least one later window stays queued on
 the card through every blocking read. Each step dispatches its fills before
 its encode, so resident decodes never queue behind a ViT forward they do not
-depend on (an image's own prefill runs in a later step). Migration is limited
+depend on (an image's own prefill runs in a later step). At boot the node
+raises the executor's shape-key floors to its serving envelope and runs the
+decode warm-up, which captures the decode steps' CUDA graphs
+(NodeConfig.cuda_graphs, boot_warmup). Migration is limited
 to the colocated self graph (the EP and PD hand-offs to itself); cross-node
 transfer, the chunked encode of fixed-resolution towers and speculative
 decoding are later slices.
@@ -23,6 +26,7 @@ import torch
 
 from ..engine.executor import FillExecutor, ImageEmbedExecutor
 from ..engine.isa import EmptyInstruction, EPMigrate, Fill, ImageEmbed, MigrateRequest
+from ..engine.profiler import warm_decode
 from ..engine.rcb import BatchRequest, RequestControlBlock
 from ..engine.request_processor import (RequestProcessParameters,
                                         RequestProcessor, RequestProcessorConfig,
@@ -64,6 +68,17 @@ class NodeConfig:
     # here (the JAX default is 12); > 0 is refused
     spec_ngram_k: int = 0
     token_table_size: int = 4096
+    # run the all-decode steps from CUDA graphs, one per shape key (the
+    # counterpart of the JAX package's jitted step programs); the card only
+    cuda_graphs: bool = True
+    # at boot, raise the S / MB key floors to the serving envelope (S =
+    # max_running_requests, MB = the pool's fair-share context a request,
+    # capped at boot_warmup_max_context; Ti on an image node) and run the
+    # decode warm-up (engine/profiler.py), which captures the decode graphs
+    # at that batch size. None = on where the node runs on the card with
+    # cuda_graphs on
+    boot_warmup: Optional[bool] = None
+    boot_warmup_max_context: int = 8192
 
 
 @dataclass
@@ -121,7 +136,8 @@ class AsyncEPDNode:
         self.fill_executor = FillExecutor(
             self.kv_cache_manager, self.worker, self.config.token_table_size,
             image_cache_manager=self.image_cache_manager,
-            mrope=bool(self.language_config.mrope_section))
+            mrope=bool(self.language_config.mrope_section),
+            cuda_graphs=self.config.cuda_graphs)
         self.image_embed_executor = (
             ImageEmbedExecutor(self.image_cache_manager, self.worker)
             if nt.has_vision_model and self.image_cache_manager is not None else None)
@@ -133,9 +149,34 @@ class AsyncEPDNode:
                                                   model_factory)
         self.request_processor.register_observer(
             BatchSchedulerObserver(self.batch_scheduler))
+        self._boot_warmup()
         logger.info(f"{self.name} initialized on {self.device} "
                     f"({self.kv_cache_manager.n_blocks} kv blocks, "
                     f"token budget {self.config.token_budget})")
+
+    def _boot_warmup(self) -> None:
+        """Pre-ratchet the key floors to the serving envelope, then warm the
+        decode keys (port of the boot sequence of the JAX node's init). A
+        failure here stops the boot: on the card it is a failed capture."""
+        cfg = self.config
+        on = cfg.boot_warmup
+        if on is None:
+            on = self.device.type == "cuda" and cfg.cuda_graphs
+        if not (on and self.worker.supports_multi_step()):
+            return
+        fx, kv = self.fill_executor, self.kv_cache_manager
+        max_running = cfg.batch_scheduler.max_running_requests
+        fair_ctx = min(kv.n_blocks * kv.block_size // max(1, max_running),
+                       cfg.boot_warmup_max_context)
+        fx.preratchet(max_running, -(-fair_ctx // kv.block_size))
+        if self.image_cache_manager is not None:
+            # the widest image gather one batch can carry: the image budget's
+            # tokens, at most the token budget
+            n_img = self.vision_config.image_token_calculator \
+                .get_num_image_tokens((336, 336)) or 576
+            s = self.batch_scheduler
+            fx.preratchet(1, 1, min(s.image_budget * n_img, s.token_budget))
+        warm_decode(fx, kv, max_running, max(cfg.multi_step_decode, 1))
 
     def _init_caches(self) -> None:
         nt = self.context.node_type

@@ -15,6 +15,13 @@ marks the copy's completion; the returned Future's get() waits on that event
 only, and is_ready() polls it. The card meanwhile feeds itself: a decode step
 reads its input token from the device token table, where the previous step
 wrote it.
+
+Shape keys: the builder pads S, MB and Ti up to the executor's high-water
+floors (raised by every build, and before serving by `preratchet`), so the
+set of (FillDims, n_steps) keys converges. On the card with CUDA graphs on,
+each all-decode key runs from its graph (models/step_graphs.py): the step's
+host buffers are copied into that key's device buffers, and the graph is
+replayed. Every new key is logged, as the JAX executor logs a new compile.
 """
 import time
 from typing import Optional
@@ -24,12 +31,16 @@ import torch
 
 from ..memory import TokenCacheBlockManager
 from ..models.factory import VisionModelParameters
+from ..models.step_graphs import StepGraphs, graphed
 from ..ops.cache_ops import write_token_cache
 from ..utils import hostprof
+from ..utils.logger import getLogger
 from .isa import Fill, ImageEmbedFill
 from .params_builder import LanguageModelBatchBuilder
 from .rcb import BatchRequest
 from .worker import Worker
+
+logger = getLogger(__name__)
 
 
 class Future:
@@ -54,6 +65,10 @@ class FillFuture(Future):
         self.n_steps = n_steps      # device steps this read covers
         self._done = False
         if sampled_dev.device.type == "cuda":
+            # queued on the stream right behind the step: when the step was a
+            # graph replay, sampled_dev is the graph's own output, and the
+            # next replay of the same key (later on this stream) overwrites
+            # it only after this copy has read it
             self._host = torch.empty(sampled_dev.shape, dtype=sampled_dev.dtype,
                                      pin_memory=True)
             self._host.copy_(sampled_dev, non_blocking=True)
@@ -90,7 +105,7 @@ class FillExecutor:
     def __init__(self, kv_cache_manager: TokenCacheBlockManager, worker: Worker,
                  token_table_size: int = 4096,
                  image_cache_manager: Optional[TokenCacheBlockManager] = None,
-                 mrope: bool = False):
+                 mrope: bool = False, cuda_graphs: bool = False):
         self.kv = kv_cache_manager
         self.image = image_cache_manager
         self.mrope = mrope
@@ -101,6 +116,27 @@ class FillExecutor:
         self.token_table = torch.zeros(token_table_size + 1, dtype=torch.int32,
                                        device=self.kv.device)
         self._free_slots = list(range(token_table_size - 1, -1, -1))
+        # the all-decode steps' CUDA graphs; none on the CPU
+        self.graphs = (StepGraphs(self.kv.cache_array, self.token_table)
+                       if cuda_graphs and self.kv.device.type == "cuda" else None)
+        # high-water marks of the S / MB / Ti key dims (see
+        # params_builder.build): once a key exists, no smaller batch or
+        # narrower block table makes a new one
+        self._s_highwater = 1
+        self._mb_highwater = 1
+        self._ti_highwater = 0
+        # every (dims, n_steps) dispatched; a new one mid-serving is a new
+        # graph capture (decode) or a new eager shape (prefill)
+        self._seen_fill_keys = set()
+
+    def preratchet(self, s_floor: int, mb_floor: int, ti_floor: int = 0) -> None:
+        """Raise the S / MB / Ti floors to the serving envelope before
+        serving, so that the key set converges at boot instead of growing as
+        the batch fills and contexts grow. Ti (the image-feature gather
+        width) applies to image-bearing batches only."""
+        self._s_highwater = max(self._s_highwater, int(s_floor))
+        self._mb_highwater = max(self._mb_highwater, int(mb_floor))
+        self._ti_highwater = max(self._ti_highwater, int(ti_floor))
 
     def acquire_slot(self, rcb) -> None:
         if rcb.token_slot < 0:
@@ -202,21 +238,43 @@ class FillExecutor:
         with hostprof.span("fill.build"):
             builder = LanguageModelBatchBuilder(self.kv, self.image, self.mrope)
             builder.add_batch(batch)
-            plan = builder.build()
+            plan = builder.build(s_floor=self._s_highwater, mb_floor=self._mb_highwater,
+                                 ti_floor=self._ti_highwater)
+        dims = plan.dims
+        self._s_highwater = max(self._s_highwater, dims.S)
+        self._mb_highwater = max(self._mb_highwater, dims.MB)
+        self._ti_highwater = max(self._ti_highwater, dims.Ti)
+        graphs = self.graphs if self.graphs is not None and graphed(dims) else None
+        if (dims, n_steps) not in self._seen_fill_keys:
+            self._seen_fill_keys.add((dims, n_steps))
+            logger.info(f"new fill graph key #{len(self._seen_fill_keys)}: {dims} "
+                        f"n_steps={n_steps} ({'graph' if graphs else 'eager'})")
 
-        device = self.kv.device
-        fused_k = None
+        k_host = None
+        if n_steps > 1:
+            k_host = np.zeros(dims.S, np.int32)
+            k_host[:len(ks)] = ks
+        # from pageable host memory, a non-blocking copy stages its source
+        # before it returns, so the host arrays may go at once; the device
+        # write is ordered on the stream behind earlier steps that read the
+        # same buffer (a graph key's inputs are reused at every replay)
         with hostprof.span("fill.h2d"):
-            flat = torch.from_numpy(plan.flat).to(device, non_blocking=True)
-            if n_steps > 1:
-                k_host = np.zeros(plan.dims.S, np.int32)
-                k_host[:len(ks)] = ks
-                fused_k = torch.from_numpy(k_host).to(device, non_blocking=True)
+            if graphs is not None:
+                flat, fused_k = graphs.inputs(dims, n_steps)
+                flat.copy_(torch.from_numpy(plan.flat), non_blocking=True)
+                if fused_k is not None:
+                    fused_k.copy_(torch.from_numpy(k_host), non_blocking=True)
+            else:
+                device = self.kv.device
+                flat = torch.from_numpy(plan.flat).to(device, non_blocking=True)
+                fused_k = (None if k_host is None else
+                           torch.from_numpy(k_host).to(device, non_blocking=True))
         with hostprof.span("fill.dispatch"):
             out = self.worker.execute_language_model(
-                self.kv.cache_array, self.token_table, flat, plan.dims,
+                self.kv.cache_array, self.token_table, flat, dims,
                 n_steps=n_steps, fused_k=fused_k,
-                image_cache=self.image.cache_array if self.image is not None else None)
+                image_cache=self.image.cache_array if self.image is not None else None,
+                graphs=graphs)
 
         # advance each request through ITS window (ks[i] steps), collecting
         # per-step instruction rows for the host-side token resolution; rows

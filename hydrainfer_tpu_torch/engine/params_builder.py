@@ -5,10 +5,14 @@ Every array is padded to a shape bucket (tokens and image-feature tokens to
 TOKEN_BUCKETS, sequences to SEQ_BUCKETS, block-table width to a power of
 two), and all int32 fields go into one flat buffer so a step costs one
 host-to-device copy: the core fields, each image feature's image-cache slot
-and destination token, and under M-RoPE the h/w position streams. The JAX
-package's high-water floors on S and MB exist to bound its compile-key set;
-PyTorch compiles nothing, so they are not carried over. The native C++ packer
-(csrc/hostops.cpp) is a later slice.
+and destination token, and under M-RoPE the h/w position streams.
+
+`build` takes the executor's high-water floors on S, MB and Ti. The dims are
+the key of a step's CUDA graph (models/step_graphs.py), as they are the key
+of a compiled program in the JAX package, so the floors bound the graph-key
+set: without them a draining batch walks S back down the buckets and growing
+contexts walk MB up through every power of two, each a new capture. The
+native C++ packer (csrc/hostops.cpp) is a later slice.
 """
 import bisect
 from dataclasses import dataclass
@@ -95,16 +99,25 @@ class LanguageModelBatchBuilder:
             if isinstance(inst, Fill):
                 self.add(rcb, inst)
 
-    def build(self) -> FillBatchPlan:
+    def build(self, s_floor: int = 1, mb_floor: int = 1,
+              ti_floor: int = 0) -> FillBatchPlan:
+        """s_floor, mb_floor, ti_floor: the executor's high-water floors on the
+        S, MB and Ti key dims (rounded up as the dims are). Padding sequence
+        rows and block-table width costs a decode step little; T is not
+        floored, since padded prefill rows are real work."""
         n_seqs = len(self.seq_rcbs)
         T = bucket_of(self._n_tokens, TOKEN_BUCKETS)
         dims = FillDims(
-            T=T, S=bucket_of(n_seqs, SEQ_BUCKETS), MB=_next_pow2(self._max_blocks),
+            T=T, S=max(bucket_of(n_seqs, SEQ_BUCKETS), _next_pow2(s_floor)),
+            MB=max(_next_pow2(self._max_blocks), _next_pow2(mb_floor)),
             # prefill-carrying batches bound max_q by T; all-decode batches
             # keep max_q = 1 (they go to the decode kernel)
             max_q=T if self._max_q > 1 else 1,
-            # text-only batches carry no image gather
-            Ti=bucket_of(len(self.image_slot_ids), TOKEN_BUCKETS) if self.image_slot_ids else 0,
+            # text-only batches carry no image gather; image-bearing ones are
+            # floored at ti_floor
+            Ti=(max(bucket_of(len(self.image_slot_ids), TOKEN_BUCKETS),
+                    bucket_of(ti_floor, TOKEN_BUCKETS) if ti_floor else 0)
+                if self.image_slot_ids else 0),
             mrope=self._mrope)
         return FillBatchPlan(flat=self._build_python(dims), dims=dims,
                              seq_rcbs=self.seq_rcbs, seq_insts=self.seq_insts,

@@ -16,7 +16,8 @@ class Worker:
         raise NotImplementedError
 
     def execute_language_model(self, cache, token_table, flat, dims,
-                               n_steps: int = 1, fused_k=None, image_cache=None):
+                               n_steps: int = 1, fused_k=None, image_cache=None,
+                               graphs=None):
         raise NotImplementedError
 
 
@@ -37,7 +38,8 @@ class VanillaWorker(Worker):
         return self.vision_model.forward(pixel_values, params)
 
     def execute_language_model(self, cache, token_table, flat, dims,
-                               n_steps: int = 1, fused_k=None, image_cache=None):
+                               n_steps: int = 1, fused_k=None, image_cache=None,
+                               graphs=None):
         return self.language_model.forward_flat(cache, token_table, flat, dims,
                                                 n_steps=n_steps, fused_k=fused_k,
-                                                image_cache=image_cache)
+                                                image_cache=image_cache, graphs=graphs)

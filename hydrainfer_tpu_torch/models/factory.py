@@ -108,7 +108,8 @@ class LanguageModelOutput:
 
 @dataclass(frozen=True)
 class FillDims:
-    """Static shape key of one fill batch."""
+    """Static shape key of one fill batch; with the window's n_steps, the
+    key of its step graph (models/step_graphs.py)."""
     T: int          # padded token count
     S: int          # padded sequence count
     MB: int         # padded blocks-per-seq
@@ -132,6 +133,14 @@ def pack_fill_batch(token_ids, positions, q_seq_ids, q_local_ids,
     return np.concatenate([np.asarray(p, np.int32) for p in parts])
 
 
+def fill_sizes(dims: FillDims) -> List[int]:
+    """Lengths of the flat buffer's fields, in order; their sum is the
+    buffer's length for `dims`."""
+    T, S, MB, Ti = dims.T, dims.S, dims.MB, dims.Ti
+    return [T, T, T, T, T, T, S, S, S, S * MB, S + 1, 1, Ti, Ti] + (
+        [2 * T] if dims.mrope else [])
+
+
 def unpack_fill_batch(flat: torch.Tensor, dims: FillDims,
                       image_cache: Optional[torch.Tensor] = None,
                       hidden: int = 0) -> LanguageModelBatch:
@@ -140,9 +149,7 @@ def unpack_fill_batch(flat: torch.Tensor, dims: FillDims,
     (n_layers=1, 1, n_blocks, block_size, n_heads, head_dim): each feature
     row spans one slot's n_heads * head_dim values, cut to `hidden`."""
     T, S, MB, Ti = dims.T, dims.S, dims.MB, dims.Ti
-    sizes = [T, T, T, T, T, T, S, S, S, S * MB, S + 1, 1, Ti, Ti]
-    if dims.mrope:
-        sizes.append(2 * T)
+    sizes = fill_sizes(dims)
     parts = torch.split(flat[:sum(sizes)], sizes)
     (token_ids, positions, q_seq_ids, q_local_ids, new_kv_slot_ids,
      token_src_slots, kv_lens, sample_token_idx, sample_dst_slots, tables,
@@ -193,7 +200,7 @@ class LanguageModel:
 
     def forward_flat(self, cache: torch.Tensor, token_table: torch.Tensor,
                      flat: torch.Tensor, dims: FillDims, n_steps: int = 1,
-                     fused_k=None, image_cache=None) -> LanguageModelOutput:
+                     fused_k=None, image_cache=None, graphs=None) -> LanguageModelOutput:
         raise NotImplementedError
 
 

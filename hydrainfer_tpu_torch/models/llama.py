@@ -3,7 +3,9 @@ hydrainfer_tpu/models/llama.py: LlamaForCausalLM, decoder_config_from_hf and
 convert_llama_weights; Qwen2 text decoders are the same with a qkv bias).
 
 The weights stay a plain per-layer dict (no stacking: the layer loop is a
-Python loop), and `forward_flat` takes the engine's single flat int32 buffer.
+Python loop), and `forward_flat` takes the engine's single flat int32 buffer;
+its all-decode steps run from CUDA graphs when the node passes its
+StepGraphs (models/step_graphs.py, the counterpart of the jitted programs).
 The caller's weight dict is not consumed.
 """
 from dataclasses import replace
@@ -15,6 +17,7 @@ from ..ops.quant import quantize_tree
 from .decoder import (DecoderConfig, decoder_forward, decoder_forward_multi,
                       init_rope_tables)
 from .factory import FillDims, LanguageModel, LanguageModelOutput, unpack_fill_batch
+from .step_graphs import StepGraphs, graphed
 from .weight_loader import WeightStore
 
 
@@ -82,11 +85,24 @@ class LlamaForCausalLM(LanguageModel):
     def forward_flat(self, cache: torch.Tensor, token_table: torch.Tensor,
                      flat: torch.Tensor, dims: FillDims, n_steps: int = 1,
                      fused_k: Optional[torch.Tensor] = None,
-                     image_cache: Optional[torch.Tensor] = None) -> LanguageModelOutput:
+                     image_cache: Optional[torch.Tensor] = None,
+                     graphs: Optional[StepGraphs] = None) -> LanguageModelOutput:
         """One fill step (n_steps == 1, any mix of prefill and decode) or a
         fused window of n_steps decode steps. The cache and the token table
         are updated in place; returns the sampled tokens, (n_steps * S,).
-        image_cache is read only when the batch carries image features."""
+        image_cache is read only when the batch carries image features. With
+        `graphs` (a node's StepGraphs), an all-decode step runs from its CUDA
+        graph, and flat and fused_k must be that key's buffers."""
+        if graphs is not None and graphed(dims):
+            tokens = graphs.run(self._step, cache, token_table, flat, dims, n_steps,
+                                fused_k)
+        else:
+            tokens = self._step(cache, token_table, flat, dims, n_steps, fused_k,
+                                image_cache)
+        return LanguageModelOutput(sample_token_ids=tokens)
+
+    def _step(self, cache, token_table, flat, dims: FillDims, n_steps: int,
+              fused_k=None, image_cache=None) -> torch.Tensor:
         batch = unpack_fill_batch(flat, dims, image_cache, self.cfg.hidden_size)
         if n_steps > 1:
             tokens = decoder_forward_multi(self.weights, cache, batch, self.cos_tab,
@@ -95,4 +111,4 @@ class LlamaForCausalLM(LanguageModel):
         else:
             tokens = decoder_forward(self.weights, cache, batch, self.cos_tab,
                                      self.sin_tab, self.cfg, dims.max_q, token_table)
-        return LanguageModelOutput(sample_token_ids=tokens.reshape(-1))
+        return tokens.reshape(-1)

@@ -1,0 +1,123 @@
+"""CUDA graphs of the language model's all-decode steps (the counterpart of
+the JAX package's jitted step programs, hydrainfer_tpu/models/llama.py:
+_flat_step and _flat_multi, compiled once per static key).
+
+One graph is captured per key (FillDims, n_steps) whose step is all decode
+(max_q == 1) and carries no image features: single decode steps and the
+fused K-step windows. A step that carries a prefill chunk or image features
+runs eagerly: its host cost is spread over up to a token budget of rows,
+and its T walks every token bucket.
+
+What a graph reads:
+  - a `flat` buffer of exactly the key's length and, for a window, a
+    `fused_k` (S,) buffer, both owned here; the executor copies each step's
+    host buffers into them before the replay (`inputs`);
+  - the node's KV cache and token table, the weights and the rope tables:
+    the same tensors at every replay, read and written in place. Nothing may
+    reallocate the cache or the token table after a capture (`run` checks).
+Its output is the graph's own token tensor, which the next replay of the
+same key overwrites: the caller copies it out on the same stream right
+behind the replay (engine/executor.py:FillFuture).
+
+The first time a key is met, its step runs eagerly (the real step: its tokens
+are returned), which loads every kernel library and makes the kernels'
+cudaFuncSetAttribute calls outside a capture; then the step is captured,
+without running, into one memory pool that every key shares (replays run one
+at a time on one stream). The boot warm-up (engine/profiler.py:warm_decode)
+meets the windows largest first. torch.cuda.graph synchronises the device
+when a capture begins, so a key first met while serving drains the pipeline
+once: `captures` and `capture_s` count it.
+
+The kernel wrappers count their launches in Python, which a replay does not
+run: each graph keeps what its capture added to the counts (and takes it
+back, since a capture launches nothing), and each replay adds it again.
+
+On the card with graphs on, a failed capture or replay raises; nothing falls
+back to the eager step.
+"""
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+from ..ops import cuda as kernels
+from .factory import FillDims, fill_sizes
+
+
+def graphed(dims: FillDims) -> bool:
+    """Whether a step of these dims runs from a graph: all decode, no image
+    features."""
+    return dims.max_q == 1 and dims.Ti == 0
+
+
+@dataclass
+class StepGraph:
+    flat: torch.Tensor
+    fused_k: Optional[torch.Tensor]
+    graph: Optional[torch.cuda.CUDAGraph] = None
+    tokens: Optional[torch.Tensor] = None
+    launches: Dict[str, int] = field(default_factory=dict)
+    replays: int = 0
+
+
+class StepGraphs:
+    """The graphs of one node: bound to its KV cache and token table."""
+
+    def __init__(self, cache: torch.Tensor, token_table: torch.Tensor):
+        self.cache = cache
+        self.token_table = token_table
+        self.pool = torch.cuda.graph_pool_handle()
+        self.graphs: Dict[Tuple[FillDims, int], StepGraph] = {}
+        self.captures = 0
+        self.capture_s = 0.0
+        self.replays = 0
+
+    def inputs(self, dims: FillDims, n_steps: int):
+        """The key's device input buffers (flat, fused_k or None)."""
+        g = self.graphs.get((dims, n_steps))
+        if g is None:
+            dev = self.cache.device
+            g = StepGraph(
+                flat=torch.zeros(sum(fill_sizes(dims)), dtype=torch.int32, device=dev),
+                fused_k=(torch.zeros(dims.S, dtype=torch.int32, device=dev)
+                         if n_steps > 1 else None))
+            self.graphs[(dims, n_steps)] = g
+        return g.flat, g.fused_k
+
+    def run(self, step: Callable, cache: torch.Tensor, token_table: torch.Tensor,
+            flat: torch.Tensor, dims: FillDims, n_steps: int,
+            fused_k: Optional[torch.Tensor]) -> torch.Tensor:
+        """The key's step: replayed, or on its first meeting run eagerly and
+        captured. step(cache, token_table, flat, dims, n_steps, fused_k) is
+        the eager step; its inputs must be this key's buffers."""
+        g = self.graphs.get((dims, n_steps))
+        if (g is None or flat is not g.flat or fused_k is not g.fused_k
+                or cache is not self.cache or token_table is not self.token_table):
+            raise RuntimeError("a graphed step must read its key's input buffers "
+                               "and the node's cache and token table")
+        if g.graph is not None:
+            g.graph.replay()
+            kernels.add_launch_counts(g.launches)
+            g.replays += 1
+            self.replays += 1
+            return g.tokens
+        tokens = step(cache, token_table, flat, dims, n_steps, fused_k)
+        t0 = time.perf_counter()
+        before = kernels.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self.pool):
+            g.tokens = step(cache, token_table, flat, dims, n_steps, fused_k)
+        after = kernels.launch_counts()
+        g.launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        kernels.add_launch_counts({k: -n for k, n in g.launches.items()})
+        g.graph = graph
+        self.captures += 1
+        self.capture_s += time.perf_counter() - t0
+        return tokens
+
+    def pool_bytes(self) -> int:
+        """Device memory the shared graph pool holds (its segments)."""
+        pool = tuple(self.pool)
+        return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+                   if tuple(s.get("segment_pool_id", ())) == pool)

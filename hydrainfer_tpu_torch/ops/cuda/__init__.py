@@ -3,7 +3,9 @@
 Each module holds the kernel's wrapper and its plain PyTorch version: the
 wrapper takes the plain version for CPU tensors only, launches the CUDA kernel
 (built from ``csrc/``) for CUDA tensors or raises, and counts its launches in
-the wrapper's ``launches`` attribute.
+the wrapper's ``launches`` attribute. A CUDA graph replay runs no wrapper:
+``add_launch_counts`` credits the launches its capture recorded
+(models/step_graphs.py), so the counts mean the same either way.
 """
 from .kv_writer import write_kv_pages
 from .mha_decode import mha_decode_attention
@@ -29,3 +31,8 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def add_launch_counts(counts: dict) -> None:
+    for name, n in counts.items():
+        WRAPPERS[name].launches += n
