@@ -47,7 +47,23 @@ Phases, each printing one JSON line:
            K=16 windows; every request must finish with its token count, K6,
            K3 and K4 must have launched in the measured round and K1 and K2
            never, and one prefill's logits through the kernels must agree
-           with the plain versions.
+           with the plain versions;
+  online   serve llava-7b-lm (full width, int8 weights, int8 KV) online
+           through the real entry point, run as a child process: `python -m
+           hydrainfer_tpu_torch.entrypoint.entrypoint --config
+           config/serve.yaml` with the model overrides (one EPD node, 64
+           running requests, K=8 windows, the budget search at tpot_slo 0.4,
+           an auto-sized KV pool); it reports the boot seconds, the budgets
+           and search fallbacks (which must be 0), the KV pool and the graph
+           keys; serves one lone /v1/completions request and a burst of 64
+           streaming chats at once over HTTP (every stream must end in
+           [DONE] with its 128 deltas; first-delta and inter-delta times
+           and tokens/s on the client's clock; K1-K4 must launch in the
+           burst); checks /health, a 400 for a malformed body and for
+           temperature 0.7, that an idle second launches no kernel, and that
+           SIGTERM ends the child with 0; then the port's OfflineEngine,
+           built here from the same file and overrides, must give the lone
+           request's text character for character.
 Every serving engine runs the boot warm-up (the shape-key floors raised to
 the serving envelope, the decode keys captured as CUDA graphs) and serves a
 warm-up round before the measured one; the measured round's decode steps are
@@ -923,19 +939,20 @@ def _engine(factory, device, n_requests, block_size, n_blocks, token_budget,
             node_type="PD", n_image_blocks=-1, cuda_graphs=True):
     """An OfflineEngine with the boot warm-up on (the key floors raised to
     the serving envelope, the decode keys met and, with cuda_graphs on the
-    card, captured)."""
+    card, captured) and a fixed token budget (the budget search off)."""
     from hydrainfer_tpu_torch.cluster.node import NodeConfig
+    from hydrainfer_tpu_torch.engine.profiler import BatchSchedulerProfilerConfig
     from hydrainfer_tpu_torch.engine.request_processor import RequestProcessorConfig
     from hydrainfer_tpu_torch.engine.scheduler import BatchSchedulerConfig
     from hydrainfer_tpu_torch.entrypoint.offline import OfflineEngine
     cfg = NodeConfig(
         batch_scheduler=BatchSchedulerConfig(max_running_requests=n_requests),
         request_processor=RequestProcessorConfig(num_request_process_workers=1),
+        profiler=BatchSchedulerProfilerConfig(enabled=False,
+                                              default_token_budget=token_budget),
         kv_block_size=block_size, n_kv_blocks=n_blocks, n_image_blocks=n_image_blocks,
         multi_step_decode=16, cuda_graphs=cuda_graphs, boot_warmup=True)
-    engine = OfflineEngine(cfg, model_factory=factory, node_type=node_type, device=device)
-    engine.node.batch_scheduler.token_budget = token_budget
-    return engine
+    return OfflineEngine(cfg, model_factory=factory, node_type=node_type, device=device)
 
 
 def _requests(rng, n, prompt_len, max_tokens, tag):
@@ -1620,6 +1637,259 @@ def phase_vlm(dev="cuda", max_tokens=32) -> tuple:
     return result, counts
 
 
+# -------------------------------------------------------------- phase: online
+
+ONLINE_CONFIG = "config/serve.yaml"
+ONLINE_OVERRIDES = ("cluster.node.model.name=random:llava-7b-lm",
+                    "cluster.node.model.quantization=int8",
+                    "cluster.node.model.kv_cache_dtype=int8")
+ONLINE_BOOT_LIMIT_S = 600        # weights, budget search, graph captures
+ONLINE_STOP_LIMIT_S = 60
+ONLINE_LONE_PROMPT, ONLINE_LONE_TOKENS = 128, 64
+ONLINE_BURST, ONLINE_BURST_TOKENS = 64, 128
+ONLINE_BURST_PROMPT = (100, 400)     # prompt lengths in tokens, seeded
+# the serving path's kernels (K1-K4), each of which must launch in the burst
+ONLINE_KERNELS = SERVE_KERNELS
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _http(port: int, method: str, path: str, body=None, raw: bytes = None,
+          timeout: float = 600.0):
+    """(status, body bytes) of one request to the local server."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        data = raw if raw is not None else (None if body is None
+                                            else json.dumps(body).encode())
+        conn.request(method, path, body=data,
+                     headers={"Content-Type": "application/json"} if data else {})
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def _metrics(port: int) -> dict:
+    status, body = _http(port, "GET", "/metrics", timeout=60)
+    if status != 200:
+        raise RuntimeError(f"/metrics answered {status}")
+    (row,) = json.loads(body).values()      # one node
+    return row
+
+
+def _stream_chat(port: int, prompt: str, max_tokens: int) -> dict:
+    """One streaming chat request: the client-clock times of its deltas (the
+    content chunks; the finish chunk is not a delta) and whether it ended in
+    [DONE]."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=900)
+    body = {"messages": [{"role": "user", "content": prompt}],
+            "max_tokens": max_tokens, "ignore_eos": True, "stream": True}
+    t0 = time.perf_counter()
+    times, texts, done, status = [], [], False, None
+    try:
+        conn.request("POST", "/v1/chat/completions", body=json.dumps(body).encode(),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        status = resp.status
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            line = line.decode("utf-8", "replace").strip()
+            if not line.startswith("data: "):
+                continue
+            data = line[len("data: "):]
+            if data == "[DONE]":
+                done = True
+                break
+            choice = json.loads(data)["choices"][0]
+            if choice.get("finish_reason") is None:
+                times.append(time.perf_counter() - t0)
+                texts.append(choice["delta"].get("content") or "")
+    finally:
+        conn.close()
+    return {"status": status, "done": done, "times": times, "text": "".join(texts)}
+
+
+def _pct(xs, q: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+
+def phase_online(dev="cuda") -> dict:
+    """Online serving through the real entry point, run as a child process:
+    `python -m hydrainfer_tpu_torch.entrypoint.entrypoint --config
+    config/serve.yaml` with llava-7b-lm at full width (int8 weights, int8
+    KV), everything else as serve.yaml has it (64 running requests, chunked
+    prefill, K=8 windows, the budget search at tpot_slo 0.4, an auto-sized
+    KV pool). Boot under ONLINE_BOOT_LIMIT_S; one lone /v1/completions
+    request (a seeded 128-token prompt, 64 tokens); a burst of 64 streaming
+    chats at once (seeded 100-400-token prompts, 128 tokens each), timed on
+    the client's clock; /health, a malformed body and temperature 0.7 (both
+    400), an idle second that launches no kernel; SIGTERM, after which the
+    child must exit 0 within ONLINE_STOP_LIMIT_S. Then the port's
+    OfflineEngine, built here from the same file and overrides with the
+    server's KV pool size, serves the lone prompt: its text must equal the
+    server's."""
+    import resource
+    import signal
+
+    import numpy as np
+    import torch
+    root = os.path.dirname(os.path.abspath(__file__))
+    torch.cuda.empty_cache()        # the child sizes its KV pool from free memory
+    port = _free_port()
+    overrides = [*ONLINE_OVERRIDES, f"api_server.port={port}"]
+    cmd = [sys.executable, "-m", "hydrainfer_tpu_torch.entrypoint.entrypoint",
+           "--config", ONLINE_CONFIG, *overrides]
+    os.makedirs(OUT_DIR, exist_ok=True)
+    log_path = os.path.join(OUT_DIR, "online_server.log")
+    env = dict(os.environ, HYDRAINFER_LOG_LEVEL="INFO")
+    rng = np.random.default_rng(SEED)
+    letters = list("abcdefghijklmnopqrstuvwxyz ")
+    res = {"phase": "online", "ok": False, "gpu": gpu_name_and_limit(), "command": cmd}
+    checks = {}
+    with open(log_path, "w") as log:
+        t0 = time.perf_counter()
+        child = subprocess.Popen(cmd, cwd=root, env=env, stdout=log,
+                                 stderr=subprocess.STDOUT)
+        try:
+            while True:
+                if child.poll() is not None:
+                    raise RuntimeError(f"the server exited with {child.returncode} "
+                                       f"while booting (log: {log_path})")
+                if time.perf_counter() - t0 > ONLINE_BOOT_LIMIT_S:
+                    raise RuntimeError(f"the server did not boot within "
+                                       f"{ONLINE_BOOT_LIMIT_S} s")
+                try:
+                    status, body = _http(port, "GET", "/health", timeout=5)
+                    if status == 200:
+                        break
+                except OSError:
+                    pass
+                time.sleep(0.5)
+            res["boot_s"] = time.perf_counter() - t0
+            checks["health_ok"] = body == b"ok"
+            boot = _metrics(port)
+            res.update({k: boot.get(k) for k in (
+                "token_budget", "image_budget", "profiler_fallbacks", "kv_total_blocks")})
+            res["graph_keys_at_boot"] = boot.get("graph_keys", [])
+
+            lone_prompt = "".join(rng.choice(letters, size=ONLINE_LONE_PROMPT))
+            t1 = time.perf_counter()
+            status, body = _http(port, "POST", "/v1/completions", {
+                "prompt": lone_prompt, "max_tokens": ONLINE_LONE_TOKENS,
+                "ignore_eos": True})
+            res["lone_s"] = time.perf_counter() - t1
+            lone_text = json.loads(body)["choices"][0]["text"] if status == 200 else None
+            checks["lone_ok"] = status == 200 and bool(lone_text)
+
+            lo, hi = ONLINE_BURST_PROMPT
+            prompts = ["".join(rng.choice(letters, size=int(n)))
+                       for n in rng.integers(lo, hi + 1, size=ONLINE_BURST)]
+            before = _metrics(port)
+            from concurrent.futures import ThreadPoolExecutor
+            t1 = time.perf_counter()
+            with ThreadPoolExecutor(ONLINE_BURST) as pool:
+                streams = list(pool.map(
+                    lambda p: _stream_chat(port, p, ONLINE_BURST_TOKENS), prompts))
+            burst_s = time.perf_counter() - t1
+            after = _metrics(port)
+            time.sleep(1.0)
+            idle = _metrics(port)
+            launches = {k: n - before["launches"][k] for k, n in after["launches"].items()}
+            n_deltas = [len(st["times"]) for st in streams]
+            first = [st["times"][0] for st in streams if st["times"]]
+            gaps = [b - a for st in streams for a, b in zip(st["times"], st["times"][1:])]
+            checks["burst_ok"] = all(st["status"] == 200 and st["done"] for st in streams) \
+                and all(n == ONLINE_BURST_TOKENS for n in n_deltas)
+            checks["kernels_launched_in_burst"] = all(launches[k] > 0 for k in ONLINE_KERNELS)
+            checks["idle_second_launches_nothing"] = idle["launches"] == after["launches"]
+            res.update({
+                "burst_requests": ONLINE_BURST, "burst_max_tokens": ONLINE_BURST_TOKENS,
+                "burst_s": burst_s, "burst_tokens_per_s": sum(n_deltas) / burst_s,
+                "p50_first_delta_s": _pct(first, 0.5), "p90_first_delta_s": _pct(first, 0.9),
+                "max_first_delta_s": max(first),
+                "p50_inter_delta_s": _pct(gaps, 0.5), "p90_inter_delta_s": _pct(gaps, 0.9),
+                "max_inter_delta_s": max(gaps),
+                "launches_in_burst": launches,
+                # [T, S, MB, n_steps] of each CUDA graph captured while serving
+                "graph_keys_captured_in_lone": [k for k in before.get("graph_keys", [])
+                                                if k not in res["graph_keys_at_boot"]],
+                "graph_keys_captured_in_burst": [k for k in after.get("graph_keys", [])
+                                                 if k not in before.get("graph_keys", [])],
+                "fill_keys_met_in_burst": after["fill_keys"] - before["fill_keys"]})
+
+            status, _ = _http(port, "POST", "/v1/completions", raw=b"{not json")
+            checks["malformed_json_400"] = status == 400
+            status, _ = _http(port, "POST", "/v1/chat/completions", {
+                "messages": [{"role": "user", "content": "hi"}], "temperature": 0.7})
+            checks["temperature_400"] = status == 400
+            status, body = _http(port, "GET", "/health", timeout=30)
+            checks["health_ok"] = checks["health_ok"] and status == 200 and body == b"ok"
+
+            t1 = time.perf_counter()
+            reaped = resource.getrusage(resource.RUSAGE_CHILDREN)
+            child.send_signal(signal.SIGTERM)
+            rc = child.wait(timeout=ONLINE_STOP_LIMIT_S)
+            res["stop_s"] = time.perf_counter() - t1
+            # the server's CPU seconds over its whole life, boot included
+            usage = resource.getrusage(resource.RUSAGE_CHILDREN)
+            res["server_cpu_s"] = (usage.ru_utime - reaped.ru_utime
+                                   + usage.ru_stime - reaped.ru_stime)
+            checks["sigterm_exit_0"] = rc == 0
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+    checks["profiler_no_fallback"] = res["profiler_fallbacks"] == 0
+
+    res["offline"] = _online_offline_text(dev, overrides, res["kv_total_blocks"],
+                                          lone_prompt)
+    checks["lone_text_equals_offline"] = res["offline"].pop("text") == lone_text
+    res["checks"] = checks
+    res["ok"] = all(checks.values())
+    res["server_log"] = log_path
+    return res
+
+
+def _online_offline_text(dev, overrides, kv_blocks: int, prompt: str) -> dict:
+    """The lone prompt served by the port's OfflineEngine, built in this
+    process from the online phase's config file and overrides, with the
+    server's KV pool size."""
+    import torch
+    from hydrainfer_tpu_torch.config import load_config
+    from hydrainfer_tpu_torch.entrypoint.entrypoint import EntryPointConfig
+    from hydrainfer_tpu_torch.entrypoint.offline import OfflineEngine
+    from hydrainfer_tpu_torch.models.factory import getModelFactory
+    from hydrainfer_tpu_torch.request import Request, SamplingParameters
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = load_config(EntryPointConfig, os.path.join(root, ONLINE_CONFIG),
+                      [*overrides, f"cluster.node.n_kv_blocks={kv_blocks}"])
+    node_cfg = cfg.cluster.node
+    t0 = time.perf_counter()
+    engine = OfflineEngine(node_cfg, getModelFactory(node_cfg.model, torch.device(dev)),
+                           node_type="EPD", device=dev)
+    boot_s = time.perf_counter() - t0
+    (out,) = engine.generate([Request(
+        request_id="lone", prompt=prompt,
+        sampling_params=SamplingParameters(max_tokens=ONLINE_LONE_TOKENS,
+                                           ignore_eos=True))], timeout_s=600)
+    sched = engine.node.batch_scheduler
+    row = {"boot_s": boot_s, "token_budget": sched.token_budget,
+           "profiler_fallbacks": engine.node.profiler_fallbacks, "text": out.text}
+    del engine
+    torch.cuda.empty_cache()
+    return row
+
+
 # ------------------------------------------------------------------- main
 
 def gpu_name_and_limit() -> str:
@@ -1635,7 +1905,7 @@ def gpu_name_and_limit() -> str:
 def main() -> int:
     global OUT_DIR
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="build,kernels,tiny,serve,vlm,mla")
+    ap.add_argument("--phases", default="build,kernels,tiny,serve,vlm,mla,online")
     ap.add_argument("--out-dir", default=OUT_DIR,
                     help="where the detail files go")
     args = ap.parse_args()
@@ -1674,6 +1944,8 @@ def main() -> int:
                 res, counts["vlm"] = phase_vlm()
             elif phase == "mla":
                 res, counts["mla"] = phase_mla()
+            elif phase == "online":
+                res = phase_online()
             else:
                 raise ValueError(f"unknown phase {phase}")
         except Exception as e:

@@ -1,0 +1,181 @@
+"""Cluster: the control plane over the engine nodes (port of
+hydrainfer_tpu/cluster/cluster.py, its in-process deployment).
+
+It builds the nodes of a topology, wires the migrate graph, and routes each
+incoming request to an encode-capable node (image requests) or a
+prefill-capable node (text requests) through round-robin balancers. The
+nodes are asyncio actors in this process, one device each: the cards
+`torch.cuda.device_count()` reports, or one CPU when `platform` is "cpu".
+
+Only one-node topologies run: more than one node needs migration between
+nodes, which is not ported yet (ROADMAP.md queue 1, item 7). On one card,
+`auto` and `single` resolve to one EPD node, as in the JAX package; so do
+explicit `nodes:` lists of one spec with one replica. Tensor and pipeline
+parallelism (`tp_size`, `pp_size` > 1) wait for queue 1, item 9, and the
+`process` deployment for item 7.
+"""
+import dataclasses
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+import torch
+
+from ..config import build_dataclass, deep_merge
+from ..engine.request_processor import RequestProcessParameters
+from ..entrypoint.api_server import RequestObserver
+from ..models.factory import ModelFactory
+from ..request import Request
+from ..utils.logger import getLogger
+from .loadbalancer import LoadBalancer, LoadBalancerConfig
+from .migrate import MigrateGraphBuilder, NodeType
+from .node import AsyncEPDNode, NodeConfig, NodeContext
+
+logger = getLogger(__name__)
+
+
+@dataclass
+class NodeSpec:
+    node_type: str = "EPD"
+    n_replicas: int = 1
+    tpot_slo: float = 0.4
+    # per-spec engine config overlay (config/node/*.yaml): a raw dict
+    # deep-merged over the cluster-wide `node` config
+    node: Optional[dict] = None
+    # the process deployment's attach address (not ported yet)
+    attach_addr: Optional[str] = None
+
+
+def spec_node_config(base: NodeConfig, spec: NodeSpec) -> NodeConfig:
+    """One spec's NodeConfig: base deep-merged with the spec's dict overlay."""
+    overlay = spec.node
+    if not overlay:
+        return base
+    if dataclasses.is_dataclass(overlay):
+        overlay = dataclasses.asdict(overlay)
+    return build_dataclass(NodeConfig, deep_merge(dataclasses.asdict(base), overlay))
+
+
+@dataclass
+class ClusterConfig:
+    cluster_type: str = "auto"          # auto | general | hybrid | single
+    nodes: List[NodeSpec] = field(default_factory=list)
+    node: NodeConfig = field(default_factory=NodeConfig)
+    tp_size: int = 1                    # > 1: not ported yet (queue 1, item 9)
+    pp_size: int = 1                    # > 1: not ported yet (queue 1, item 9)
+    # "inprocess" = asyncio actors in this process; "process" (one OS process
+    # per node) is not ported yet (queue 1, item 7)
+    deployment: str = "inprocess"
+    host: str = "127.0.0.1"             # the process deployment's bind host
+    # the port's device choice: "cpu" asks for the CPU, None means the card
+    platform: Optional[str] = None
+    xla_flags: Optional[str] = None     # TPU-only: no effect here
+
+
+def resolve_cluster_topology(cluster_type: str, n_devices: int) -> List[NodeSpec]:
+    """Preset -> node specs (the JAX package's heuristics)."""
+    if cluster_type == "single" or n_devices == 1:
+        return [NodeSpec("EPD", 1)]
+    if cluster_type == "general":
+        n_d = max(1, n_devices - 2)
+        return [NodeSpec("E", 1), NodeSpec("P", 1), NodeSpec("D", n_d)]
+    if cluster_type == "hybrid":
+        n_ep = max(1, n_devices // 2)
+        return [NodeSpec("EP", n_ep), NodeSpec("D", n_devices - n_ep)]
+    if n_devices == 2:
+        return [NodeSpec("EP", 1), NodeSpec("D", 1)]
+    if n_devices == 3:
+        return [NodeSpec("E", 1), NodeSpec("P", 1), NodeSpec("D", 1)]
+    return [NodeSpec("E", 1), NodeSpec("P", (n_devices - 1) // 2),
+            NodeSpec("D", n_devices - 1 - (n_devices - 1) // 2)]
+
+
+def cluster_devices(config: ClusterConfig) -> List[torch.device]:
+    """The devices a cluster's nodes take: one CPU when `platform` is "cpu",
+    else every visible card (none raises)."""
+    if config.platform == "cpu":
+        return [torch.device("cpu")]
+    if config.platform not in (None, "cuda", "gpu"):
+        raise ValueError(f"unknown platform {config.platform!r}: the port runs on "
+                         "the card (None) or the CPU ('cpu')")
+    n = torch.cuda.device_count()
+    if n == 0:
+        raise RuntimeError("no CUDA device is available; set cluster.platform=cpu "
+                           "to run on the CPU")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def node_metrics(node) -> dict:
+    """One node's serving metrics as plain JSON (backs /metrics)."""
+    return node.metrics()
+
+
+class Cluster(RequestObserver):
+    """The in-process cluster (the API server's request observer)."""
+
+    def __init__(self, config: ClusterConfig, model_factory: Optional[ModelFactory] = None,
+                 devices: Optional[list] = None):
+        if config.deployment != "inprocess":
+            raise NotImplementedError(f"deployment={config.deployment!r} is not ported "
+                                      "yet (ROADMAP.md queue 1, item 7)")
+        if config.tp_size > 1 or config.pp_size > 1:
+            raise NotImplementedError("tensor and pipeline parallelism (tp_size, "
+                                      "pp_size > 1) are not ported yet (ROADMAP.md "
+                                      "queue 1, item 9)")
+        if config.xla_flags:
+            logger.warning(f"cluster.xla_flags is TPU-only and has no effect here: "
+                           f"{config.xla_flags!r}")
+        self.config = config
+        devices = devices if devices is not None else cluster_devices(config)
+        specs = config.nodes or resolve_cluster_topology(config.cluster_type, len(devices))
+        if any(spec.attach_addr for spec in specs):
+            raise NotImplementedError("attach_addr belongs to the process deployment, "
+                                      "which is not ported yet (ROADMAP.md queue 1, "
+                                      "item 7)")
+        if sum(spec.n_replicas for spec in specs) != 1:
+            raise NotImplementedError(
+                f"topology {[(s.node_type, s.n_replicas) for s in specs]} has more than "
+                "one node, and migration between nodes is not ported yet (ROADMAP.md "
+                "queue 1, item 7)")
+        spec = specs[0]
+        node = AsyncEPDNode(spec_node_config(config.node, spec), NodeContext(
+            name=f"{spec.node_type.lower()}0", node_type=NodeType(spec.node_type),
+            device=devices[0]))
+        node.spec = spec
+        node.init(model_factory)     # None: built from config.node.model
+        self.nodes: List[AsyncEPDNode] = [node]
+
+        builder = MigrateGraphBuilder()
+        for n in self.nodes:
+            builder.add_node(n.name, n.context.node_type, n, n.spec.tpot_slo)
+        graph = builder.build_graph()
+        for n in self.nodes:
+            n.update_migrate_graph(graph)
+
+        # request entry balancers
+        self.ebalancer = LoadBalancer(LoadBalancerConfig("round"))
+        self.pbalancer = LoadBalancer(LoadBalancerConfig("round"))
+        for n in self.nodes:
+            if n.context.node_type.can_encode:
+                self.ebalancer.register_worker(n)
+            if n.context.node_type.can_prefill:
+                self.pbalancer.register_worker(n)
+        if not len(self.pbalancer):
+            raise ValueError("the cluster has no prefill-capable node")
+        logger.info(f"cluster up: {[n.name for n in self.nodes]} on {devices[0]}")
+
+    def metrics(self) -> dict:
+        """Per-node serving metrics (the API server's /metrics)."""
+        return {node.name: node_metrics(node) for node in self.nodes}
+
+    async def add_request(self, request: Request, params: RequestProcessParameters) -> None:
+        has_image = request.image is not None or request.image_base64 is not None
+        balancer = self.ebalancer if has_image and len(self.ebalancer) else self.pbalancer
+        await balancer.choice().add_request(request, params)
+
+    async def start(self) -> None:
+        for node in self.nodes:
+            await node.start()
+
+    async def stop(self) -> None:
+        for node in self.nodes:
+            await node.stop()

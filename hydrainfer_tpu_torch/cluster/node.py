@@ -8,16 +8,24 @@ sampled tokens are read back asynchronously (CUDA events; see
 engine/executor.py:FillFuture). The pipeline is the JAX package's
 "incremental" mode: completed windows are drained first, then at most the
 backlog overflow, oldest first, so at least one later window stays queued on
-the card through every blocking read. Each step dispatches its fills before
-its encode, so resident decodes never queue behind a ViT forward they do not
-depend on (an image's own prefill runs in a later step). At boot the node
-raises the executor's shape-key floors to its serving envelope and runs the
-decode warm-up, which captures the decode steps' CUDA graphs
-(NodeConfig.cuda_graphs, boot_warmup). Migration is limited
-to the colocated self graph (the EP and PD hand-offs to itself); cross-node
-transfer, the chunked encode of fixed-resolution towers and speculative
-decoding are later slices.
+the card through every read. A read that must wait yields to the event loop
+until its event has fired, so the API server that shares the loop keeps
+answering. Each step dispatches its fills before its encode, so resident
+decodes never queue behind a ViT forward they do not depend on (an image's
+own prefill runs in a later step).
+
+At boot (`init`), in the JAX order: the executor's shape-key floors are
+raised to the serving envelope, the SLO budget search runs
+(engine/profiler.py, `NodeConfig.profiler`), the image-gather floor follows
+from the image budget, and the decode warm-up captures the decode steps'
+CUDA graphs (`cuda_graphs`, `boot_warmup`). `start` runs the serving loop
+(`step_loop`, one step every `step_interval_s`) and the perf log.
+
+Migration is limited to the colocated self graph (the EP and PD hand-offs to
+itself); cross-node transfer, the chunked encode of fixed-resolution towers
+and speculative decoding are later slices.
 """
+import asyncio
 import time
 from dataclasses import dataclass, field
 from typing import Optional
@@ -26,7 +34,7 @@ import torch
 
 from ..engine.executor import FillExecutor, ImageEmbedExecutor
 from ..engine.isa import EmptyInstruction, EPMigrate, Fill, ImageEmbed, MigrateRequest
-from ..engine.profiler import warm_decode
+from ..engine.profiler import BatchSchedulerProfiler, BatchSchedulerProfilerConfig
 from ..engine.rcb import BatchRequest, RequestControlBlock
 from ..engine.request_processor import (RequestProcessParameters,
                                         RequestProcessor, RequestProcessorConfig,
@@ -34,7 +42,8 @@ from ..engine.request_processor import (RequestProcessParameters,
 from ..engine.scheduler import BatchScheduler, BatchSchedulerConfig
 from ..engine.worker import VanillaWorker
 from ..memory import TokenCacheBlockManager, TokenCacheBlockManagerConfig
-from ..models.factory import ModelFactory
+from ..models.factory import ModelFactory, ModelFactoryConfig, getModelFactory
+from ..ops import cuda as kernels
 from ..utils import hostprof
 from ..utils.device import resolve_device
 from ..utils.logger import getLogger
@@ -43,31 +52,53 @@ from .migrate import MigrateGraph, NodeType
 logger = getLogger(__name__)
 
 
+# NodeConfig fields of TPU-only machinery: accepted so that every preset
+# loads, not ported, and logged when set to anything but the JAX default
+# (ROADMAP.md: the jax.Ref cache, the tunnel-tuned pipeline modes and their
+# reader thread, the prefill jit-key ladder, the attention implementation
+# and layer-loop choices)
+TPU_ONLY_FIELDS = ("kv_cache_ref", "pipeline_mode", "threaded_postprocess",
+                   "max_threaded_backlog", "boot_warmup_prefill_ladder",
+                   "model.attention_impl", "model.layer_loop")
+
+
 @dataclass
 class NodeConfig:
+    model: ModelFactoryConfig = field(default_factory=ModelFactoryConfig)
     batch_scheduler: BatchSchedulerConfig = field(default_factory=BatchSchedulerConfig)
     request_processor: RequestProcessorConfig = field(default_factory=RequestProcessorConfig)
+    # the SLO-driven budget search at boot (off by default, as in the JAX
+    # package; its default_* budgets apply when it is off)
+    profiler: BatchSchedulerProfilerConfig = field(
+        default_factory=lambda: BatchSchedulerProfilerConfig(enabled=False))
     kv_block_size: int = 16
+    image_block_size: int = -1        # -1 = one 336x336 image's tokens
     n_kv_blocks: int = -1             # -1 = size from free device memory
     n_image_blocks: int = -1
     hbm_utilization: float = 0.9
+    kv_cache_ref: bool = True         # TPU-only
+    # per-request latency breakdown logs: not ported yet (queue 1, item 10)
+    log_latency_breakdown: bool = False
     tpot_slo: float = 0.4
-    # tokens per scheduled batch (the JAX node's default when its budget
-    # profiler is off)
-    token_budget: int = 2048
+    # the serving loop's pause between steps, and the perf log's period
+    step_interval_s: float = 0.001
+    perf_monitor_interval_s: float = 5.0
     # how many device steps may be in flight before the host reads their
     # sampled tokens
     async_pipeline_depth: int = 2
     # read the sampled tokens every K device steps at most (the backlog cap
-    # under load; single steps when nearly idle, see adaptive_postprocess_k)
+    # under load; with adaptive_postprocess, single steps when nearly idle,
+    # see adaptive_postprocess_k)
     postprocess_batch_steps: int = 4
+    adaptive_postprocess: bool = True
     # fused multi-step decode: up to this many chained decode steps per
     # dispatch when the scheduled batch is pure decode; 1 = off
     multi_step_decode: int = 16
-    # n-gram speculative decoding is a later slice of the port, so it is off
-    # here (the JAX default is 12); > 0 is refused
+    # n-gram speculative decoding is not ported yet (queue 1, item 6), so it
+    # is off here (the JAX default is 12); > 0 is refused. spec_ngram_n and
+    # spec_max_batch are its parameters
     spec_ngram_k: int = 0
-    token_table_size: int = 4096
+    spec_ngram_n: int = 3
     # run the all-decode steps from CUDA graphs, one per shape key (the
     # counterpart of the JAX package's jitted step programs); the card only
     cuda_graphs: bool = True
@@ -76,9 +107,36 @@ class NodeConfig:
     # capped at boot_warmup_max_context; Ti on an image node) and run the
     # decode warm-up (engine/profiler.py), which captures the decode graphs
     # at that batch size. None = on where the node runs on the card with
-    # cuda_graphs on
+    # cuda_graphs on (the JAX default follows profiler.enabled)
     boot_warmup: Optional[bool] = None
     boot_warmup_max_context: int = 8192
+    boot_warmup_prefill_ladder: bool = False     # TPU-only
+    spec_max_batch: int = 4
+    pipeline_mode: str = "incremental"           # TPU-only
+    threaded_postprocess: bool = False           # TPU-only
+    max_threaded_backlog: int = 4                # TPU-only
+    # layer-chunked ViT encode: not ported yet (queue 1, item 4); > 0 is
+    # refused. encode_chunk_window caps the decode window while a chunked
+    # encode runs, so it has no effect without one
+    encode_chunk_layers: int = 0
+    encode_chunk_window: int = 4
+    token_table_size: int = 4096
+    # retries of a failed hand-off to another node: cross-node migration is
+    # not ported yet (queue 1, item 7), so it has no effect
+    migrate_retries: int = 2
+
+
+def tpu_only_settings(config: NodeConfig) -> dict:
+    """The TPU-only fields of `config` set to anything but their default."""
+    default = NodeConfig()
+    out = {}
+    for name in TPU_ONLY_FIELDS:
+        value, ref = config, default
+        for part in name.split("."):
+            value, ref = getattr(value, part), getattr(ref, part)
+        if value != ref:
+            out[name] = value
+    return out
 
 
 @dataclass
@@ -109,74 +167,102 @@ def adaptive_postprocess_k(n_running: int, n_waiting: int, max_running: int,
     return max(1, k_max // 2)
 
 
+
+
 class AsyncEPDNode:
     def __init__(self, config: NodeConfig, context: NodeContext):
         if not context.node_type.has_language_model:
             raise NotImplementedError("an encode-only (E) node hands off to other "
-                                      "nodes, which is not ported yet")
+                                      "nodes, which is not ported yet (ROADMAP.md "
+                                      "queue 1, item 7)")
         if config.spec_ngram_k > 0:
-            raise NotImplementedError("speculative decoding is not ported yet")
+            raise NotImplementedError("speculative decoding (spec_ngram_k > 0) is not "
+                                      "ported yet (ROADMAP.md queue 1, item 6)")
+        if config.encode_chunk_layers > 0:
+            raise NotImplementedError("the layer-chunked encode (encode_chunk_layers "
+                                      "> 0) is not ported yet (ROADMAP.md queue 1, "
+                                      "item 4)")
+        if config.log_latency_breakdown:
+            raise NotImplementedError("log_latency_breakdown is not ported yet "
+                                      "(ROADMAP.md queue 1, item 10)")
         self.config = config
         self.context = context
         self.name = f"{context.node_type}Node:{context.name}"
         self.device = resolve_device(context.device)
+        tpu_only = tpu_only_settings(config)
+        if tpu_only:
+            logger.warning(f"{self.name}: TPU-only settings have no effect here: "
+                           f"{tpu_only}")
         self._pending_fills = []
+        self._stop = False
+        self._tasks = []
 
     # ---------------- init ----------------
 
-    def init(self, model_factory: ModelFactory) -> None:
+    def init(self, model_factory: Optional[ModelFactory] = None) -> None:
+        """Build the node's models (from `config.model` through
+        getModelFactory when no factory is given), caches and executors,
+        then boot: key floors, budget search, image-gather floor, decode
+        warm-up, in the JAX order."""
         nt = self.context.node_type
-        self.model_factory = model_factory
-        self.language_config = model_factory.getLanguageModelConfig()
-        self.vision_config = model_factory.getVisionModelConfig()
+        cfg = self.config
+        self.model_factory = model_factory or getModelFactory(cfg.model, self.device)
+        self.language_config = self.model_factory.getLanguageModelConfig()
+        self.vision_config = self.model_factory.getVisionModelConfig()
         # prefix-hash granularity must equal the KV block size
-        self.config.request_processor.block_size = self.config.kv_block_size
-        self.worker = VanillaWorker(model_factory, enable_vision=nt.has_vision_model)
+        cfg.request_processor.block_size = cfg.kv_block_size
+        self.worker = VanillaWorker(self.model_factory, enable_vision=nt.has_vision_model)
         self._init_caches()
         self.fill_executor = FillExecutor(
-            self.kv_cache_manager, self.worker, self.config.token_table_size,
+            self.kv_cache_manager, self.worker, cfg.token_table_size,
             image_cache_manager=self.image_cache_manager,
             mrope=bool(self.language_config.mrope_section),
-            cuda_graphs=self.config.cuda_graphs)
+            cuda_graphs=cfg.cuda_graphs)
         self.image_embed_executor = (
             ImageEmbedExecutor(self.image_cache_manager, self.worker)
             if nt.has_vision_model and self.image_cache_manager is not None else None)
-        self.batch_scheduler = BatchScheduler(self.config.batch_scheduler,
-                                              self.kv_cache_manager,
-                                              self.config.token_budget,
-                                              image_cache_manager=self.image_cache_manager)
-        self.request_processor = RequestProcessor(self.config.request_processor,
-                                                  model_factory)
-        self.request_processor.register_observer(
-            BatchSchedulerObserver(self.batch_scheduler))
-        self._boot_warmup()
-        logger.info(f"{self.name} initialized on {self.device} "
-                    f"({self.kv_cache_manager.n_blocks} kv blocks, "
-                    f"token budget {self.config.token_budget})")
 
-    def _boot_warmup(self) -> None:
-        """Pre-ratchet the key floors to the serving envelope, then warm the
-        decode keys (port of the boot sequence of the JAX node's init). A
-        failure here stops the boot: on the card it is a failed capture."""
-        cfg = self.config
-        on = cfg.boot_warmup
-        if on is None:
-            on = self.device.type == "cuda" and cfg.cuda_graphs
-        if not (on and self.worker.supports_multi_step()):
-            return
+        n_img = (self.vision_config.image_token_calculator
+                 .get_num_image_tokens((336, 336)) or 576
+                 if self.vision_config is not None else 576)
+        profiler = BatchSchedulerProfiler(
+            cfg.profiler, self.fill_executor, self.kv_cache_manager,
+            self.image_cache_manager, n_image_tokens=n_img,
+            image_embed_executor=self.image_embed_executor,
+            image_processor=self.model_factory.getProcessor())
+        boot_warm = cfg.boot_warmup
+        if boot_warm is None:
+            boot_warm = self.device.type == "cuda" and cfg.cuda_graphs
+        boot_warm = boot_warm and self.worker.supports_multi_step()
         fx, kv = self.fill_executor, self.kv_cache_manager
         max_running = cfg.batch_scheduler.max_running_requests
-        fair_ctx = min(kv.n_blocks * kv.block_size // max(1, max_running),
-                       cfg.boot_warmup_max_context)
-        fx.preratchet(max_running, -(-fair_ctx // kv.block_size))
-        if self.image_cache_manager is not None:
+        if boot_warm:
+            # the S / MB floors first, so every key the budget probes, the
+            # warm-up and live traffic meet lands on the converged set
+            fair_ctx = min(kv.n_blocks * kv.block_size // max(1, max_running),
+                           cfg.boot_warmup_max_context)
+            fx.preratchet(max_running, -(-fair_ctx // kv.block_size))
+        image_budget = profiler.profile_image_budgets()
+        token_budget = profiler.profile_token_budgets()
+        self.profiler_fallbacks = profiler.fallbacks
+        if boot_warm and self.image_cache_manager is not None:
             # the widest image gather one batch can carry: the image budget's
             # tokens, at most the token budget
-            n_img = self.vision_config.image_token_calculator \
-                .get_num_image_tokens((336, 336)) or 576
-            s = self.batch_scheduler
-            fx.preratchet(1, 1, min(s.image_budget * n_img, s.token_budget))
-        warm_decode(fx, kv, max_running, max(cfg.multi_step_decode, 1))
+            fx.preratchet(1, 1, min(image_budget * n_img, token_budget))
+        if boot_warm:
+            # a failure here stops the boot: on the card it is a failed capture
+            profiler.warm_decode(max_running, max(cfg.multi_step_decode, 1))
+
+        self.batch_scheduler = BatchScheduler(
+            cfg.batch_scheduler, self.kv_cache_manager, token_budget,
+            image_cache_manager=self.image_cache_manager, image_budget=image_budget)
+        self.request_processor = RequestProcessor(cfg.request_processor,
+                                                  self.model_factory)
+        self.request_processor.register_observer(
+            BatchSchedulerObserver(self.batch_scheduler))
+        logger.info(f"{self.name} initialized on {self.device} "
+                    f"({self.kv_cache_manager.n_blocks} kv blocks; budgets: "
+                    f"{image_budget} images, {token_budget} tokens)")
 
     def _init_caches(self) -> None:
         nt = self.context.node_type
@@ -187,7 +273,8 @@ class AsyncEPDNode:
         # an MLA latent cache (exactly kv_lora + rope wide: the JAX node's
         # padding to 128 lanes serves the TPU kernel's DMA only); the cache is
         # int8 exactly when the model quantizes K/V on write
-        kv_dtype = "int8" if lm.cfg.kv_scale is not None else model_dtype
+        kv_scale = getattr(getattr(lm, "cfg", None), "kv_scale", None)
+        kv_dtype = "int8" if kv_scale is not None else model_dtype
         kv_cfg = TokenCacheBlockManagerConfig(
             n_layers=lc.n_layers, n_tensors=1,
             n_blocks=max(self.config.n_kv_blocks, 1),
@@ -196,11 +283,14 @@ class AsyncEPDNode:
             head_dim=lc.head_dim, dtype=kv_dtype)
         # one image-cache slot per feature token: n_qo_heads * head_dim values
         # hold its LM-hidden feature; a block holds a 336x336 image's tokens
+        # unless image_block_size says otherwise
         with_images = nt.has_image_cache and self.vision_config is not None
         img_cfg = None
         if with_images:
-            block = self.vision_config.image_token_calculator \
-                .get_num_image_tokens((336, 336)) or 576
+            block = self.config.image_block_size
+            if block == -1:
+                block = self.vision_config.image_token_calculator \
+                    .get_num_image_tokens((336, 336)) or 576
             img_cfg = TokenCacheBlockManagerConfig(
                 n_layers=1, n_tensors=1, n_blocks=max(self.config.n_image_blocks, 1),
                 block_size=block, n_heads=lc.n_qo_heads, head_dim=lc.head_dim,
@@ -249,7 +339,7 @@ class AsyncEPDNode:
             batch = self.batch_scheduler.step()
         if len(batch) == 0:
             # idle: drain the pipeline so trailing tokens reach their processors
-            self.flush_fills()
+            await self.flush_fills()
             return
 
         fills, embeds, empties, migrates = (BatchRequest() for _ in range(4))
@@ -275,17 +365,19 @@ class AsyncEPDNode:
             self._pending_fills.append(
                 self.fill_executor.execute(fills, n_steps=n_steps))
         else:
-            self.flush_fills()
+            await self.flush_fills()
         # the encode after the fills: decode windows stay ahead of it in the
         # device queue
         if len(embeds):
             self.image_embed_executor.execute(embeds)
         empties.step()
-        self._drain_pipeline()
+        await self._drain_pipeline()
         for b in (embeds, fills, empties):
             self._finish_or_requeue(b)
 
     def _load_k(self, k_max: int) -> int:
+        if not self.config.adaptive_postprocess:
+            return k_max
         s = self.batch_scheduler
         return adaptive_postprocess_k(s.n_resident, len(s.waiting),
                                       s.config.max_running_requests, k_max)
@@ -299,7 +391,17 @@ class AsyncEPDNode:
             else:
                 self.batch_scheduler.schedule_running(rcb)
 
-    def _drain_pipeline(self) -> None:
+    @staticmethod
+    async def _read(fut) -> None:
+        """fut.get(), once its tokens have landed. A worker thread waits on the
+        window's event (the wait drops the GIL), so meanwhile the loop runs
+        its other tasks (the API server's) without spinning: a wait on the
+        loop would stall every open stream for up to a window."""
+        if not fut.is_ready():
+            await asyncio.to_thread(fut.wait)
+        fut.get()
+
+    async def _drain_pipeline(self) -> None:
         """Keep the async fill pipeline bounded ("incremental" mode)."""
         if not self._pending_fills:
             return
@@ -310,18 +412,18 @@ class AsyncEPDNode:
             while self._pending_fills and self._pending_fills[0].is_ready():
                 self._pending_fills.pop(0).get()
         # ...then at most the backlog overflow, oldest first, so a later
-        # window stays queued on the card through each blocking read
+        # window stays queued on the card through each read
         pending = sum(f.n_steps for f in self._pending_fills)
         with hostprof.span("node.drain_forced"):
             while pending > backlog_steps and len(self._pending_fills) >= 2:
                 f = self._pending_fills.pop(0)
                 pending -= f.n_steps
-                f.get()
+                await self._read(f)
 
-    def flush_fills(self) -> None:
+    async def flush_fills(self) -> None:
         """Drain the async fill pipeline in dispatch order."""
         while self._pending_fills:
-            self._pending_fills.pop(0).get()
+            await self._read(self._pending_fills.pop(0))
 
     def _execute_batch_migrate(self, batch: BatchRequest) -> None:
         """The EP and PD hand-offs of the colocated self graph: the target is
@@ -332,7 +434,7 @@ class AsyncEPDNode:
             targets = table.get(self.name, [])
             if [t.name for t in targets] != [self.name]:
                 raise NotImplementedError("migration to another node is not "
-                                          "ported yet")
+                                          "ported yet (ROADMAP.md queue 1, item 7)")
             rcb.step()      # MigrateRequest -> PullCache
             rcb.step()      # skip PullCache: nothing to move
             self.batch_scheduler.schedule_running(rcb)
@@ -344,6 +446,65 @@ class AsyncEPDNode:
             self.image_cache_manager.realloc(rcb.virtual_image_cache, 0)
         self.fill_executor.release_slot(rcb)
         self.batch_scheduler.release_reservation(rcb)
+
+    # ---------------- the serving loop ----------------
+
+    async def start(self) -> None:
+        if self._tasks and not self._stop:
+            return
+        self._stop = False
+        self._tasks = [asyncio.create_task(self.step_loop()),
+                       asyncio.create_task(self.perf_monitor_loop())]
+
+    async def stop(self) -> None:
+        """Stop the loops and wait until their tasks have ended."""
+        self._stop = True
+        for t in self._tasks:
+            t.cancel()
+        await asyncio.gather(*self._tasks, return_exceptions=True)
+        self._tasks = []
+
+    async def step_loop(self) -> None:
+        while not self._stop:
+            try:
+                await self.step()
+            except Exception:
+                logger.exception(f"{self.name} step failed")
+                raise
+            await asyncio.sleep(self.config.step_interval_s)
+
+    async def perf_monitor_loop(self) -> None:
+        while not self._stop:
+            logger.info(f"{self.name} perf: {self.metrics()}")
+            await asyncio.sleep(self.config.perf_monitor_interval_s)
+
+    def metrics(self) -> dict:
+        """Serving metrics as plain JSON (the API server's /metrics): the
+        JAX node's pool and queue counts, plus the boot's budgets and search
+        fallbacks, the fill keys met, the CUDA graphs captured, and the
+        kernel wrappers' launch counts (process-wide)."""
+        kv = self.kv_cache_manager.metrics()
+        sched = self.batch_scheduler
+        sm = sched.metrics()
+        fx = self.fill_executor
+        row = {"kv_free_blocks": kv.allocator.n_free_blocks,
+               "kv_total_blocks": kv.allocator.n_total_blocks,
+               "prefix_cache_hit_rate": round(kv.prefix_cache_hit_rate, 4),
+               "running_requests": sm.n_running_requests,
+               "waiting_requests": len(sched.waiting),
+               "migrating_requests": sm.n_requests_waiting_migrate,
+               "token_budget": sched.token_budget,
+               "image_budget": sched.image_budget,
+               "profiler_fallbacks": self.profiler_fallbacks,
+               "fill_keys": len(fx._seen_fill_keys),
+               "launches": kernels.launch_counts()}
+        if fx.graphs is not None:
+            row["graph_keys"] = sorted(
+                [d.T, d.S, d.MB, n] for (d, n), g in fx.graphs.graphs.items()
+                if g.graph is not None)
+            row["graph_captures"] = fx.graphs.captures
+            row["graph_replays"] = fx.graphs.replays
+        return row
 
     def __repr__(self):
         return self.name

@@ -12,9 +12,9 @@ Async overlap: the step's kernels are queued on the current CUDA stream and
 the call returns before the card finishes. The sampled tokens are copied into
 pinned host memory on the same stream, behind the step, and a CUDA event
 marks the copy's completion; the returned Future's get() waits on that event
-only, and is_ready() polls it. The card meanwhile feeds itself: a decode step
-reads its input token from the device token table, where the previous step
-wrote it.
+only, is_ready() polls it, and wait() blocks on it (from any thread). The
+card meanwhile feeds itself: a decode step reads its input token from the
+device token table, where the previous step wrote it.
 
 Shape keys: the builder pads S, MB and Ti up to the executor's high-water
 floors (raised by every build, and before serving by `preratchet`), so the
@@ -79,6 +79,11 @@ class FillFuture(Future):
 
     def is_ready(self) -> bool:
         return self._event is None or self._event.query()
+
+    def wait(self) -> None:
+        """Block until the tokens have landed; callable from any thread."""
+        if self._event is not None:
+            self._event.synchronize()
 
     def get(self):
         if self._done:

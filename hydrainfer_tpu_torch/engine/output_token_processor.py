@@ -1,5 +1,6 @@
 """Output-token processors (port of
-hydrainfer_tpu/engine/output_token_processor.py, the offline subset).
+hydrainfer_tpu/engine/output_token_processor.py; its ZMQ processor belongs to
+the process deployment, which is not ported yet).
 
 A request registers one or more processors; the fill executor calls them per
 sampled token, with is_last on the request's final token.
@@ -9,6 +10,9 @@ from dataclasses import dataclass
 from typing import Callable, List, Optional
 
 from ..request import OfflineInferenceOutput
+from ..utils.logger import getLogger
+
+logger = getLogger(__name__)
 
 
 @dataclass
@@ -23,6 +27,15 @@ class OutputTokenProcessor:
 
     def terminate(self) -> None:
         """Abort the stream without emitting a token."""
+
+
+class PrintTextOutputTokenProcessor(OutputTokenProcessor):
+    def __init__(self, tokenizer):
+        self.tokenizer = tokenizer
+
+    def append_token_id(self, token_id, is_last_token=False):
+        logger.info(f"output token {self.tokenizer.decode(token_id)!r}, "
+                    f"last={is_last_token}")
 
 
 class LogOutputTokenProcessor(OutputTokenProcessor):
@@ -41,6 +54,23 @@ class LogOutputTokenProcessor(OutputTokenProcessor):
     def terminate(self):
         self.finished = True
         self.terminated = True
+
+
+class CallbackOutputTokenProcessor(OutputTokenProcessor):
+    """In-process streaming: delivers (token_id, text, is_last) straight to
+    the API layer. The text comes from a per-request incremental
+    detokenizer, so multi-byte characters stream whole."""
+
+    def __init__(self, callback: Callable[[int, str, bool], None], tokenizer):
+        from ..models.tokenizer import IncrementalDecoder
+        self.callback = callback
+        self.decoder = IncrementalDecoder(tokenizer)
+
+    def append_token_id(self, token_id, is_last_token=False):
+        self.callback(token_id, self.decoder.push(token_id), is_last_token)
+
+    def terminate(self):
+        self.callback(-1, "", True)
 
 
 class OfflineOutputTokenProcessor(OutputTokenProcessor):

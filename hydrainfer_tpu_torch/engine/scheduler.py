@@ -21,7 +21,7 @@
 import time
 from collections import deque
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Literal, Optional
 
 from ..memory import TokenCacheBlockManager
 from ..utils.counter import IncreasingAllocator
@@ -34,7 +34,13 @@ logger = getLogger(__name__)
 
 @dataclass
 class BatchSchedulerConfig:
+    # which fills the token budget takes first
+    priority: Literal["prefill", "decode"] = "prefill"
     max_running_requests: int = 16
+    # chunk the marginal prefill to fill the token budget
+    chunked_prefill: bool = True
+    # log every step's batch
+    debug: bool = False
     # with fills resident, admit at most this many images per step instead
     # of the full image budget; 0 = no cap
     encode_chunk_images: int = 2
@@ -50,14 +56,13 @@ class BatchScheduler:
     def __init__(self, config: BatchSchedulerConfig,
                  kv_cache_manager: TokenCacheBlockManager,
                  token_budget: int = 2048,
-                 image_cache_manager: Optional[TokenCacheBlockManager] = None):
+                 image_cache_manager: Optional[TokenCacheBlockManager] = None,
+                 image_budget: int = 8):
         self.config = config
         self.kv_cache_manager = kv_cache_manager
         self.image_cache_manager = image_cache_manager
         self.token_budget = token_budget
-        # images per step: the JAX node's default when its budget profiler
-        # is off
-        self.image_budget = 8
+        self.image_budget = image_budget
 
         self.waiting: deque = deque()
         self.running: List[RequestControlBlock] = []
@@ -246,7 +251,7 @@ class BatchScheduler:
                 this_step.append(rcb)  # migrations always run
 
         # 3. pack encodes under the image budget (sub-batched while fills are
-        # resident), then fills under the token budget, prefills first; the
+        # resident), then fills under the token budget in priority order; the
         # marginal prefill is chunked to fill the budget
         n_images = 0
         image_budget = self.image_budget
@@ -258,20 +263,33 @@ class BatchScheduler:
                 n_images += len(rcb.current_instruction().images_size)
             else:
                 next_step.append(rcb)
+        fill_seqs = (prefill_seqs + decode_seqs if self.config.priority == "prefill"
+                     else decode_seqs + prefill_seqs)
         n_tokens = 0
-        for rcb in prefill_seqs + decode_seqs:
+        for rcb in fill_seqs:
             inst = rcb.current_instruction()
             t = len(inst.token_ids)
             if n_tokens + t <= self.token_budget:
                 this_step.append(rcb)
                 n_tokens += t
-            elif n_tokens < self.token_budget and t > 1:
+            elif (n_tokens < self.token_budget and t > 1
+                  and self.config.chunked_prefill):
                 chunk = self.token_budget - n_tokens
                 inst.chunk_prefill(chunk)
                 this_step.append(rcb)
                 n_tokens += chunk
+            elif n_tokens == 0:
+                # a single oversized prefill must not starve
+                this_step.append(rcb)
+                n_tokens += t
             else:
                 next_step.append(rcb)
+
+        if self.config.debug:
+            logger.debug(
+                f"step {self.step_cnt}: batch="
+                + " ".join(f"{rcb.sid}:{rcb.current_instruction()!r}" for rcb in this_step)
+                + f" images={n_images} tokens={n_tokens}")
 
         self.running = next_step + deferred
         return BatchRequest(this_step)

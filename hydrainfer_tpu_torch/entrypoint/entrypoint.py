@@ -1,0 +1,71 @@
+"""Serve entry point (port of hydrainfer_tpu/entrypoint/entrypoint.py):
+
+    python -m hydrainfer_tpu_torch.entrypoint.entrypoint --config config/serve.yaml \
+        [key.path=value ...]
+
+builds the in-process cluster and the OpenAI-compatible API server from the
+config (the YAML presets under config/ are read as they are) and serves on
+the card; `cluster.platform=cpu` serves on the CPU. SIGTERM or SIGINT stops
+the cluster and the server, and the process exits 0.
+"""
+import argparse
+import asyncio
+import signal
+from dataclasses import dataclass, field
+
+from ..cluster.cluster import Cluster, ClusterConfig
+from ..config import load_config
+from ..utils.logger import getLogger
+from .api_server import APIServer, APIServerConfig
+
+logger = getLogger(__name__)
+
+
+@dataclass
+class EntryPointConfig:
+    api_server: APIServerConfig = field(default_factory=APIServerConfig)
+    cluster: ClusterConfig = field(default_factory=ClusterConfig)
+
+
+class EntryPoint:
+    def __init__(self, config: EntryPointConfig, model_factory=None):
+        self.config = config
+        self.cluster = Cluster(config.cluster, model_factory=model_factory)
+        factory = self.cluster.nodes[0].model_factory
+        vision_cfg = factory.getVisionModelConfig()
+        self.api_server = APIServer(
+            config.api_server, factory.getTokenizer(),
+            image_token=(vision_cfg.image_token if vision_cfg else None) or "<image>",
+            image_token_calculator=vision_cfg.image_token_calculator if vision_cfg else None)
+        self.api_server.register_observer(self.cluster)
+
+    async def run(self, stop: asyncio.Event = None) -> None:
+        """Serve until `stop` is set (SIGTERM or SIGINT when not given), then
+        stop the cluster and the server."""
+        if stop is None:
+            stop = asyncio.Event()
+            loop = asyncio.get_running_loop()
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                loop.add_signal_handler(sig, stop.set)
+        await self.cluster.start()
+        runner = await self.api_server.start()
+        try:
+            await stop.wait()
+            logger.info("stopping")
+        finally:
+            await self.cluster.stop()
+            await runner.cleanup()
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--config", default=None, help="YAML config path")
+    parser.add_argument("overrides", nargs="*", help="key.path=value overrides")
+    args = parser.parse_args()
+    config = load_config(EntryPointConfig, args.config, args.overrides)
+    entry = EntryPoint(config)
+    asyncio.run(entry.run())
+
+
+if __name__ == "__main__":
+    main()

@@ -178,11 +178,26 @@ def unpack_fill_batch(flat: torch.Tensor, dims: FillDims,
     )
 
 
+# ModelFactoryConfig.dtype names -> torch dtypes ("auto" resolves to bf16)
+TORCH_DTYPES = {"auto": torch.bfloat16, "bf16": torch.bfloat16,
+                "bfloat16": torch.bfloat16, "float32": torch.float32,
+                "f32": torch.float32, "fp32": torch.float32,
+                "fp16": torch.float16, "float16": torch.float16}
+
+
 @dataclass
 class ModelFactoryConfig:
-    """How a checkpoint-backed factory loads its model."""
-    path: str = ""
-    dtype: str = "auto"             # auto (as stored) | bf16 | fp32 | fp16
+    """Which model a node serves and how its factory loads it
+    (`getModelFactory`)."""
+    path: str = ""                  # HF checkpoint directory
+    # "fake" = the weightless test factory; "random:<arch>" = seeded random
+    # weights at a models/random_init.py architecture
+    name: str = ""
+    dtype: str = "auto"             # auto (= bf16) | bf16 | fp32 | fp16
+    # TPU-only (cluster/node.py:TPU_ONLY_FIELDS): the JAX package's attention
+    # implementation and layer-loop strategy; the port has one of each
+    attention_impl: str = "auto"
+    layer_loop: str = "auto"
     quantization: str = "none"      # weight-only: none | int8
     kv_cache_dtype: str = "auto"    # auto (= model dtype) | int8
     kv_scale: float = 0.05          # static scale of an int8 KV cache
@@ -214,6 +229,9 @@ class Tokenizer:
     def decode_ids(self, token_ids: List[int]) -> str:
         return "".join(self.decode(t) for t in token_ids)
 
+    def apply_chat_template(self, messages: List[dict]) -> str:
+        raise NotImplementedError
+
 
 class ImageProcessor:
     def process(self, image) -> np.ndarray:
@@ -239,3 +257,59 @@ class ModelFactory:
 
     def getTokenizer(self) -> Tokenizer:
         raise NotImplementedError
+
+
+def getModelFactory(config: ModelFactoryConfig, device=None) -> ModelFactory:
+    """The factory `config` names (port of the JAX package's getModelFactory),
+    on `device` (the card unless "cpu" is asked for):
+      - name "random:<arch>": RandomWeightFactory at that architecture, with
+        the config's dtype, quantization and KV scale;
+      - name "fake", or no path: FakeModelFactory;
+      - a checkpoint directory whose config.json names Qwen2-VL:
+        Qwen2VLModelFactory; LlamaForCausalLM or Qwen2ForCausalLM:
+        TextOnlyModelFactory.
+    Every other architecture raises, naming the queue item that ports it.
+    dtype "auto" becomes bf16, as in the JAX package."""
+    import json
+    import os
+    if config.dtype == "auto":
+        config.dtype = "bf16"
+    if config.name.startswith("random:"):
+        from .random_init import RandomWeightFactory
+        arch = config.name[len("random:"):]
+        if arch.endswith("+mm"):
+            raise NotImplementedError(
+                "random:<arch>+mm needs models/clip.py, which is not ported yet "
+                "(ROADMAP.md queue 1, item 4)")
+        return RandomWeightFactory(
+            arch, dtype=TORCH_DTYPES[config.dtype], quantization=config.quantization,
+            kv_scale=config.kv_scale if config.kv_cache_dtype == "int8" else None,
+            device=device)
+    if config.name == "fake" or not config.path:
+        from .fake import FakeModelFactory
+        return FakeModelFactory(config, device=device)
+    if not os.path.isdir(config.path):
+        raise FileNotFoundError(f"no checkpoint directory at {config.path!r} (the "
+                                "port downloads nothing)")
+    with open(os.path.join(config.path, "config.json"), encoding="utf-8") as f:
+        json_config = json.load(f)
+    architecture = (json_config.get("architectures") or [None])[0]
+    model_type = json_config.get("model_type")
+    if architecture == "Qwen2VLForConditionalGeneration" or model_type == "qwen2_vl":
+        from .qwen2_vl import Qwen2VLModelFactory
+        return Qwen2VLModelFactory(config, device=device)
+    if architecture in ("LlamaForCausalLM", "Qwen2ForCausalLM"):
+        from .text_only import TextOnlyModelFactory
+        return TextOnlyModelFactory(config, device=device)
+    queue = {"LlavaForConditionalGeneration": "4",
+             "LlavaNextForConditionalGeneration": "8",
+             "InternVLChatModel": "8", "DeepseekV2ForCausalLM": "8",
+             "DeepseekV3ForCausalLM": "8", "DeepseekForCausalLM": "8",
+             "MixtralForCausalLM": "8", "GPT2LMHeadModel": "8"}
+    item = queue.get(architecture)
+    if item is None:
+        item = {"internvl": "8", "deepseek_vl_v2": "8", "deepseek_v2": "8",
+                "deepseek_v3": "8"}.get(model_type)
+    where = f"ROADMAP.md queue 1, item {item}" if item else "no queue item yet"
+    raise ValueError(f"unsupported architecture {architecture} / model_type "
+                     f"{model_type}: not ported ({where})")

@@ -141,6 +141,9 @@ class RandomWeightFactory(ModelFactory):
                                         kv_scale=self.kv_scale)
         return self._lm
 
+    def getVisionModel(self):
+        return None     # text only
+
     def getLanguageModelConfig(self):
         c = self.cfg
         return LanguageModelConfig(

@@ -1,0 +1,88 @@
+"""getModelFactory's dispatch, and TextOnlyModelFactory against the JAX one.
+
+`random:<arch>` gives RandomWeightFactory with the config's dtype ("auto" is
+bf16, as in the JAX package), quantization and KV scale; `+mm` raises until
+models/clip.py is ported; `fake` or no path gives FakeModelFactory; a
+checkpoint directory dispatches on its config.json, and an architecture the
+port does not have raises, naming the queue item that ports it. A tiny Llama
+checkpoint built in process with transformers goes through both packages'
+getModelFactory(path) and serves the same greedy tokens on a PD node.
+"""
+import json
+
+import pytest
+import torch
+
+from hydrainfer_tpu.models.tokenizer import SimpleTokenizer as JaxTok
+from hydrainfer_tpu_torch.models.random_init import RandomWeightFactory
+from hydrainfer_tpu_torch.models.tokenizer import SimpleTokenizer
+
+
+def test_get_model_factory_dispatch(tmp_path):
+    from hydrainfer_tpu_torch.models.factory import ModelFactoryConfig, getModelFactory
+    from hydrainfer_tpu_torch.models.fake import FakeModelFactory
+    f = getModelFactory(ModelFactoryConfig(name="random:tiny-lm", dtype="float32",
+                                           quantization="int8", kv_cache_dtype="int8",
+                                           kv_scale=0.07), "cpu")
+    assert isinstance(f, RandomWeightFactory)
+    assert (f.dtype, f.quantization, f.kv_scale) == (torch.float32, "int8", 0.07)
+    assert getModelFactory(ModelFactoryConfig(name="random:tiny-lm"), "cpu").dtype \
+        == torch.bfloat16                       # "auto" is bf16, as in JAX
+    assert isinstance(getModelFactory(ModelFactoryConfig(), "cpu"), FakeModelFactory)
+    assert isinstance(getModelFactory(ModelFactoryConfig(name="fake", path="x"), "cpu"),
+                      FakeModelFactory)
+    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
+        getModelFactory(ModelFactoryConfig(name="random:tiny-lm+mm"), "cpu")
+    for arch, item in (("LlavaForConditionalGeneration", "item 4"),
+                       ("GPT2LMHeadModel", "item 8"), ("SomethingElse", "no queue item")):
+        d = tmp_path / arch
+        d.mkdir()
+        (d / "config.json").write_text(json.dumps({"architectures": [arch]}))
+        with pytest.raises(ValueError, match=item):
+            getModelFactory(ModelFactoryConfig(path=str(d)), "cpu")
+
+
+def test_text_only_factory_matches_jax(tmp_path, monkeypatch):
+    """A tiny Llama checkpoint built in process, loaded through both
+    packages' getModelFactory(path) (TextOnlyModelFactory) and served on a
+    PD node: the same greedy tokens."""
+    transformers = pytest.importorskip("transformers")
+    from hydrainfer_tpu.cluster.node import NodeConfig as JaxNodeConfig
+    from hydrainfer_tpu.entrypoint.offline import OfflineEngine as JaxOfflineEngine
+    from hydrainfer_tpu.models import text_only as jax_text_only
+    from hydrainfer_tpu.models.factory import ModelFactoryConfig as JaxMFC
+    from hydrainfer_tpu.models.factory import getModelFactory as jax_get_factory
+    from hydrainfer_tpu.request import Request as JaxRequest
+    from hydrainfer_tpu.request import SamplingParameters as JaxSP
+    from hydrainfer_tpu_torch.cluster.node import NodeConfig
+    from hydrainfer_tpu_torch.entrypoint.offline import OfflineEngine
+    from hydrainfer_tpu_torch.models import text_only
+    from hydrainfer_tpu_torch.models.factory import ModelFactoryConfig, getModelFactory
+    from hydrainfer_tpu_torch.request import Request, SamplingParameters
+    cfg = transformers.LlamaConfig(
+        vocab_size=160, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=256,
+        tie_word_embeddings=False)
+    torch.manual_seed(0)
+    transformers.LlamaForCausalLM(cfg).eval().float().save_pretrained(
+        tmp_path, safe_serialization=True)
+    monkeypatch.setattr(jax_text_only.TextOnlyModelFactory, "getTokenizer",
+                        lambda self: JaxTok())
+    monkeypatch.setattr(text_only.TextOnlyModelFactory, "getTokenizer",
+                        lambda self: SimpleTokenizer())
+    prompts = ["abc def", "0123456789 tokens"]
+    jf = jax_get_factory(JaxMFC(path=str(tmp_path), dtype="float32", attention_impl="jnp"))
+    jcfg = JaxNodeConfig(n_kv_blocks=64, n_image_blocks=1, kv_block_size=4, spec_ngram_k=0)
+    jcfg.model.dtype = "float32"
+    jax_out = JaxOfflineEngine(jcfg, model_factory=jf, node_type="PD").generate(
+        [JaxRequest(request_id=str(i), prompt=p,
+                    sampling_params=JaxSP(max_tokens=6, ignore_eos=True))
+         for i, p in enumerate(prompts)])
+    pf = getModelFactory(ModelFactoryConfig(path=str(tmp_path), dtype="float32"), "cpu")
+    assert isinstance(pf, text_only.TextOnlyModelFactory)
+    port_out = OfflineEngine(NodeConfig(n_kv_blocks=64, kv_block_size=4), pf,
+                             device="cpu").generate(
+        [Request(request_id=str(i), prompt=p,
+                 sampling_params=SamplingParameters(max_tokens=6, ignore_eos=True))
+         for i, p in enumerate(prompts)])
+    assert [o.output_token_ids for o in port_out] == [o.output_token_ids for o in jax_out]
