@@ -19,10 +19,14 @@ Phases, each printing one JSON line:
            identical CUDA graph replays; and time each beside its
            bound and a PyTorch library call, eager and from a CUDA graph (K4
            per projection over M 1-2048, both its forms, with a decode-step
-           sum and a prefill-budget sum);
+           sum and a prefill-budget sum); K2 and K4 also at the speculative
+           verify step's shape (llava-7b-lm, 8 segments of 13 rows, T = 128,
+           max_q 16; K4 on every projection at M = 128, lm_head included);
   tiny     serve tiny-lm and mla-tiny-lm in f32 through OfflineEngine on the
            card (decode steps from CUDA graphs) and on the CPU with the same
-           weights and key floors: the greedy tokens must be identical;
+           weights and key floors, plain and with n-gram speculation at k = 3
+           (two lookup-friendly requests, the verify steps graphed on the
+           card): the greedy tokens and the verify counts must be identical;
   serve    serve llava-7b-lm (full width, int8 weights, int8 KV) through
            OfflineEngine on the card: every request must finish with its
            token count, every kernel must have launched in the measured run
@@ -32,6 +36,24 @@ Phases, each printing one JSON line:
            agree with the same model run through the plain PyTorch versions;
            then the same model serves the measured round's requests again
            with CUDA graphs off (`eager_round`): the tokens must be identical;
+  spec     n-gram speculative decoding on llava-7b-lm (full width, int8
+           weights, int8 KV): four lookup-friendly requests (a seeded 32-token
+           sequence repeated four times, 128 tokens each) on an engine of 8
+           (S floor 8, verify T = 128, max_q 16), spec_ngram_k 12 and then 0
+           on the same model: verify steps must run, replaying their CUDA
+           graph (captured once, in the warm-up round), and launch K2, K3 and
+           K4; the tokens must equal the plain run's or first differ at a near
+           tie; tokens/s, p50 TTFT, tokens per verify step, and the verify
+           step's device ms beside a fused window's per step;
+  sample   stochastic sampling on the same model: eight requests at
+           temperature 0.8, top-k 40, top-p 0.95 through K = 16 graphed
+           windows (the sampled keys captured in a warm-up round); top-k 1 at
+           0.8 must equal greedy, a mixed batch must leave the greedy rows
+           unchanged; on the card, the chain's draws (process_logits and the
+           rejection-sampled verify) within TV 0.05 of their targets at
+           N = 4000, and graph replays with the generator registered must draw
+           fresh numbers; the sort kernels' device ms per step from a profiled
+           round, and the chain alone from a CUDA graph;
   vlm      serve Qwen2-VL-2B (full width: bf16 vision tower, LM with int8
            weights and int8 KV) through OfflineEngine(node_type="EPD"): eight
            image requests of four sizes, encoded, prefilled (chunks mixing
@@ -59,8 +81,9 @@ Phases, each printing one JSON line:
            streaming chats at once over HTTP (every stream must end in
            [DONE] with its 128 deltas; first-delta and inter-delta times
            and tokens/s on the client's clock; K1-K4 must launch in the
-           burst); checks /health, a 400 for a malformed body and for
-           temperature 0.7, that an idle second launches no kernel, and that
+           burst); checks /health, a 400 for a malformed body, a chat at
+           temperature 0.7 streamed to [DONE] with its 16 deltas, that an
+           idle second launches no kernel, and that
            SIGTERM ends the child with 0; then the port's OfflineEngine,
            built here from the same file and overrides, must give the lone
            request's text character for character.
@@ -157,10 +180,12 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
+def graph_ms(fn, calls: int = 20, replays: int = 5, generator=None) -> float:
     """Mean ms per call of `calls` calls captured in one CUDA graph and
     replayed `replays` times: the card's time without the host's launch cost,
-    which is most of time_ms for a kernel of a few tens of microseconds."""
+    which is most of time_ms for a kernel of a few tens of microseconds.
+    `generator`: the torch.Generator fn draws from, registered with the
+    graph."""
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -168,6 +193,8 @@ def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
+    if generator is not None:
+        graph.register_generator_state(generator)
     with torch.cuda.graph(graph):
         for _ in range(calls):
             fn()
@@ -205,11 +232,14 @@ def ptxas_entries(logs: dict) -> dict:
 
 def phase_build() -> dict:
     from hydrainfer_tpu_torch.ops.cuda import build
+    import torch
+    free, total = torch.cuda.mem_get_info()
     t0 = time.perf_counter()
     per_kernel = build.build_all()
     seconds = time.perf_counter() - t0
     save("ptxas.json", {"logs": build.build_logs, "entries": ptxas_entries(build.build_logs)})
     return {"phase": "build", "ok": True, "seconds": seconds,
+            "card_free_bytes_at_start": free, "card_total_bytes": total,
             "per_kernel_s": per_kernel, "nvcc": build.nvcc_path()}
 
 
@@ -243,11 +273,20 @@ PATH_SHAPES = {
                 T=2048, kv_decode=(32, 32), kv_prefill=(2048, 2048), gemm_m=32,
                 budget=2048),
 }
+# the speculative verify step of the spec phase (llava-7b-lm, S floor 8,
+# K1 = 13): 8 segments of 13 rows padded to T = 128 (max_q 16) through K2,
+# and every int8 projection, lm_head included, at M = T through K4
+VERIFY_SHAPES = dict(arch="llava-7b-lm", K1=13,
+                     mixed=[(13, 181 + 7 * s) for s in range(8)], T=128)
+
+
+def _arch_name(path: str) -> str:
+    return (VERIFY_SHAPES if path == "spec" else PATH_SHAPES[path])["arch"]
 
 
 def _arch_cfg(path: str):
     from hydrainfer_tpu_torch.models.random_init import ARCH_CONFIGS
-    return ARCH_CONFIGS[PATH_SHAPES[path]["arch"]]
+    return ARCH_CONFIGS[_arch_name(path)]
 
 
 def _paged_case(gen, seq_specs, n_blocks, bs, kvh, d, kv_scale, dev):
@@ -273,7 +312,7 @@ def _paged_case(gen, seq_specs, n_blocks, bs, kvh, d, kv_scale, dev):
             torch.tensor([S], dtype=torch.int32, device=dev))
 
 
-def check_quant_matmul(gen, dev, path) -> dict:
+def check_quant_matmul(gen, dev, path, m_values=None) -> dict:
     """K4 at every int8 projection of the path (and its lm_head, f32 out),
     over an M sweep across the skinny/wide boundary: held to the plain
     version, timed eager and from a CUDA graph over rotating weight copies
@@ -282,13 +321,19 @@ def check_quant_matmul(gen, dev, path) -> dict:
     dequantized to bf16 outside the timed call (rotated the same way), each
     held to the plain version first. The kernels line sums one decode step
     (M = the decode batch) and one prefill budget (qkv, o, gate_up, down at
-    M = the path's token budget; the lm_head sees only the sampled rows)."""
+    M = the path's token budget; the lm_head sees only the sampled rows).
+    `m_values`: the M values to check instead of the sweep (the verify
+    step's T: its kernels line sums every projection, lm_head included, at
+    that M)."""
     import torch
     from hydrainfer_tpu_torch.ops.cuda.quant_matmul import (plan, quant_matmul_int8,
                                                             quant_matmul_int8_plain)
     from hydrainfer_tpu_torch.models.random_init import int8_matmul_shapes
-    m_row = PATH_SHAPES[path].get("gemm_m", 16)
-    m_prefill = PATH_SHAPES[path]["budget"]
+    if m_values is not None:
+        m_row = m_prefill = m_values[0]
+    else:
+        m_row = PATH_SHAPES[path].get("gemm_m", 16)
+        m_prefill = PATH_SHAPES[path]["budget"]
     projections = int8_matmul_shapes(_arch_cfg(path))
     rows, max_err, ok = [], 0.0, True
     for name, (K, N) in projections.items():
@@ -302,7 +347,7 @@ def check_quant_matmul(gen, dev, path) -> dict:
         n_bf = max(1, math.ceil(120e6 / (2 * K * N)))
         w_bfs = [w_bf] + [w_bf.clone() for _ in range(n_bf - 1)]
         w_t, sc_bf = w.t().contiguous(), scale.to(torch.bfloat16)
-        for M in sorted({1, 16, 48, 256, 2048, m_row, m_prefill}):
+        for M in m_values or sorted({1, 16, 48, 256, 2048, m_row, m_prefill}):
             x = torch.randn((M, K), generator=gen).to(dev, torch.bfloat16)
             got = quant_matmul_int8(x, w, scale, out_dtype)
             ref = quant_matmul_int8_plain(x, w, scale, out_dtype)
@@ -356,10 +401,11 @@ def check_quant_matmul(gen, dev, path) -> dict:
     pre = [r for r in rows if r["M"] == m_prefill and r["proj"] != "lm_head"]
     return {"name": "quant_matmul", "path": path, "ok": bool(ok), "max_abs_err": max_err,
             "tolerance": "1e-2 x max|plain| (bf16 out), 1e-4 x max|plain| (f32 logits)",
-            "shape": f"{PATH_SHAPES[path]['arch']}: " + ", ".join(
+            "shape": f"{_arch_name(path)}: " + ", ".join(
                 f"{n} {k}x{n_}" for n, (k, n_) in projections.items())
-                     + f" (lm_head f32 out) at M={m_row}, summed; prefill: the layer "
-                       f"projections at M={m_prefill}, summed",
+                     + f" (lm_head f32 out) at M={m_row}, summed"
+                     + ("" if m_values else f"; prefill: the layer projections at "
+                                            f"M={m_prefill}, summed"),
             "ms": total(step, "ms"), "graph_ms": total(step, "graph_ms"),
             "plain_ms": total(step, "plain_ms"), "bound_ms": total(step, "bound_ms"),
             "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in step)
@@ -385,19 +431,8 @@ def check_attention(gen, dev, path) -> list:
     H, kvh, D, bs, kv_scale = cfg.n_qo_heads, cfg.n_kv_heads, cfg.head_dim, 16, 0.05
     sm = 1.0 / math.sqrt(D)
     heads = f"{H} q / {kvh} kv heads x d{D}, int8 KV, BS 16"
-
-    def dense_kv(pages, tables, kv_lens):
-        """K/V of each sequence gathered dense, dequantized (bf16) and
-        repeated over each kv head's query heads: (H, n, D) each."""
-        ks, vs = [], []
-        for s in range(tables.shape[0]):
-            n = int(kv_lens[s])
-            rows = pages[tables[s].clamp(min=0).long()].reshape(-1, 2 * kvh, D)[:n]
-            for plane, out in ((rows[:, 0::2], ks), (rows[:, 1::2], vs)):
-                out.append((plane.float() * kv_scale).to(torch.bfloat16)
-                           .transpose(0, 1).repeat_interleave(H // kvh, 0))
-        return ks, vs
-
+    dense_kv = lambda pages, tables, kv_lens: _dense_kv(pages, tables, kv_lens, H, kvh, D,
+                                                       kv_scale)
     out = []
     # K1: a decode window of 8 sequences
     specs = shp["decode"]
@@ -461,7 +496,37 @@ def check_attention(gen, dev, path) -> list:
                 "bound_ms": b_ms, "bound_by": b_by})
 
     # K2: a mixed batch: prefill chunks, a chunked continuation, decodes
-    specs, T = shp["mixed"], shp["T"]
+    out.append(check_paged_mixed(gen, dev, path, shp["mixed"], shp["T"],
+                                 "prefills, a chunked continuation, decodes"))
+    return out
+
+
+def _dense_kv(pages, tables, kv_lens, H, kvh, D, kv_scale):
+    """K/V of each sequence gathered dense, dequantized (bf16) and repeated
+    over each kv head's query heads: (H, n, D) each."""
+    import torch
+    ks, vs = [], []
+    for s in range(tables.shape[0]):
+        n = int(kv_lens[s])
+        rows = pages[tables[s].clamp(min=0).long()].reshape(-1, 2 * kvh, D)[:n]
+        for plane, out in ((rows[:, 0::2], ks), (rows[:, 1::2], vs)):
+            out.append((plane.float() * kv_scale).to(torch.bfloat16)
+                       .transpose(0, 1).repeat_interleave(H // kvh, 0))
+    return ks, vs
+
+
+def check_paged_mixed(gen, dev, path, specs, T, what) -> dict:
+    """K2 over the batch specs = [(q_len, kv_len), ...] padded to T rows:
+    held to the plain version (padding rows zero), timed eager and from a
+    CUDA graph beside its bound and the fastest library form."""
+    import torch
+    import torch.nn.functional as F
+    from hydrainfer_tpu_torch.ops.cuda.paged_attention import (
+        paged_attention_varlen, paged_attention_varlen_plain)
+    cfg = _arch_cfg(path)
+    H, kvh, D, bs, kv_scale = cfg.n_qo_heads, cfg.n_kv_heads, cfg.head_dim, 16, 0.05
+    sm = 1.0 / math.sqrt(D)
+    heads = f"{H} q / {kvh} kv heads x d{D}, int8 KV, BS 16"
     pages, tables, kv_lens, cu, ns = _paged_case(gen, specs, 512, bs, kvh, D,
                                                  kv_scale, dev)
     T_real = int(cu[-1])
@@ -470,7 +535,7 @@ def check_attention(gen, dev, path) -> list:
     ref = paged_attention_varlen_plain(q, pages, kv_lens, tables, cu, ns, sm, kv_scale)
     err = (got.float() - ref.float()).abs().max().item()
     pad_zero = bool((got[T_real:] == 0).all())
-    ks, vs = dense_kv(pages, tables, kv_lens)
+    ks, vs = _dense_kv(pages, tables, kv_lens, H, kvh, D, kv_scale)
     kcat, vcat = torch.cat(ks, 1)[None], torch.cat(vs, 1)[None]
     amask = torch.zeros((T_real, kcat.shape[2]), dtype=torch.bool)
     visible = 0
@@ -515,22 +580,20 @@ def check_attention(gen, dev, path) -> list:
     b_ms, b_by = bound_ms(T_real * H * D * 2 * 2 + n_kv * 2 * kvh * D,
                           4.0 * H * D * visible)
     kernel = lambda: paged_attention_varlen(q, pages, kv_lens, tables, cu, ns, sm, kv_scale)
-    out.append({"name": "paged_attention", "path": path, "ok": err <= 3e-2 and pad_zero,
-                "max_abs_err": err,
-                "tolerance": "3e-2 abs (bf16 K/V rounding in the plain version)",
-                "shape": f"{T_real} tokens (T={T}) in {len(specs)} seqs: prefills, a "
-                         f"chunked continuation, decodes; {heads}",
-                "ms": time_ms(kernel),
-                "graph_ms": graph_ms(kernel),
-                "plain_ms": time_ms(lambda: paged_attention_varlen_plain(
-                    q, pages, kv_lens, tables, cu, ns, sm, kv_scale), iters=5),
-                "library_ms": library[lib]["ms"] if lib else None,
-                "library_graph_ms": library[lib].get("graph_ms") if lib else None,
-                "library": f"{lib}; K/V gathered and dequantized outside the timed call"
-                           if lib else None,
-                "library_forms_ms": {n: r.get("ms") for n, r in library.items()},
-                "bound_ms": b_ms, "bound_by": b_by})
-    return out
+    return {"name": "paged_attention", "path": path, "ok": err <= 3e-2 and pad_zero,
+            "max_abs_err": err,
+            "tolerance": "3e-2 abs (bf16 K/V rounding in the plain version)",
+            "shape": f"{T_real} tokens (T={T}) in {len(specs)} seqs: {what}; {heads}",
+            "ms": time_ms(kernel),
+            "graph_ms": graph_ms(kernel),
+            "plain_ms": time_ms(lambda: paged_attention_varlen_plain(
+                q, pages, kv_lens, tables, cu, ns, sm, kv_scale), iters=5),
+            "library_ms": library[lib]["ms"] if lib else None,
+            "library_graph_ms": library[lib].get("graph_ms") if lib else None,
+            "library": f"{lib}; K/V gathered and dequantized outside the timed call"
+                       if lib else None,
+            "library_forms_ms": {n: r.get("ms") for n, r in library.items()},
+            "bound_ms": b_ms, "bound_by": b_by}
 
 
 def _fastest(calls: dict, ref, tol: float):
@@ -906,6 +969,14 @@ def check_mha_varlen(gen, dev) -> dict:
             "library_forms_ms": {n: r.get("ms") for n, r in library.items()}}
 
 
+def check_verify(gen, dev) -> list:
+    """K2 and K4 at the speculative verify step's shape (VERIFY_SHAPES)."""
+    v = VERIFY_SHAPES
+    k2 = check_paged_mixed(gen, dev, "spec", v["mixed"], v["T"],
+                           f"verify segments of {v['K1']} rows (max_q 16)")
+    return [k2, check_quant_matmul(gen, dev, "spec", m_values=(v["T"],))]
+
+
 def _launch_key(r: dict) -> str:
     """The kernel's name in a path's launch counts; K3's rows add their form
     (the split that KvWriteSplit counts)."""
@@ -923,6 +994,7 @@ def phase_kernels() -> tuple:
         results += attention + [check_kv_writer(gen, dev, path, "decode"),
                                 check_kv_writer(gen, dev, path, "prefill"),
                                 check_quant_matmul(gen, dev, path)]
+    results += check_verify(gen, dev)
     results.append(check_mha_varlen(gen, dev))
     torch.cuda.synchronize()
     save("kernels.json", results)
@@ -936,10 +1008,11 @@ def phase_kernels() -> tuple:
 # ------------------------------------------------------------------ serving
 
 def _engine(factory, device, n_requests, block_size, n_blocks, token_budget,
-            node_type="PD", n_image_blocks=-1, cuda_graphs=True):
+            node_type="PD", n_image_blocks=-1, cuda_graphs=True, spec_ngram_k=12):
     """An OfflineEngine with the boot warm-up on (the key floors raised to
     the serving envelope, the decode keys met and, with cuda_graphs on the
-    card, captured) and a fixed token budget (the budget search off)."""
+    card, captured), a fixed token budget (the budget search off) and
+    speculation at the JAX default (spec_ngram_k = 12) unless asked."""
     from hydrainfer_tpu_torch.cluster.node import NodeConfig
     from hydrainfer_tpu_torch.engine.profiler import BatchSchedulerProfilerConfig
     from hydrainfer_tpu_torch.engine.request_processor import RequestProcessorConfig
@@ -951,7 +1024,8 @@ def _engine(factory, device, n_requests, block_size, n_blocks, token_budget,
         profiler=BatchSchedulerProfilerConfig(enabled=False,
                                               default_token_budget=token_budget),
         kv_block_size=block_size, n_kv_blocks=n_blocks, n_image_blocks=n_image_blocks,
-        multi_step_decode=16, cuda_graphs=cuda_graphs, boot_warmup=True)
+        multi_step_decode=16, cuda_graphs=cuda_graphs, boot_warmup=True,
+        spec_ngram_k=spec_ngram_k)
     return OfflineEngine(cfg, model_factory=factory, node_type=node_type, device=device)
 
 
@@ -965,14 +1039,25 @@ def _requests(rng, n, prompt_len, max_tokens, tag):
             for i in range(n)]
 
 
+# the tiny phase's speculating requests (tests/engine/test_spec_decode.py's
+# lookup-friendly prompts), two on a node of four: single steps, each a chance
+# to speculate at spec_ngram_k = 3
+TINY_SPEC_PROMPTS = ("abc abc abc abc abc abc", "ab ab ab ab ab")
+
+
 def phase_tiny(devices=("cuda", "cpu"), archs=("tiny-lm", "mla-tiny-lm")) -> dict:
     """Each arch in f32 on the card and on the CPU with the same weights
-    (mla-tiny-lm: K6's f32 path at D 24, K3's single-plane write)."""
+    (mla-tiny-lm: K6's f32 path at D 24, K3's single-plane write): six
+    random requests, then TINY_SPEC_PROMPTS with speculation at k = 3. The
+    tokens must be identical, and so must the verify steps run and the
+    tokens they emitted (at least one); on the card the verify key runs
+    from its CUDA graph."""
     import numpy as np
     import torch
     from hydrainfer_tpu_torch.models.random_init import (ARCH_CONFIGS,
                                                          RandomWeightFactory,
                                                          init_decoder_weights)
+    from hydrainfer_tpu_torch.request import Request, SamplingParameters
 
     def on(arch, weights, device):
         w = {k: (v.to(device) if k != "layers" else
@@ -982,17 +1067,33 @@ def phase_tiny(devices=("cuda", "cpu"), archs=("tiny-lm", "mla-tiny-lm")) -> dic
                                       weights=w)
         engine = _engine(factory, device, 6, 4, 512, 24)
         reqs = _requests(np.random.default_rng(SEED), 6, 40, 24, "tiny")
-        return [o.output_token_ids for o in engine.generate(reqs, timeout_s=300)]
+        plain = [o.output_token_ids for o in engine.generate(reqs, timeout_s=300)]
+        engine = _engine(factory, device, 4, 4, 512, 24, spec_ngram_k=3)
+        reqs = [Request(request_id=f"spec{i}", prompt=p,
+                        sampling_params=SamplingParameters(max_tokens=24, ignore_eos=True))
+                for i, p in enumerate(TINY_SPEC_PROMPTS)]
+        spec = [o.output_token_ids for o in engine.generate(reqs, timeout_s=300)]
+        fx = engine.node.fill_executor
+        verify_replays = (sum(g.replays for (d, _), g in fx.graphs.graphs.items()
+                              if d.spec > 0) if fx.graphs is not None else None)
+        return plain, spec, (fx.spec_steps, fx.spec_tokens), verify_replays
 
     res, ok, tokens = {"phase": "tiny"}, True, {}
     for arch in archs:
         weights = init_decoder_weights(ARCH_CONFIGS[arch], SEED, torch.float32,
                                        device="cpu")
-        gpu, cpu = (on(arch, weights, d) for d in devices)
-        tokens[arch] = {"gpu": gpu, "cpu": cpu}
-        ok &= gpu == cpu and all(len(t) == 24 for t in gpu)
+        (gpu, gpu_spec, gpu_counts, replays), (cpu, cpu_spec, cpu_counts, _) = (
+            on(arch, weights, d) for d in devices)
+        tokens[arch] = {"gpu": gpu, "cpu": cpu, "gpu_spec": gpu_spec, "cpu_spec": cpu_spec}
+        ok &= (gpu == cpu and all(len(t) == 24 for t in gpu) and gpu_spec == cpu_spec
+               and all(len(t) == 24 for t in gpu_spec) and gpu_counts == cpu_counts
+               and gpu_counts[0] > 0 and bool(replays))
         res[arch] = {"requests": len(gpu), "tokens_per_request": 24,
-                     "requests_differing": sum(a != b for a, b in zip(gpu, cpu))}
+                     "requests_differing": sum(a != b for a, b in zip(gpu, cpu)),
+                     "spec_requests_differing": sum(a != b for a, b in zip(gpu_spec,
+                                                                           cpu_spec)),
+                     "spec_steps_and_tokens": {"gpu": gpu_counts, "cpu": cpu_counts},
+                     "verify_graph_replays": replays}
     save("tiny_tokens.json", tokens)
     return {**res, "ok": bool(ok)}
 
@@ -1102,7 +1203,7 @@ def _logits_check(lm, tokens, device, prefix, **batch_kw) -> dict:
                                    "the plain path's distance from f32"}
 
 
-def _profile_round(engine, reqs, name="serve_profile.json") -> dict:
+def _profile_round(engine, reqs, name="serve_profile.json", rows_out=None) -> dict:
     """One more round under torch.profiler: device time by kernel and the
     device's busy share of the round's wall time (the profiler's own host
     overhead lengthens the wall, so the share is a lower bound). Whether the
@@ -1124,6 +1225,8 @@ def _profile_round(engine, reqs, name="serve_profile.json") -> dict:
         if us > 0 and "CUDA" in str(getattr(e, "device_type", "")):
             rows.append({"kernel": e.key[:120], "count": e.count, "ms": us / 1e3})
     rows.sort(key=lambda r: -r["ms"])
+    if rows_out is not None:
+        rows_out.extend(rows)
     busy_ms = sum(r["ms"] for r in rows)
     k3_seen = sum(r["count"] for r in rows if "kv_write_kernel" in r["kernel"])
     save(name, {"wall_s": wall, "device_busy_ms": busy_ms, "kernels": rows,
@@ -1227,7 +1330,9 @@ class GraphRounds:
                 "replays_in_measured_round": self.measured[1], "pool_bytes": pool,
                 "auto_sizing_headroom_bytes": self.headroom,
                 # each key's kernel launches a replay runs
-                "keys": {f"T={d.T} S={d.S} MB={d.MB} mrope={d.mrope} n_steps={n}": gr.launches
+                "keys": {f"T={d.T} S={d.S} MB={d.MB} mrope={d.mrope} n_steps={n}"
+                         + (" sampling" if d.sampling else "")
+                         + (f" spec={d.spec}" if d.spec else ""): gr.launches
                          for (d, n), gr in sorted(g.graphs.items(), key=str)}}
 
     def ok(self) -> bool:
@@ -1382,6 +1487,437 @@ def phase_mla(dev="cuda") -> tuple:
     return phase_serve(MLA_ARCH, dev, MLA_REQUESTS, MLA_PROMPT, MLA_TOKENS, 2048,
                        phase="mla", must_run=MLA_KERNELS,
                        must_not_run=("mha_decode", "paged_attention"), eager_round=False)
+
+
+# ------------------------------------------------------- phases: spec, sample
+
+# four lookup-friendly requests (at most spec_max_batch): a seeded 32-token
+# sequence repeated four times, 128 tokens each
+SPEC_REQUESTS, SPEC_PERIOD, SPEC_TOKENS = 4, 32, 128
+SAMPLE_REQUESTS, SAMPLE_TOKENS = 8, 64
+SAMPLE_CONTROLS = dict(temperature=0.8, top_k=40, top_p=0.95)
+_LLAVA = {}
+
+
+def _llava_factory(dev):
+    """llava-7b-lm at full width (int8 weights, int8 KV at 0.05), seeded: one
+    weight init shared by the spec and sample phases."""
+    import torch
+    from hydrainfer_tpu_torch.models.random_init import RandomWeightFactory
+    if "factory" not in _LLAVA:
+        _LLAVA["factory"] = RandomWeightFactory(
+            "llava-7b-lm", dtype=torch.bfloat16, quantization="int8", kv_scale=0.05,
+            device=dev, seed=SEED)
+    return _LLAVA["factory"]
+
+
+def _spec_requests(rng, tag):
+    from hydrainfer_tpu_torch.request import Request, SamplingParameters
+    letters = list("abcdefghijklmnopqrstuvwxyz ")
+    return [Request(request_id=f"{tag}{i}",
+                    prompt="".join(rng.choice(letters, size=SPEC_PERIOD)) * 4,
+                    sampling_params=SamplingParameters(max_tokens=SPEC_TOKENS,
+                                                       ignore_eos=True))
+            for i in range(SPEC_REQUESTS)]
+
+
+def _replay_ms(graph, replays: int = 20) -> float:
+    """Device ms of one replay of a captured step graph."""
+    import torch
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / replays
+
+
+def _near_tie(lm, tokenizer, reqs, on, off, dev) -> dict:
+    """Where the spec and plain tokens of a request first differ: the plain
+    path's top-2 logit gap at that position (one prefill of the prompt and
+    the plain tokens before it, through the kernels), against the bound of
+    _logits_check (LOGITS_RATIO times the bf16 plain path's distance from
+    f32): a divergence is a near tie only if its gap is within the bound."""
+    import numpy as np
+    import torch
+    rows = []
+    for req, a, b in zip(reqs, on, off):
+        if a == b:
+            continue
+        pos = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        ctx = tokenizer.encode(req.prompt) + b[:pos]
+        with torch.no_grad():
+            top2 = torch.topk(_prefill_logits(lm, ctx, dev)[-1], 2).values
+        rows.append({"request": req.request_id, "position": pos,
+                     "top2_gap": float(top2[0] - top2[1])})
+    if not rows:
+        return {"ok": True, "divergences": []}
+    probe = [int(t) for t in np.random.default_rng(SEED).integers(10, 120, size=64)]
+    check = _logits_check(lm, probe, dev, "bound")
+    bound = LOGITS_RATIO * max(check["bound_bf16_plain_vs_f32_err"],
+                               1e-3 * check["bound_f32_max_abs"])
+    return {"ok": all(r["top2_gap"] <= bound for r in rows), "divergences": rows,
+            "near_tie_bound": bound}
+
+
+def _reference_drafts(ref: dict, prompt_len: int, vocab: int):
+    """A proposer that drafts each request's continuation from a reference
+    run (`ref`: prompt token ids -> that run's tokens), k tokens from where
+    the request stands, the ninth made wrong: while the request follows the
+    reference, a verify step accepts eight drafts and rejects the ninth
+    (random weights never repeat an n-gram, so prompt lookup finds no draft
+    to verify)."""
+    def propose(ctx, k, n=3):
+        cont = ref.get(tuple(ctx[:prompt_len]))
+        if cont is None:
+            return []
+        done = len(ctx) - prompt_len
+        draft = list(cont[done:done + k])
+        if len(draft) > 8:
+            draft[8] = (draft[8] + 1) % vocab
+        return draft
+    return staticmethod(propose)
+
+
+def phase_spec(dev="cuda") -> tuple:
+    """Speculative decoding on llava-7b-lm at full width (int8 weights, int8
+    KV): engines of 8 (S floor 8, so a verify step is T = 128 rows, max_q
+    16) on one model serve a warm-up round and a measured round of
+    SPEC_REQUESTS lookup-friendly requests each, four ways: plain
+    (spec_ngram_k 0), n-gram (12), drafted (12, the drafts from the plain
+    run's tokens with the ninth wrong, `_reference_drafts`: random weights
+    never repeat an n-gram, so the n-gram run verifies nothing) and
+    redrafted (the drafts from the drafted run's tokens: a verify step's
+    logits differ from a decode step's in their last bits, and the random
+    model's near ties turn on them, so the drafted run leaves the plain
+    tokens early; the redrafted one follows its own path's tokens). The
+    drafted runs must verify, their verify key captured once (in the
+    warm-up round) and replayed in the measured one, their verify steps
+    launching K2, K3 and K4 (and not K1); the spec runs' tokens must be the
+    plain run's, or first differ where the plain path's top-2 logit gap is a
+    near tie (_near_tie). Reports tokens/s and p50 TTFT of each, tokens per
+    verify step, and the verify step's device ms beside a fused window's
+    per step (graph replays)."""
+    import numpy as np
+    import torch
+    from hydrainfer_tpu_torch.engine import executor as ex
+    from hydrainfer_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    dev = torch.device(dev)
+    factory = _llava_factory(dev)
+    lm = factory.getLanguageModel()
+    tokenizer = factory.getTokenizer()
+    warm_reqs = _spec_requests(np.random.default_rng(SEED + 10), "warm")
+    reqs = _spec_requests(np.random.default_rng(SEED + 11), "spec")
+    prompt_len = len(tokenizer.encode(reqs[0].prompt))
+    tokens_of = {}      # run name -> {prompt token ids: its tokens}
+    verify_launches = {}
+    # the class attributes themselves (propose_ngram is a staticmethod)
+    orig_spec = ex.FillExecutor.__dict__["execute_spec"]
+    orig_propose = ex.FillExecutor.__dict__["propose_ngram"]
+
+    def spy(self, batch, k_draft, ngram_n=3):
+        before = launch_counts()
+        fut = orig_spec(self, batch, k_draft, ngram_n)
+        for k, n in launch_counts().items():
+            verify_launches[k] = verify_launches.get(k, 0) + n - before[k]
+        return fut
+
+    def serve(name, k, drafts_from=None):
+        if drafts_from is not None:
+            ex.FillExecutor.propose_ngram = _reference_drafts(
+                tokens_of[drafts_from], prompt_len, factory.cfg.vocab_size)
+        free = torch.cuda.mem_get_info(dev)[0]
+        engine = _engine(factory, dev, 8, 16, 256, 256, spec_ngram_k=k)
+        graphs = GraphRounds(engine, free)
+        fx = engine.node.fill_executor
+        warm = engine.generate(warm_reqs, timeout_s=600)
+        steps0, tokens0 = fx.spec_steps, fx.spec_tokens
+        verify_launches.clear()
+        reset_launch_counts()
+        graphs.start_measured()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = engine.generate(reqs, timeout_s=600)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        graphs.end_measured()
+        tokens_of[name] = {tuple(tokenizer.encode(r.prompt)): o.output_token_ids
+                           for r, o in zip(warm_reqs + reqs, warm + outs)}
+        ttfts = sorted(o.ttft for o in outs)
+        run = {"spec_ngram_k": k, "tokens": [o.output_token_ids for o in outs],
+               "tokens_per_s": sum(len(o.output_token_ids) for o in outs) / elapsed,
+               "elapsed_s": elapsed, "p50_ttft_s": ttfts[len(ttfts) // 2],
+               "spec_steps": fx.spec_steps - steps0, "spec_tokens": fx.spec_tokens - tokens0,
+               "spec_steps_in_warmup_round": steps0, "graphs_ok": graphs.ok(),
+               "graphs": graphs.report(), "verify_launches": dict(verify_launches)}
+        verify = [(d, g) for (d, n), g in fx.graphs.graphs.items() if d.spec > 0]
+        run["verify_keys"] = [f"T={d.T} S={d.S} MB={d.MB} max_q={d.max_q} K1={d.spec}"
+                              for d, _ in verify]
+        run["verify_replays"] = sum(g.replays for _, g in verify)
+        run["verify_keys_captured"] = all(g.graph is not None for _, g in verify)
+        # device ms of one verify step and of a fused window per step (graph
+        # replays of the engine's own keys, after serving)
+        run["verify_step_device_ms"] = {f"T={d.T}": _replay_ms(g.graph)
+                                        for d, g in verify if g.graph is not None}
+        run["window_device_ms_per_step"] = {
+            f"K={n}": _replay_ms(g.graph) / n
+            for (d, n), g in sorted(fx.graphs.graphs.items(), key=str)
+            if d.spec == 0 and n > 1 and g.graph is not None}
+        return run
+
+    runs = {}
+    ex.FillExecutor.execute_spec = spy
+    try:
+        runs["plain"] = serve("plain", 0)
+        runs["ngram"] = serve("ngram", 12)
+        runs["drafted"] = serve("drafted", 12, drafts_from="plain")
+        runs["redrafted"] = serve("redrafted", 12, drafts_from="drafted")
+    finally:
+        ex.FillExecutor.execute_spec = orig_spec
+        ex.FillExecutor.propose_ngram = orig_propose
+    ref = runs["plain"]["tokens"]
+    spec_runs = ("ngram", "drafted", "redrafted")
+    ties = {name: _near_tie(lm, tokenizer, reqs, runs[name]["tokens"], ref, dev)
+            for name in spec_runs}
+    drafted = [runs["drafted"], runs["redrafted"]]
+    d = runs["redrafted"]
+    vl = d["verify_launches"]
+    checks = {
+        "all_finished": all(len(t) == SPEC_TOKENS for r in runs.values() for t in r["tokens"]),
+        "plain_runs_no_verify": runs["plain"]["spec_steps"] == 0,
+        "drafted_verifies": all(r["spec_steps"] > 0 and r["spec_tokens"] > r["spec_steps"]
+                                for r in drafted),
+        "verify_key_captured_once_then_replayed": all(
+            len(r["verify_keys"]) == 1 and r["verify_keys_captured"]
+            and r["spec_steps_in_warmup_round"] > 0 and r["verify_replays"] > 0
+            and r["graphs"]["keys_captured_in_measured_round"] == 0 for r in drafted),
+        "graphs_ok": all(r["graphs_ok"] for r in runs.values()),
+        "verify_launches_k2_k3_k4": (vl.get("paged_attention", 0) > 0
+                                     and vl.get("kv_writer", 0) > 0
+                                     and vl.get("quant_matmul", 0) > 0
+                                     and vl.get("mha_decode", 0) == 0),
+        "tokens_equal_or_near_tie": all(t.pop("ok") for t in ties.values())}
+    save("spec_tokens.json", {name: r.pop("tokens") for name, r in runs.items()})
+    return {"phase": "spec", "ok": all(checks.values()), "checks": checks,
+            "gpu": gpu_name_and_limit(), "arch": "llava-7b-lm", "weights": "int8",
+            "kv_cache": "int8 (scale 0.05)", "n_requests": SPEC_REQUESTS,
+            "prompt": f"{SPEC_PERIOD} seeded tokens x 4", "max_tokens": SPEC_TOKENS,
+            "tokens_identical": {name: not t["divergences"] for name, t in ties.items()},
+            "divergences": ties,
+            # summed over the step's requests, as the node's perf line reads it
+            "tokens_per_verify_step": {name: runs[name]["spec_tokens"]
+                                       / max(runs[name]["spec_steps"], 1)
+                                       for name in spec_runs},
+            **runs,
+            "tokens_per_s_ratio": {name: runs[name]["tokens_per_s"]
+                                   / runs["plain"]["tokens_per_s"]
+                                   for name in spec_runs}}, {
+        "paged_attention": vl.get("paged_attention", 0),
+        "quant_matmul": vl.get("quant_matmul", 0), "kv_writer": vl.get("kv_writer", 0)}
+
+
+def _sampling_tv_checks(dev) -> dict:
+    """The sampling chain's draws on the card, N = 4000 rows in one call,
+    V = 16: process_logits at temperature 0.7, top-k 8, top-p 0.9 against
+    the softmax of the same filters' logits (on the CPU), and the first
+    token of a rejection-sampled verify (one-hot draft 3) against
+    softmax(logits / 0.7): total-variation distance below 0.05 each."""
+    import torch
+    from hydrainfer_tpu_torch.ops import sampling
+    N, V = 4000, 16
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    row = torch.randn(V, generator=torch.Generator().manual_seed(4))
+    filt = sampling.apply_top_p(sampling.apply_top_k(
+        sampling.apply_temperature(row[None], torch.tensor([0.7])),
+        torch.tensor([8])), torch.tensor([0.9]))
+    target = torch.softmax(filt[0], -1)
+    ones = torch.ones(N, device=dev)
+    toks = sampling.process_logits(
+        row.to(dev).repeat(N, 1), temperature=0.7 * ones,
+        top_k=torch.full((N,), 8, dtype=torch.int32, device=dev), top_p=0.9 * ones,
+        generator=gen)
+    tv = lambda t, p: 0.5 * float((torch.bincount(t.long().cpu(), minlength=V) / N
+                                   - p).abs().sum())
+    logits = torch.randn((1, 2, V), generator=torch.Generator().manual_seed(0))
+    emitted, acc = sampling.spec_verify_tokens(
+        logits.to(dev).repeat(N, 1, 1),
+        torch.tensor([[3, 0]], dtype=torch.int32, device=dev).repeat(N, 1),
+        torch.ones(N, dtype=torch.int32, device=dev), temperature=0.7 * ones,
+        top_k=torch.full((N,), -1, dtype=torch.int32, device=dev), top_p=ones,
+        generator=gen)
+    tv_chain = tv(toks, target)
+    tv_spec = tv(emitted[:, 0], torch.softmax(logits[0, 0] / 0.7, -1))
+    return {"ok": tv_chain < 0.05 and tv_spec < 0.05, "tv_process_logits": tv_chain,
+            "tv_spec_verify_first_token": tv_spec, "spec_verify_accepted": int(acc.sum())}
+
+
+def _replay_fresh_check(dev) -> dict:
+    """A sampling graph (process_logits over a flat (64, 32000) distribution
+    at temperature 1) with its generator registered: two replays on the same
+    inputs must draw different tokens; after reseeding the generator, two
+    more replays repeat them."""
+    import torch
+    from hydrainfer_tpu_torch.ops import sampling
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    logits = torch.zeros((64, 32000), device=dev)
+    temps = torch.ones(64, device=dev)
+    fn = lambda: sampling.process_logits(logits, temperature=temps, generator=gen)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(gen)
+    with torch.cuda.graph(graph):
+        out = fn()
+    draws = []
+    for _ in range(2):
+        gen.manual_seed(SEED + 1)
+        for _ in range(2):
+            graph.replay()
+            draws.append(out.clone())
+    torch.cuda.synchronize()
+    fresh = not torch.equal(draws[0], draws[1])
+    repeat = torch.equal(draws[0], draws[2]) and torch.equal(draws[1], draws[3])
+    return {"ok": fresh and repeat, "replays_draw_fresh": fresh,
+            "reseed_repeats_replays": repeat}
+
+
+def phase_sample(dev="cuda") -> tuple:
+    """Stochastic sampling on llava-7b-lm at full width (the spec phase's
+    model): SAMPLE_REQUESTS requests at temperature 0.8, top-k 40, top-p
+    0.95, SAMPLE_TOKENS tokens, through K = 16 graphed windows, after a
+    sampled warm-up round (which captures the sampled keys: the measured
+    round captures none and replays them), and a greedy round of the same
+    shape, timed beside it. Then greedy, top-k 1 at 0.8
+    (must equal greedy) and a mixed batch (greedy rows unchanged) on the same
+    prompts; a profiled sampled round (the sort kernels' device ms per step);
+    the chain alone at (8, 32064) from a CUDA graph; the TV checks and the
+    replay check on the card."""
+    import numpy as np
+    import torch
+    from hydrainfer_tpu_torch.engine import executor as ex
+    from hydrainfer_tpu_torch.ops import sampling
+    from hydrainfer_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from hydrainfer_tpu_torch.request import Request, SamplingParameters
+    dev = torch.device(dev)
+    factory = _llava_factory(dev)
+    free = torch.cuda.mem_get_info(dev)[0]
+    engine = _engine(factory, dev, SAMPLE_REQUESTS, 16, 256, 256)
+    graphs = GraphRounds(engine, free)
+    rng = np.random.default_rng(SEED + 20)
+    letters = list("abcdefghijklmnopqrstuvwxyz ")
+
+    def round_(tag, prompts, controls):
+        reqs = [Request(request_id=f"{tag}{i}", prompt=p,
+                        sampling_params=SamplingParameters(max_tokens=SAMPLE_TOKENS,
+                                                           ignore_eos=True, **c))
+                for i, (p, c) in enumerate(zip(prompts, controls))]
+        return reqs, [o.output_token_ids for o in engine.generate(reqs, timeout_s=600)]
+
+    new_prompts = lambda: ["".join(rng.choice(letters, size=64))
+                           for _ in range(SAMPLE_REQUESTS)]
+    sampled = [SAMPLE_CONTROLS] * SAMPLE_REQUESTS
+    windows = []
+    orig = ex.FillExecutor._multi_step_window
+
+    def spy(self, batch, n_steps):
+        n, ks = orig(self, batch, n_steps)
+        windows.append(n)
+        return n, ks
+
+    ex.FillExecutor._multi_step_window = spy
+    try:
+        round_("warm", new_prompts(), sampled)
+        windows.clear()
+        reset_launch_counts()
+        graphs.start_measured()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, toks = round_("sample", new_prompts(), sampled)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        graphs.end_measured()
+        counts = launch_counts()
+        measured_windows = list(windows)
+        # a greedy round of the same shape, for the sampling chain's cost
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        round_("greedy_timed", new_prompts(), [{}] * SAMPLE_REQUESTS)
+        torch.cuda.synchronize()
+        greedy_elapsed = time.perf_counter() - t0
+    finally:
+        ex.FillExecutor._multi_step_window = orig
+    sampled_keys = [(d, n, g) for (d, n), g in engine.node.fill_executor.graphs.graphs.items()
+                    if d.sampling and g.graph is not None]
+    # the comparison rounds share one prompt set; a first greedy round puts
+    # its blocks in the prefix cache, so that the three rounds after it
+    # prefill the same uncached tails at the same shapes
+    prompts = new_prompts()
+    greedy = [{}] * SAMPLE_REQUESTS
+    round_("prime", prompts, greedy)
+    _, g_toks = round_("greedy", prompts, greedy)
+    _, k1_toks = round_("topk1", prompts, [dict(temperature=0.8, top_k=1)] * SAMPLE_REQUESTS)
+    half = SAMPLE_REQUESTS // 2
+    _, mixed = round_("mixed", prompts, greedy[:half] + sampled[half:])
+    rows = []
+    prof_reqs = [Request(request_id=f"prof{i}", prompt=p,
+                         sampling_params=SamplingParameters(max_tokens=SAMPLE_TOKENS,
+                                                            ignore_eos=True,
+                                                            **SAMPLE_CONTROLS))
+                 for i, p in enumerate(new_prompts())]
+    profiled = _profile_round(engine, prof_reqs, "sample_profile.json", rows)
+    sort_ms = sum(r["ms"] for r in rows if "sort" in r["kernel"].lower())
+    vocab = factory.cfg.vocab_size
+    logits = torch.randn((SAMPLE_REQUESTS, vocab), device=dev) * 3
+    n = SAMPLE_REQUESTS
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    chain = lambda: sampling.process_logits(
+        logits, temperature=torch.full((n,), 0.8, device=dev),
+        top_k=torch.full((n,), 40, dtype=torch.int32, device=dev),
+        top_p=torch.full((n,), 0.95, device=dev), generator=gen)
+    chain_graph_ms = graph_ms(chain, generator=gen)
+    # one sampled window graph of the engine replayed twice on the same inputs
+    # (after serving: its state writes land in freed slots)
+    window = max(sampled_keys, key=lambda x: x[1])[2]
+    window.graph.replay()
+    first = window.tokens.clone()
+    window.graph.replay()
+    engine_key_fresh = not torch.equal(first, window.tokens)
+    tv = _sampling_tv_checks(dev)
+    fresh = _replay_fresh_check(dev)
+    tv_ok, fresh_ok = tv.pop("ok"), fresh.pop("ok")
+    checks = {
+        "all_finished": all(len(t) == SAMPLE_TOKENS for t in toks)
+        and all(0 <= t < vocab for r in toks for t in r),
+        "k16_windows": 16 in measured_windows,
+        "sampled_keys_captured": len(sampled_keys) > 0,
+        "graphs_ok": graphs.ok(),
+        "kernels_launched": all(counts[k] > 0 for k in ("mha_decode", "kv_writer",
+                                                        "quant_matmul")),
+        "top_k_1_equals_greedy": k1_toks == g_toks,
+        "mixed_batch_greedy_rows_unchanged": mixed[:half] == g_toks[:half],
+        "tv": tv_ok, "replays_draw_fresh": fresh_ok}
+    return {"phase": "sample", "ok": all(checks.values()), "checks": checks,
+            "gpu": gpu_name_and_limit(), "arch": "llava-7b-lm", "weights": "int8",
+            "kv_cache": "int8 (scale 0.05)", "n_requests": SAMPLE_REQUESTS,
+            "max_tokens": SAMPLE_TOKENS, "controls": SAMPLE_CONTROLS,
+            "tokens_per_s": sum(len(t) for t in toks) / elapsed, "elapsed_s": elapsed,
+            "greedy_tokens_per_s": SAMPLE_REQUESTS * SAMPLE_TOKENS / greedy_elapsed,
+            "fused_windows": sorted(set(measured_windows)), "launches": counts,
+            "sampled_keys": [f"T={d.T} S={d.S} MB={d.MB} n_steps={n}"
+                             for d, n, _ in sampled_keys],
+            "graphs": graphs.report(), "engine_key_replays_differ": engine_key_fresh,
+            "sampling_chain_graph_ms": chain_graph_ms,
+            "sampling_chain_shape": f"({n}, {vocab}) f32, temperature, top-k 40, top-p 0.95",
+            "profile_sort_ms_per_step": sort_ms / SAMPLE_TOKENS,
+            "profile_sort_kernels": [r for r in rows if "sort" in r["kernel"].lower()][:6],
+            **{k: v for k, v in profiled.items() if k != "profile_top_kernels"},
+            **tv, **fresh}, counts
 
 
 # ---------------------------------------------------------------- phase: vlm
@@ -1683,14 +2219,15 @@ def _metrics(port: int) -> dict:
     return row
 
 
-def _stream_chat(port: int, prompt: str, max_tokens: int) -> dict:
+def _stream_chat(port: int, prompt: str, max_tokens: int, temperature: float = 0.0) -> dict:
     """One streaming chat request: the client-clock times of its deltas (the
     content chunks; the finish chunk is not a delta) and whether it ended in
     [DONE]."""
     import http.client
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=900)
     body = {"messages": [{"role": "user", "content": prompt}],
-            "max_tokens": max_tokens, "ignore_eos": True, "stream": True}
+            "max_tokens": max_tokens, "ignore_eos": True, "stream": True,
+            "temperature": temperature}
     t0 = time.perf_counter()
     times, texts, done, status = [], [], False, None
     try:
@@ -1732,8 +2269,9 @@ def phase_online(dev="cuda") -> dict:
     KV pool). Boot under ONLINE_BOOT_LIMIT_S; one lone /v1/completions
     request (a seeded 128-token prompt, 64 tokens); a burst of 64 streaming
     chats at once (seeded 100-400-token prompts, 128 tokens each), timed on
-    the client's clock; /health, a malformed body and temperature 0.7 (both
-    400), an idle second that launches no kernel; SIGTERM, after which the
+    the client's clock; /health, a malformed body (a 400), an idle second
+    that launches no kernel, a streamed chat at temperature 0.7 (16 deltas,
+    then [DONE]); SIGTERM, after which the
     child must exit 0 within ONLINE_STOP_LIMIT_S. Then the port's
     OfflineEngine, built here from the same file and overrides with the
     server's KV pool size, serves the lone prompt: its text must equal the
@@ -1829,9 +2367,9 @@ def phase_online(dev="cuda") -> dict:
 
             status, _ = _http(port, "POST", "/v1/completions", raw=b"{not json")
             checks["malformed_json_400"] = status == 400
-            status, _ = _http(port, "POST", "/v1/chat/completions", {
-                "messages": [{"role": "user", "content": "hi"}], "temperature": 0.7})
-            checks["temperature_400"] = status == 400
+            sampled = _stream_chat(port, "hi", 16, temperature=0.7)
+            checks["temperature_served"] = (sampled["status"] == 200 and sampled["done"]
+                                            and len(sampled["times"]) == 16)
             status, body = _http(port, "GET", "/health", timeout=30)
             checks["health_ok"] = checks["health_ok"] and status == 200 and body == b"ok"
 
@@ -1905,7 +2443,7 @@ def gpu_name_and_limit() -> str:
 def main() -> int:
     global OUT_DIR
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="build,kernels,tiny,serve,vlm,mla,online")
+    ap.add_argument("--phases", default="build,kernels,tiny,serve,spec,sample,vlm,mla,online")
     ap.add_argument("--out-dir", default=OUT_DIR,
                     help="where the detail files go")
     args = ap.parse_args()
@@ -1928,7 +2466,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    failed, kernel_rows, counts = [], [], {"serve": {}, "vlm": {}, "mla": {}}
+    failed, kernel_rows, counts = [], [], {"serve": {}, "spec": {}, "vlm": {}, "mla": {}}
     for phase in phases:
         t0 = time.perf_counter()
         try:
@@ -1940,6 +2478,10 @@ def main() -> int:
                 res = phase_tiny()
             elif phase == "serve":
                 res, counts["serve"] = phase_serve()
+            elif phase == "spec":
+                res, counts["spec"] = phase_spec()
+            elif phase == "sample":
+                res, _ = phase_sample()
             elif phase == "vlm":
                 res, counts["vlm"] = phase_vlm()
             elif phase == "mla":
@@ -1952,6 +2494,8 @@ def main() -> int:
             traceback.print_exc()
             res = {"phase": phase, "ok": False, "error": repr(e)}
         res["phase_s"] = time.perf_counter() - t0
+        if phase in ("spec", "sample") and "sample" not in phases[phases.index(phase) + 1:]:
+            _LLAVA.clear()          # the last phase on the shared llava-7b-lm weights
         emit(res)
         if not res["ok"]:
             failed.append(phase)

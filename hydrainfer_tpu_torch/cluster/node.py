@@ -21,9 +21,16 @@ from the image budget, and the decode warm-up captures the decode steps'
 CUDA graphs (`cuda_graphs`, `boot_warmup`). `start` runs the serving loop
 (`step_loop`, one step every `step_interval_s`) and the perf log.
 
+N-gram speculative decoding (`spec_ngram_k`, 12 by default as in the JAX
+package): when at most `spec_max_batch` requests are scheduled, all single
+decodes with enough decode Fills ahead, and the proposer's backoff allows,
+the node drains its pipeline, runs one verify step
+(engine/executor.py:execute_spec) and reads its result before going on; when
+no request has a draft, the step takes the fused window as usual.
+
 Migration is limited to the colocated self graph (the EP and PD hand-offs to
-itself); cross-node transfer, the chunked encode of fixed-resolution towers
-and speculative decoding are later slices.
+itself); cross-node transfer and the chunked encode of fixed-resolution
+towers are later slices.
 """
 import asyncio
 import time
@@ -94,10 +101,11 @@ class NodeConfig:
     # fused multi-step decode: up to this many chained decode steps per
     # dispatch when the scheduled batch is pure decode; 1 = off
     multi_step_decode: int = 16
-    # n-gram speculative decoding is not ported yet (queue 1, item 6), so it
-    # is off here (the JAX default is 12); > 0 is refused. spec_ngram_n and
-    # spec_max_batch are its parameters
-    spec_ngram_k: int = 0
+    # n-gram speculative decoding (prompt lookup): up to this many draft
+    # tokens a request, proposed from its own history and verified in one
+    # synchronous device step; 0 = off. spec_ngram_n is the longest n-gram
+    # looked up, spec_max_batch the most requests a verify step takes
+    spec_ngram_k: int = 12
     spec_ngram_n: int = 3
     # run the all-decode steps from CUDA graphs, one per shape key (the
     # counterpart of the JAX package's jitted step programs); the card only
@@ -175,9 +183,6 @@ class AsyncEPDNode:
             raise NotImplementedError("an encode-only (E) node hands off to other "
                                       "nodes, which is not ported yet (ROADMAP.md "
                                       "queue 1, item 7)")
-        if config.spec_ngram_k > 0:
-            raise NotImplementedError("speculative decoding (spec_ngram_k > 0) is not "
-                                      "ported yet (ROADMAP.md queue 1, item 6)")
         if config.encode_chunk_layers > 0:
             raise NotImplementedError("the layer-chunked encode (encode_chunk_layers "
                                       "> 0) is not ported yet (ROADMAP.md queue 1, "
@@ -357,13 +362,14 @@ class AsyncEPDNode:
 
         self._execute_batch_migrate(migrates)
         if len(fills):
-            # full fused window when throughput-bound, single steps when
-            # streaming-bound
-            n_steps = self.config.multi_step_decode
-            if n_steps > 1:
-                n_steps = min(n_steps, self._load_k(n_steps))
-            self._pending_fills.append(
-                self.fill_executor.execute(fills, n_steps=n_steps))
+            if not await self._speculate(fills):
+                # full fused window when throughput-bound, single steps when
+                # streaming-bound
+                n_steps = self.config.multi_step_decode
+                if n_steps > 1:
+                    n_steps = min(n_steps, self._load_k(n_steps))
+                self._pending_fills.append(
+                    self.fill_executor.execute(fills, n_steps=n_steps))
         else:
             await self.flush_fills()
         # the encode after the fills: decode windows stay ahead of it in the
@@ -374,6 +380,22 @@ class AsyncEPDNode:
         await self._drain_pipeline()
         for b in (embeds, fills, empties):
             self._finish_or_requeue(b)
+
+    async def _speculate(self, fills: BatchRequest) -> bool:
+        """One speculative verify step for `fills`, if they qualify; whether
+        it ran. The cheap precheck keeps batches that can never speculate
+        from draining the pipeline; the drain precedes the proposer, which
+        needs every token so far."""
+        k, fx = self.config.spec_ngram_k, self.fill_executor
+        if not (k > 0 and len(fills) <= self.config.spec_max_batch
+                and fx.spec_precheck(fills, k) and fx.spec_should_try()):
+            return False
+        await self.flush_fills()
+        fut = fx.execute_spec(fills, k, self.config.spec_ngram_n)
+        if fut is None:
+            return False
+        await self._read(fut)
+        return True
 
     def _load_k(self, k_max: int) -> int:
         if not self.config.adaptive_postprocess:
@@ -475,12 +497,18 @@ class AsyncEPDNode:
 
     async def perf_monitor_loop(self) -> None:
         while not self._stop:
-            logger.info(f"{self.name} perf: {self.metrics()}")
+            line = f"{self.name} perf: {self.metrics()}"
+            fx = self.fill_executor
+            if fx.spec_steps:
+                line += (f" spec={fx.spec_tokens}tok/{fx.spec_steps}steps "
+                         f"({fx.spec_tokens / fx.spec_steps:.2f} tok/step)")
+            logger.info(line)
             await asyncio.sleep(self.config.perf_monitor_interval_s)
 
     def metrics(self) -> dict:
         """Serving metrics as plain JSON (the API server's /metrics): the
-        JAX node's pool and queue counts, plus the boot's budgets and search
+        JAX node's pool and queue counts (and its speculation counts when a
+        verify step has run), plus the boot's budgets and search
         fallbacks, the fill keys met, the CUDA graphs captured, and the
         kernel wrappers' launch counts (process-wide)."""
         kv = self.kv_cache_manager.metrics()
@@ -498,6 +526,9 @@ class AsyncEPDNode:
                "profiler_fallbacks": self.profiler_fallbacks,
                "fill_keys": len(fx._seen_fill_keys),
                "launches": kernels.launch_counts()}
+        if fx.spec_steps:
+            row["spec_steps"] = fx.spec_steps
+            row["spec_tokens"] = fx.spec_tokens
         if fx.graphs is not None:
             row["graph_keys"] = sorted(
                 [d.T, d.S, d.MB, n] for (d, n), g in fx.graphs.graphs.items()

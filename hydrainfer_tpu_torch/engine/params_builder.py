@@ -5,7 +5,8 @@ Every array is padded to a shape bucket (tokens and image-feature tokens to
 TOKEN_BUCKETS, sequences to SEQ_BUCKETS, block-table width to a power of
 two), and all int32 fields go into one flat buffer so a step costs one
 host-to-device copy: the core fields, each image feature's image-cache slot
-and destination token, and under M-RoPE the h/w position streams.
+and destination token, under M-RoPE the h/w position streams, and when a
+sequence samples (temperature > 0) the sampling tail (`sampling_tail`).
 
 `build` takes the executor's high-water floors on S, MB and Ti. The dims are
 the key of a step's CUDA graph (models/step_graphs.py), as they are the key
@@ -57,7 +58,34 @@ class FillBatchPlan:
     step_insts: Optional[List[List[Fill]]] = None
 
 
+def sampling_tail(seq_rcbs, S: int) -> np.ndarray:
+    """The per-sequence sampling controls, floats bitcast into the int32
+    buffer: [temperatures (S) | top_ks (S) | top_ps (S) | seed (1)]. The one
+    definition of the tail (models/factory.py:unpack_fill_batch reads it
+    back); the fill builder and the speculative plan both use it. The seed
+    counts the tails built in this process, as in the JAX package."""
+    temps = np.zeros(S, np.float32)
+    top_ks = np.full(S, -1, np.int32)
+    top_ps = np.ones(S, np.float32)
+    for i, rcb in enumerate(seq_rcbs):
+        sp = rcb.sampling_params
+        if sp is None:
+            continue
+        temps[i], top_ks[i], top_ps[i] = sp.temperature, sp.top_k, sp.top_p
+    LanguageModelBatchBuilder._seed_counter += 1
+    seed = np.asarray([LanguageModelBatchBuilder._seed_counter], np.int32)
+    return np.concatenate([temps.view(np.int32), top_ks, top_ps.view(np.int32), seed])
+
+
+def samples(seq_rcbs) -> bool:
+    """Whether any of the sequences samples stochastically."""
+    return any(r.sampling_params is not None and r.sampling_params.temperature > 0
+               for r in seq_rcbs)
+
+
 class LanguageModelBatchBuilder:
+    _seed_counter = 0
+
     def __init__(self, kv_cache_manager: TokenCacheBlockManager,
                  image_cache_manager: Optional[TokenCacheBlockManager] = None,
                  mrope: bool = False):
@@ -75,9 +103,6 @@ class LanguageModelBatchBuilder:
         self._max_blocks = 1
 
     def add(self, rcb: RequestControlBlock, inst: Fill) -> None:
-        sp = rcb.sampling_params
-        if sp is not None and sp.temperature > 0:
-            raise NotImplementedError("stochastic sampling is not ported yet")
         n = len(inst.position_ids)
         if isinstance(inst, ImageEmbedFill) and inst.image_token_cache_ids:
             self.image_slot_ids.extend(self.image.v2p(rcb.virtual_image_cache,
@@ -118,8 +143,11 @@ class LanguageModelBatchBuilder:
             Ti=(max(bucket_of(len(self.image_slot_ids), TOKEN_BUCKETS),
                     bucket_of(ti_floor, TOKEN_BUCKETS) if ti_floor else 0)
                 if self.image_slot_ids else 0),
-            mrope=self._mrope)
-        return FillBatchPlan(flat=self._build_python(dims), dims=dims,
+            mrope=self._mrope, sampling=samples(self.seq_rcbs))
+        flat = self._build_python(dims)
+        if dims.sampling:
+            flat = np.concatenate([flat, sampling_tail(self.seq_rcbs, dims.S)])
+        return FillBatchPlan(flat=flat, dims=dims,
                              seq_rcbs=self.seq_rcbs, seq_insts=self.seq_insts,
                              n_tokens=self._n_tokens, n_seqs=n_seqs)
 

@@ -17,7 +17,7 @@ class Worker:
 
     def execute_language_model(self, cache, token_table, flat, dims,
                                n_steps: int = 1, fused_k=None, image_cache=None,
-                               graphs=None):
+                               graphs=None, generator=None):
         raise NotImplementedError
 
 
@@ -39,7 +39,8 @@ class VanillaWorker(Worker):
 
     def execute_language_model(self, cache, token_table, flat, dims,
                                n_steps: int = 1, fused_k=None, image_cache=None,
-                               graphs=None):
+                               graphs=None, generator=None):
         return self.language_model.forward_flat(cache, token_table, flat, dims,
                                                 n_steps=n_steps, fused_k=fused_k,
-                                                image_cache=image_cache, graphs=graphs)
+                                                image_cache=image_cache, graphs=graphs,
+                                                generator=generator)

@@ -9,11 +9,8 @@ pushes each token into the request's AsyncStream through a callback
 processor, with `loop.call_soon_threadsafe`: the engine and the server share
 one event loop, and a processing worker thread may end a stream too.
 
-Divergences from the JAX server, each until its queue item lands:
-  - a request with temperature > 0 gets a 400 before any observer sees it:
-    stochastic sampling is not ported (ROADMAP.md queue 1, item 6), and the
-    engine's refusal would otherwise stop the node under every open stream;
-  - `zmq_pull_addr` (the process deployment's token path) raises (item 7).
+Divergence from the JAX server until its queue item lands: `zmq_pull_addr`
+(the process deployment's token path) raises (ROADMAP.md queue 1, item 7).
 """
 import asyncio
 import contextlib
@@ -69,13 +66,6 @@ async def _error_middleware(request, handler):
         logger.exception("request failed")
         return web.json_response(
             {"error": {"message": str(e), "type": "internal_error"}}, status=500)
-
-
-def _check_greedy(temperature: float) -> None:
-    if temperature > 0:
-        raise ValueError(f"temperature={temperature}: only greedy decoding "
-                         "(temperature 0) is served; stochastic sampling is not "
-                         "ported yet (ROADMAP.md queue 1, item 6)")
 
 
 class APIServer:
@@ -225,7 +215,6 @@ class APIServer:
     async def create_chat_completion(self, request: web.Request) -> web.StreamResponse:
         body = await request.json()
         chat = ChatCompletionRequest(**body)
-        _check_greedy(chat.temperature)
         messages, image_b64 = self._parse_chat_content(chat.messages)
         prompt = self.tokenizer.apply_chat_template(messages)
         request_id = f"chatcmpl-{uuid.uuid4().hex[:24]}"
@@ -288,7 +277,6 @@ class APIServer:
     async def create_completion(self, request: web.Request) -> web.StreamResponse:
         body = await request.json()
         comp = CompletionRequest(**body)
-        _check_greedy(comp.temperature)
         prompt = comp.prompt if isinstance(comp.prompt, str) else comp.prompt[0]
         request_id = f"cmpl-{uuid.uuid4().hex[:24]}"
         sampling = SamplingParameters(

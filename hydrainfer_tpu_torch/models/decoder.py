@@ -5,8 +5,19 @@ DeepSeek's multi-head latent attention).
 One step runs embed -> the image splice (vision features overwrite the
 embeddings at <image> positions) -> a Python loop over the decoder layers ->
 the last layer with the token discard (only each sequence's sampled row goes through
-the final MLP, norm and lm_head) -> greedy argmax -> scatter into the device
-token table. The KV cache and the token table are updated IN PLACE.
+the final MLP, norm and lm_head) -> the token (greedy argmax, or where a
+sequence's temperature is above 0 a draw from its temperature/top-k/top-p
+filtered distribution, ops/sampling.py) -> scatter into the device token
+table. The KV cache and the token table are updated IN PLACE. Draws come from
+the caller's torch.Generator (the executor's), so each step, and each step of
+a fused window, draws fresh numbers.
+
+A speculative-verify step (`spec` = K1 = 1 + K_draft > 0) is S segments of
+K1 rows: the last layer skips the token discard, and `_spec_verify_head`
+takes every row's logits, accepts drafts on the device
+(ops/sampling.py:spec_verify_tokens) and writes each sequence's final token
+into the token table. Rejected rows' KV lies past the accepted kv length and
+is overwritten later: there is no rollback.
 
 `decoder_forward_multi` runs a fused window of K decode steps as a loop of
 device work with no host synchronisation inside: each step's geometry is
@@ -39,6 +50,7 @@ from ..ops.cache_ops import write_kv_cache, write_latent_cache
 from ..ops.norm import rms_norm
 from ..ops.quant import qmatmul, qmatmul_f32
 from ..ops.rope import apply_rotary_emb, mrope_gather
+from ..ops.sampling import process_logits, spec_verify_tokens
 from .factory import LanguageModelBatch
 
 
@@ -162,9 +174,12 @@ def _layer_body(x, cache, layer_id, lw, batch: LanguageModelBatch, cos, sin,
 def decoder_forward(weights: dict, cache: torch.Tensor, batch: LanguageModelBatch,
                     cos_tab: torch.Tensor, sin_tab: torch.Tensor,
                     cfg: DecoderConfig, max_q: int, token_table: torch.Tensor,
-                    return_logits: bool = False):
+                    return_logits: bool = False, spec: int = 0,
+                    generator: Optional[torch.Generator] = None):
     """Full LM step. Returns the (S,) sampled tokens (and the (S, V) f32
-    logits if asked). token_table's last entry is a discard slot."""
+    logits if asked), or with spec > 0 the verify step's
+    [emitted (S * spec) | acc (S)]. token_table's last entry is a discard
+    slot. A batch with sampling controls draws from `generator`."""
     src = batch.token_src_slots
     token_ids = torch.where(src >= 0, token_table[src.clamp(min=0).long()],
                             batch.token_ids)
@@ -180,7 +195,7 @@ def decoder_forward(weights: dict, cache: torch.Tensor, batch: LanguageModelBatc
     for layer_id, lw in enumerate(layers[:-1]):
         x = _layer_body(x, cache, layer_id, lw, batch, cos, sin, cfg, max_q)
     return _last_layer_and_head(weights, cache, x, batch, cos, sin, cfg, max_q,
-                                token_table, return_logits)
+                                token_table, return_logits, spec, generator)
 
 
 def _splice_images(x: torch.Tensor, batch: LanguageModelBatch) -> torch.Tensor:
@@ -199,7 +214,7 @@ def _splice_images(x: torch.Tensor, batch: LanguageModelBatch) -> torch.Tensor:
 
 def _last_layer_and_head(weights, cache, x, batch: LanguageModelBatch, cos, sin,
                          cfg: DecoderConfig, max_q: int, token_table,
-                         return_logits: bool):
+                         return_logits: bool, spec: int = 0, generator=None):
     # the last layer's attention sees all T tokens (their KV must be written);
     # then only the sampled rows continue through the MLP and the head. (The
     # JAX MLA last layer runs its MLP over all T rows and discards after it;
@@ -207,19 +222,63 @@ def _last_layer_and_head(weights, cache, x, batch: LanguageModelBatch, cos, sin,
     lw = weights["layers"][-1]
     x = _attention_block(x, cache, cfg.n_layers - 1, lw, batch, cos, sin, cfg,
                          max_q)
+    if spec > 0:
+        # speculative verify: every row's next token matters, so no discard
+        x = x + _mlp(rms_norm(x, lw["post_norm"], cfg.rms_norm_eps), lw)
+        return _spec_verify_head(weights, x, batch, cfg, token_table, spec, generator)
     x = x[batch.sample_token_idx.clamp(min=0).long()]          # token discard
     x = x + _mlp(rms_norm(x, lw["post_norm"], cfg.rms_norm_eps), lw)
-    tokens, logits = _final_head(weights, x, batch, cfg, token_table)
+    tokens, logits = _final_head(weights, x, batch, cfg, token_table, generator)
     return (tokens, logits) if return_logits else tokens
 
 
+def _sampling_controls(batch: LanguageModelBatch, generator) -> dict:
+    """The batch's sampling controls as keyword arguments of the sampling
+    chain; {} when no sequence samples."""
+    if batch.temperatures is None:
+        return {}
+    if generator is None:
+        raise ValueError("a batch with sampling controls needs a generator")
+    return dict(temperature=batch.temperatures, top_k=batch.top_ks,
+                top_p=batch.top_ps, generator=generator)
+
+
+def _spec_verify_head(weights, x, batch: LanguageModelBatch, cfg: DecoderConfig,
+                      token_table: torch.Tensor, K1: int, generator=None):
+    """Verification head of n-gram speculative decoding. Row 0 of each
+    segment is the real next-token input, rows 1..K1-1 the host's drafts.
+    Acceptance runs on the device (exact argmax match for greedy sequences,
+    rejection sampling for sampled ones); the final token goes into the
+    token table. Returns [emitted (S * K1) | acc (S)]."""
+    h = rms_norm(x, weights["norm"], cfg.rms_norm_eps)
+    logits = qmatmul_f32(h, weights["lm_head"])
+    S = batch.sample_dst_slots.shape[0]
+    lg = logits[:S * K1].reshape(S, K1, -1)     # T is bucket-padded past S * K1
+    ids = batch.token_ids[:S * K1].reshape(S, K1)      # drafts in columns 1..K1-1
+    draft_next = torch.cat([ids[:, 1:], torch.zeros_like(ids[:, :1])], dim=1)
+    dl = torch.clamp(batch.draft_lens, 0, K1 - 1)
+    emitted, acc = spec_verify_tokens(lg, draft_next, dl,
+                                      **_sampling_controls(batch, generator))
+    final = emitted.gather(1, acc.long()[:, None])[:, 0]
+    dst = batch.sample_dst_slots
+    dst = torch.where(dst < 0, token_table.shape[0] - 1, dst)
+    token_table.index_copy_(0, dst.long(), final)
+    return torch.cat([emitted.reshape(-1), acc])
+
+
 def _final_head(weights, x, batch: LanguageModelBatch, cfg: DecoderConfig,
-                token_table: torch.Tensor):
-    """Final norm -> lm_head on the sampled rows -> greedy token -> scatter
-    into the token table (dst < 0 lands in the trailing discard slot)."""
+                token_table: torch.Tensor, generator=None):
+    """Final norm -> lm_head on the sampled rows -> token -> scatter into the
+    token table (dst < 0 lands in the trailing discard slot). A sequence with
+    temperature > 0 takes a draw from its filtered distribution, every other
+    the argmax."""
     h = rms_norm(x, weights["norm"], cfg.rms_norm_eps)
     logits = qmatmul_f32(h, weights["lm_head"])
     tokens = torch.argmax(logits, dim=-1).to(torch.int32)
+    controls = _sampling_controls(batch, generator)
+    if controls:
+        sampled = process_logits(logits, **controls)
+        tokens = torch.where(batch.temperatures > 0, sampled, tokens)
     dst = batch.sample_dst_slots
     dst = torch.where(dst < 0, token_table.shape[0] - 1, dst)
     token_table.index_copy_(0, dst.long(), tokens)
@@ -230,8 +289,11 @@ def decoder_forward_multi(weights: dict, cache: torch.Tensor,
                           batch: LanguageModelBatch, cos_tab: torch.Tensor,
                           sin_tab: torch.Tensor, cfg: DecoderConfig, n_steps: int,
                           token_table: torch.Tensor,
-                          fused_k: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K fused decode steps; returns the (n_steps, S) sampled tokens.
+                          fused_k: Optional[torch.Tensor] = None,
+                          generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """K fused decode steps; returns the (n_steps, S) sampled tokens. Each
+    step of a sampling batch takes fresh draws from `generator` (the JAX
+    window gives step s the seed sample_seed + s instead).
 
     Every sequence is a single-token decode whose position, kv length and
     cache slot advance by exactly 1 per step. fused_k ((S,) int32, n_steps by
@@ -275,5 +337,5 @@ def decoder_forward_multi(weights: dict, cache: torch.Tensor,
             token_src_slots=batch.token_src_slots if s == 0 else chained_src,
             sample_dst_slots=torch.where(act_seq, batch.sample_dst_slots, -1))
         out.append(decoder_forward(weights, cache, step, cos_tab, sin_tab, cfg,
-                                   1, token_table))
+                                   1, token_table, generator=generator))
     return torch.stack(out)

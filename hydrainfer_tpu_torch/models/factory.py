@@ -4,10 +4,12 @@ The LanguageModelBatch holds one fill step's device tensors, all padded to
 shape buckets. The host packs every int32 field into ONE flat buffer
 (`pack_fill_batch`), so a step costs a single host-to-device copy, and the
 device side slices it back (`unpack_fill_batch`), gathering the step's image
-features from the image cache on the way. The layout is the JAX buffer's for
-greedy sampling: the core fields, the image slots and destinations (Ti each),
-then the M-RoPE h/w streams (2 * T) when the model uses M-RoPE (its
-speculative-verify and sampling tails are absent).
+features from the image cache on the way. The layout is the JAX buffer's: the
+core fields, the image slots and destinations (Ti each), the M-RoPE h/w
+streams (2 * T) when the model uses M-RoPE, the speculative-verify draft
+lengths (S) when the step verifies drafts (`dims.spec > 0`), and the sampling
+controls when a sequence samples (`dims.sampling`): temperatures (S, f32
+bitcast), top-k (S), top-p (S, f32 bitcast) and a seed (1).
 """
 from dataclasses import dataclass, replace
 from typing import List, Optional, Tuple
@@ -86,6 +88,12 @@ class LanguageModelBatch:
     image_dst_idx:    (Ti,) int32 flat-token index each feature overwrites;
                       -1 = padding
     positions_hw:     (2, T) int32 h/w position streams of M-RoPE, or None
+    draft_lens:       (S,) int32 real draft length per sequence of a
+                      speculative-verify step, or None
+    temperatures, top_ks, top_ps: (S,) sampling controls (f32, int32, f32),
+                      or None when no sequence samples
+    sample_seed:      (1,) int32 the builder's seed (the JAX layout's; the
+                      port draws from the executor's generator instead)
     """
     token_ids: torch.Tensor
     positions: torch.Tensor
@@ -96,6 +104,11 @@ class LanguageModelBatch:
     image_features: Optional[torch.Tensor] = None
     image_dst_idx: Optional[torch.Tensor] = None
     positions_hw: Optional[torch.Tensor] = None
+    draft_lens: Optional[torch.Tensor] = None
+    temperatures: Optional[torch.Tensor] = None
+    top_ks: Optional[torch.Tensor] = None
+    top_ps: Optional[torch.Tensor] = None
+    sample_seed: Optional[torch.Tensor] = None
 
     def replace(self, **kw) -> "LanguageModelBatch":
         return replace(self, **kw)
@@ -116,6 +129,12 @@ class FillDims:
     max_q: int = 1  # padded longest q chunk
     Ti: int = 0     # padded image-feature token count
     mrope: bool = False  # the buffer carries the (2, T) M-RoPE h/w tail
+    # a sequence samples (temperature > 0): the step runs the sampling chain
+    # and the buffer carries the sampling tail
+    sampling: bool = False
+    # speculative-verify segment length (1 + K_draft); 0 = a normal step. The
+    # buffer carries the (S,) draft lengths after the M-RoPE tail
+    spec: int = 0
 
 
 def pack_fill_batch(token_ids, positions, q_seq_ids, q_local_ids,
@@ -137,8 +156,9 @@ def fill_sizes(dims: FillDims) -> List[int]:
     """Lengths of the flat buffer's fields, in order; their sum is the
     buffer's length for `dims`."""
     T, S, MB, Ti = dims.T, dims.S, dims.MB, dims.Ti
-    return [T, T, T, T, T, T, S, S, S, S * MB, S + 1, 1, Ti, Ti] + (
-        [2 * T] if dims.mrope else [])
+    return ([T, T, T, T, T, T, S, S, S, S * MB, S + 1, 1, Ti, Ti]
+            + ([2 * T] if dims.mrope else []) + ([S] if dims.spec > 0 else [])
+            + ([S, S, S, 1] if dims.sampling else []))
 
 
 def unpack_fill_batch(flat: torch.Tensor, dims: FillDims,
@@ -161,6 +181,13 @@ def unpack_fill_batch(flat: torch.Tensor, dims: FillDims,
         # decoder drops them
         feats = rows[image_slot_ids.clamp(min=0).long()][:, :hidden]
         dst = image_dst_idx
+    tails = list(parts[14:])
+    hw = tails.pop(0).reshape(2, T) if dims.mrope else None
+    draft_lens = tails.pop(0) if dims.spec > 0 else None
+    temps = top_ks = top_ps = seed = None
+    if dims.sampling:
+        temps, top_ks, top_ps, seed = tails
+        temps, top_ps = temps.view(torch.float32), top_ps.view(torch.float32)
     return LanguageModelBatch(
         token_ids=token_ids,
         positions=positions,
@@ -174,7 +201,12 @@ def unpack_fill_batch(flat: torch.Tensor, dims: FillDims,
         sample_dst_slots=sample_dst_slots,
         image_features=feats,
         image_dst_idx=dst,
-        positions_hw=parts[14].reshape(2, T) if dims.mrope else None,
+        positions_hw=hw,
+        draft_lens=draft_lens,
+        temperatures=temps,
+        top_ks=top_ks,
+        top_ps=top_ps,
+        sample_seed=seed,
     )
 
 
@@ -215,7 +247,8 @@ class LanguageModel:
 
     def forward_flat(self, cache: torch.Tensor, token_table: torch.Tensor,
                      flat: torch.Tensor, dims: FillDims, n_steps: int = 1,
-                     fused_k=None, image_cache=None, graphs=None) -> LanguageModelOutput:
+                     fused_k=None, image_cache=None, graphs=None,
+                     generator=None) -> LanguageModelOutput:
         raise NotImplementedError
 
 

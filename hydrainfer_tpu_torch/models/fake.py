@@ -70,7 +70,8 @@ class FakeLanguageModel(LanguageModel):
         self.dtype = dtype
 
     def forward_flat(self, cache, token_table, flat, dims: FillDims, n_steps: int = 1,
-                     fused_k=None, image_cache=None, graphs=None) -> LanguageModelOutput:
+                     fused_k=None, image_cache=None, graphs=None,
+                     generator=None) -> LanguageModelOutput:
         seed = int(flat[:dims.T].sum()) % (2 ** 31)
         tokens = np.random.default_rng(seed).integers(
             10, self.cfg.vocab_size, size=(dims.S,), dtype=np.int32)

@@ -4,9 +4,11 @@ convert_llama_weights; Qwen2 text decoders are the same with a qkv bias).
 
 The weights stay a plain per-layer dict (no stacking: the layer loop is a
 Python loop), and `forward_flat` takes the engine's single flat int32 buffer;
-its all-decode steps run from CUDA graphs when the node passes its
-StepGraphs (models/step_graphs.py, the counterpart of the jitted programs).
-The caller's weight dict is not consumed.
+its all-decode steps and speculative-verify steps run from CUDA graphs when
+the node passes its StepGraphs (models/step_graphs.py, the counterpart of the
+jitted programs). A step whose dims carry `spec` > 0 is a verify step (the
+counterpart of the JAX model's `_flat_spec`); the sampling draws come from
+the caller's generator. The caller's weight dict is not consumed.
 """
 from dataclasses import replace
 from typing import Optional
@@ -86,29 +88,34 @@ class LlamaForCausalLM(LanguageModel):
                      flat: torch.Tensor, dims: FillDims, n_steps: int = 1,
                      fused_k: Optional[torch.Tensor] = None,
                      image_cache: Optional[torch.Tensor] = None,
-                     graphs: Optional[StepGraphs] = None) -> LanguageModelOutput:
-        """One fill step (n_steps == 1, any mix of prefill and decode) or a
-        fused window of n_steps decode steps. The cache and the token table
-        are updated in place; returns the sampled tokens, (n_steps * S,).
-        image_cache is read only when the batch carries image features. With
-        `graphs` (a node's StepGraphs), an all-decode step runs from its CUDA
-        graph, and flat and fused_k must be that key's buffers."""
+                     graphs: Optional[StepGraphs] = None,
+                     generator: Optional[torch.Generator] = None) -> LanguageModelOutput:
+        """One fill step (n_steps == 1, any mix of prefill and decode), a
+        fused window of n_steps decode steps, or a speculative-verify step
+        (dims.spec > 0). The cache and the token table are updated in place;
+        returns the sampled tokens, (n_steps * S,), or a verify step's
+        [emitted (S * spec) | acc (S)]. image_cache is read only when the
+        batch carries image features; `generator` only when it samples. With
+        `graphs` (a node's StepGraphs), an all-decode or verify step runs
+        from its CUDA graph, and flat and fused_k must be that key's
+        buffers."""
         if graphs is not None and graphed(dims):
             tokens = graphs.run(self._step, cache, token_table, flat, dims, n_steps,
-                                fused_k)
+                                fused_k, generator)
         else:
             tokens = self._step(cache, token_table, flat, dims, n_steps, fused_k,
-                                image_cache)
+                                image_cache, generator)
         return LanguageModelOutput(sample_token_ids=tokens)
 
     def _step(self, cache, token_table, flat, dims: FillDims, n_steps: int,
-              fused_k=None, image_cache=None) -> torch.Tensor:
+              fused_k=None, image_cache=None, generator=None) -> torch.Tensor:
         batch = unpack_fill_batch(flat, dims, image_cache, self.cfg.hidden_size)
         if n_steps > 1:
             tokens = decoder_forward_multi(self.weights, cache, batch, self.cos_tab,
                                            self.sin_tab, self.cfg, n_steps,
-                                           token_table, fused_k)
+                                           token_table, fused_k, generator)
         else:
             tokens = decoder_forward(self.weights, cache, batch, self.cos_tab,
-                                     self.sin_tab, self.cfg, dims.max_q, token_table)
+                                     self.sin_tab, self.cfg, dims.max_q, token_table,
+                                     spec=dims.spec, generator=generator)
         return tokens.reshape(-1)

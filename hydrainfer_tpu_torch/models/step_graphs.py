@@ -4,9 +4,22 @@ _flat_step and _flat_multi, compiled once per static key).
 
 One graph is captured per key (FillDims, n_steps) whose step is all decode
 (max_q == 1) and carries no image features: single decode steps and the
-fused K-step windows. A step that carries a prefill chunk or image features
-runs eagerly: its host cost is spread over up to a token budget of rows,
-and its T walks every token bucket.
+fused K-step windows. The speculative-verify steps (dims.spec > 0, n_steps
+1, the counterpart of the JAX model's _flat_spec) are graphed too: their
+shape is fixed by the S and MB floors and by K1 (serve's S floor of 8 and
+K1 = 13 give T = 128, max_q = 16), and speculation is synchronous, so an
+eager verify step would pay the whole host launch cost on the critical path.
+A verify key is captured the first time it is met, as the JAX package
+compiles _flat_spec at first use; the boot warm-up does not meet it. A step
+that carries a prefill chunk or image features runs eagerly: its host cost
+is spread over up to a token budget of rows, and its T walks every token
+bucket.
+
+Keys whose batch samples (dims.sampling) are graphed like greedy ones. A
+capture records the random generator's offset arithmetic, not numbers: the
+node's generator (the executor's) is registered with each sampling graph
+before its capture (`CUDAGraph.register_generator_state`), so every replay
+advances it and draws fresh numbers.
 
 What a graph reads:
   - a `flat` buffer of exactly the key's length and, for a window, a
@@ -46,9 +59,9 @@ from .factory import FillDims, fill_sizes
 
 
 def graphed(dims: FillDims) -> bool:
-    """Whether a step of these dims runs from a graph: all decode, no image
-    features."""
-    return dims.max_q == 1 and dims.Ti == 0
+    """Whether a step of these dims runs from a graph: all decode or a
+    speculative verify, no image features."""
+    return (dims.max_q == 1 or dims.spec > 0) and dims.Ti == 0
 
 
 @dataclass
@@ -62,11 +75,14 @@ class StepGraph:
 
 
 class StepGraphs:
-    """The graphs of one node: bound to its KV cache and token table."""
+    """The graphs of one node: bound to its KV cache, its token table and
+    the generator its sampling steps draw from."""
 
-    def __init__(self, cache: torch.Tensor, token_table: torch.Tensor):
+    def __init__(self, cache: torch.Tensor, token_table: torch.Tensor,
+                 generator: Optional[torch.Generator] = None):
         self.cache = cache
         self.token_table = token_table
+        self.generator = generator
         self.pool = torch.cuda.graph_pool_handle()
         self.graphs: Dict[Tuple[FillDims, int], StepGraph] = {}
         self.captures = 0
@@ -87,27 +103,35 @@ class StepGraphs:
 
     def run(self, step: Callable, cache: torch.Tensor, token_table: torch.Tensor,
             flat: torch.Tensor, dims: FillDims, n_steps: int,
-            fused_k: Optional[torch.Tensor]) -> torch.Tensor:
+            fused_k: Optional[torch.Tensor],
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """The key's step: replayed, or on its first meeting run eagerly and
-        captured. step(cache, token_table, flat, dims, n_steps, fused_k) is
-        the eager step; its inputs must be this key's buffers."""
+        captured. step(cache, token_table, flat, dims, n_steps, fused_k,
+        generator=generator) is the eager step; its inputs must be this
+        key's buffers, and a sampling step's generator the node's."""
         g = self.graphs.get((dims, n_steps))
         if (g is None or flat is not g.flat or fused_k is not g.fused_k
-                or cache is not self.cache or token_table is not self.token_table):
-            raise RuntimeError("a graphed step must read its key's input buffers "
-                               "and the node's cache and token table")
+                or cache is not self.cache or token_table is not self.token_table
+                or (dims.sampling and (generator is None
+                                       or generator is not self.generator))):
+            raise RuntimeError("a graphed step must read its key's input buffers, "
+                               "the node's cache and token table and, when it "
+                               "samples, the node's generator")
         if g.graph is not None:
             g.graph.replay()
             kernels.add_launch_counts(g.launches)
             g.replays += 1
             self.replays += 1
             return g.tokens
-        tokens = step(cache, token_table, flat, dims, n_steps, fused_k)
+        tokens = step(cache, token_table, flat, dims, n_steps, fused_k, generator=generator)
         t0 = time.perf_counter()
         before = kernels.launch_counts()
         graph = torch.cuda.CUDAGraph()
+        if dims.sampling:
+            graph.register_generator_state(generator)
         with torch.cuda.graph(graph, pool=self.pool):
-            g.tokens = step(cache, token_table, flat, dims, n_steps, fused_k)
+            g.tokens = step(cache, token_table, flat, dims, n_steps, fused_k,
+                            generator=generator)
         after = kernels.launch_counts()
         g.launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
         kernels.add_launch_counts({k: -n for k, n in g.launches.items()})

@@ -8,8 +8,6 @@ class SamplingParameters:
     max_tokens: int = 50
     eos_token_ids: List[int] = field(default_factory=list)
     ignore_eos: bool = False
-    # greedy only for now: engine/params_builder.py refuses temperature > 0
-    # until stochastic sampling is ported
     temperature: float = 0.0
     top_k: int = -1
     top_p: float = 1.0

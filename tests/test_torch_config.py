@@ -2,9 +2,9 @@
 
 Every YAML preset under config/, config/cluster/ and config/node/ loads
 through both packages' loaders, and every field the two dataclass trees
-share has the same value, but one documented default: `spec_ngram_k` is 0
-in the port (speculative decoding is not ported; 12 in the JAX package).
-Overrides coerce alike, unknown keys raise in both, a TPU-only key is
+share has the same value (`DIVERGENT` lists the shared fields whose default
+differs on purpose: none since speculative decoding is ported, with the JAX
+default spec_ngram_k = 12). Overrides coerce alike, unknown keys raise in both, a TPU-only key is
 accepted and logged, a still-to-port feature raises with its queue item,
 and multi-node presets load but refuse at Cluster build.
 """
@@ -35,7 +35,7 @@ TOP = sorted(glob.glob(os.path.join(REPO, "config", "*.yaml"))
              + glob.glob(os.path.join(REPO, "config", "cluster", "*.yaml")))
 NODE = sorted(glob.glob(os.path.join(REPO, "config", "node", "*.yaml")))
 # shared fields whose default differs on purpose
-DIVERGENT = {"spec_ngram_k": (12, 0)}
+DIVERGENT = {}
 FAKE = ["cluster.node.model.name=fake", "cluster.node.n_kv_blocks=32",
         "cluster.node.n_image_blocks=4", "cluster.node.profiler.enabled=false",
         "cluster.platform=cpu"]
@@ -175,12 +175,21 @@ def test_strict_preset_logs_its_tpu_only_key(monkeypatch):
 
 
 @pytest.mark.parametrize("override,item", [
-    ("spec_ngram_k=4", "item 6"), ("encode_chunk_layers=2", "item 4"),
-    ("log_latency_breakdown=true", "item 10")])
+    ("encode_chunk_layers=2", "item 4"), ("log_latency_breakdown=true", "item 10")])
 def test_still_to_port_feature_raises_with_its_queue_item(override, item):
     cfg = load_config(NodeConfig, None, [override])
     with pytest.raises(NotImplementedError, match=f"queue 1, {item}"):
         AsyncEPDNode(cfg, NodeContext(node_type=NodeType("PD"), device="cpu"))
+
+
+@pytest.mark.parametrize("override", ["spec_ngram_k=4", "spec_ngram_k=0"])
+def test_spec_ngram_k_builds_a_node(override):
+    """Speculative decoding is ported: any spec_ngram_k builds a node, and
+    the default is the JAX package's."""
+    cfg = load_config(NodeConfig, None, [override])
+    assert cfg.spec_ngram_k == int(override.split("=")[1])
+    AsyncEPDNode(cfg, NodeContext(node_type=NodeType("PD"), device="cpu"))
+    assert NodeConfig().spec_ngram_k == JaxNodeConfig().spec_ngram_k == 12
 
 
 @pytest.mark.parametrize("override,item", [

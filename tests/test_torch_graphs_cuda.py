@@ -16,6 +16,12 @@ contents change gives the eager step's result on the new contents. The
 kernel launch counts of a round with graphs equal the eager round's. A node
 whose KV pool is sized from free memory boots and serves with graphs, and a
 capture or replay that fails raises.
+
+Speculation and sampling: with n-gram speculation at k = 3 (two
+lookup-friendly requests), the verify key's replays give the eager engine's
+tokens and verify counts. A sampled key (its generator registered with the
+graph) draws fresh numbers at every replay over a flat distribution, and
+reseeding the generator repeats the replays' draws.
 """
 import gc
 from dataclasses import replace
@@ -108,13 +114,15 @@ def _factory(arch, dev, quant="none"):
                                kv_scale=0.05 if quant == "int8" else None)
 
 
-def _engine(factory, dev, cuda_graphs, k, node_type="PD", n_kv_blocks=256):
+def _engine(factory, dev, cuda_graphs, k, node_type="PD", n_kv_blocks=256,
+            spec_ngram_k=12, max_running=5):
     cfg = NodeConfig(
-        batch_scheduler=BatchSchedulerConfig(max_running_requests=5),
+        batch_scheduler=BatchSchedulerConfig(max_running_requests=max_running),
         request_processor=RequestProcessorConfig(num_request_process_workers=1,
                                                  block_size=4),
         kv_block_size=4, n_kv_blocks=n_kv_blocks, n_image_blocks=16,
-        multi_step_decode=k, cuda_graphs=cuda_graphs, boot_warmup=True)
+        multi_step_decode=k, cuda_graphs=cuda_graphs, boot_warmup=True,
+        spec_ngram_k=spec_ngram_k)
     engine = OfflineEngine(cfg, model_factory=factory, node_type=node_type, device=dev)
     engine.node.batch_scheduler.token_budget = 24
     return engine
@@ -307,3 +315,76 @@ def test_failed_replay_raises(dev, monkeypatch):
     monkeypatch.setattr(torch.cuda.CUDAGraph, "replay", broken)
     with pytest.raises(RuntimeError, match="replay refused"):
         _serve(engine, "tiny-lm")
+
+
+@pytest.mark.parametrize("arch,quant", [("tiny-lm", "none"), ("tiny-lm", "int8"),
+                                        ("mla-tiny-lm", "none")])
+def test_verify_replays_match_eager(dev, arch, quant):
+    """Speculation at k = 3 on two lookup-friendly requests (single steps on
+    a node of four): the graphed verify steps give the eager engine's tokens
+    and verify counts, and the verify key is replayed."""
+    factory = _factory(arch, dev, quant)
+    runs = []
+    for cuda_graphs in (True, False):
+        engine = _engine(factory, dev, cuda_graphs, 16, spec_ngram_k=3, max_running=4)
+        reqs = [Request(request_id=f"s{i}", prompt=p,
+                        sampling_params=SamplingParameters(max_tokens=24, ignore_eos=True))
+                for i, p in enumerate(["abc abc abc abc abc abc", "ab ab ab ab ab"])]
+        tokens = [o.output_token_ids for o in engine.generate(reqs, timeout_s=600)]
+        fx = engine.node.fill_executor
+        replays = (sum(g.replays for (d, _), g in fx.graphs.graphs.items() if d.spec > 0)
+                   if cuda_graphs else None)
+        runs.append((tokens, fx.spec_steps, fx.spec_tokens, replays))
+    (tokens, steps, emitted, replays), eager = runs
+    assert (tokens, steps, emitted) == eager[:3]
+    assert steps > 0 and replays > 0
+
+
+def _flat_sampling_step(dev, seed):
+    """tiny-lm with a zero lm_head (every logit 0: a flat distribution),
+    a cache, a token table, StepGraphs with a generator, and a sampled
+    decode batch at temperature 1 in its key's buffer."""
+    lm = _factory("tiny-lm", dev).getLanguageModel()
+    lm.weights["lm_head"] = torch.zeros_like(lm.weights["lm_head"])
+    cfg = lm.cfg
+    cache = torch.zeros((cfg.n_layers, 1, 64, 4, 2 * cfg.n_kv_heads, cfg.head_dim),
+                        device=dev)
+    table = torch.zeros(17, dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    graphs = StepGraphs(cache, table, gen)
+    dims = FillDims(T=8, S=4, MB=16, max_q=1, sampling=True)
+    flat, _ = graphs.inputs(dims, 1)
+    tail = np.concatenate([np.ones(4, np.float32).view(np.int32), np.full(4, -1, np.int32),
+                           np.ones(4, np.float32).view(np.int32), [1]]).astype(np.int32)
+    flat.copy_(torch.from_numpy(np.concatenate(
+        [_decode_batch(dims, [5, 9, 22], 4, [3, 7, 11]), tail])))
+    table0 = table.clone()
+
+    def step():
+        table.copy_(table0)             # the same inputs at every call
+        out = lm.forward_flat(cache, table, flat, dims, 1, None, graphs=graphs,
+                              generator=gen).sample_token_ids
+        torch.cuda.synchronize()
+        return out[:3].clone()
+
+    return step, graphs, gen
+
+
+def test_sampled_key_replays_draw_fresh(dev):
+    step, graphs, _ = _flat_sampling_step(dev, 0)
+    step()                          # eager, then the capture
+    draws = [step() for _ in range(4)]
+    assert graphs.captures == 1 and graphs.replays == 4
+    assert len({tuple(d.tolist()) for d in draws}) > 1
+
+
+def test_reseeded_generator_repeats_replays(dev):
+    step, graphs, gen = _flat_sampling_step(dev, 0)
+    step()
+    runs = []
+    for _ in range(2):
+        gen.manual_seed(123)
+        runs.append([step() for _ in range(3)])
+    assert graphs.replays == 6
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    assert not all(torch.equal(runs[0][0], d) for d in runs[0][1:])

@@ -14,8 +14,9 @@ getModelFactory on both sides), text and image; a tiny Qwen2-VL checkpoint
 built in process with transformers and loaded through getModelFactory(path)
 on both sides, for an image chat.
 
-Port-only cases: temperature > 0 gets a 400 (stochastic sampling is not
-ported), a burst of 8 concurrent streams each ends with its max_tokens,
+Sampling: top-k 1 at temperature 0.8 gives the JAX server's chat text; a
+sampled completion answers, and a sampled stream ends with its deltas.
+Port-only cases: a malformed body gets a 400, a burst of 8 concurrent streams each ends with its max_tokens,
 stop() leaves no task running. The budget search: with one timer on both
 profilers the budgets are equal; a real search on the CPU executor gives
 back every KV block, image block and token-table slot; a failed search takes
@@ -222,14 +223,24 @@ def test_stream_deltas_match_jax(tiny_lm):
     assert len(port_chunks) == 9 + 1      # a chunk a token, then the finish chunk
 
 
-def test_port_refuses_sampling_with_400(tiny_lm):
+def test_port_serves_sampling(tiny_lm):
+    """temperature > 0 on both routes: top-k 1 at temperature 0.8 gives the
+    JAX server's text, a sampled completion answers, a sampled stream ends
+    in [DONE] with a delta a token; malformed bodies still get a 400."""
+    body = {"messages": [{"role": "user", "content": "sample this"}],
+            "max_tokens": 10, "ignore_eos": True, "temperature": 0.8, "top_k": 1}
+    jax_out, port_out = (post(p, "/v1/chat/completions", body) for p in tiny_lm)
+    assert port_out["choices"][0]["message"] == jax_out["choices"][0]["message"]
+    assert port_out["usage"]["completion_tokens"] == 10
     port = tiny_lm[1]
-    for path, body in (("/v1/completions", {"prompt": "x", "temperature": 0.7}),
-                       ("/v1/chat/completions", {"messages": [
-                           {"role": "user", "content": "x"}], "temperature": 0.5})):
-        status, data = request(port, "POST", path, body)
-        assert status == 400
-        assert "queue 1, item 6" in json.loads(data)["error"]["message"]
+    out = post(port, "/v1/completions", {"prompt": "x", "max_tokens": 7,
+                                         "ignore_eos": True, "temperature": 0.7,
+                                         "top_p": 0.9})
+    assert out["choices"][0]["text"]
+    chunks, done = stream_chat(port, {
+        "messages": [{"role": "user", "content": "stream a sample"}], "max_tokens": 8,
+        "ignore_eos": True, "temperature": 0.8})
+    assert done and len(chunks) == 8 + 1
     status, _ = request(port, "POST", "/v1/completions", raw=b"{not json")
     assert status == 400
     status, _ = request(port, "POST", "/v1/chat/completions", {"messages": "nope"})

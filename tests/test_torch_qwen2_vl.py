@@ -296,42 +296,50 @@ def _serve(engine, requests):
     return [o.output_token_ids for o in engine.generate(requests, timeout_s=600)]
 
 
-def run_jax(path, quant, kv_int8, k, monkeypatch):
+def run_jax(path, quant, kv_int8, k, monkeypatch, spec_k=0, max_tokens=10,
+            max_running=2):
     monkeypatch.setattr(jax_qvl.Qwen2VLModelFactory, "getTokenizer", lambda self: JaxTok(
         image_token="<image>", image_token_id=IMAGE_ID, eos_token_id=63))
     jf, _ = factories(path, quant, kv_int8)
     cfg = JaxNodeConfig(
-        batch_scheduler=JaxBSConfig(max_running_requests=2),
+        batch_scheduler=JaxBSConfig(max_running_requests=max_running),
         request_processor=JaxRPConfig(num_request_process_workers=1, block_size=4),
         kv_block_size=4, n_kv_blocks=128, n_image_blocks=4, multi_step_decode=k,
-        spec_ngram_k=0)
+        spec_ngram_k=spec_k)
     cfg.model.dtype = "fp32"
     cfg.model.kv_cache_dtype = "int8" if kv_int8 else "auto"
     engine = JaxOfflineEngine(cfg, model_factory=jf, node_type="EPD")
     return _serve(engine, [
         JaxRequest(request_id="m0", prompt="<image> !%&!", image=image(56, 84),
-                   sampling_params=JaxSP(max_tokens=10, ignore_eos=True)),
+                   sampling_params=JaxSP(max_tokens=max_tokens, ignore_eos=True)),
         JaxRequest(request_id="t0", prompt="!! % &&",
-                   sampling_params=JaxSP(max_tokens=10, ignore_eos=True))])
+                   sampling_params=JaxSP(max_tokens=max_tokens, ignore_eos=True))])
 
 
-def run_port(path, quant, kv_int8, k, monkeypatch):
+def run_port(path, quant, kv_int8, k, monkeypatch, spec_k=0, max_tokens=10,
+             max_running=2, spec_steps=None):
+    """The port engine's tokens; `spec_steps`, a list, receives its executor's
+    verify-step count."""
     monkeypatch.setattr(qwen2_vl.Qwen2VLModelFactory, "getTokenizer", lambda self:
                         SimpleTokenizer(image_token="<image>", image_token_id=IMAGE_ID,
                                         eos_token_id=63))
     _, pf = factories(path, quant, kv_int8)
     cfg = NodeConfig(
-        batch_scheduler=BatchSchedulerConfig(max_running_requests=2),
+        batch_scheduler=BatchSchedulerConfig(max_running_requests=max_running),
         request_processor=RequestProcessorConfig(num_request_process_workers=1,
                                                  block_size=4),
-        kv_block_size=4, n_kv_blocks=128, n_image_blocks=4, multi_step_decode=k)
+        kv_block_size=4, n_kv_blocks=128, n_image_blocks=4, multi_step_decode=k,
+        spec_ngram_k=spec_k)
     engine = OfflineEngine(cfg, model_factory=pf, node_type="EPD", device="cpu")
     from hydrainfer_tpu_torch.request import Request, SamplingParameters
-    return _serve(engine, [
+    sp = lambda: SamplingParameters(max_tokens=max_tokens, ignore_eos=True)
+    tokens = _serve(engine, [
         Request(request_id="m0", prompt="<image> !%&!", image=image(56, 84),
-                sampling_params=SamplingParameters(max_tokens=10, ignore_eos=True)),
-        Request(request_id="t0", prompt="!! % &&",
-                sampling_params=SamplingParameters(max_tokens=10, ignore_eos=True))])
+                sampling_params=sp()),
+        Request(request_id="t0", prompt="!! % &&", sampling_params=sp())])
+    if spec_steps is not None:
+        spec_steps.append(engine.node.fill_executor.spec_steps)
+    return tokens
 
 
 @pytest.mark.parametrize("quant,kv_int8", [("none", False), ("int8", True)],
@@ -352,3 +360,19 @@ def test_epd_engine_matches_jax_engine(ckpt, quant, kv_int8, k, monkeypatch):
     assert [len(t) for t in got] == [10, 10]
     assert got == ref
     assert max(windows) == k
+
+
+@pytest.mark.parametrize("quant,kv_int8", [("none", False), ("int8", True)],
+                         ids=["f32", "int8w_int8kv"])
+def test_epd_engine_speculates_like_jax(ckpt, quant, kv_int8, monkeypatch):
+    """Speculation on (spec_ngram_k = 3) behind an image: the verify plan
+    packs no M-RoPE tail (a decode token's three rope axes are equal), so
+    its tokens must still be the JAX engine's. Two requests on a node that
+    runs up to four take single steps, each a chance to speculate."""
+    kw = dict(spec_k=3, max_tokens=24, max_running=4)
+    steps = []
+    got = run_port(ckpt[0], quant, kv_int8, 4, monkeypatch, spec_steps=steps, **kw)
+    assert steps[0] > 0
+    ref = run_jax(ckpt[0], quant, kv_int8, 4, monkeypatch, **kw)
+    assert [len(t) for t in got] == [24, 24]
+    assert got == ref
