@@ -16,7 +16,9 @@ Phases, each printing one JSON line:
            at mla-2b-lm (mla: 16 heads over one 576-wide int8 plane), K6 in
            a decode and a mixed form, bf16 and f32; K3 at each path's decode
            step and prefill budget, bit for bit the host's quantize, with
-           identical CUDA graph replays; and time each beside its
+           identical CUDA graph replays; K5 also at the llava encode shape
+           (8 images of CLIP-L's 577 rows, 16 heads x d64, bf16, v a strided
+           view of the fused qkv); and time each beside its
            bound and a PyTorch library call, eager and from a CUDA graph (K4
            per projection over M 1-2048, both its forms, with a decode-step
            sum and a prefill-budget sum); K2 and K4 also at the speculative
@@ -63,6 +65,25 @@ Phases, each printing one JSON line:
            through K5 must agree with the tower run through the plain
            attention, and one image-bearing prefill's logits must agree with
            the same model run through the plain versions of K1-K4;
+  llava    serve LLaVA-1.5-7B at full width from its random-weight name
+           (random:llava-7b-lm+mm through getModelFactory: the bf16
+           CLIP-L/14-336 tower to its feature layer, 23 of 24 layers, 577
+           rows an image through K5, the bf16 projector, llava-7b-lm with
+           int8 weights and int8 KV) through OfflineEngine(node_type="EPD"):
+           eight requests of one 336 x 336 image and 32 characters, 32
+           tokens each, budget 2048, K=16 windows; every request must finish
+           with its token count, K1-K5 must launch in the measured round,
+           one encode's features through K5 must agree with the tower run
+           through the plain attention, one image-bearing prefill's logits
+           with the plain versions'; then a mixed round (4 text requests of
+           128 tokens decoding while 4 image requests are encoded) on a
+           fresh engine with the whole-tower encode and on one with the
+           layer-chunked encode (segments of 6 layers: 4 an encode): every
+           request must finish, each request's tokens must be the same in
+           both or first differ at a near tie, and no window may pass 4
+           steps while the chunked encode runs; it reports each setting's
+           text-token gaps while the encode is in flight, tokens/s, p50
+           TTFT, the encode's device span and the graph keys captured;
   mla      serve mla-2b-lm (DeepSeek-V2-Lite-shaped MLA, full width, int8
            o_proj/gate_up/down/lm_head, int8 single-plane latent KV) through
            OfflineEngine: 32 requests, chunked prefill mixing with decodes,
@@ -94,8 +115,9 @@ graph replays (their kernel launches counted), it may capture no key, and
 the graph pool must fit in the headroom an auto-sized KV pool leaves: each
 serving phase reports `graphs`.
 Then the card's name and power limit, a "kernels" JSON line (one row per
-kernel and serving path, K3 one per path and form: that path's shapes and
-its measured round's launches), and as the last
+kernel and serving path, K3 one per path and form, K5 one at vlm's and one
+at llava's encode: that path's shapes and its measured round's launches),
+and as the last
 line {"ok": true, "device": {...}}. Any failed phase exits non-zero without
 that line. Details (per-shape timings, ptxas reports, the profile) go to
 --out-dir (default chip_smoke_out/). Imports nothing of JAX or of the JAX
@@ -146,6 +168,17 @@ VLM_IMAGES = [(224, 224), (336, 336), (448, 448), (448, 672)] * 2
 # 1536), the qwen2-vl-2b-lm language model and its M-RoPE sections
 VLM_VISION = dict(depth=32, embed_dim=1280, hidden_size=1536, num_heads=16)
 VLM_ARCH, VLM_MROPE = "qwen2-vl-2b-lm", (16, 24, 24)
+# the llava phase: LLaVA-1.5-7B at full width from its random-weight name (the
+# CLIP-L/14-336 tower to its feature layer, 23 of 24 layers, and the projector
+# in bf16; llava-7b-lm with int8 weights and int8 KV at 0.05): requests of
+# one 336 x 336 image and LLAVA_TEXT text characters, LLAVA_TOKENS tokens
+# each; then the mixed round (4 text requests of LLAVA_MIXED_TOKENS tokens
+# decoding while 4 image requests are encoded), with the whole tower in one
+# step and in segments of LLAVA_CHUNK_LAYERS layers (4 segments of 6, 6, 6
+# and 5)
+LLAVA_MODEL = "random:llava-7b-lm+mm"
+LLAVA_REQUESTS, LLAVA_TEXT, LLAVA_TOKENS = 8, 32, 32
+LLAVA_MIXED_TOKENS, LLAVA_CHUNK_LAYERS = 128, 6
 
 
 def emit(obj) -> None:
@@ -875,20 +908,15 @@ def check_kv_writer(gen, dev, path, form) -> dict:
             "bound_ms": b_ms, "bound_by": b_by}
 
 
-def check_mha_varlen(gen, dev) -> dict:
-    """K5 (a) in the ViT form at the vlm encode shape (T = 6784, 16 heads,
-    d80, bf16, v a strided view of the fused qkv as the tower passes it) and
-    (b) in the causal form over gathered pages, as
-    hydrainfer_tpu/ops/attention.py:paged_attention_varlen_prefill builds
-    it (Qwen2-VL-2B LM heads, d128)."""
+def _k5_vit(gen, dev, sizes, H, D) -> dict:
+    """K5 in the ViT form, one segment of `sizes[i]` rows per image, H heads
+    x dD, bf16, v a strided view of the fused qkv as the towers pass it:
+    held against the plain version, timed eager and from a CUDA graph beside
+    its bound, the plain version and the fastest library form."""
     import torch
     import torch.nn.functional as F
     from hydrainfer_tpu_torch.ops.cuda.mha_varlen import mha_varlen_flash, mha_varlen_plain
-    H = VLM_VISION["num_heads"]
-    D = VLM_VISION["embed_dim"] // H
     sm = D ** -0.5
-    # one segment per image of the vlm encode (14 x 14 patches)
-    sizes = [(h // 14) * (w // 14) for h, w in VLM_IMAGES]
     ids = torch.cat([torch.full((n,), i, dtype=torch.int32)
                      for i, n in enumerate(sizes)]).to(dev)
     T = ids.shape[0]
@@ -927,7 +955,48 @@ def check_mha_varlen(gen, dev) -> dict:
                 q, k, vc, cu, cu, max(sizes), max(sizes), 0.0, False, False, scale=sm)[0],
             lambda o: o),
     }, ref, tol)
-    lib_ms = library[lib]["ms"] if lib else None
+    return {"T": T, "images": sizes, "err": err, "tol": tol, "ms": ms, "graph_ms": ms_graph,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library": library,
+            "lib": lib}
+
+
+def _k5_row(vit: dict, path: str, ok: bool, err: float, shape: str) -> dict:
+    lib = vit["lib"]
+    return {"name": "mha_varlen", "path": path, "ok": bool(ok), "max_abs_err": err,
+            "tolerance": "3e-2 x max|plain| (bf16 P and output rounding)", "shape": shape,
+            "ms": vit["ms"], "graph_ms": vit["graph_ms"], "plain_ms": vit["plain_ms"],
+            "bound_ms": vit["bound_ms"], "bound_by": vit["bound_by"],
+            "library_ms": vit["library"][lib]["ms"] if lib else None, "library": lib,
+            "library_graph_ms": vit["library"][lib].get("graph_ms") if lib else None,
+            "library_forms_ms": {n: r.get("ms") for n, r in vit["library"].items()}}
+
+
+def check_mha_varlen_llava(gen, dev) -> dict:
+    """K5 at the llava phase's encode shape: LLaVA_IMAGES images of CLIP-L's
+    577 rows (the class token and 24 x 24 patches), 16 heads x d64."""
+    from hydrainfer_tpu_torch.models.random_init import CLIP_L_336 as c
+    L, H = c.n_patches + 1, c.n_heads
+    vit = _k5_vit(gen, dev, [L] * LLAVA_REQUESTS, H, c.hidden_size // H)
+    save("mha_varlen_llava.json", {k: vit[k] for k in ("T", "images", "err", "tol",
+                                                       "library")})
+    return _k5_row(vit, "llava", vit["err"] <= vit["tol"], vit["err"],
+                   f"ViT form: {LLAVA_REQUESTS} images x {L} rows (CLIP-L/14-336), "
+                   f"{H} heads x d{c.hidden_size // H}, bf16, v strided")
+
+
+def check_mha_varlen(gen, dev) -> dict:
+    """K5 (a) in the ViT form at the vlm encode shape (T = 6784, 16 heads,
+    d80, bf16, v a strided view of the fused qkv as the tower passes it) and
+    (b) in the causal form over gathered pages, as
+    hydrainfer_tpu/ops/attention.py:paged_attention_varlen_prefill builds
+    it (Qwen2-VL-2B LM heads, d128)."""
+    import torch
+    from hydrainfer_tpu_torch.ops.cuda.mha_varlen import mha_varlen_flash, mha_varlen_plain
+    H = VLM_VISION["num_heads"]
+    # one segment per image of the vlm encode (14 x 14 patches)
+    vit = _k5_vit(gen, dev, [(h // 14) * (w // 14) for h, w in VLM_IMAGES], H,
+                  VLM_VISION["embed_dim"] // H)
+    err, tol, T = vit["err"], vit["tol"], vit["T"]
 
     # (b) the causal form: gathered pages with segment ids (-1 past each
     # kv_len) and cache positions; q rows carry their cache position
@@ -953,20 +1022,15 @@ def check_mha_varlen(gen, dev) -> dict:
     cerr = (cgot.float() - cref.float()).abs().max().item()
     ctol = 3e-2 * max(1e-3, cref.float().abs().max().item())
     pad_zero = bool((cgot[on(q_ids) < 0] == 0).all())
-    save("mha_varlen.json", {"vit": {"T": T, "images": sizes, "err": err, "tol": tol,
-                                     "library": library},
+    save("mha_varlen.json", {"vit": {k: vit[k] for k in ("T", "images", "err", "tol",
+                                                        "library")},
                              "causal": {"specs": specs, "err": cerr, "tol": ctol,
                                         "padding_rows_zero": pad_zero}})
-    return {"name": "mha_varlen", "path": "vlm",
-            "ok": bool(err <= tol and cerr <= ctol and pad_zero),
-            "max_abs_err": max(err, cerr), "causal_max_abs_err": cerr,
-            "tolerance": "3e-2 x max|plain| (bf16 P and output rounding)",
-            "shape": f"ViT form: {T} patches of 8 images, {H} heads x d{D}, bf16; "
-                     "causal form: 5 seqs over gathered pages, 12 heads x d128",
-            "ms": ms, "graph_ms": ms_graph, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": lib_ms, "library": lib,
-            "library_graph_ms": library[lib].get("graph_ms") if lib else None,
-            "library_forms_ms": {n: r.get("ms") for n, r in library.items()}}
+    return {**_k5_row(vit, "vlm", err <= tol and cerr <= ctol and pad_zero, max(err, cerr),
+                      f"ViT form: {T} patches of 8 images, {H} heads x "
+                      f"d{VLM_VISION['embed_dim'] // H}, bf16; "
+                      "causal form: 5 seqs over gathered pages, 12 heads x d128"),
+            "causal_max_abs_err": cerr}
 
 
 def check_verify(gen, dev) -> list:
@@ -995,7 +1059,7 @@ def phase_kernels() -> tuple:
                                 check_kv_writer(gen, dev, path, "prefill"),
                                 check_quant_matmul(gen, dev, path)]
     results += check_verify(gen, dev)
-    results.append(check_mha_varlen(gen, dev))
+    results += [check_mha_varlen(gen, dev), check_mha_varlen_llava(gen, dev)]
     torch.cuda.synchronize()
     save("kernels.json", results)
     ok = all(r["ok"] for r in results)
@@ -1008,11 +1072,13 @@ def phase_kernels() -> tuple:
 # ------------------------------------------------------------------ serving
 
 def _engine(factory, device, n_requests, block_size, n_blocks, token_budget,
-            node_type="PD", n_image_blocks=-1, cuda_graphs=True, spec_ngram_k=12):
+            node_type="PD", n_image_blocks=-1, cuda_graphs=True, spec_ngram_k=12,
+            encode_chunk_layers=0):
     """An OfflineEngine with the boot warm-up on (the key floors raised to
     the serving envelope, the decode keys met and, with cuda_graphs on the
-    card, captured), a fixed token budget (the budget search off) and
-    speculation at the JAX default (spec_ngram_k = 12) unless asked."""
+    card, captured), a fixed token budget (the budget search off),
+    speculation at the JAX default (spec_ngram_k = 12) unless asked, and the
+    whole-tower encode unless encode_chunk_layers asks for segments."""
     from hydrainfer_tpu_torch.cluster.node import NodeConfig
     from hydrainfer_tpu_torch.engine.profiler import BatchSchedulerProfilerConfig
     from hydrainfer_tpu_torch.engine.request_processor import RequestProcessorConfig
@@ -1025,7 +1091,7 @@ def _engine(factory, device, n_requests, block_size, n_blocks, token_budget,
                                               default_token_budget=token_budget),
         kv_block_size=block_size, n_kv_blocks=n_blocks, n_image_blocks=n_image_blocks,
         multi_step_decode=16, cuda_graphs=cuda_graphs, boot_warmup=True,
-        spec_ngram_k=spec_ngram_k)
+        spec_ngram_k=spec_ngram_k, encode_chunk_layers=encode_chunk_layers)
     return OfflineEngine(cfg, model_factory=factory, node_type=node_type, device=device)
 
 
@@ -1535,22 +1601,35 @@ def _replay_ms(graph, replays: int = 20) -> float:
     return start.elapsed_time(end) / replays
 
 
-def _near_tie(lm, tokenizer, reqs, on, off, dev) -> dict:
-    """Where the spec and plain tokens of a request first differ: the plain
-    path's top-2 logit gap at that position (one prefill of the prompt and
-    the plain tokens before it, through the kernels), against the bound of
-    _logits_check (LOGITS_RATIO times the bf16 plain path's distance from
-    f32): a divergence is a near tie only if its gap is within the bound."""
+def _near_tie(lm, tokenizer, reqs, on, off, dev, vision=None) -> dict:
+    """Where two runs' tokens of a request first differ (`on` against
+    `off`): the `off` path's top-2 logit gap at that position (one prefill
+    of the prompt and the `off` tokens before it, through the kernels; an
+    image request's image token expanded and its features spliced in from
+    the factory `vision`), against the bound of _logits_check (LOGITS_RATIO
+    times the bf16 plain path's distance from f32): a divergence is a near
+    tie only if its gap is within the bound."""
     import numpy as np
     import torch
+    from hydrainfer_tpu_torch.models.factory import VisionModelParameters
     rows = []
     for req, a, b in zip(reqs, on, off):
         if a == b:
             continue
         pos = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
-        ctx = tokenizer.encode(req.prompt) + b[:pos]
+        ctx, kw = tokenizer.encode(req.prompt), {}
         with torch.no_grad():
-            top2 = torch.topk(_prefill_logits(lm, ctx, dev)[-1], 2).values
+            if req.image is not None:
+                vcfg = vision.getVisionModelConfig()
+                n = vcfg.image_token_calculator.get_num_image_tokens(
+                    (req.image.height, req.image.width))
+                i = ctx.index(vcfg.image_token_id)
+                ctx = ctx[:i] + [vcfg.image_token_id] * n + ctx[i + 1:]
+                pixels = np.asarray(vision.getProcessor().process(req.image))[None]
+                kw = dict(image_features=vision.getVisionModel().forward(
+                    pixels, VisionModelParameters()).image_features[0],
+                          image_dst_idx=list(range(i, i + n)))
+            top2 = torch.topk(_prefill_logits(lm, ctx + b[:pos], dev, **kw)[-1], 2).values
         rows.append({"request": req.request_id, "position": pos,
                      "top2_gap": float(top2[0] - top2[1])})
     if not rows:
@@ -2000,26 +2079,24 @@ def _vlm_requests(rng, max_tokens, tag):
     return reqs
 
 
-def _features_check(factory, reqs, dev) -> dict:
-    """One encode of the measured round's eight images: the bf16 tower
-    through K5 and through the plain attention, each against an f32 run of
-    the same weights through the plain attention; and the f32 tower through
-    K5 against that f32 reference."""
-    import numpy as np
+def _f32_tree(x):
+    """A weight tree with every tensor in f32 (dicts, lists and pairs kept)."""
     import torch
-    from hydrainfer_tpu_torch.models.factory import VisionModelParameters
-    from hydrainfer_tpu_torch.models.qwen2_vl import Qwen2VLVisionModel
+    if isinstance(x, torch.Tensor):
+        return x.float()
+    if isinstance(x, (tuple, list)):
+        return type(x)(_f32_tree(v) for v in x)
+    return {k: _f32_tree(v) for k, v in x.items()}
+
+
+def _features_check(vm, vm32, pixel_values, params, depth: int) -> dict:
+    """One encode: the bf16 tower `vm` through K5 and through the plain
+    attention, each against an f32 run of the same weights (`vm32`) through
+    the plain attention; and the f32 tower through K5 against that f32
+    reference."""
+    import torch
     from hydrainfer_tpu_torch.ops import attention
     from hydrainfer_tpu_torch.ops.cuda.mha_varlen import mha_varlen_plain
-    proc = factory.getProcessor()
-    patches = np.concatenate([proc.process(r.image) for r in reqs])
-    params = VisionModelParameters(original_image_sizes=[(r.image.height, r.image.width)
-                                                         for r in reqs])
-    vm = factory.getVisionModel()
-    f32 = lambda x: (x.float() if isinstance(x, torch.Tensor) else
-                     type(x)(f32(v) for v in x) if isinstance(x, (tuple, list)) else
-                     {k: f32(v) for k, v in x.items()})
-    vm32 = Qwen2VLVisionModel(f32(vm.weights), vm.cfg)
     kernel = attention.mha_varlen_flash
 
     def plain(q, k, v, ids, sm, **kw):
@@ -2028,7 +2105,7 @@ def _features_check(factory, reqs, dev) -> dict:
     def run(model, use_plain):
         attention.mha_varlen_flash = plain if use_plain else kernel
         try:
-            return model.forward(patches, params).image_features.float()
+            return model.forward(pixel_values, params).image_features.float()
         finally:
             attention.mha_varlen_flash = kernel
 
@@ -2037,7 +2114,6 @@ def _features_check(factory, reqs, dev) -> dict:
         got32 = run(vm32, False)
         got16 = run(vm, False)
         plain16 = run(vm, True)
-    del vm32
     scale = ref32.abs().max().item()
     err32 = (got32 - ref32).abs().max().item()
     err16_kernel = (got16 - ref32).abs().max().item()
@@ -2048,41 +2124,129 @@ def _features_check(factory, reqs, dev) -> dict:
             "features_f32_max_abs": scale, "features_f32_kernel_vs_plain_err": err32,
             "features_bf16_kernel_vs_f32_err": err16_kernel,
             "features_bf16_plain_vs_f32_err": err16_plain,
-            "features_tolerance": "f32: 1e-3 x max|feature| (sum order over 32 "
+            "features_tolerance": f"f32: 1e-3 x max|feature| (sum order over {depth} "
                                   "layers); bf16: 3x the plain path's distance from f32"}
+
+
+def _qwen2vl_features_check(factory, reqs) -> dict:
+    """_features_check on one encode of the measured round's eight images."""
+    import numpy as np
+    from hydrainfer_tpu_torch.models.factory import VisionModelParameters
+    from hydrainfer_tpu_torch.models.qwen2_vl import Qwen2VLVisionModel
+    proc = factory.getProcessor()
+    patches = np.concatenate([proc.process(r.image) for r in reqs])
+    params = VisionModelParameters(original_image_sizes=[(r.image.height, r.image.width)
+                                                         for r in reqs])
+    vm = factory.getVisionModel()
+    return _features_check(vm, Qwen2VLVisionModel(_f32_tree(vm.weights), vm.cfg), patches,
+                           params, vm.cfg.depth)
 
 
 def _image_prefill_check(factory, req, rng, dev) -> dict:
     """One image-bearing prefill of the LM at full width: 24 text tokens, the
     image's tokens (features from the bf16 tower) and 40 text tokens, with
-    the request processor's M-RoPE streams; logits held as the serve phase
-    holds its prefill's (_logits_check)."""
+    the request processor's M-RoPE streams where the model has them; logits
+    held as the serve phase holds its prefill's (_logits_check)."""
     from types import SimpleNamespace
+    import numpy as np
     import torch
     from hydrainfer_tpu_torch.engine.request_processor import RequestProcessor
     from hydrainfer_tpu_torch.models.factory import VisionModelParameters
     size = (req.image.height, req.image.width)
+    pixels = np.asarray(factory.getProcessor().process(req.image))
     with torch.no_grad():
         feats = factory.getVisionModel().forward(
-            factory.getProcessor().process(req.image),
+            pixels[None] if pixels.ndim == 3 else pixels,
             VisionModelParameters(original_image_sizes=[size])).image_features[0]
     vcfg = factory.getVisionModelConfig()
     image_id, calc = vcfg.image_token_id, vcfg.image_token_calculator
     text = [int(t) for t in rng.integers(10, 120, size=64)]
     tokens = text[:24] + [image_id] * calc.get_num_image_tokens(size) + text[24:]
-    pt, ph, pw, _ = RequestProcessor._mrope_positions(
-        SimpleNamespace(image_token_id=image_id, image_token_calculator=calc), tokens,
-        [size])
+    kw = {}
+    if factory.getLanguageModelConfig().mrope_section:
+        pt, ph, pw, _ = RequestProcessor._mrope_positions(
+            SimpleNamespace(image_token_id=image_id, image_token_calculator=calc), tokens,
+            [size])
+        kw = dict(positions=pt, positions_hw=[ph, pw])
     return _logits_check(factory.getLanguageModel(), tokens, dev, "image_prefill_logits",
-                         positions=pt, positions_hw=[ph, pw], image_features=feats,
-                         image_dst_idx=[i for i, t in enumerate(tokens) if t == image_id])
+                         image_features=feats,
+                         image_dst_idx=[i for i, t in enumerate(tokens) if t == image_id],
+                         **kw)
+
+
+def _image_rounds(engine, graphs, make_requests, profile_name) -> tuple:
+    """An image phase's rounds on `engine`: a warm-up round, the measured
+    round and a profiled round, each of make_requests(tag). Returns the
+    measured requests, their outputs and the round's record: seconds,
+    launch counts (K3 split by step), peak memory, fused windows, and each
+    encode's images and wall time (the card synchronised around it)."""
+    import torch
+    from hydrainfer_tpu_torch.engine import executor as ex
+    from hydrainfer_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    windows, encodes = [], []
+    orig_window, orig_embed = ex.FillExecutor._multi_step_window, ex.ImageEmbedExecutor.execute
+
+    def spy_window(self, batch, n_steps):
+        k, ks = orig_window(self, batch, n_steps)
+        windows.append(k)
+        return k, ks
+
+    def spy_embed(self, batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fut = orig_embed(self, batch)
+        torch.cuda.synchronize()
+        encodes.append({"images": len(batch), "s": time.perf_counter() - t})
+        return fut
+
+    ex.FillExecutor._multi_step_window = spy_window
+    ex.ImageEmbedExecutor.execute = spy_embed
+    k3 = KvWriteSplit()
+    try:
+        engine.generate(make_requests("warm"), timeout_s=600)
+        windows.clear()
+        encodes.clear()
+        reqs = make_requests("measured")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        k3.reset(graphs.graphs)
+        graphs.start_measured()
+        t1 = time.perf_counter()
+        outs = engine.generate(reqs, timeout_s=600)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t1
+        graphs.end_measured()
+        rec = {"elapsed": elapsed, "counts": {**launch_counts(), **k3.counts()},
+               "k3_split": k3.report(), "peak": torch.cuda.max_memory_allocated(),
+               "windows": list(windows), "encodes": list(encodes)}
+        rec["profiled"] = _profile_round(engine, make_requests("prof"), profile_name)
+    finally:
+        ex.FillExecutor._multi_step_window = orig_window
+        ex.ImageEmbedExecutor.execute = orig_embed
+        k3.restore()
+    return reqs, outs, rec
+
+
+def _round_report(outs, rec, max_tokens, vocab, graphs) -> dict:
+    """The fields a serving round reports, and whether its requests all
+    finished with their token counts (tokens_ok)."""
+    n_tokens = [len(o.output_token_ids) for o in outs]
+    ttfts = sorted(o.ttft for o in outs)
+    return {"tokens_ok": all(k == max_tokens for k in n_tokens) and all(
+                0 <= t < vocab for o in outs for t in o.output_token_ids),
+            "tokens_per_request": n_tokens, "tokens_per_s": sum(n_tokens) / rec["elapsed"],
+            "elapsed_s": rec["elapsed"], "p50_ttft_s": ttfts[len(ttfts) // 2],
+            "ttfts_s": ttfts, "encodes": rec["encodes"],
+            "fused_windows": sorted(set(rec["windows"])),
+            "n_k16_windows": rec["windows"].count(16), "launches": rec["counts"],
+            "kv_writer_launches": rec["k3_split"], "graphs": graphs.report(),
+            "peak_memory_bytes": rec["peak"], **rec["profiled"]}
 
 
 def phase_vlm(dev="cuda", max_tokens=32) -> tuple:
     import numpy as np
     import torch
-    from hydrainfer_tpu_torch.engine import executor as ex
-    from hydrainfer_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
     dev = torch.device(dev)
     t0 = time.perf_counter()
     factory = _qwen2vl_factory(dev)
@@ -2096,80 +2260,272 @@ def phase_vlm(dev="cuda", max_tokens=32) -> tuple:
     boot_s = time.perf_counter() - t0
     graphs = GraphRounds(engine, free)
     rng = np.random.default_rng(SEED + 2)
-
-    windows, encodes = [], []
-    orig_window, orig_embed = ex.FillExecutor._multi_step_window, ex.ImageEmbedExecutor.execute
-
-    def spy_window(self, batch, n_steps):
-        k, ks = orig_window(self, batch, n_steps)
-        windows.append(k)
-        return k, ks
-
-    def spy_embed(self, batch):
-        # the encode's wall time: the card is synchronised around it
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        fut = orig_embed(self, batch)
-        torch.cuda.synchronize()
-        encodes.append({"images": len(batch), "s": time.perf_counter() - t})
-        return fut
-
-    ex.FillExecutor._multi_step_window = spy_window
-    ex.ImageEmbedExecutor.execute = spy_embed
-    k3 = KvWriteSplit()
-    try:
-        engine.generate(_vlm_requests(rng, max_tokens, "warm"), timeout_s=600)
-        windows.clear()
-        encodes.clear()
-        reqs = _vlm_requests(rng, max_tokens, "vlm")
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_launch_counts()
-        k3.reset(graphs.graphs)
-        graphs.start_measured()
-        t1 = time.perf_counter()
-        outs = engine.generate(reqs, timeout_s=600)
-        torch.cuda.synchronize()
-        elapsed = time.perf_counter() - t1
-        graphs.end_measured()
-        counts = {**launch_counts(), **k3.counts()}
-        k3_split = k3.report()
-        peak = torch.cuda.max_memory_allocated()
-        measured = {"windows": list(windows), "encodes": list(encodes)}
-        profiled = _profile_round(engine, _vlm_requests(rng, max_tokens, "prof"),
-                                  "vlm_profile.json")
-    finally:
-        ex.FillExecutor._multi_step_window = orig_window
-        ex.ImageEmbedExecutor.execute = orig_embed
-        k3.restore()
-
-    n_tokens = [len(o.output_token_ids) for o in outs]
-    vocab = factory.cfg.vocab_size
-    tokens_ok = all(k == max_tokens for k in n_tokens) and all(
-        0 <= t < vocab for o in outs for t in o.output_token_ids)
-    ttfts = sorted(o.ttft for o in outs)
-    features = _features_check(factory, reqs, dev)
+    reqs, outs, rec = _image_rounds(
+        engine, graphs, lambda tag: _vlm_requests(rng, max_tokens, "vlm" if tag == "measured"
+                                                  else tag), "vlm_profile.json")
+    report = _round_report(outs, rec, max_tokens, factory.cfg.vocab_size, graphs)
+    features = _qwen2vl_features_check(factory, reqs)
     logits = _image_prefill_check(factory, reqs[1], rng, dev)
     calc = factory.getVisionModelConfig().image_token_calculator
     image_tokens = [calc.get_num_image_tokens(s) for s in VLM_IMAGES]
-    ok = (tokens_ok and features["features_ok"] and logits.pop("ok") and graphs.ok()
-          and 16 in measured["windows"] and all(counts[k] > 0 for k in VLM_KERNELS))
+    counts = rec["counts"]
+    ok = (report.pop("tokens_ok") and features["features_ok"] and logits.pop("ok")
+          and graphs.ok() and 16 in rec["windows"]
+          and all(counts[k] > 0 for k in VLM_KERNELS))
     result = {"phase": "vlm", "ok": bool(ok), "gpu": gpu_name_and_limit(),
               "model": "Qwen2-VL-2B: ViT {depth} x {embed_dim}, {num_heads} heads; LM ".format(
                   **VLM_VISION) + VLM_ARCH,
               "vision": "bf16", "weights": "int8", "kv_cache": "int8 (scale 0.05)",
               "n_requests": n, "images": VLM_IMAGES, "image_tokens": image_tokens,
               "prompt_text_chars": 64, "max_tokens": max_tokens, "token_budget": 2048,
-              "tokens_per_request": n_tokens, "tokens_per_s": sum(n_tokens) / elapsed,
-              "elapsed_s": elapsed, "p50_ttft_s": ttfts[len(ttfts) // 2],
-              "ttfts_s": ttfts,
-              "encodes": measured["encodes"], "weight_init_s": init_s, "boot_s": boot_s,
-              "lm_param_bytes": factory.lm_factory.param_bytes(),
-              "fused_windows": sorted(set(measured["windows"])),
-              "n_k16_windows": measured["windows"].count(16), "launches": counts,
-              "kv_writer_launches": k3_split, "graphs": graphs.report(),
-              "peak_memory_bytes": peak, **features,
-              **logits, **profiled}
+              "weight_init_s": init_s, "boot_s": boot_s,
+              "lm_param_bytes": factory.lm_factory.param_bytes(), **report, **features,
+              **logits}
+    return result, counts
+
+
+# -------------------------------------------------------------- phase: llava
+
+def _llava_factory_mm(dev):
+    """random:llava-7b-lm+mm through getModelFactory, as a server builds it
+    from its config: bf16, int8 weights, int8 KV at 0.05."""
+    from hydrainfer_tpu_torch.models.factory import ModelFactoryConfig, getModelFactory
+    return getModelFactory(ModelFactoryConfig(name=LLAVA_MODEL, dtype="bf16",
+                                              quantization="int8", kv_cache_dtype="int8",
+                                              kv_scale=0.05), dev)
+
+
+def _llava_requests(rng, n, max_tokens, tag):
+    """n requests of one seeded 336 x 336 image inside LLAVA_TEXT text
+    characters, greedy, ignore_eos."""
+    import numpy as np
+    from PIL import Image
+    from hydrainfer_tpu_torch.request import Request, SamplingParameters
+    letters = list("abcdefghijklmnopqrstuvwxyz ")
+    reqs = []
+    for i in range(n):
+        img = Image.fromarray(rng.integers(0, 256, (336, 336, 3), dtype=np.uint8))
+        text = "".join(rng.choice(letters, size=LLAVA_TEXT))
+        half = LLAVA_TEXT // 2
+        reqs.append(Request(request_id=f"{tag}{i}", prompt=text[:half] + "<image>" + text[half:],
+                            image=img, sampling_params=SamplingParameters(
+                                max_tokens=max_tokens, ignore_eos=True)))
+    return reqs
+
+
+def _segments_check(vm, pixels) -> dict:
+    """The layer-chunked encode computes what the whole tower does: the
+    embedding, the segments of LLAVA_CHUNK_LAYERS layers and the projection
+    give forward's features bit for bit. And one whole-tower encode under
+    torch.profiler: its wall time (the card synchronised around it) beside
+    the device time of its kernels, which says whether the host's dispatch
+    or the card sets the encode's pace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from hydrainfer_tpu_torch.models.factory import VisionModelParameters
+    params = VisionModelParameters()
+    with torch.no_grad():
+        whole = vm.forward(pixels, params).image_features
+        h = vm.forward_embed(pixels)
+        for seg in range(vm.encode_segments(LLAVA_CHUNK_LAYERS)):
+            h = vm.forward_segment(h, seg, LLAVA_CHUNK_LAYERS)
+        chunked = vm.forward_project(h)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            vm.forward(pixels, params)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    rows = [(e.key, e.count, (getattr(e, "self_device_time_total", 0) or 0) / 1e3)
+            for e in prof.key_averages() if "CUDA" in str(getattr(e, "device_type", ""))]
+    rows = sorted((r for r in rows if r[2] > 0), key=lambda r: -r[2])
+    return {"segments_identical_to_forward": bool(torch.equal(whole, chunked)),
+            "encode_profile_images": len(pixels), "encode_profile_wall_ms": 1e3 * wall,
+            "encode_profile_device_ms": sum(r[2] for r in rows),
+            "encode_profile_kernel_launches": sum(r[1] for r in rows),
+            "encode_profile_top_kernels": [{"kernel": k[:100], "count": n, "ms": ms}
+                                           for k, n, ms in rows[:6]]}
+
+
+def _mixed_requests(seed, tag):
+    """The mixed round: 4 text requests of LLAVA_MIXED_TOKENS tokens first,
+    then 4 image requests of LLAVA_TOKENS."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return (_requests(rng, 4, LLAVA_TEXT, LLAVA_MIXED_TOKENS, tag + "t")
+            + _llava_requests(rng, 4, LLAVA_TOKENS, tag + "m"))
+
+
+def _mixed_round(factory, dev, chunk_layers) -> tuple:
+    """The mixed round on a fresh EPD engine with encode_chunk_layers =
+    chunk_layers: a warm-up round, then the measured one. Reports tokens/s,
+    p50 TTFT, the encode's device span (from its first launch reaching the
+    card to its last segment's end, decode windows between segments
+    included) and the stream time of its own calls (events around each
+    call: its kernels, and the card's idle time while the host dispatches
+    them), the windows run while it was in flight, the text requests' gaps
+    between tokens while it was in flight (from the first encode dispatch
+    to the last image request's first token), and the graph keys captured
+    while serving. Returns (report, the measured requests, their tokens)."""
+    import numpy as np
+    import torch
+    engine = _engine(factory, dev, LLAVA_REQUESTS, 16, 512, 2048, node_type="EPD",
+                     n_image_blocks=32, encode_chunk_layers=chunk_layers)
+    node, fx = engine.node, engine.node.fill_executor
+    iee = node.image_embed_executor
+    captures = [fx.graphs.captures]
+    engine.generate(_mixed_requests(SEED + 4, "mwarm"), timeout_s=600)
+    captures.append(fx.graphs.captures)
+    keys0 = set(fx.graphs.graphs)
+    marks, windows = [], []
+
+    def timed(fn):
+        def call(*args):
+            before = torch.cuda.Event(enable_timing=True)
+            after = torch.cuda.Event(enable_timing=True)
+            t = time.perf_counter()
+            before.record()
+            out = fn(*args)
+            after.record()
+            marks.append((t, before, after))
+            return out
+        return call
+
+    orig_execute = fx.execute
+
+    def spy_execute(batch, n_steps=1):
+        windows.append((iee.busy, n_steps))
+        return orig_execute(batch, n_steps)
+
+    spies = {"execute": iee.execute, "start_chunked": iee.start_chunked,
+             "advance": iee.advance}
+    for name, fn in spies.items():
+        setattr(iee, name, timed(fn))
+    fx.execute = spy_execute
+    try:
+        reqs = _mixed_requests(SEED + 5, "mixed")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = engine.generate(reqs, timeout_s=600)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+    finally:
+        for name in spies:
+            delattr(iee, name)
+        del fx.execute
+    new_keys = set(fx.graphs.graphs) - keys0
+    w0 = marks[0][0]
+    w1 = max(o.token_times[0] for o in outs[4:])
+    gaps = [b - a for o in outs[:4] for a, b in zip(o.token_times, o.token_times[1:])
+            if w0 <= b <= w1]
+    n_tokens = [len(o.output_token_ids) for o in outs]
+    ttfts = sorted(o.ttft for o in outs)
+    busy = [n for b, n in windows if b]
+    report = {
+        "encode_chunk_layers": chunk_layers,
+        "segments_an_encode": node.worker.vision_model.encode_segments(chunk_layers)
+        if chunk_layers else 1,
+        "encode_calls": len(marks), "tokens_per_request": n_tokens,
+        "tokens_ok": n_tokens == [LLAVA_MIXED_TOKENS] * 4 + [LLAVA_TOKENS] * 4,
+        "tokens_per_s": sum(n_tokens) / elapsed, "elapsed_s": elapsed,
+        "p50_ttft_s": ttfts[len(ttfts) // 2],
+        "image_p50_ttft_s": sorted(o.ttft for o in outs[4:])[2],
+        "encode_span_ms": marks[0][1].elapsed_time(marks[-1][2]),
+        "encode_device_ms": sum(b.elapsed_time(a) for _, b, a in marks),
+        "text_gaps_in_flight": len(gaps),
+        "text_gap_max_s": max(gaps) if gaps else None,
+        "text_gap_p90_s": float(np.percentile(gaps, 90)) if gaps else None,
+        "windows_while_encoding": sorted(set(busy)),
+        "windows_otherwise": sorted(set(n for b, n in windows if not b)),
+        "keys_captured_at_boot": captures[0],
+        "keys_captured_in_warmup_round": captures[1] - captures[0],
+        "keys_captured_in_measured_round": fx.graphs.captures - captures[1],
+        "keys_new_in_measured_round": sorted(f"T={d.T} S={d.S} MB={d.MB} n_steps={n}"
+                                             for d, n in new_keys)}
+    report["ok"] = bool(report["tokens_ok"] and (
+        not chunk_layers or (busy and max(busy) <= node.config.encode_chunk_window)))
+    return report, reqs, [o.output_token_ids for o in outs]
+
+
+def phase_llava(dev="cuda") -> tuple:
+    """LLaVA-1.5-7B at full width from random:llava-7b-lm+mm (getModelFactory):
+    the bf16 CLIP-L/14-336 tower (23 layers, hidden 1024, 16 heads x d64,
+    577 rows an image, K5) and projector, llava-7b-lm with int8 weights and
+    int8 KV (K1-K4), through OfflineEngine(node_type="EPD"): LLAVA_REQUESTS
+    image requests, budget 2048, K=16 windows, a warm-up, measured and
+    profiled round; K1-K5 must launch in the measured round, every request
+    finish with its tokens, one encode's features through K5 agree with the
+    plain attention's and one image-bearing prefill's logits with the plain
+    versions', and its segments (_segments_check) must give the whole
+    tower's features bit for bit. Then the mixed round (_mixed_round) with
+    the whole-tower encode and with segments of LLAVA_CHUNK_LAYERS layers:
+    every request
+    must finish with its tokens, each request's tokens must be the same in
+    both settings or first differ at a near tie (_near_tie: a window of 4
+    runs a text decode in another step than a window of 16 does), and while
+    the chunked encode is in flight no window may pass
+    encode_chunk_window."""
+    import numpy as np
+    import torch
+    from hydrainfer_tpu_torch.models.factory import VisionModelParameters
+    from hydrainfer_tpu_torch.models.llava import LlavaVisionModel
+    dev = torch.device(dev)
+    t0 = time.perf_counter()
+    factory = _llava_factory_mm(dev)
+    factory.getLanguageModel()
+    vm = factory.getVisionModel()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    free = torch.cuda.mem_get_info(dev)[0]
+    t0 = time.perf_counter()
+    engine = _engine(factory, dev, LLAVA_REQUESTS, 16, 512, 2048, node_type="EPD",
+                     n_image_blocks=32)
+    boot_s = time.perf_counter() - t0
+    graphs = GraphRounds(engine, free)
+    rng = np.random.default_rng(SEED + 3)
+    reqs, outs, rec = _image_rounds(
+        engine, graphs,
+        lambda tag: _llava_requests(rng, LLAVA_REQUESTS, LLAVA_TOKENS,
+                                    "llava" if tag == "measured" else tag),
+        "llava_profile.json")
+    report = _round_report(outs, rec, LLAVA_TOKENS, factory.cfg.vocab_size, graphs)
+    del engine
+    proc = factory.getProcessor()
+    pixels = np.stack([proc.process(r.image) for r in reqs])
+    features = _features_check(vm, LlavaVisionModel(_f32_tree(vm.weights), vm.clip_cfg),
+                               pixels, VisionModelParameters(), vm.clip_cfg.n_layers)
+    features.update(_segments_check(vm, pixels))
+    logits = _image_prefill_check(factory, reqs[1], rng, dev)
+    counts = rec["counts"]
+    mixed, tokens = {}, {}
+    for chunk in (0, LLAVA_CHUNK_LAYERS):
+        mixed[f"chunk_{chunk}"], mreqs, tokens[chunk] = _mixed_round(factory, dev, chunk)
+        torch.cuda.empty_cache()
+    tie = _near_tie(factory.getLanguageModel(), factory.getTokenizer(), mreqs, tokens[0],
+                    tokens[LLAVA_CHUNK_LAYERS], dev, vision=factory)
+    mixed["tokens_identical"] = tokens[0] == tokens[LLAVA_CHUNK_LAYERS]
+    mixed["divergences"] = tie
+    save("llava_mixed_tokens.json", {str(k): v for k, v in tokens.items()})
+    c = vm.clip_cfg
+    ok = (report.pop("tokens_ok") and features["features_ok"] and logits.pop("ok")
+          and features["segments_identical_to_forward"]
+          and graphs.ok() and 16 in rec["windows"]
+          and all(counts[k] > 0 for k in VLM_KERNELS)
+          and all(m["ok"] for k, m in mixed.items() if k.startswith("chunk_"))
+          and tie["ok"])
+    result = {"phase": "llava", "ok": bool(ok), "gpu": gpu_name_and_limit(),
+              "model": f"{LLAVA_MODEL}: CLIP {c.n_layers} layers x {c.hidden_size}, "
+                       f"{c.n_heads} heads, {c.n_patches + 1} rows an image; projector "
+                       f"{c.hidden_size} -> {factory.cfg.hidden_size}; LM "
+                       + LLAVA_MODEL[len("random:"):-len("+mm")],
+              "vision": "bf16", "weights": "int8", "kv_cache": "int8 (scale 0.05)",
+              "n_requests": LLAVA_REQUESTS, "image": [336, 336],
+              "image_tokens": c.n_patches, "prompt_text_chars": LLAVA_TEXT,
+              "max_tokens": LLAVA_TOKENS, "token_budget": 2048,
+              "k5_launches_an_encode": c.n_layers,
+              "weight_init_s": init_s, "boot_s": boot_s,
+              "lm_param_bytes": factory.param_bytes(), **report, **features, **logits,
+              "mixed": mixed}
     return result, counts
 
 
@@ -2443,7 +2799,8 @@ def gpu_name_and_limit() -> str:
 def main() -> int:
     global OUT_DIR
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="build,kernels,tiny,serve,spec,sample,vlm,mla,online")
+    ap.add_argument("--phases",
+                    default="build,kernels,tiny,serve,spec,sample,vlm,llava,mla,online")
     ap.add_argument("--out-dir", default=OUT_DIR,
                     help="where the detail files go")
     args = ap.parse_args()
@@ -2466,7 +2823,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    failed, kernel_rows, counts = [], [], {"serve": {}, "spec": {}, "vlm": {}, "mla": {}}
+    failed, kernel_rows, counts = [], [], {"serve": {}, "spec": {}, "vlm": {}, "llava": {},
+                                           "mla": {}}
     for phase in phases:
         t0 = time.perf_counter()
         try:
@@ -2484,6 +2842,8 @@ def main() -> int:
                 res, _ = phase_sample()
             elif phase == "vlm":
                 res, counts["vlm"] = phase_vlm()
+            elif phase == "llava":
+                res, counts["llava"] = phase_llava()
             elif phase == "mla":
                 res, counts["mla"] = phase_mla()
             elif phase == "online":

@@ -19,7 +19,8 @@ raised to the serving envelope, the SLO budget search runs
 (engine/profiler.py, `NodeConfig.profiler`), the image-gather floor follows
 from the image budget, and the decode warm-up captures the decode steps'
 CUDA graphs (`cuda_graphs`, `boot_warmup`). `start` runs the serving loop
-(`step_loop`, one step every `step_interval_s`) and the perf log.
+(`step_loop`, one step every `step_interval_s`, back to back while a chunked
+encode runs) and the perf log.
 
 N-gram speculative decoding (`spec_ngram_k`, 12 by default as in the JAX
 package): when at most `spec_max_batch` requests are scheduled, all single
@@ -28,9 +29,16 @@ the node drains its pipeline, runs one verify step
 (engine/executor.py:execute_spec) and reads its result before going on; when
 no request has a draft, the step takes the fused window as usual.
 
+The layer-chunked encode (`encode_chunk_layers` > 0, fixed-resolution
+towers such as LLaVA's CLIP): a step's image batch starts the encode, each
+later step runs one more segment of the tower after its fills, and while an
+encode is in flight the decode window is capped at `encode_chunk_window`, so
+decodes reach the card between segments. A step that schedules nothing
+still advances the encode; image batches scheduled while it runs go back to
+the scheduler; the finished batch rejoins the scheduler like any other.
+
 Migration is limited to the colocated self graph (the EP and PD hand-offs to
-itself); cross-node transfer and the chunked encode of fixed-resolution
-towers are later slices.
+itself); cross-node transfer is a later slice.
 """
 import asyncio
 import time
@@ -123,9 +131,9 @@ class NodeConfig:
     pipeline_mode: str = "incremental"           # TPU-only
     threaded_postprocess: bool = False           # TPU-only
     max_threaded_backlog: int = 4                # TPU-only
-    # layer-chunked ViT encode: not ported yet (queue 1, item 4); > 0 is
-    # refused. encode_chunk_window caps the decode window while a chunked
-    # encode runs, so it has no effect without one
+    # layer-chunked ViT encode of fixed-resolution towers: layers a segment,
+    # one segment a step (0 = the whole tower at once); encode_chunk_window
+    # caps the decode window while a chunked encode runs
     encode_chunk_layers: int = 0
     encode_chunk_window: int = 4
     token_table_size: int = 4096
@@ -183,10 +191,6 @@ class AsyncEPDNode:
             raise NotImplementedError("an encode-only (E) node hands off to other "
                                       "nodes, which is not ported yet (ROADMAP.md "
                                       "queue 1, item 7)")
-        if config.encode_chunk_layers > 0:
-            raise NotImplementedError("the layer-chunked encode (encode_chunk_layers "
-                                      "> 0) is not ported yet (ROADMAP.md queue 1, "
-                                      "item 4)")
         if config.log_latency_breakdown:
             raise NotImplementedError("log_latency_breakdown is not ported yet "
                                       "(ROADMAP.md queue 1, item 10)")
@@ -224,7 +228,8 @@ class AsyncEPDNode:
             mrope=bool(self.language_config.mrope_section),
             cuda_graphs=cfg.cuda_graphs)
         self.image_embed_executor = (
-            ImageEmbedExecutor(self.image_cache_manager, self.worker)
+            ImageEmbedExecutor(self.image_cache_manager, self.worker,
+                               chunk_layers=cfg.encode_chunk_layers)
             if nt.has_vision_model and self.image_cache_manager is not None else None)
 
         n_img = (self.vision_config.image_token_calculator
@@ -343,6 +348,10 @@ class AsyncEPDNode:
         with hostprof.span("node.schedule"):
             batch = self.batch_scheduler.step()
         if len(batch) == 0:
+            # a chunked encode advances with nothing scheduled too: its
+            # requests are parked in the executor, and when it finishes they
+            # must rejoin the scheduler
+            self._finish_or_requeue(self._encode_tick())
             # idle: drain the pipeline so trailing tokens reach their processors
             await self.flush_fills()
             return
@@ -361,11 +370,14 @@ class AsyncEPDNode:
                 raise RuntimeError(f"unsupported instruction {type(inst)}")
 
         self._execute_batch_migrate(migrates)
+        iee = self.image_embed_executor
         if len(fills):
             if not await self._speculate(fills):
                 # full fused window when throughput-bound, single steps when
-                # streaming-bound
+                # streaming-bound; a short one while a chunked encode runs
                 n_steps = self.config.multi_step_decode
+                if iee is not None and iee.busy and self.config.encode_chunk_window > 0:
+                    n_steps = min(n_steps, self.config.encode_chunk_window)
                 if n_steps > 1:
                     n_steps = min(n_steps, self._load_k(n_steps))
                 self._pending_fills.append(
@@ -373,13 +385,30 @@ class AsyncEPDNode:
         else:
             await self.flush_fills()
         # the encode after the fills: decode windows stay ahead of it in the
-        # device queue
-        if len(embeds):
-            self.image_embed_executor.execute(embeds)
+        # device queue. A chunked encode runs its next segment; new embeds
+        # start one, or go back to the scheduler while one runs
+        finished_encode = self._encode_tick()
+        if len(embeds) and iee.chunking_enabled():
+            if iee.busy:
+                for rcb, _ in embeds:
+                    self.batch_scheduler.schedule_running(rcb)
+            else:
+                iee.start_chunked(embeds)
+            embeds = BatchRequest()
+        elif len(embeds):
+            iee.execute(embeds)
         empties.step()
         await self._drain_pipeline()
-        for b in (embeds, fills, empties):
+        for b in (embeds, fills, empties, finished_encode):
             self._finish_or_requeue(b)
+
+    def _encode_tick(self) -> BatchRequest:
+        """The in-flight chunked encode's next segment: the finished batch
+        (to rejoin the scheduler), or an empty one."""
+        iee = self.image_embed_executor
+        if iee is None or not iee.busy:
+            return BatchRequest()
+        return iee.advance() or BatchRequest()
 
     async def _speculate(self, fills: BatchRequest) -> bool:
         """One speculative verify step for `fills`, if they qualify; whether
@@ -493,7 +522,15 @@ class AsyncEPDNode:
             except Exception:
                 logger.exception(f"{self.name} step failed")
                 raise
-            await asyncio.sleep(self.config.step_interval_s)
+            await asyncio.sleep(self._pause())
+
+    def _pause(self) -> float:
+        """Seconds between two steps of the serving loop: none while a
+        chunked encode is in flight (its segments run one a step, and the
+        requests it holds wait for them; the loop still yields to the
+        server's tasks), else step_interval_s."""
+        iee = self.image_embed_executor
+        return 0.0 if iee is not None and iee.busy else self.config.step_interval_s
 
     async def perf_monitor_loop(self) -> None:
         while not self._stop:

@@ -5,8 +5,9 @@ FillExecutor registers finished blocks in the prefix cache, packs the padded
 batch, runs the language-model step with the KV cache updated in place, then
 on the host scatters each sampled token into its sample_dst decode Fill and
 feeds the output-token processors. ImageEmbedExecutor runs the vision tower
-over a batch's images and writes the features into the image cache, where
-the image-bearing prefills gather them.
+over a batch's images, whole or (the layer-chunked encode) one segment of
+layers a step, and writes the features into the image cache, where the
+image-bearing prefills gather them.
 
 Async overlap: the step's kernels are queued on the current CUDA stream and
 the call returns before the card finishes. The sampled tokens are copied into
@@ -523,20 +524,42 @@ class FillExecutor:
 
 
 class ImageEmbedExecutor:
-    """Encodes a batch's images in one vision-tower call and scatters the
-    features into the image cache (one cache slot per feature token, its
-    n_heads * head_dim values holding the LM-hidden feature). The JAX
-    executor's chunked encode and its power-of-two image padding serve
-    fixed-resolution towers only and are not needed here."""
+    """Encodes a batch's images and scatters the features into the image
+    cache (one cache slot per feature token, its n_heads * head_dim values
+    holding the LM-hidden feature).
 
-    def __init__(self, image_cache_manager: TokenCacheBlockManager, worker: Worker):
+    `execute` runs the whole tower in one call. With `chunk_layers` > 0 and a
+    fixed-resolution tower that has the segment API (models/llava.py), the
+    node may instead run the layer-chunked encode: `start_chunked` embeds
+    the batch and runs its first segment of chunk_layers layers, and each
+    later step's `advance` runs the next one, until the last step projects,
+    scatters and hands the batch back. The node dispatches each segment
+    after the step's fills, so decode windows reach the card between
+    segments. The JAX executor also pads a fixed-resolution batch to a
+    power-of-two image count to bound its jit keys; the port runs eagerly,
+    so the padding would only add tower work, and it pads nothing."""
+
+    def __init__(self, image_cache_manager: TokenCacheBlockManager, worker: Worker,
+                 chunk_layers: int = 0):
         self.image = image_cache_manager
         self.worker = worker
         self.n_heads = image_cache_manager.config.n_heads
         self.head_dim = image_cache_manager.config.head_dim
+        self.chunk_layers = chunk_layers
+        self._inflight = None
+
+    def chunking_enabled(self) -> bool:
+        vm = self.worker.vision_model
+        return (self.chunk_layers > 0 and vm is not None
+                and hasattr(vm, "forward_segment") and vm.fixed_resolution)
+
+    @property
+    def busy(self) -> bool:
+        """A chunked encode is in flight."""
+        return self._inflight is not None
 
     def _prep(self, batch: BatchRequest):
-        """The batch's patches stacked, its image-cache slots, its sizes."""
+        """The batch's images stacked, its image-cache slots, its sizes."""
         pixel_values, slot_ids, images_size = [], [], []
         for rcb, inst in batch:
             pixel_values.append(np.asarray(inst.pixel_values))
@@ -549,6 +572,32 @@ class ImageEmbedExecutor:
         rows = feats.reshape(-1, self.n_heads, self.head_dim)
         slots = torch.tensor(slot_ids, dtype=torch.int32, device=rows.device)
         write_token_cache(self.image.cache_array, 0, slots, rows)
+
+    def start_chunked(self, batch: BatchRequest) -> None:
+        """Embed the batch and run the tower's first segment; the node calls
+        advance() once a step until the encode completes."""
+        assert self._inflight is None and self.chunking_enabled()
+        stacked, slot_ids, _ = self._prep(batch)
+        vm = self.worker.vision_model
+        hidden = vm.forward_segment(vm.forward_embed(stacked), 0, self.chunk_layers)
+        self._inflight = {"batch": batch, "hidden": hidden, "seg": 1,
+                          "n_segs": vm.encode_segments(self.chunk_layers),
+                          "slot_ids": slot_ids}
+
+    def advance(self) -> Optional[BatchRequest]:
+        """Run the next segment; after the last one, project, scatter, step
+        the batch's requests and return the batch (else None)."""
+        st = self._inflight
+        assert st is not None
+        vm = self.worker.vision_model
+        if st["seg"] < st["n_segs"]:
+            st["hidden"] = vm.forward_segment(st["hidden"], st["seg"], self.chunk_layers)
+            st["seg"] += 1
+            return None
+        self._scatter(vm.forward_project(st["hidden"]), st["slot_ids"])
+        st["batch"].step()
+        self._inflight = None
+        return st["batch"]
 
     def execute(self, batch: BatchRequest) -> Future:
         if len(batch) == 0:

@@ -236,6 +236,15 @@ class ModelFactoryConfig:
 
 
 class VisionModel:
+    # Contract: a model that sets `fixed_resolution = True` (models/llava.py)
+    # takes every image as the same (3, H, W) tensor and MUST ignore
+    # params.original_image_sizes. The encode executor may then run its
+    # tower in layer segments across steps (the chunked encode, which
+    # passes no sizes). The JAX executor also pads such batches to a
+    # power-of-two image count to bound its jit keys; the port runs eagerly
+    # and pads nothing.
+    fixed_resolution: bool = False
+
     def forward(self, pixel_values: torch.Tensor,
                 params: VisionModelParameters) -> VisionModelOutput:
         raise NotImplementedError
@@ -295,11 +304,14 @@ class ModelFactory:
 def getModelFactory(config: ModelFactoryConfig, device=None) -> ModelFactory:
     """The factory `config` names (port of the JAX package's getModelFactory),
     on `device` (the card unless "cpu" is asked for):
-      - name "random:<arch>": RandomWeightFactory at that architecture, with
-        the config's dtype, quantization and KV scale;
+      - name "random:<arch>[+mm]": RandomWeightFactory at that architecture,
+        with the config's dtype, quantization and KV scale; "+mm" adds a
+        random CLIP tower and the LLaVA projector (CLIP-L/14-336, or
+        CLIP_TINY for an arch whose name contains "tiny");
       - name "fake", or no path: FakeModelFactory;
       - a checkpoint directory whose config.json names Qwen2-VL:
-        Qwen2VLModelFactory; LlamaForCausalLM or Qwen2ForCausalLM:
+        Qwen2VLModelFactory; LlavaForConditionalGeneration:
+        LlavaModelFactory; LlamaForCausalLM or Qwen2ForCausalLM:
         TextOnlyModelFactory.
     Every other architecture raises, naming the queue item that ports it.
     dtype "auto" becomes bf16, as in the JAX package."""
@@ -308,16 +320,15 @@ def getModelFactory(config: ModelFactoryConfig, device=None) -> ModelFactory:
     if config.dtype == "auto":
         config.dtype = "bf16"
     if config.name.startswith("random:"):
-        from .random_init import RandomWeightFactory
-        arch = config.name[len("random:"):]
-        if arch.endswith("+mm"):
-            raise NotImplementedError(
-                "random:<arch>+mm needs models/clip.py, which is not ported yet "
-                "(ROADMAP.md queue 1, item 4)")
+        from .random_init import CLIP_TINY, RandomWeightFactory
+        spec = config.name[len("random:"):]
+        multimodal = spec.endswith("+mm")
+        arch = spec[:-len("+mm")] if multimodal else spec
         return RandomWeightFactory(
             arch, dtype=TORCH_DTYPES[config.dtype], quantization=config.quantization,
             kv_scale=config.kv_scale if config.kv_cache_dtype == "int8" else None,
-            device=device)
+            device=device, multimodal=multimodal,
+            clip_cfg=CLIP_TINY if "tiny" in arch else None)
     if config.name == "fake" or not config.path:
         from .fake import FakeModelFactory
         return FakeModelFactory(config, device=device)
@@ -331,11 +342,13 @@ def getModelFactory(config: ModelFactoryConfig, device=None) -> ModelFactory:
     if architecture == "Qwen2VLForConditionalGeneration" or model_type == "qwen2_vl":
         from .qwen2_vl import Qwen2VLModelFactory
         return Qwen2VLModelFactory(config, device=device)
+    if architecture == "LlavaForConditionalGeneration":
+        from .llava import LlavaModelFactory
+        return LlavaModelFactory(config, device=device)
     if architecture in ("LlamaForCausalLM", "Qwen2ForCausalLM"):
         from .text_only import TextOnlyModelFactory
         return TextOnlyModelFactory(config, device=device)
-    queue = {"LlavaForConditionalGeneration": "4",
-             "LlavaNextForConditionalGeneration": "8",
+    queue = {"LlavaNextForConditionalGeneration": "8",
              "InternVLChatModel": "8", "DeepseekV2ForCausalLM": "8",
              "DeepseekV3ForCausalLM": "8", "DeepseekForCausalLM": "8",
              "MixtralForCausalLM": "8", "GPT2LMHeadModel": "8"}

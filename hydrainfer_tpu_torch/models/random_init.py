@@ -5,17 +5,21 @@ The tensors have the shapes and dtypes of the converted checkpoints, so the
 run's cost is that of the real model. Weights come from a seeded
 torch.Generator on the target device; with int8 quantization each layer is
 quantized as it is built, so the full-precision tree never exists whole.
+A multimodal factory adds a random CLIP tower (CLIP-L/14-336 by default)
+with the LLaVA projector to the language model's hidden size.
 (torch and jax.random give different numbers from one seed: tests that compare
 the two packages carry the JAX weights over with models/weight_bridge.py.)
 """
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..ops.quant import quantize_tree
 from ..utils.device import resolve_device
+from .clip import CLIPVisionConfig
 from .decoder import DecoderConfig
-from .factory import LanguageModelConfig, ModelFactory
+from .factory import ImageProcessor, LanguageModelConfig, ModelFactory, VisionModelConfig
 
 # shapes from the HF configs of the models the reference serves
 ARCH_CONFIGS = {
@@ -53,6 +57,16 @@ ARCH_CONFIGS = {
 }
 
 
+# LLaVA-1.5's vision tower: CLIP ViT-L/14 at 336 pixels, run to its
+# feature layer (23 of 24 layers)
+CLIP_L_336 = CLIPVisionConfig(hidden_size=1024, intermediate_size=4096, n_layers=23,
+                              n_heads=16, image_size=336, patch_size=14)
+# CPU-runnable tower for multimodal engine tests: a 4 x 4 patch grid, 16
+# feature tokens an image
+CLIP_TINY = CLIPVisionConfig(hidden_size=64, intermediate_size=128, n_layers=2,
+                             n_heads=2, image_size=56, patch_size=14)
+
+
 def int8_matmul_shapes(cfg: DecoderConfig) -> dict:
     """{name: (K, N)} of the matmuls that int8 quantization (`quantize_tree`'s
     keys) covers: one layer's qkv (not in an MLA layer, whose q and latent
@@ -69,15 +83,21 @@ def int8_matmul_shapes(cfg: DecoderConfig) -> dict:
     return shapes
 
 
-def init_decoder_weights(cfg: DecoderConfig, seed: int = 0,
-                         dtype=torch.bfloat16, quantization: str = "none",
-                         device=None) -> dict:
-    device = resolve_device(device)
+def _initializer(seed: int, dtype, device):
+    """init(*shape): N(0, 0.02^2) values from a generator seeded with `seed`."""
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def init(*shape):
         return (torch.randn(shape, generator=gen, device=device,
                             dtype=torch.float32) * 0.02).to(dtype)
+    return init
+
+
+def init_decoder_weights(cfg: DecoderConfig, seed: int = 0,
+                         dtype=torch.bfloat16, quantization: str = "none",
+                         device=None) -> dict:
+    device = resolve_device(device)
+    init = _initializer(seed, dtype, device)
 
     H = cfg.hidden_size
     qkv_out = (cfg.n_qo_heads + 2 * cfg.n_kv_heads) * cfg.head_dim
@@ -114,13 +134,51 @@ def init_decoder_weights(cfg: DecoderConfig, seed: int = 0,
     return quantize_tree(w, quantization)
 
 
+def init_clip_weights(cfg: CLIPVisionConfig, seed: int = 1, dtype=torch.bfloat16,
+                      lm_hidden: Optional[int] = None, device=None) -> dict:
+    """CLIP tower weights in convert_clip_weights' layout; with lm_hidden,
+    {"clip": tower, "proj1", "proj2"}: the LLaVA projector added."""
+    device = resolve_device(device)
+    init = _initializer(seed, dtype, device)
+    ones = lambda n: torch.ones(n, dtype=dtype, device=device)
+    zeros = lambda n: torch.zeros(n, dtype=dtype, device=device)
+    H, M = cfg.hidden_size, cfg.intermediate_size
+    w = {"patch_embed": init(3 * cfg.patch_size ** 2, H), "class_embed": init(H),
+         "pos_embed": init(cfg.n_patches + 1, H), "pre_norm": (ones(H), zeros(H)),
+         "layers": [{"ln1": (ones(H), zeros(H)), "qkv": (init(H, 3 * H), zeros(3 * H)),
+                     "out": (init(H, H), zeros(H)), "ln2": (ones(H), zeros(H)),
+                     "fc1": (init(H, M), zeros(M)), "fc2": (init(M, H), zeros(H))}
+                    for _ in range(cfg.n_layers)]}
+    if lm_hidden is None:
+        return w
+    return {"clip": w, "proj1": (init(H, lm_hidden), zeros(lm_hidden)),
+            "proj2": (init(lm_hidden, lm_hidden), zeros(lm_hidden))}
+
+
+class _RawImageProcessor(ImageProcessor):
+    """Resize to the tower's size, CHW, scaled to [0, 1]: (3, size, size)
+    float32 numpy."""
+
+    def __init__(self, size: int):
+        self.size = size
+
+    def process(self, image) -> np.ndarray:
+        return np.asarray(image.convert("RGB").resize((self.size, self.size)),
+                          np.float32).transpose(2, 0, 1) / 255.0
+
+
 class RandomWeightFactory(ModelFactory):
-    """ModelFactory over random weights at a named architecture. `weights`
-    (e.g. carried over from the JAX package) replaces the random init."""
+    """ModelFactory over random weights at a named architecture; with
+    `multimodal`, a random CLIP tower (`clip_cfg`, CLIP_L_336 by default)
+    projected to the LM's hidden size, seeded with seed + 1. `weights` and
+    `vision_weights` (e.g. carried over from the JAX package) replace the
+    random inits of the LM and of the tower with its projector."""
 
     def __init__(self, arch: str, dtype=torch.bfloat16, quantization: str = "none",
                  kv_scale: Optional[float] = None, device=None, seed: int = 0,
-                 weights: Optional[dict] = None):
+                 weights: Optional[dict] = None, multimodal: bool = False,
+                 clip_cfg: Optional[CLIPVisionConfig] = None,
+                 vision_weights: Optional[dict] = None):
         self.cfg = ARCH_CONFIGS[arch]
         self.dtype = dtype
         self.quantization = quantization
@@ -128,7 +186,11 @@ class RandomWeightFactory(ModelFactory):
         self.device = resolve_device(device)
         self.seed = seed
         self._weights = weights
+        self.multimodal = multimodal
+        self.clip_cfg = (clip_cfg or CLIP_L_336) if multimodal else None
+        self._vision_weights = vision_weights
         self._lm = None
+        self._vm = None
 
     def getLanguageModel(self):
         if self._lm is None:
@@ -142,7 +204,28 @@ class RandomWeightFactory(ModelFactory):
         return self._lm
 
     def getVisionModel(self):
-        return None     # text only
+        if not self.multimodal:
+            return None
+        if self._vm is None:
+            from .llava import LlavaVisionModel
+            w = self._vision_weights
+            if w is None:
+                w = init_clip_weights(self.clip_cfg, self.seed + 1, self.dtype,
+                                      self.cfg.hidden_size, self.device)
+            self._vm = LlavaVisionModel(w, self.clip_cfg)
+        return self._vm
+
+    def getVisionModelConfig(self) -> Optional[VisionModelConfig]:
+        """"<image>" = token 9 of SimpleTokenizer, one feature token a patch;
+        None for a text-only factory (no image cache)."""
+        if not self.multimodal:
+            return None
+        from .llava import LlavaImageTokenCalculator
+        return VisionModelConfig("<image>", 9,
+                                 LlavaImageTokenCalculator(self.clip_cfg.n_patches))
+
+    def getProcessor(self) -> Optional[ImageProcessor]:
+        return _RawImageProcessor(self.clip_cfg.image_size) if self.multimodal else None
 
     def getLanguageModelConfig(self):
         c = self.cfg

@@ -8,9 +8,13 @@ nothing of the JAX package: the caller does the JAX-side conversion, e.g.
 ``jax.tree_util.tree_map(np.asarray, tree)``, BEFORE handing the tree to the
 JAX model (whose weight packing consumes it).
 
-`from_jax_vision_numpy` does the same for a Qwen2-VL vision tower's weights
-in the layout of hydrainfer_tpu/models/qwen2_vl.py:convert_qwen2_vision_weights
-(patch_embed, blocks of (weight, bias) pairs, merger), numpy leaves again.
+`from_jax_vision_numpy` does the same for a vision tower's weights, numpy
+leaves again, copying the nested dicts, lists and (weight, bias) tuples as
+they are. It carries both towers the port has: Qwen2-VL's, in the layout of
+hydrainfer_tpu/models/qwen2_vl.py:convert_qwen2_vision_weights (patch_embed,
+blocks, merger), and LLaVA's, in the layout of
+hydrainfer_tpu/models/random_init.py:init_clip_weights(lm_hidden=...) and of
+the JAX LlavaModelFactory (the CLIP tower under "clip", then the projector).
 """
 import numpy as np
 import torch
@@ -57,6 +61,9 @@ def _nested(x, device):
 
 
 def from_jax_vision_numpy(tree: dict, device=None) -> dict:
-    """{"patch_embed", "blocks": [{ln1, qkv, proj, ln2, fc1, fc2}], "merger":
-    {ln_q, mlp0, mlp2}} of numpy leaves -> the same structure of tensors."""
+    """A vision tower's tree of numpy leaves -> the same structure of
+    tensors on `device`. Qwen2-VL: {"patch_embed", "blocks": [{ln1, qkv,
+    proj, ln2, fc1, fc2}], "merger": {ln_q, mlp0, mlp2}}. LLaVA: {"clip":
+    {patch_embed, class_embed, pos_embed, pre_norm, "layers": [{ln1, qkv,
+    out, ln2, fc1, fc2}]}, "proj1", "proj2"}; every pair is (weight, bias)."""
     return _nested(tree, resolve_device(device))

@@ -174,12 +174,27 @@ def test_strict_preset_logs_its_tpu_only_key(monkeypatch):
             cfg.adaptive_postprocess) == (4, 12, False)
 
 
-@pytest.mark.parametrize("override,item", [
-    ("encode_chunk_layers=2", "item 4"), ("log_latency_breakdown=true", "item 10")])
+@pytest.mark.parametrize("override,item", [("log_latency_breakdown=true", "item 10")])
 def test_still_to_port_feature_raises_with_its_queue_item(override, item):
     cfg = load_config(NodeConfig, None, [override])
     with pytest.raises(NotImplementedError, match=f"queue 1, {item}"):
         AsyncEPDNode(cfg, NodeContext(node_type=NodeType("PD"), device="cpu"))
+
+
+@pytest.mark.parametrize("node_type", ["EPD", "PD"])
+def test_encode_chunk_layers_builds_a_node(node_type):
+    """The layer-chunked encode is ported: encode_chunk_layers=2 builds a
+    node, on random:tiny-lm+mm with chunking enabled where it encodes."""
+    cfg = load_config(NodeConfig, None, ["encode_chunk_layers=2", "model.name=random:tiny-lm+mm",
+                                         "model.dtype=float32", "n_kv_blocks=64",
+                                         "n_image_blocks=4", "kv_block_size=4"])
+    node = AsyncEPDNode(cfg, NodeContext(node_type=NodeType(node_type), device="cpu"))
+    node.init()
+    iee = node.image_embed_executor
+    if node_type == "EPD":
+        assert iee.chunk_layers == 2 and iee.chunking_enabled() and not iee.busy
+    else:
+        assert iee is None
 
 
 @pytest.mark.parametrize("override", ["spec_ngram_k=4", "spec_ngram_k=0"])

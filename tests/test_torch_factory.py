@@ -1,8 +1,9 @@
 """getModelFactory's dispatch, and TextOnlyModelFactory against the JAX one.
 
 `random:<arch>` gives RandomWeightFactory with the config's dtype ("auto" is
-bf16, as in the JAX package), quantization and KV scale; `+mm` raises until
-models/clip.py is ported; `fake` or no path gives FakeModelFactory; a
+bf16, as in the JAX package), quantization and KV scale; `+mm` makes it
+multimodal (CLIP_TINY for a tiny arch, else CLIP-L/14-336); `fake` or no
+path gives FakeModelFactory; a
 checkpoint directory dispatches on its config.json, and an architecture the
 port does not have raises, naming the queue item that ports it. A tiny Llama
 checkpoint built in process with transformers goes through both packages'
@@ -31,9 +32,17 @@ def test_get_model_factory_dispatch(tmp_path):
     assert isinstance(getModelFactory(ModelFactoryConfig(), "cpu"), FakeModelFactory)
     assert isinstance(getModelFactory(ModelFactoryConfig(name="fake", path="x"), "cpu"),
                       FakeModelFactory)
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        getModelFactory(ModelFactoryConfig(name="random:tiny-lm+mm"), "cpu")
-    for arch, item in (("LlavaForConditionalGeneration", "item 4"),
+    from hydrainfer_tpu_torch.models.random_init import CLIP_L_336, CLIP_TINY
+    mm = getModelFactory(ModelFactoryConfig(name="random:tiny-lm+mm"), "cpu")
+    assert isinstance(mm, RandomWeightFactory) and mm.multimodal
+    assert mm.clip_cfg == CLIP_TINY and mm.getVisionModelConfig().image_token == "<image>"
+    big = getModelFactory(ModelFactoryConfig(name="random:llava-7b-lm+mm"), "cpu")
+    assert (big.multimodal, big.clip_cfg, big.cfg.hidden_size) == (True, CLIP_L_336, 4096)
+    assert big.getVisionModelConfig().image_token_calculator.get_num_image_tokens(
+        (336, 336)) == 576
+    assert getModelFactory(ModelFactoryConfig(name="random:tiny-lm"), "cpu") \
+        .getVisionModelConfig() is None
+    for arch, item in (("LlavaNextForConditionalGeneration", "item 8"),
                        ("GPT2LMHeadModel", "item 8"), ("SomethingElse", "no queue item")):
         d = tmp_path / arch
         d.mkdir()

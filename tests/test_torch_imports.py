@@ -18,6 +18,7 @@ from hydrainfer_tpu_torch.entrypoint.offline import OfflineEngine
 from hydrainfer_tpu_torch.memory import (TokenCacheBlockManager,
                                          TokenCacheBlockManagerConfig)
 from hydrainfer_tpu_torch.models.factory import ModelFactoryConfig
+from hydrainfer_tpu_torch.models.llava import LlavaModelFactory
 from hydrainfer_tpu_torch.models.qwen2_vl import Qwen2VLModelFactory
 from hydrainfer_tpu_torch.models.random_init import RandomWeightFactory
 from hydrainfer_tpu_torch.utils.device import resolve_device
@@ -47,7 +48,8 @@ def test_port_and_chip_smoke_import_no_jax():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert "hydrainfer_tpu_torch.entrypoint.offline" in res["imported"]
     for name in ("ops.cuda.build", "ops.cuda.mha_varlen", "models.qwen2_vl",
-                 "models.weight_loader", "ops.cuda.paged_attention_latent"):
+                 "models.weight_loader", "ops.cuda.paged_attention_latent",
+                 "models.clip", "models.llava", "ops.token_pruning"):
         assert "hydrainfer_tpu_torch." + name in res["imported"]
     assert res["bad"] == []
 
@@ -63,6 +65,10 @@ def test_entry_points_default_to_the_card():
         RandomWeightFactory("tiny-lm")
     with pytest.raises(RuntimeError, match="CUDA"):
         Qwen2VLModelFactory(ModelFactoryConfig(path="no-checkpoint-needed"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LlavaModelFactory(ModelFactoryConfig(path="no-checkpoint-needed"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RandomWeightFactory("tiny-lm", multimodal=True)
     cfg = TokenCacheBlockManagerConfig(n_layers=1, n_blocks=4, block_size=4,
                                        n_heads=2, head_dim=8, dtype="float32")
     with pytest.raises(RuntimeError, match="CUDA"):

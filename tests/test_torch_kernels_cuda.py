@@ -14,7 +14,7 @@ start off a tile boundary, a 75-page table and NaN in every page and slot it
 must not read. K5 runs in its ViT form (T not a multiple of its q tile,
 segments spanning several tiles, tiles of padding only), its causal form and
 with V a strided view of a fused qkv, at D 32, 64, 80 and 128, in bf16 and
-f32. The bf16 forms of K2 and K5 are held against the plain version run in
+f32, and at the LLaVA encode's shape (577-row segments, 16 heads x d64). The bf16 forms of K2 and K5 are held against the plain version run in
 f32 on the same bf16 inputs within 2e-2 x max|plain|, a bound that a
 reference missing one kv tile breaks (test_torch_kernel_bounds.py). K6
 runs decode and mixed batches over a single-plane latent cache at mla-2b-lm's
@@ -472,6 +472,22 @@ def test_k5_tensor_cores(dev, name, segments, pad, H, D):
     torch.cuda.synchronize()
     n = int((ids >= 0).sum())          # the padding rows come last
     hold_bf16(got, ref, n)
+
+
+@pytest.mark.parametrize("n_images", [1, 4])
+def test_k5_llava_encode_shape(dev, n_images):
+    """The CLIP-L/14-336 tower's attention as the LLaVA encode runs it:
+    segments of 577 rows (the class token and 24 x 24 patches), 16 heads x
+    d64, V a strided view of the fused qkv; no padding rows."""
+    qkv, ids = vit_case([577] * n_images, 0, 16, 64, seed=12)
+    x = torch.from_numpy(qkv).to(dev, torch.bfloat16)
+    q, k, v = x[:, 0].contiguous(), x[:, 1].contiguous(), x[:, 2]
+    i = torch.from_numpy(ids).to(dev)
+    got = mha_varlen_flash(q, k, v, i, 64 ** -0.5)
+    ref = mha_varlen_plain(x[:, 0].float(), x[:, 1].float(), x[:, 2].float(), i,
+                           64 ** -0.5)[0]
+    torch.cuda.synchronize()
+    hold_bf16(got, ref, len(ids))
 
 
 @pytest.mark.parametrize("D", [80, 128])

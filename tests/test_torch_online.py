@@ -12,7 +12,10 @@ Models: tiny-lm with the JAX weights carried over (models/weight_bridge.py),
 in f32 and with int8 weights and an int8 KV cache; the fake model (through
 getModelFactory on both sides), text and image; a tiny Qwen2-VL checkpoint
 built in process with transformers and loaded through getModelFactory(path)
-on both sides, for an image chat.
+on both sides, for an image chat; `random:tiny-lm+mm` (LLaVA's CLIP tower at
+CLIP_TINY over tiny-lm), the JAX weights carried over, for an image chat,
+and the port alone from that name, its own random weights, for an image
+chat whose prompt counts the image's 16 tokens.
 
 Sampling: top-k 1 at temperature 0.8 gives the JAX server's chat text; a
 sampled completion answers, and a sampled stream ends with its deltas.
@@ -48,8 +51,9 @@ from hydrainfer_tpu.engine.profiler import \
 from hydrainfer_tpu.entrypoint.entrypoint import EntryPoint as JaxEntryPoint
 from hydrainfer_tpu.entrypoint.entrypoint import EntryPointConfig as JaxEntryPointConfig
 from hydrainfer_tpu.models import qwen2_vl as jax_qvl
+from hydrainfer_tpu.models.random_init import CLIP_TINY as JAX_CLIP_TINY
 from hydrainfer_tpu.models.random_init import RandomWeightFactory as JaxRandomFactory
-from hydrainfer_tpu.models.random_init import init_decoder_weights
+from hydrainfer_tpu.models.random_init import init_clip_weights, init_decoder_weights
 from hydrainfer_tpu.models.tokenizer import IncrementalDecoder as JaxDecoder
 from hydrainfer_tpu.models.tokenizer import SimpleTokenizer as JaxTok
 from hydrainfer_tpu_torch.config import load_config
@@ -58,9 +62,9 @@ from hydrainfer_tpu_torch.engine.profiler import (BatchSchedulerProfiler,
 from hydrainfer_tpu_torch.entrypoint.api_server import APIServer, APIServerConfig
 from hydrainfer_tpu_torch.entrypoint.entrypoint import EntryPoint, EntryPointConfig
 from hydrainfer_tpu_torch.models import qwen2_vl
-from hydrainfer_tpu_torch.models.random_init import RandomWeightFactory
+from hydrainfer_tpu_torch.models.random_init import CLIP_TINY, RandomWeightFactory
 from hydrainfer_tpu_torch.models.tokenizer import IncrementalDecoder, SimpleTokenizer
-from hydrainfer_tpu_torch.models.weight_bridge import from_jax_numpy
+from hydrainfer_tpu_torch.models.weight_bridge import from_jax_numpy, from_jax_vision_numpy
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SERVE_YAML = os.path.join(REPO, "config", "serve.yaml")
@@ -344,6 +348,57 @@ def test_qwen2vl_image_chat_matches_jax(qwen2vl_servers):
     assert port_out["choices"][0]["message"] == jax_out["choices"][0]["message"]
     assert port_out["usage"] == jax_out["usage"]
     assert port_out["usage"]["prompt_tokens"] > 12     # the image's tokens counted
+
+
+@pytest.fixture(scope="module")
+def llava_mm_servers():
+    """The JAX server on random:tiny-lm+mm; the port's with the same random
+    weights carried over (LM from key 0, tower and projector from key 1)."""
+    to_np = lambda t: jax.tree_util.tree_map(np.asarray, t)
+    lm = init_decoder_weights(JaxRandomFactory("tiny-lm").cfg, jax.random.PRNGKey(0),
+                              jnp.float32)
+    tower = init_clip_weights(JAX_CLIP_TINY, jax.random.PRNGKey(1), jnp.float32,
+                              lm_hidden=128)
+    pf = RandomWeightFactory("tiny-lm", dtype=torch.float32, device="cpu",
+                             weights=from_jax_numpy(to_np(lm), "cpu"), multimodal=True,
+                             clip_cfg=CLIP_TINY,
+                             vision_weights=from_jax_vision_numpy(to_np(tower), "cpu"))
+    servers = serve_pair(["cluster.node.model.name=random:tiny-lm+mm"], port_factory=pf)
+    yield [s.port for s in servers]
+    for s in servers:
+        s.stop()
+
+
+def test_llava_random_mm_image_chat_matches_jax(llava_mm_servers):
+    chat = image_chat("what is it", png_b64(64, 48), 6)
+    jax_out, port_out = (post(p, "/v1/chat/completions", chat) for p in llava_mm_servers)
+    assert port_out["choices"][0]["message"] == jax_out["choices"][0]["message"]
+    assert port_out["usage"] == jax_out["usage"]
+    (jax_chunks, _), (port_chunks, _) = (stream_chat(p, chat) for p in llava_mm_servers)
+    assert deltas(port_chunks) == deltas(jax_chunks)
+
+
+def test_port_serves_llava_images_from_its_name():
+    """The port's server built from the name alone (its own random weights,
+    as on the card), mirroring tests/entrypoint/test_api_server.py's image
+    chat: the answer has text and the prompt counts the image's tokens."""
+    port = free_port()
+    cfg = load_config(EntryPointConfig, SERVE_YAML,
+                      [*TINY, "cluster.node.model.name=random:tiny-lm+mm",
+                       f"api_server.port={port}"])
+    server = ServedEntryPoint(EntryPoint(cfg), port)
+    try:
+        text_only = post(port, "/v1/chat/completions", {
+            "messages": [{"role": "user", "content": "describe"}], "max_tokens": 4,
+            "ignore_eos": True})
+        out = post(port, "/v1/chat/completions", image_chat("describe", png_b64(64, 64), 4))
+    finally:
+        assert server.stop() == []
+    assert len(out["choices"][0]["message"]["content"]) > 0
+    assert out["usage"]["completion_tokens"] == 4
+    # the image's feature tokens, and the space that joins its part to the text
+    assert (out["usage"]["prompt_tokens"] - text_only["usage"]["prompt_tokens"]
+            == CLIP_TINY.n_patches + 1)
 
 
 def test_stop_leaves_no_task_running():
