@@ -84,6 +84,25 @@ Phases, each printing one JSON line:
            steps while the chunked encode runs; it reports each setting's
            text-token gaps while the encode is in flight, tokens/s, p50
            TTFT, the encode's device span and the graph keys captured;
+  disagg   EPD disaggregation in process on the one card: the llava phase's
+           model (its factory reused, one weight copy shared by every
+           node) served by Clusters built from config/cluster/single.yaml
+           (one EPD node, the reference), hybrid.yaml (EP + D), general.yaml
+           (E + P + D) and general's P + D alone (text requests only), with
+           explicit block counts and the decoding nodes' running cap at 16:
+           8 image requests and 8 text requests of 128 tokens, 32 tokens
+           each, through Cluster.add_request with every node's step loop
+           running, a warm-up and a measured round; every request must
+           finish with its tokens and equal the EPD node's or first differ
+           at a near tie, each node must launch its type's kernels only (E:
+           K5; P: K2-K4, no K1; D: K1, K3, K4, no K2 or K5; EP: K2-K5), the
+           first migrated KV and image blocks must equal the source's bit
+           for bit, and every node must end with no request migrating, its
+           free blocks back and its token slots whole; it reports tokens/s
+           and p50 TTFT (image, text) beside the EPD node's, the pulls (MB,
+           device ms, copy GB/s beside 2 x bytes over the HBM rate), the
+           decode windows dispatched during a pull, the graph keys captured
+           while serving and peak memory;
   mla      serve mla-2b-lm (DeepSeek-V2-Lite-shaped MLA, full width, int8
            o_proj/gate_up/down/lm_head, int8 single-plane latent KV) through
            OfflineEngine: 32 requests, chunked prefill mixing with decodes,
@@ -124,6 +143,7 @@ that line. Details (per-shape timings, ptxas reports, the profile) go to
 package.
 """
 import argparse
+import asyncio
 import json
 import math
 import os
@@ -2526,7 +2546,348 @@ def phase_llava(dev="cuda") -> tuple:
               "weight_init_s": init_s, "boot_s": boot_s,
               "lm_param_bytes": factory.param_bytes(), **report, **features, **logits,
               "mixed": mixed}
+    _LLAVA_MM["factory"] = factory      # the disagg phase's, if it runs
     return result, counts
+
+
+# ------------------------------------------------------------ phase: disagg
+
+DISAGG_TEXT_REQUESTS, DISAGG_TEXT_PROMPT = 8, 128
+# the cluster-wide overrides over the preset files: the budget search off at
+# the default token budget of 2048, K = 16 windows, no speculation (random
+# weights draft nothing, and a verify step would put K2 on the D node), the
+# boot warm-up on
+DISAGG_OVERRIDES = ("cluster.node.profiler.enabled=false",
+                    "cluster.node.profiler.default_token_budget=2048",
+                    "cluster.node.multi_step_decode=16", "cluster.node.spec_ngram_k=0",
+                    "cluster.node.kv_block_size=16", "cluster.node.boot_warmup=true",
+                    "cluster.node.request_processor.num_request_process_workers=1")
+# per node type, over its config/node preset: explicit block counts (nodes
+# sharing the card would otherwise size their caches from its free memory in
+# turn, the first taking nearly all of it), and the decoding nodes' running
+# cap at the traffic's 16 requests (d.yaml's 256 and epd.yaml's 64 would make
+# the boot warm-up capture decode keys at S = 256 and 64)
+DISAGG_NODE = {"E": {"n_image_blocks": 16},
+               "P": {"n_kv_blocks": 1024, "n_image_blocks": 16},
+               "EP": {"n_kv_blocks": 1024, "n_image_blocks": 16},
+               "D": {"n_kv_blocks": 1024, "batch_scheduler": {"max_running_requests": 16}},
+               "EPD": {"n_kv_blocks": 1024, "n_image_blocks": 16,
+                       "batch_scheduler": {"max_running_requests": 16}}}
+# the kernels each node type must launch in the measured round, and those it
+# must not launch
+DISAGG_LAUNCH = {"E": (("mha_varlen",), ("mha_decode", "paged_attention", "kv_writer",
+                                         "quant_matmul", "paged_attention_latent")),
+                 "P": (("paged_attention", "kv_writer", "quant_matmul"), ("mha_decode",)),
+                 "D": (("mha_decode", "kv_writer", "quant_matmul"),
+                       ("paged_attention", "mha_varlen")),
+                 "EP": (("paged_attention", "kv_writer", "quant_matmul", "mha_varlen"), ()),
+                 "EPD": (("mha_decode", "paged_attention", "kv_writer", "quant_matmul",
+                          "mha_varlen"), ())}
+_LLAVA_MM = {}
+
+
+def _disagg_requests(seed, with_images=True):
+    """The llava phase's image requests, then the text requests: the same
+    content for every call with the same seed."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    reqs = (_llava_requests(rng, LLAVA_REQUESTS, LLAVA_TOKENS, "img")
+            + _requests(rng, DISAGG_TEXT_REQUESTS, DISAGG_TEXT_PROMPT, LLAVA_TOKENS, "txt"))
+    return [r for r in reqs if with_images or r.image is None]
+
+
+def _disagg_cluster(factory, preset, types=None):
+    """The cluster of config/cluster/<preset> (its specs of `types` only),
+    through the port's load_config, with DISAGG_OVERRIDES and each spec's
+    DISAGG_NODE overlay, on the card, every node sharing `factory`."""
+    from hydrainfer_tpu_torch.cluster.cluster import Cluster
+    from hydrainfer_tpu_torch.config import deep_merge, load_config
+    from hydrainfer_tpu_torch.entrypoint.entrypoint import EntryPointConfig
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = load_config(EntryPointConfig, os.path.join(here, "config", "cluster", preset),
+                      DISAGG_OVERRIDES)
+    cfg.cluster.nodes = [s for s in cfg.cluster.nodes if types is None or s.node_type in types]
+    for spec in cfg.cluster.nodes:
+        spec.node = deep_merge(spec.node or {}, DISAGG_NODE[spec.node_type])
+    return Cluster(cfg.cluster, model_factory=factory)
+
+
+class NodeSpy:
+    """One node's record of a serving round: the kernel launches of its own
+    dispatches (the fill and encode calls run no await, so the launch
+    counts' change across one call is that node's even with every node's
+    step loop running), its decode windows, the host time of its encode
+    calls, and its pulls: bytes, device time between CUDA events around
+    the copy, and, for the first KV pull and the first image pull it ever
+    makes, whether the blocks landed bit for bit (the source's gathered
+    before the pull, before it frees them). A window dispatched while a
+    pull's task is open or its copy still queued on the card counts as
+    dispatched during a pull."""
+
+    def __init__(self, node):
+        self.node = node
+        self.saved, self.bits = [], {}
+        self.reset()
+        fx, iee = node.fill_executor, node.image_embed_executor
+        if fx is not None:
+            self._wrap(fx, "execute", window=True)
+            self._wrap(fx, "execute_spec", window=True)
+        if iee is not None:
+            for name in ("execute", "start_chunked", "advance"):
+                self._wrap(iee, name, encode=True)
+        orig_pull = node._pull_virtual_cache
+
+        async def pull(src_node, src_vc, is_kv):
+            import torch
+            kind = "kv" if is_kv else "image"
+            src = src_node.kv_cache_manager if is_kv else src_node.image_cache_manager
+            check = kind not in self.bits
+            src_blocks = src.gather_blocks(src_vc.block_table) if check else None
+            before = torch.cuda.Event(enable_timing=True)
+            after = torch.cuda.Event(enable_timing=True)
+            before.record()
+            t0 = time.perf_counter()
+            vc = await orig_pull(src_node, src_vc, is_kv)
+            after.record()
+            self.pulls.append({"kind": kind, "bytes": len(src_vc.block_table)
+                               * src.config.block_nbytes, "host_s": time.perf_counter() - t0,
+                               "events": (before, after)})
+            if check:
+                dst = node.kv_cache_manager if is_kv else node.image_cache_manager
+                self.bits[kind] = {"blocks": len(vc.block_table), "dtype": str(dst.dtype),
+                                   "bit_equal": bool(torch.equal(
+                                       dst.gather_blocks(vc.block_table), src_blocks))}
+            return vc
+
+        node._pull_virtual_cache = pull
+        self.saved.append((node, "_pull_virtual_cache"))
+
+    def _wrap(self, obj, name, window=False, encode=False):
+        from hydrainfer_tpu_torch.ops.cuda import launch_counts
+        orig = getattr(obj, name)
+
+        def call(*args, **kw):
+            if window:
+                self.windows += 1
+                pending = [p for p in self.pulls if not p["events"][1].query()]
+                if self.node._pull_tasks or pending:
+                    self.windows_in_pull += 1
+            before = launch_counts()
+            t0 = time.perf_counter()
+            out = orig(*args, **kw)
+            if encode:
+                self.encode_host_ms.append(1e3 * (time.perf_counter() - t0))
+            for k, n in launch_counts().items():
+                self.counts[k] += n - before[k]
+            return out
+
+        setattr(obj, name, call)
+        self.saved.append((obj, name))
+
+    def reset(self):
+        """A new round's record; the bit checks, made once (in the warm-up
+        round: their gathers and compare synchronise the card), stay."""
+        from collections import Counter
+        self.counts, self.windows, self.windows_in_pull = Counter(), 0, 0
+        self.pulls, self.encode_host_ms = [], []
+
+    def restore(self):
+        for obj, name in self.saved:
+            delattr(obj, name)
+
+    def pull_report(self) -> dict:
+        nbytes = sum(p["bytes"] for p in self.pulls)
+        dev_ms = sum(p["events"][0].elapsed_time(p["events"][1]) for p in self.pulls)
+        return {"pulls": len(self.pulls), "mb": nbytes / 1e6, "device_ms": dev_ms,
+                "host_s": sum(p["host_s"] for p in self.pulls),
+                "copy_gb_per_s": nbytes / dev_ms / 1e6 if dev_ms else None,
+                "bound_ms": 1e3 * 2 * nbytes / HBM_BYTES_PER_S,
+                "windows": self.windows, "windows_during_pull": self.windows_in_pull,
+                "encode_calls_host_ms": self.encode_host_ms, "first_pulls": self.bits}
+
+
+async def _cluster_round(cluster, reqs, timeout_s=300):
+    """Serve `reqs` through Cluster.add_request with every node's step loop
+    running (Cluster.start) until each request has finished; a step loop
+    that dies fails the round."""
+    from hydrainfer_tpu_torch.engine.output_token_processor import (
+        OfflineOutputTokenProcessor, OutputTokenParams)
+    from hydrainfer_tpu_torch.engine.request_processor import RequestProcessParameters
+    from hydrainfer_tpu_torch.request import OfflineInferenceOutput
+    tokenizer = cluster.nodes[0].model_factory.getTokenizer()
+    outs, done = [], []
+    await cluster.start()
+    try:
+        for req in reqs:
+            outs.append(OfflineInferenceOutput(arrival_time=time.perf_counter()))
+            proc = OfflineOutputTokenProcessor(outs[-1], tokenizer, on_finish=done.append)
+            await cluster.add_request(req, RequestProcessParameters(
+                output_token_processors=[proc],
+                output_token_params=OutputTokenParams(stream_output=False)))
+        deadline = time.perf_counter() + timeout_s
+        while len(done) < len(reqs):
+            await asyncio.sleep(0.002)
+            for node in cluster.nodes:
+                for t in node._tasks:
+                    if t.done():
+                        raise RuntimeError(f"{node.name}'s loop ended: {t.exception()!r}")
+            if time.perf_counter() > deadline:
+                raise TimeoutError(f"{len(done)}/{len(reqs)} finished")
+    finally:
+        await cluster.stop()
+    return outs
+
+
+def _disagg_topology(factory, preset, types, with_images) -> tuple:
+    """Boot the topology, serve a warm-up round and the measured round, and
+    check it (module docstring, `disagg`). Returns (report, the measured
+    requests, their tokens)."""
+    import torch
+    t0 = time.perf_counter()
+    cluster = _disagg_cluster(factory, preset, types)
+    boot_s = time.perf_counter() - t0
+    nodes = cluster.nodes
+
+    def pools(n):
+        return {k: m.n_available_blocks() for k, m in (("kv", n.kv_cache_manager),
+                                                        ("image", n.image_cache_manager))
+                if m is not None}
+
+    free0 = {n.name: pools(n) for n in nodes}
+    def keys(n):
+        fx = n.fill_executor
+        if fx is None or fx.graphs is None:
+            return set()
+        return {key for key, g in fx.graphs.graphs.items() if g.graph is not None}
+
+    keys0 = {n.name: keys(n) for n in nodes}
+    spies = [NodeSpy(n) for n in nodes]
+    try:
+        asyncio.run(_cluster_round(cluster, _disagg_requests(SEED + 6, with_images)))
+        keys1 = {n.name: keys(n) for n in nodes}
+        for s in spies:
+            s.reset()
+        reqs = _disagg_requests(SEED + 7, with_images)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        outs = asyncio.run(_cluster_round(cluster, reqs))
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t1
+    finally:
+        for s in spies:
+            s.restore()
+    n_tokens = [len(o.output_token_ids) for o in outs]
+    image = [o.ttft for r, o in zip(reqs, outs) if r.image is not None]
+    text = [o.ttft for r, o in zip(reqs, outs) if r.image is None]
+    per_node, ok = {}, all(n == LLAVA_TOKENS for n in n_tokens)
+    for n, s in zip(nodes, spies):
+        must, must_not = DISAGG_LAUNCH[str(n.context.node_type)]
+        fx = n.fill_executor
+        free = fx._free_slots if fx is not None else []
+        row = {"launches": dict(s.counts),
+               "launches_ok": (all(s.counts[k] > 0 for k in must)
+                               and all(s.counts[k] == 0 for k in must_not)),
+               "migrating_requests": n.batch_scheduler.metrics().n_requests_waiting_migrate,
+               "free_blocks_start": free0[n.name], "free_blocks_end": pools(n),
+               "token_slots_ok": (len(free) == len(set(free))
+                                  and all(0 <= x < fx.token_table.shape[0] - 1 for x in free)
+                                  and len(free) == n.config.token_table_size)
+               if fx is not None else True,
+               "graph_keys_captured": {
+                   rnd: sorted(f"T={d.T} S={d.S} MB={d.MB} n_steps={k}" for d, k in new)
+                   for rnd, new in (("boot", keys0[n.name]),
+                                    ("warmup_round", keys1[n.name] - keys0[n.name]),
+                                    ("measured_round", keys(n) - keys1[n.name]))},
+               "max_running_requests": n.config.batch_scheduler.max_running_requests,
+               **s.pull_report(),
+               **{k: v for k, v in n.metrics().items() if k.startswith("migration_")}}
+        bits_ok = all(b["bit_equal"] for b in s.bits.values())
+        ok = ok and (row["launches_ok"] and row["migrating_requests"] == 0
+                     and row["free_blocks_start"] == row["free_blocks_end"]
+                     and row["token_slots_ok"] and bits_ok)
+        per_node[n.name] = row
+    # a split topology must have pulled KV blocks (and, with an E node,
+    # image blocks) and held the first of each bit for bit
+    types = [str(n.context.node_type) for n in nodes]
+    need = set() if len(nodes) == 1 else {"kv"} | ({"image"} if "E" in types else set())
+    ok = ok and need <= {k for s in spies for k in s.bits}
+    report = {"topology": [f"{n.name}" for n in nodes], "boot_s": boot_s,
+              "tokens_ok": all(k == LLAVA_TOKENS for k in n_tokens),
+              "tokens_per_s": sum(n_tokens) / elapsed, "elapsed_s": elapsed,
+              "image_p50_ttft_s": sorted(image)[len(image) // 2] if image else None,
+              "text_p50_ttft_s": sorted(text)[len(text) // 2] if text else None,
+              "peak_memory_bytes": torch.cuda.max_memory_allocated(), "nodes": per_node}
+    report["ok"] = bool(ok)
+    del cluster, spies, nodes
+    return report, reqs, [o.output_token_ids for o in outs]
+
+
+def phase_disagg(dev="cuda") -> dict:
+    """EPD disaggregation in process on the one card: LLaVA-1.5-7B at full
+    width (random:llava-7b-lm+mm, the llava phase's factory when it ran,
+    one weight copy shared by every node) served by Clusters built from
+    config/cluster/*.yaml through the port's load_config (DISAGG_OVERRIDES,
+    DISAGG_NODE: spec_ngram_k = 0, since random weights draft nothing and a
+    verify step would put K2 on the D node; the decoding nodes' running cap
+    lowered from the presets' to the traffic's 16 so that their boot warm-up
+    stays short; the preset files stay as they are): one EPD node (the
+    reference), hybrid (EP + D), general (E + P + D), and general's P + D on
+    the text requests only. Traffic: the llava phase's 8 image requests and
+    8 text requests of 128 tokens, 32 tokens each, through
+    Cluster.add_request with every node's step loop running, a warm-up round
+    and a measured round. Checks: every request finishes with its tokens;
+    each request's tokens equal the EPD node's or first differ at a near tie
+    (_near_tie: the D node decodes in K1 / K4-skinny steps where the EPD
+    node may run a decode row in a mixed K2 / K4-wide step); each node's own
+    launches in the measured round (DISAGG_LAUNCH: E only K5; P K2-K4 and no
+    K1; D K1, K3, K4 and no K2 or K5; EP K2-K5); the first migrated KV
+    blocks (int8) and image blocks (bf16) equal the source's bit for bit; no
+    request left migrating; every pool's free blocks back to their start;
+    no duplicate or foreign token slot. Reports per topology tokens/s and
+    p50 TTFT (image and text apart) beside the EPD node's, the pulls (MB,
+    host seconds, device ms, copy GB/s beside 2 x bytes over the HBM rate),
+    the decode windows dispatched during a pull, the graph keys captured
+    while serving, and peak memory."""
+    import gc
+    import torch
+    dev = torch.device(dev)
+    t0 = time.perf_counter()
+    factory = _LLAVA_MM.pop("factory", None)
+    shared = factory is not None
+    if factory is None:
+        factory = _llava_factory_mm(dev)
+    factory.getLanguageModel()
+    factory.getVisionModel()
+    init_s = time.perf_counter() - t0
+    epd, _, epd_tokens = _disagg_topology(factory, "single.yaml", None, True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    result = {"phase": "disagg", "gpu": gpu_name_and_limit(),
+              "model": LLAVA_MODEL + " (bf16 tower and projector, int8 weights, int8 KV)",
+              "factory_shared_with_llava_phase": shared, "weight_init_s": init_s,
+              "requests": f"{LLAVA_REQUESTS} image ({LLAVA_TEXT} characters and one 336 x "
+                          f"336 image) + {DISAGG_TEXT_REQUESTS} text ({DISAGG_TEXT_PROMPT} "
+                          f"tokens), {LLAVA_TOKENS} tokens each; pd_text: the text ones",
+              "epd": epd}
+    ok = epd["ok"]
+    for name, preset, types, with_images in (("hybrid", "hybrid.yaml", None, True),
+                                             ("general", "general.yaml", None, True),
+                                             ("pd_text", "general.yaml", ("P", "D"), False)):
+        rep, reqs, tokens = _disagg_topology(factory, preset, types, with_images)
+        ref = epd_tokens if with_images else epd_tokens[LLAVA_REQUESTS:]
+        tie = _near_tie(factory.getLanguageModel(), factory.getTokenizer(), reqs, tokens, ref,
+                        dev, vision=factory)
+        rep["tokens_identical_to_epd"] = tokens == ref
+        rep["divergences"] = tie
+        rep["ok"] = bool(rep["ok"] and tie["ok"])
+        ok = ok and rep["ok"]
+        result[name] = rep
+        gc.collect()
+        torch.cuda.empty_cache()
+    result["ok"] = bool(ok)
+    save("disagg.json", result)
+    return result
 
 
 # -------------------------------------------------------------- phase: online
@@ -2800,7 +3161,7 @@ def main() -> int:
     global OUT_DIR
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
-                    default="build,kernels,tiny,serve,spec,sample,vlm,llava,mla,online")
+                    default="build,kernels,tiny,serve,spec,sample,vlm,llava,disagg,mla,online")
     ap.add_argument("--out-dir", default=OUT_DIR,
                     help="where the detail files go")
     args = ap.parse_args()
@@ -2844,6 +3205,8 @@ def main() -> int:
                 res, counts["vlm"] = phase_vlm()
             elif phase == "llava":
                 res, counts["llava"] = phase_llava()
+            elif phase == "disagg":
+                res = phase_disagg()
             elif phase == "mla":
                 res, counts["mla"] = phase_mla()
             elif phase == "online":
@@ -2856,6 +3219,8 @@ def main() -> int:
         res["phase_s"] = time.perf_counter() - t0
         if phase in ("spec", "sample") and "sample" not in phases[phases.index(phase) + 1:]:
             _LLAVA.clear()          # the last phase on the shared llava-7b-lm weights
+        if "disagg" not in phases[phases.index(phase) + 1:]:
+            _LLAVA_MM.clear()       # no later phase serves the llava phase's factory
         emit(res)
         if not res["ok"]:
             failed.append(phase)

@@ -4,15 +4,24 @@ hydrainfer_tpu/cluster/cluster.py, its in-process deployment).
 It builds the nodes of a topology, wires the migrate graph, and routes each
 incoming request to an encode-capable node (image requests) or a
 prefill-capable node (text requests) through round-robin balancers. The
-nodes are asyncio actors in this process, one device each: the cards
-`torch.cuda.device_count()` reports, or one CPU when `platform` is "cpu".
+nodes are asyncio actors in this process that hand requests to each other
+and pull their cache blocks (cluster/node.py). The devices are the cards
+`torch.cuda.device_count()` reports, or one CPU when `platform` is "cpu";
+the nodes take them in turn and wrap round, so several nodes may share one
+card, as in the JAX package.
 
-Only one-node topologies run: more than one node needs migration between
-nodes, which is not ported yet (ROADMAP.md queue 1, item 7). On one card,
-`auto` and `single` resolve to one EPD node, as in the JAX package; so do
-explicit `nodes:` lists of one spec with one replica. Tensor and pipeline
-parallelism (`tp_size`, `pp_size` > 1) wait for queue 1, item 9, and the
-`process` deployment for item 7.
+The topology is the explicit `nodes:` list (with replicas), or the
+`cluster_type` preset over the device count: on one device `auto` and
+`single` are one EPD node, and a preset file's `nodes:` (general: E, P, D;
+hybrid: EP, D) builds its nodes on however many devices there are. Node
+names are unique within a type (e0, p0, d0, d1, ...). The nodes share one
+model factory when one is given (one copy of the weights on a shared card),
+else build each from a `model_factory_provider`, else each its own from
+`config.node.model`. Nodes with auto-sized caches size them in turn from
+the free memory of their card, so on a shared card set the block counts.
+
+Tensor and pipeline parallelism (`tp_size`, `pp_size` > 1) wait for queue 1,
+item 9, and the `process` deployment and `attach_addr` for item 7.
 """
 import dataclasses
 from dataclasses import dataclass, field
@@ -113,7 +122,7 @@ class Cluster(RequestObserver):
     """The in-process cluster (the API server's request observer)."""
 
     def __init__(self, config: ClusterConfig, model_factory: Optional[ModelFactory] = None,
-                 devices: Optional[list] = None):
+                 devices: Optional[list] = None, model_factory_provider=None):
         if config.deployment != "inprocess":
             raise NotImplementedError(f"deployment={config.deployment!r} is not ported "
                                       "yet (ROADMAP.md queue 1, item 7)")
@@ -131,18 +140,25 @@ class Cluster(RequestObserver):
             raise NotImplementedError("attach_addr belongs to the process deployment, "
                                       "which is not ported yet (ROADMAP.md queue 1, "
                                       "item 7)")
-        if sum(spec.n_replicas for spec in specs) != 1:
-            raise NotImplementedError(
-                f"topology {[(s.node_type, s.n_replicas) for s in specs]} has more than "
-                "one node, and migration between nodes is not ported yet (ROADMAP.md "
-                "queue 1, item 7)")
-        spec = specs[0]
-        node = AsyncEPDNode(spec_node_config(config.node, spec), NodeContext(
-            name=f"{spec.node_type.lower()}0", node_type=NodeType(spec.node_type),
-            device=devices[0]))
-        node.spec = spec
-        node.init(model_factory)     # None: built from config.node.model
-        self.nodes: List[AsyncEPDNode] = [node]
+        self.nodes: List[AsyncEPDNode] = []
+        name_counts = {}
+        for spec in specs:
+            for _ in range(spec.n_replicas):
+                idx = name_counts.get(spec.node_type, 0)
+                name_counts[spec.node_type] = idx + 1
+                device = devices[len(self.nodes) % len(devices)]
+                node = AsyncEPDNode(spec_node_config(config.node, spec), NodeContext(
+                    name=f"{spec.node_type.lower()}{idx}",
+                    node_type=NodeType(spec.node_type), device=device))
+                node.spec = spec
+                self.nodes.append(node)
+        for node in self.nodes:
+            if model_factory is not None:
+                node.init(model_factory)
+            elif model_factory_provider is not None:
+                node.init(model_factory_provider())
+            else:
+                node.init(None)      # built from config.node.model
 
         builder = MigrateGraphBuilder()
         for n in self.nodes:
@@ -161,7 +177,7 @@ class Cluster(RequestObserver):
                 self.pbalancer.register_worker(n)
         if not len(self.pbalancer):
             raise ValueError("the cluster has no prefill-capable node")
-        logger.info(f"cluster up: {[n.name for n in self.nodes]} on {devices[0]}")
+        logger.info(f"cluster up: {[(n.name, str(n.device)) for n in self.nodes]}")
 
     def metrics(self) -> dict:
         """Per-node serving metrics (the API server's /metrics)."""

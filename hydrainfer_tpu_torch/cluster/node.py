@@ -1,14 +1,18 @@
-"""Engine node (port of hydrainfer_tpu/cluster/node.py:AsyncEPDNode, node
-types holding a language model: P, D, PD, EP, EPD).
+"""Engine node (port of hydrainfer_tpu/cluster/node.py:AsyncEPDNode, every
+node type: E, P, D and their unions EP, ED, PD, EPD).
 
-One node owns one device: it sizes the KV pool and, when it encodes or
-prefills, the image-feature cache; it runs the scheduler -> batch builder ->
-model step loop, and keeps a bounded pipeline of dispatched fill steps whose
-sampled tokens are read back asynchronously (CUDA events; see
-engine/executor.py:FillFuture). The pipeline is the JAX package's
-"incremental" mode: completed windows are drained first, then at most the
-backlog overflow, oldest first, so at least one later window stays queued on
-the card through every read. A read that must wait yields to the event loop
+One node runs on one device, which other nodes of the same process may
+share. It holds the models its type runs (the vision tower to encode, the
+language model to prefill or decode) and the caches they need: the KV pool
+when it prefills or decodes, the image-feature cache when it encodes or
+prefills. An encode-only node has no KV pool, no fill executor and no
+decode warm-up, and its image cache takes the whole cache share. It runs
+the scheduler -> batch builder -> model step loop, and keeps a bounded
+pipeline of dispatched fill steps whose sampled tokens are read back
+asynchronously (CUDA events; see engine/executor.py:FillFuture). The
+pipeline is the JAX package's "incremental" mode: completed windows are
+drained first, then at most the backlog overflow, oldest first, so at least
+one later window stays queued on the card through every read. A read that must wait yields to the event loop
 until its event has fired, so the API server that shares the loop keeps
 answering. Each step dispatches its fills before its encode, so resident
 decodes never queue behind a ViT forward they do not depend on (an image's
@@ -37,10 +41,32 @@ decodes reach the card between segments. A step that schedules nothing
 still advances the encode; image batches scheduled while it runs go back to
 the scheduler; the finished batch rejoins the scheduler like any other.
 
-Migration is limited to the colocated self graph (the EP and PD hand-offs to
-itself); cross-node transfer is a later slice.
+Migration, the JAX package's 4-step protocol between nodes of this process:
+  1. the source's `_execute_batch_migrate` resolves its pending tokens on
+     the host (the token table does not travel), picks a target from the
+     migrate graph's balancer for the request's scenario, and hands the
+     request over with `migrate`; a failed hand-off is retried against the
+     next target `migrate_retries` times, then the request is terminated and
+     its blocks freed. A target that is this node (the colocated EPD node's
+     own hand-offs) skips the pull and keeps the request;
+  2. the target's `migrate` queues the request, its PullCache at the head of
+     the waiting queue;
+  3. the target pulls the blocks in a background asyncio task (`_pull_one`):
+     it allocates its own blocks, gathers the source's KV and image blocks
+     and scatters them into its caches (memory/token_cache.py), while its
+     step loop goes on dispatching decode windows; the request rejoins its
+     scheduler when the copy is queued;
+  4. the source frees the request's blocks and token slot
+     (`free_migrate_request`).
+On one card the copies run on the current stream, where the source's cache
+writes and the target's reads are queued too: a copy is ordered after the
+source's last write to the blocks and before the target's first read, and a
+block the source frees and hands to a new request is written only after the
+copy has read it, with no event. The copies are short beside a decode
+window, so a side stream would buy little overlap for three events.
 """
 import asyncio
+import copy
 import time
 from dataclasses import dataclass, field
 from typing import Optional
@@ -48,20 +74,23 @@ from typing import Optional
 import torch
 
 from ..engine.executor import FillExecutor, ImageEmbedExecutor
-from ..engine.isa import EmptyInstruction, EPMigrate, Fill, ImageEmbed, MigrateRequest
+from ..engine.isa import (EmptyInstruction, EPMigrate, Fill, ImageEmbed,
+                          MigrateRequest, PullCache)
 from ..engine.profiler import BatchSchedulerProfiler, BatchSchedulerProfilerConfig
 from ..engine.rcb import BatchRequest, RequestControlBlock
 from ..engine.request_processor import (RequestProcessParameters,
                                         RequestProcessor, RequestProcessorConfig,
                                         RequestProcessorObserver)
+from ..engine.scenario import ScenarioType
 from ..engine.scheduler import BatchScheduler, BatchSchedulerConfig
-from ..engine.worker import VanillaWorker
+from ..engine.worker import VanillaWorker, WorkerConfig
 from ..memory import TokenCacheBlockManager, TokenCacheBlockManagerConfig
 from ..models.factory import ModelFactory, ModelFactoryConfig, getModelFactory
 from ..ops import cuda as kernels
 from ..utils import hostprof
 from ..utils.device import resolve_device
 from ..utils.logger import getLogger
+from .loadbalancer import CompositeLoadBalancer, LoadBalancer, LoadBalancerConfig
 from .migrate import MigrateGraph, NodeType
 
 logger = getLogger(__name__)
@@ -137,8 +166,8 @@ class NodeConfig:
     encode_chunk_layers: int = 0
     encode_chunk_window: int = 4
     token_table_size: int = 4096
-    # retries of a failed hand-off to another node: cross-node migration is
-    # not ported yet (queue 1, item 7), so it has no effect
+    # retries of a failed hand-off to another node, each against the
+    # balancer's next target, before the request is terminated
     migrate_retries: int = 2
 
 
@@ -187,10 +216,6 @@ def adaptive_postprocess_k(n_running: int, n_waiting: int, max_running: int,
 
 class AsyncEPDNode:
     def __init__(self, config: NodeConfig, context: NodeContext):
-        if not context.node_type.has_language_model:
-            raise NotImplementedError("an encode-only (E) node hands off to other "
-                                      "nodes, which is not ported yet (ROADMAP.md "
-                                      "queue 1, item 7)")
         if config.log_latency_breakdown:
             raise NotImplementedError("log_latency_breakdown is not ported yet "
                                       "(ROADMAP.md queue 1, item 10)")
@@ -205,6 +230,9 @@ class AsyncEPDNode:
         self._pending_fills = []
         self._stop = False
         self._tasks = []
+        # in-flight cache pulls (background tasks) and what they moved
+        self._pull_tasks = set()
+        self._pull_stats = {"n": 0, "seconds": 0.0, "bytes": 0}
 
     # ---------------- init ----------------
 
@@ -212,7 +240,8 @@ class AsyncEPDNode:
         """Build the node's models (from `config.model` through
         getModelFactory when no factory is given), caches and executors,
         then boot: key floors, budget search, image-gather floor, decode
-        warm-up, in the JAX order."""
+        warm-up, in the JAX order (the floors and the warm-up only where
+        the node has a KV cache)."""
         nt = self.context.node_type
         cfg = self.config
         self.model_factory = model_factory or getModelFactory(cfg.model, self.device)
@@ -220,13 +249,16 @@ class AsyncEPDNode:
         self.vision_config = self.model_factory.getVisionModelConfig()
         # prefix-hash granularity must equal the KV block size
         cfg.request_processor.block_size = cfg.kv_block_size
-        self.worker = VanillaWorker(self.model_factory, enable_vision=nt.has_vision_model)
+        self.worker = VanillaWorker(WorkerConfig(enable_vision=nt.has_vision_model,
+                                                 enable_language=nt.has_language_model),
+                                    self.model_factory)
         self._init_caches()
-        self.fill_executor = FillExecutor(
-            self.kv_cache_manager, self.worker, cfg.token_table_size,
-            image_cache_manager=self.image_cache_manager,
-            mrope=bool(self.language_config.mrope_section),
-            cuda_graphs=cfg.cuda_graphs)
+        self.fill_executor = (
+            FillExecutor(self.kv_cache_manager, self.worker, cfg.token_table_size,
+                         image_cache_manager=self.image_cache_manager,
+                         mrope=bool(self.language_config.mrope_section),
+                         cuda_graphs=cfg.cuda_graphs)
+            if self.kv_cache_manager is not None else None)
         self.image_embed_executor = (
             ImageEmbedExecutor(self.image_cache_manager, self.worker,
                                chunk_layers=cfg.encode_chunk_layers)
@@ -243,7 +275,8 @@ class AsyncEPDNode:
         boot_warm = cfg.boot_warmup
         if boot_warm is None:
             boot_warm = self.device.type == "cuda" and cfg.cuda_graphs
-        boot_warm = boot_warm and self.worker.supports_multi_step()
+        boot_warm = (boot_warm and self.kv_cache_manager is not None
+                     and self.worker.supports_multi_step())
         fx, kv = self.fill_executor, self.kv_cache_manager
         max_running = cfg.batch_scheduler.max_running_requests
         if boot_warm:
@@ -270,27 +303,39 @@ class AsyncEPDNode:
                                                   self.model_factory)
         self.request_processor.register_observer(
             BatchSchedulerObserver(self.batch_scheduler))
-        logger.info(f"{self.name} initialized on {self.device} "
-                    f"({self.kv_cache_manager.n_blocks} kv blocks; budgets: "
-                    f"{image_budget} images, {token_budget} tokens)")
+        self.ep_loadbalancer = CompositeLoadBalancer()
+        self.pd_loadbalancer = CompositeLoadBalancer()
+        if self.context.migrate_graph is not None:
+            self.update_migrate_graph(self.context.migrate_graph)
+        caches = {name: m.n_blocks for name, m in (("kv", self.kv_cache_manager),
+                                                  ("image", self.image_cache_manager))
+                  if m is not None}
+        logger.info(f"{self.name} initialized on {self.device} (blocks: {caches}; "
+                    f"budgets: {image_budget} images, {token_budget} tokens)")
 
     def _init_caches(self) -> None:
+        """The caches of the node's type: the KV pool where it prefills or
+        decodes, the image cache where it encodes or prefills (and the
+        model has a vision tower)."""
         nt = self.context.node_type
         lc = self.language_config
         lm = self.worker.language_model
-        model_dtype = str(lm.dtype).replace("torch.", "")
-        # combined-head layout (K even / V odd), or one plane per token for
-        # an MLA latent cache (exactly kv_lora + rope wide: the JAX node's
-        # padding to 128 lanes serves the TPU kernel's DMA only); the cache is
-        # int8 exactly when the model quantizes K/V on write
-        kv_scale = getattr(getattr(lm, "cfg", None), "kv_scale", None)
-        kv_dtype = "int8" if kv_scale is not None else model_dtype
-        kv_cfg = TokenCacheBlockManagerConfig(
-            n_layers=lc.n_layers, n_tensors=1,
-            n_blocks=max(self.config.n_kv_blocks, 1),
-            block_size=self.config.kv_block_size,
-            n_heads=lc.n_kv_heads if lc.kv_single_plane else 2 * lc.n_kv_heads,
-            head_dim=lc.head_dim, dtype=kv_dtype)
+        model = lm if lm is not None else self.worker.vision_model
+        model_dtype = str(model.dtype).replace("torch.", "")
+        kv_cfg = None
+        if nt.has_kv_cache:
+            # combined-head layout (K even / V odd), or one plane per token
+            # for an MLA latent cache (exactly kv_lora + rope wide: the JAX
+            # node's padding to 128 lanes serves the TPU kernel's DMA only);
+            # the cache is int8 exactly when the model quantizes K/V on write
+            kv_scale = getattr(getattr(lm, "cfg", None), "kv_scale", None)
+            kv_dtype = "int8" if kv_scale is not None else model_dtype
+            kv_cfg = TokenCacheBlockManagerConfig(
+                n_layers=lc.n_layers, n_tensors=1,
+                n_blocks=max(self.config.n_kv_blocks, 1),
+                block_size=self.config.kv_block_size,
+                n_heads=lc.n_kv_heads if lc.kv_single_plane else 2 * lc.n_kv_heads,
+                head_dim=lc.head_dim, dtype=kv_dtype)
         # one image-cache slot per feature token: n_qo_heads * head_dim values
         # hold its LM-hidden feature; a block holds a 336x336 image's tokens
         # unless image_block_size says otherwise
@@ -305,16 +350,22 @@ class AsyncEPDNode:
                 n_layers=1, n_tensors=1, n_blocks=max(self.config.n_image_blocks, 1),
                 block_size=block, n_heads=lc.n_qo_heads, head_dim=lc.head_dim,
                 dtype=model_dtype)
-        auto_kv = self.config.n_kv_blocks == -1
+        auto_kv = kv_cfg is not None and self.config.n_kv_blocks == -1
         auto_img = with_images and self.config.n_image_blocks == -1
         if auto_kv or auto_img:
             if self.device.type == "cuda":
                 # activation headroom per resident model, then the cache split
-                # of the JAX node (its 0.1 / 0.8 image / KV shares)
+                # of the JAX node (its 0.1 / 0.8 image / KV shares; a node
+                # with one cache gives it the whole share). Nodes sharing a
+                # card size in turn: the first takes its share of nearly all
+                # the free memory, as the JAX node does
                 free, _ = torch.cuda.mem_get_info(self.device)
                 free = free * self.config.hbm_utilization
                 frac = 1.0 - 0.1 * nt.has_vision_model - 0.1 * nt.has_language_model
-                img_frac, kv_frac = (0.1 * frac, 0.8 * frac) if with_images else (0.0, frac)
+                if with_images and kv_cfg is not None:
+                    img_frac, kv_frac = 0.1 * frac, 0.8 * frac
+                else:
+                    img_frac, kv_frac = (frac, 0.0) if with_images else (0.0, frac)
                 if auto_kv:
                     kv_cfg.n_blocks = max(1, TokenCacheBlockManager.compute_n_blocks(
                         kv_cfg, int(free * kv_frac)))
@@ -326,14 +377,30 @@ class AsyncEPDNode:
                     kv_cfg.n_blocks = 1024
                 if auto_img:
                     img_cfg.n_blocks = 64
-            logger.info(f"{self.name} cache sizing: {kv_cfg.n_blocks} kv blocks, "
-                        f"{img_cfg.n_blocks if img_cfg else 0} image blocks")
-        self.kv_cache_manager = TokenCacheBlockManager(kv_cfg, self.device, self.name)
+            logger.info(f"{self.name} cache sizing: {kv_cfg.n_blocks if kv_cfg else 0} "
+                        f"kv blocks, {img_cfg.n_blocks if img_cfg else 0} image blocks")
+        self.kv_cache_manager = (TokenCacheBlockManager(kv_cfg, self.device, self.name)
+                                 if kv_cfg is not None else None)
         self.image_cache_manager = (TokenCacheBlockManager(img_cfg, self.device, self.name)
                                     if img_cfg is not None else None)
 
     def update_migrate_graph(self, graph: MigrateGraph) -> None:
+        """Take the graph's targets into the EP and PD balancers, keyed by
+        scenario: every target serves Relaxed requests, and a target whose
+        tpot_slo is under 0.05 s serves Strict ones too (a Strict request
+        with no such target goes to any)."""
         self.context.migrate_graph = graph
+        self.ep_loadbalancer = CompositeLoadBalancer()
+        self.pd_loadbalancer = CompositeLoadBalancer()
+        for lb in (self.ep_loadbalancer, self.pd_loadbalancer):
+            for scenario in ScenarioType:
+                lb.register_loadbalancer(scenario, LoadBalancer(LoadBalancerConfig("round")))
+        for table, lb in ((graph.ep_table.get(self.name, []), self.ep_loadbalancer),
+                          (graph.pd_table.get(self.name, []), self.pd_loadbalancer)):
+            for mnode in table:
+                if mnode.tpot_slo < 0.05:
+                    lb.register_worker(ScenarioType.Strict, mnode)
+                lb.register_worker(ScenarioType.Relaxed, mnode)
 
     # ---------------- request intake ----------------
 
@@ -356,7 +423,7 @@ class AsyncEPDNode:
             await self.flush_fills()
             return
 
-        fills, embeds, empties, migrates = (BatchRequest() for _ in range(4))
+        fills, embeds, empties, migrates, pulls = (BatchRequest() for _ in range(5))
         for rcb, inst in batch:
             if isinstance(inst, Fill):
                 fills.append(rcb)
@@ -364,12 +431,13 @@ class AsyncEPDNode:
                 embeds.append(rcb)
             elif isinstance(inst, MigrateRequest):
                 migrates.append(rcb)
+            elif isinstance(inst, PullCache):
+                pulls.append(rcb)
             elif isinstance(inst, EmptyInstruction):
                 empties.append(rcb)
             else:
                 raise RuntimeError(f"unsupported instruction {type(inst)}")
 
-        self._execute_batch_migrate(migrates)
         iee = self.image_embed_executor
         if len(fills):
             if not await self._speculate(fills):
@@ -399,6 +467,12 @@ class AsyncEPDNode:
             iee.execute(embeds)
         empties.step()
         await self._drain_pipeline()
+        # the hand-offs after this step's dispatches and reads, as the JAX
+        # node runs them (awaited here, not left as tasks: a task's flush
+        # would read the pipeline beside the drain, out of order); pulls
+        # start here and rejoin the scheduler from their own tasks
+        await self._execute_batch_migrate(migrates)
+        self._execute_pull_cache(pulls)
         for b in (embeds, fills, empties, finished_encode):
             self._finish_or_requeue(b)
 
@@ -476,27 +550,141 @@ class AsyncEPDNode:
         while self._pending_fills:
             await self._read(self._pending_fills.pop(0))
 
-    def _execute_batch_migrate(self, batch: BatchRequest) -> None:
-        """The EP and PD hand-offs of the colocated self graph: the target is
-        this node, so the PullCache that follows has nothing to move."""
-        graph = self.context.migrate_graph
+    # ---------------- the 4-step migration protocol ----------------
+
+    def _keep(self, rcb: RequestControlBlock) -> None:
+        """Serve a migrating request here: skip its PullCache."""
+        rcb.step()
+        self.batch_scheduler.schedule_running(rcb)
+
+    async def _execute_batch_migrate(self, batch: BatchRequest) -> None:
+        """1. Hand each request to its target node (module docstring). The
+        pipeline is flushed once, before the first hand-off to another
+        node, so the request's sampled tokens are on the host; a request
+        kept here needs no flush. A handed-off request's KV reservation
+        here ends at the hand-off: this node allocates nothing more for it,
+        and its blocks are freed when the target has pulled them."""
+        flushed = False
         for rcb, inst in batch:
-            table = graph.ep_table if isinstance(inst, EPMigrate) else graph.pd_table
-            targets = table.get(self.name, [])
-            if [t.name for t in targets] != [self.name]:
-                raise NotImplementedError("migration to another node is not "
-                                          "ported yet (ROADMAP.md queue 1, item 7)")
             rcb.step()      # MigrateRequest -> PullCache
-            rcb.step()      # skip PullCache: nothing to move
+            lb = self.ep_loadbalancer if isinstance(inst, EPMigrate) else self.pd_loadbalancer
+            target = lb.choice(key=rcb.scenario_type)
+            if target.name == self.name:
+                self._keep(rcb)
+                continue
+            if not flushed:
+                await self.flush_fills()
+                flushed = True
+            need = self.batch_scheduler.release_reservation(rcb)
+            self.batch_scheduler.migrating_acquire()
+            for attempt in range(1 + max(0, self.config.migrate_retries)):
+                try:
+                    await target.node.migrate(self, rcb)
+                    break
+                except Exception:
+                    logger.exception(f"{rcb.request_id} migrate to {target.name} "
+                                     f"failed (attempt {attempt + 1})")
+                    target = lb.choice(key=rcb.scenario_type)
+                    if target.name == self.name:
+                        self.batch_scheduler.migrating_release()
+                        self.batch_scheduler.restore_reservation(rcb, need)
+                        self._keep(rcb)
+                        break
+            else:
+                await self.free_migrate_request(rcb)
+                for proc in rcb.output_token_processors:
+                    proc.terminate()
+
+    async def migrate(self, src_node: "AsyncEPDNode", rcb: RequestControlBlock) -> None:
+        """2. Take a request from src_node: its PullCache jumps the queue."""
+        inst = rcb.current_instruction()
+        assert isinstance(inst, PullCache)
+        inst.src_node = src_node
+        self.batch_scheduler.schedule_new(rcb)
+
+    def _execute_pull_cache(self, batch: BatchRequest) -> None:
+        """3. One background pull task a request (kept in _pull_tasks)."""
+        for rcb, inst in batch:
+            task = asyncio.create_task(self._pull_one(rcb, inst))
+            self._pull_tasks.add(task)
+            task.add_done_callback(self._pull_tasks.discard)
+
+    async def _pull_one(self, rcb: RequestControlBlock, inst: PullCache) -> None:
+        """Pull the request's KV blocks (where this node has a KV cache) and
+        image blocks (where it has an image cache) from the source, have the
+        source free its side, and requeue the request. A failed pull frees
+        both sides and terminates the request."""
+        t0 = time.perf_counter()
+        src_node = inst.src_node
+        src_kv, src_img = rcb.virtual_kv_cache, rcb.virtual_image_cache
+        stage = rcb.metric.pd_transfer if src_kv is not None else rcb.metric.ep_transfer
+        stage.append(t0)
+        old = copy.copy(rcb)
+        # the token slot is the source executor's (freed through `old`); this
+        # node acquires its own, and the first decode token is a host literal
+        rcb.token_slot = -1
+        # the source's caches leave the rcb before the pull: a failed pull
+        # frees only this node's caches through it
+        rcb.virtual_kv_cache = rcb.virtual_image_cache = None
+        nt = self.context.node_type
+        try:
+            if src_kv is not None and nt.has_kv_cache:
+                rcb.virtual_kv_cache = await self._pull_virtual_cache(
+                    src_node, src_kv, is_kv=True)
+            if src_img is not None and self.image_cache_manager is not None:
+                rcb.virtual_image_cache = await self._pull_virtual_cache(
+                    src_node, src_img, is_kv=False)
+            await src_node.free_migrate_request(old)
+        except Exception:
+            logger.exception(f"{rcb.request_id} cache pull from {src_node} failed")
+            try:
+                await src_node.free_migrate_request(old)
+            except Exception:
+                logger.warning(f"{rcb.request_id}: the source-side free on {src_node} "
+                               "failed too; its blocks leak")
+            self._free_cache(rcb)
+            for proc in rcb.output_token_processors:
+                proc.terminate()
+            return
+        rcb.step()
+        now = time.perf_counter()
+        stage.append(now)
+        self._pull_stats["n"] += 1
+        self._pull_stats["seconds"] += now - t0
+        if rcb.is_finished():
+            rcb.metric.finished_time = now
+            self._free_cache(rcb)
+        else:
             self.batch_scheduler.schedule_running(rcb)
 
-    def _free_cache(self, rcb: RequestControlBlock) -> None:
-        if rcb.virtual_kv_cache is not None:
+    async def _pull_virtual_cache(self, src_node, src_vc, is_kv: bool):
+        """A virtual cache of this node holding src_vc's tokens, copied
+        block for block from the source's cache."""
+        dst_mgr = self.kv_cache_manager if is_kv else self.image_cache_manager
+        dst_vc = dst_mgr.allocate_virtual_cache()
+        dst_mgr.realloc(dst_vc, src_vc.n_cache_tokens)
+        if src_vc.block_table:
+            src_mgr = src_node.kv_cache_manager if is_kv else src_node.image_cache_manager
+            blocks = src_mgr.gather_blocks(src_vc.block_table)
+            self._pull_stats["bytes"] += blocks.numel() * blocks.element_size()
+            dst_mgr.scatter_blocks(dst_vc.block_table, blocks)
+        return dst_vc
+
+    async def free_migrate_request(self, rcb: RequestControlBlock) -> None:
+        """4. Free a handed-off request's blocks and token slot here (its
+        reservation ended at the hand-off)."""
+        self._free_cache(rcb, release_reservation=False)
+        self.batch_scheduler.migrating_release()
+
+    def _free_cache(self, rcb: RequestControlBlock, release_reservation: bool = True) -> None:
+        if rcb.virtual_kv_cache is not None and self.kv_cache_manager is not None:
             self.kv_cache_manager.realloc(rcb.virtual_kv_cache, 0)
         if rcb.virtual_image_cache is not None and self.image_cache_manager is not None:
             self.image_cache_manager.realloc(rcb.virtual_image_cache, 0)
-        self.fill_executor.release_slot(rcb)
-        self.batch_scheduler.release_reservation(rcb)
+        if self.fill_executor is not None:
+            self.fill_executor.release_slot(rcb)
+        if release_reservation:
+            self.batch_scheduler.release_reservation(rcb)
 
     # ---------------- the serving loop ----------------
 
@@ -508,11 +696,13 @@ class AsyncEPDNode:
                        asyncio.create_task(self.perf_monitor_loop())]
 
     async def stop(self) -> None:
-        """Stop the loops and wait until their tasks have ended."""
+        """Stop the loops and the cache pulls in flight, and wait until
+        their tasks have ended."""
         self._stop = True
-        for t in self._tasks:
+        tasks = self._tasks + list(self._pull_tasks)
+        for t in tasks:
             t.cancel()
-        await asyncio.gather(*self._tasks, return_exceptions=True)
+        await asyncio.gather(*tasks, return_exceptions=True)
         self._tasks = []
 
     async def step_loop(self) -> None:
@@ -536,7 +726,7 @@ class AsyncEPDNode:
         while not self._stop:
             line = f"{self.name} perf: {self.metrics()}"
             fx = self.fill_executor
-            if fx.spec_steps:
+            if fx is not None and fx.spec_steps:
                 line += (f" spec={fx.spec_tokens}tok/{fx.spec_steps}steps "
                          f"({fx.spec_tokens / fx.spec_steps:.2f} tok/step)")
             logger.info(line)
@@ -544,25 +734,35 @@ class AsyncEPDNode:
 
     def metrics(self) -> dict:
         """Serving metrics as plain JSON (the API server's /metrics): the
-        JAX node's pool and queue counts (and its speculation counts when a
-        verify step has run), plus the boot's budgets and search
-        fallbacks, the fill keys met, the CUDA graphs captured, and the
-        kernel wrappers' launch counts (process-wide)."""
-        kv = self.kv_cache_manager.metrics()
+        JAX node's pool and queue counts (the KV pool's where the node has
+        one), its speculation counts when a verify step has run and its
+        migration pulls when one has landed, plus the boot's budgets and
+        search fallbacks, the fill keys met, the CUDA graphs captured, and
+        the kernel wrappers' launch counts (process-wide)."""
         sched = self.batch_scheduler
         sm = sched.metrics()
         fx = self.fill_executor
-        row = {"kv_free_blocks": kv.allocator.n_free_blocks,
-               "kv_total_blocks": kv.allocator.n_total_blocks,
-               "prefix_cache_hit_rate": round(kv.prefix_cache_hit_rate, 4),
-               "running_requests": sm.n_running_requests,
-               "waiting_requests": len(sched.waiting),
-               "migrating_requests": sm.n_requests_waiting_migrate,
-               "token_budget": sched.token_budget,
-               "image_budget": sched.image_budget,
-               "profiler_fallbacks": self.profiler_fallbacks,
-               "fill_keys": len(fx._seen_fill_keys),
-               "launches": kernels.launch_counts()}
+        row = {}
+        if self.kv_cache_manager is not None:
+            kv = self.kv_cache_manager.metrics()
+            row.update(kv_free_blocks=kv.allocator.n_free_blocks,
+                       kv_total_blocks=kv.allocator.n_total_blocks,
+                       prefix_cache_hit_rate=round(kv.prefix_cache_hit_rate, 4))
+        row.update(running_requests=sm.n_running_requests,
+                   waiting_requests=len(sched.waiting),
+                   migrating_requests=sm.n_requests_waiting_migrate,
+                   token_budget=sched.token_budget,
+                   image_budget=sched.image_budget,
+                   profiler_fallbacks=self.profiler_fallbacks,
+                   launches=kernels.launch_counts())
+        pulls = self._pull_stats
+        if pulls["n"]:
+            row["migration_pulls"] = pulls["n"]
+            row["migration_pull_s_total"] = round(pulls["seconds"], 4)
+            row["migration_pull_mb"] = round(pulls["bytes"] / 1e6, 3)
+        if fx is None:
+            return row
+        row["fill_keys"] = len(fx._seen_fill_keys)
         if fx.spec_steps:
             row["spec_steps"] = fx.spec_steps
             row["spec_tokens"] = fx.spec_tokens

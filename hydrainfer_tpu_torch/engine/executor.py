@@ -45,7 +45,7 @@ import torch
 
 from ..memory import TokenCacheBlockManager
 from ..models.factory import FillDims, VisionModelParameters, pack_fill_batch
-from ..models.step_graphs import StepGraphs, graphed
+from ..models.step_graphs import StepGraphs, graphed, wait_event
 from ..ops.cache_ops import write_token_cache
 from ..utils import hostprof
 from ..utils.logger import getLogger
@@ -100,9 +100,10 @@ class FillFuture(Future):
         return self._event is None or self._event.query()
 
     def wait(self) -> None:
-        """Block until the tokens have landed; callable from any thread."""
+        """Block until the tokens have landed; callable from any thread (not
+        while a graph capture is in progress: models/step_graphs.py)."""
         if self._event is not None:
-            self._event.synchronize()
+            wait_event(self._event)
 
     def get(self):
         if self._done:

@@ -167,7 +167,10 @@ class PDMigrate(MigrateRequest):
 
 class PullCache(Instruction):
     """Receiver-side marker: pull the sender's cache blocks (skipped when
-    the migration target is the node itself)."""
+    the migration target is the node itself). The receiver's `migrate` sets
+    src_node, the node the blocks come from."""
+
+    src_node = None
 
     def __repr__(self):
         return "PR"

@@ -11,6 +11,7 @@
     the head chunk;
   - allocation failures become back-pressure (the request is deferred), not
     crashes;
+  - a node without a KV cache (an encode-only node) reserves nothing;
   - image-cache allocation for encodes (ImageEmbed), deferred like KV;
   - batch packing under the image budget (at most encode_chunk_images per
     step while fills are resident, so encodes interleave with decode
@@ -117,7 +118,10 @@ class BatchScheduler:
         self._stamp_queue_end(rcb)
 
     def _demand_blocks(self, rcb: RequestControlBlock) -> int:
-        """Worst-case KV blocks for the request's full lifetime."""
+        """Worst-case KV blocks for the request's full lifetime (none on a
+        node without a KV cache)."""
+        if self.kv_cache_manager is None:
+            return 0
         n_prompt = rcb.request_metadata.n_prompt_tokens if rcb.request_metadata else 0
         n_tokens = n_prompt + (rcb.sampling_params.max_tokens
                                if rcb.sampling_params else 0)
@@ -129,6 +133,8 @@ class BatchScheduler:
         stays real until the request adopts them (an advisory match could be
         evicted before allocate_virtual_cache runs); release_admission_pins()
         drops the pins once the virtual cache holds its own."""
+        if self.kv_cache_manager is None:
+            return True
         need = self._demand_blocks(rcb)
         sc = self.kv_cache_manager.shared_cache
         pins: List[int] = []
@@ -155,10 +161,19 @@ class BatchScheduler:
             self.kv_cache_manager.shared_cache.unpin(pins)
         rcb._admission_pins = None
 
-    def release_reservation(self, rcb: RequestControlBlock) -> None:
-        self._reserved_blocks -= getattr(rcb, "_kv_reservation", 0)
+    def release_reservation(self, rcb: RequestControlBlock) -> int:
+        """End the request's reservation here; the blocks it held."""
+        need = getattr(rcb, "_kv_reservation", 0)
+        self._reserved_blocks -= need
         rcb._kv_reservation = 0
         self.release_admission_pins(rcb)
+        return need
+
+    def restore_reservation(self, rcb: RequestControlBlock, need: int) -> None:
+        """Give back a reservation ended by a hand-off that fell back to
+        this node."""
+        self._reserved_blocks += need
+        rcb._kv_reservation = need
 
     # -------- the step --------
 
@@ -167,7 +182,8 @@ class BatchScheduler:
         cap = self.config.max_running_requests - self._migrating_cnt
         while len(self.running) < cap and self.waiting:
             head = self.waiting[0]
-            if self._demand_blocks(head) > self.kv_cache_manager.n_blocks:
+            if (self.kv_cache_manager is not None
+                    and self._demand_blocks(head) > self.kv_cache_manager.n_blocks):
                 # can never fit: reject instead of stalling the queue
                 self.waiting.popleft()
                 logger.error(f"request {head.request_id} needs "
@@ -210,14 +226,15 @@ class BatchScheduler:
                         inst.chunk_prefill(n_matched)
                         rcb.step()  # the matched span needs no compute
                 inst = rcb.current_instruction()
-                vc = rcb.virtual_kv_cache
-                target = max(vc.n_cache_tokens, max(inst.cache_ids) + 1)
-                bs = self.kv_cache_manager.block_size
-                n_more = -(-target // bs) - len(vc.block_table)
-                if n_more > self.kv_cache_manager.n_available_blocks():
-                    deferred.append(rcb)
-                    continue
-                self.kv_cache_manager.realloc(vc, target)
+                if isinstance(inst, Fill):
+                    vc = rcb.virtual_kv_cache
+                    target = max(vc.n_cache_tokens, max(inst.cache_ids) + 1)
+                    bs = self.kv_cache_manager.block_size
+                    n_more = -(-target // bs) - len(vc.block_table)
+                    if n_more > self.kv_cache_manager.n_available_blocks():
+                        deferred.append(rcb)
+                        continue
+                    self.kv_cache_manager.realloc(vc, target)
             elif isinstance(inst, ImageEmbed):
                 if rcb.virtual_image_cache is None:
                     rcb.virtual_image_cache = \
@@ -234,9 +251,12 @@ class BatchScheduler:
         if deferred:
             self._oom_deferrals += 1
             if self._oom_deferrals % 1000 == 1:
-                logger.warning(
-                    f"cache back-pressure: {len(deferred)} request(s) deferred "
-                    f"(kv free blocks: {self.kv_cache_manager.n_available_blocks()})")
+                pools = [f"{name} free blocks: {m.n_available_blocks()}"
+                         for name, m in (("kv", self.kv_cache_manager),
+                                         ("image", self.image_cache_manager))
+                         if m is not None]
+                logger.warning(f"cache back-pressure: {len(deferred)} request(s) "
+                               f"deferred ({', '.join(pools)})")
         self.running = runnable
 
         # 2. classify

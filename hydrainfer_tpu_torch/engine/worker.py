@@ -1,8 +1,15 @@
 """Model execution worker (port of hydrainfer_tpu/engine/worker.py)."""
+from dataclasses import dataclass
 from typing import Optional
 
 from ..models.factory import (LanguageModel, ModelFactory, VisionModel,
                               VisionModelOutput, VisionModelParameters)
+
+
+@dataclass
+class WorkerConfig:
+    enable_vision: bool = True
+    enable_language: bool = True
 
 
 class Worker:
@@ -22,13 +29,14 @@ class Worker:
 
 
 class VanillaWorker(Worker):
-    """Holds the node's models: the language model, and the vision tower
-    when the node encodes."""
+    """Holds the node's models: the vision tower when the node encodes, the
+    language model when it prefills or decodes."""
 
-    def __init__(self, model_factory: ModelFactory, enable_vision: bool = False):
+    def __init__(self, config: WorkerConfig, model_factory: ModelFactory):
         self.vision_model: Optional[VisionModel] = (
-            model_factory.getVisionModel() if enable_vision else None)
-        self.language_model: LanguageModel = model_factory.getLanguageModel()
+            model_factory.getVisionModel() if config.enable_vision else None)
+        self.language_model: Optional[LanguageModel] = (
+            model_factory.getLanguageModel() if config.enable_language else None)
 
     def supports_multi_step(self) -> bool:
         return bool(getattr(self.language_model, "supports_multi_step", False))

@@ -6,10 +6,18 @@ Storage is a single device tensor
 step updates IN PLACE; for the KV cache n_tensors is 1 and the head axis holds
 the combined heads (K even, V odd), the layout the attention kernels read.
 Host-side metadata (block tables, allocator, prefix cache) is plain Python.
+
+Migration between nodes moves whole blocks: `gather_blocks` packs a request's
+blocks into one (n, layers, tensors, block, heads, dim) payload and the
+destination's `scatter_blocks` writes it into its own blocks, cast to its
+cache's dtype. Both are queued on the current stream, so on one card a copy
+is ordered after the source's earlier writes and before the destination's
+later reads, with no event.
 """
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..utils.counter import IncreasingAllocator
@@ -135,6 +143,37 @@ class TokenCacheBlockManager:
         assert len(virtual_block_ids) == len(hashes)
         physical = [vc.block_table[v] for v in virtual_block_ids]
         self.shared_cache.insert(hashes=hashes, block_ids=physical)
+
+    # ---------------- migration data plane ----------------
+
+    def _block_index(self, block_ids: Sequence[int]) -> torch.Tensor:
+        # from pageable host memory a non-blocking copy stages its source
+        # before it returns, and waits for nothing queued on the card (a
+        # blocking one would drain the stream: every decode window in flight)
+        ids = torch.from_numpy(np.asarray(block_ids, dtype=np.int64))
+        return ids.to(self.device, non_blocking=True)
+
+    def _words(self, t: torch.Tensor) -> torch.Tensor:
+        """A (layers, tensors, n, ...) tensor of this cache's dtype as
+        (layers * tensors, n, words): one block of one layer is contiguous,
+        so the copies index whole 8-byte words (or elements, where a block's
+        bytes do not divide by 8) rather than single int8 or bf16 values."""
+        rows = t.reshape(t.shape[0] * t.shape[1], t.shape[2], -1)
+        return rows.view(torch.int64) if rows.shape[-1] * t.element_size() % 8 == 0 else rows
+
+    def gather_blocks(self, block_ids: Sequence[int]) -> torch.Tensor:
+        """The blocks as one (n, layers, tensors, block, heads, dim) payload,
+        a copy on this cache's device."""
+        a = self.cache_array
+        out = self._words(a).index_select(1, self._block_index(block_ids))
+        return out.view(a.dtype).view(a.shape[:2] + (len(block_ids),) + a.shape[3:]).movedim(2, 0)
+
+    def scatter_blocks(self, block_ids: Sequence[int], blocks) -> None:
+        """Write a gather_blocks payload (a tensor on any device, or an
+        array) into these blocks, in this cache's dtype."""
+        blocks = torch.as_tensor(blocks).to(self.device, self.dtype).movedim(0, 2)
+        self._words(self.cache_array).index_copy_(
+            1, self._block_index(block_ids), self._words(blocks.contiguous()))
 
     # ---------------- sizing / metrics ----------------
 

@@ -47,8 +47,18 @@ back, since a capture launches nothing), and each replay adds it again.
 
 On the card with graphs on, a failed capture or replay raises; nothing falls
 back to the eager step.
+
+Captures and token waits are ordered process-wide. torch.cuda.graph captures
+in CUDA's global mode, where a CUDA call that may synchronise, made by any
+other thread while a capture is in progress, is refused and invalidates the
+capture. A node waits for its tokens in a worker thread (`wait_event`, from
+cluster/node.py), and with several nodes in one process another node may
+capture meanwhile: a capture therefore begins only when no such wait is in
+progress, and a wait begins only when no capture is.
 """
+import threading
 import time
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Optional, Tuple
 
@@ -56,6 +66,44 @@ import torch
 
 from ..ops import cuda as kernels
 from .factory import FillDims, fill_sizes
+
+
+_gate = threading.Condition()
+_waits = 0
+_capturing = False
+
+
+def wait_event(event: "torch.cuda.Event") -> None:
+    """event.synchronize() from a thread other than the capturing one,
+    never while a capture is in progress."""
+    global _waits
+    with _gate:
+        while _capturing:
+            _gate.wait()
+        _waits += 1
+    try:
+        event.synchronize()
+    finally:
+        with _gate:
+            _waits -= 1
+            _gate.notify_all()
+
+
+@contextmanager
+def _no_waits():
+    """Hold off new waits and let those in progress end (their events fire
+    on their own: the work they wait for is already queued)."""
+    global _capturing
+    with _gate:
+        _capturing = True
+        while _waits:
+            _gate.wait()
+    try:
+        yield
+    finally:
+        with _gate:
+            _capturing = False
+            _gate.notify_all()
 
 
 def graphed(dims: FillDims) -> bool:
@@ -129,7 +177,7 @@ class StepGraphs:
         graph = torch.cuda.CUDAGraph()
         if dims.sampling:
             graph.register_generator_state(generator)
-        with torch.cuda.graph(graph, pool=self.pool):
+        with _no_waits(), torch.cuda.graph(graph, pool=self.pool):
             g.tokens = step(cache, token_table, flat, dims, n_steps, fused_k,
                             generator=generator)
         after = kernels.launch_counts()

@@ -6,7 +6,9 @@ share has the same value (`DIVERGENT` lists the shared fields whose default
 differs on purpose: none since speculative decoding is ported, with the JAX
 default spec_ngram_k = 12). Overrides coerce alike, unknown keys raise in both, a TPU-only key is
 accepted and logged, a still-to-port feature raises with its queue item,
-and multi-node presets load but refuse at Cluster build.
+and every preset builds its cluster on the CPU: the multi-node ones (general
+E / P / D, hybrid EP + D, explicit node lists and replicas) with the JAX
+cluster's node names, types and migrate tables.
 """
 import dataclasses
 import glob
@@ -210,12 +212,78 @@ def test_spec_ngram_k_builds_a_node(override):
 @pytest.mark.parametrize("override,item", [
     ("cluster.tp_size=2", "item 9"), ("cluster.pp_size=2", "item 9"),
     ("cluster.deployment=process", "item 7"),
-    ("cluster.nodes=[{node_type: EP}, {node_type: D}]", "item 7"),
-    ("cluster.nodes=[{node_type: EPD, n_replicas: 2}]", "item 7")])
+    ("cluster.nodes=[{node_type: P, attach_addr: 'tcp://127.0.0.1:5555'}, "
+     "{node_type: D}]", "item 7")])
 def test_cluster_refuses_what_is_not_ported(override, item):
     cfg = load_config(EntryPointConfig, None, FAKE + [override])
     with pytest.raises(NotImplementedError, match=f"queue 1, {item}"):
         Cluster(cfg.cluster)
+
+
+def topology(cluster):
+    """Node names and types, and the migrate graph as {source: [target,
+    ...]} per table (every node holds the same graph)."""
+    graph = cluster.nodes[0].context.migrate_graph
+    assert all(n.context.migrate_graph is graph for n in cluster.nodes)
+    return ([(n.name, str(n.context.node_type)) for n in cluster.nodes],
+            {k: [t.name for t in v] for k, v in graph.ep_table.items()},
+            {k: [t.name for t in v] for k, v in graph.pd_table.items()})
+
+
+def jax_topology(path, overrides):
+    """The JAX cluster's topology, built on the CPU from the same config."""
+    from hydrainfer_tpu.cluster.cluster import Cluster as JaxCluster
+    return topology(JaxCluster(jax_load_config(JaxEntryPointConfig, path, overrides).cluster))
+
+
+def check_nodes(cluster):
+    """Each node holds the models and caches of its type, on the CPU."""
+    for n in cluster.nodes:
+        nt = n.context.node_type
+        assert n.device == torch.device("cpu")
+        assert (n.kv_cache_manager is not None) == nt.has_kv_cache
+        assert (n.image_cache_manager is not None) == nt.has_image_cache
+        assert (n.fill_executor is not None) == nt.has_kv_cache
+        assert (n.worker.language_model is not None) == nt.has_language_model
+        assert (n.worker.vision_model is not None) == nt.has_vision_model
+
+
+@pytest.mark.parametrize("override", [
+    "cluster.nodes=[{node_type: EP}, {node_type: D}]",
+    "cluster.nodes=[{node_type: EPD, n_replicas: 2}]",
+    "cluster.nodes=[{node_type: E}, {node_type: P}, {node_type: D, n_replicas: 2}]",
+    "cluster.nodes=[{node_type: P}, {node_type: D}, {node_type: D}]"],
+    ids=["ep_d", "epd_x2", "e_p_dx2", "p_d_d_two_specs"])
+def test_cluster_builds_multi_node_topology(override):
+    """Explicit node lists and replicas build on the one CPU device with the
+    JAX cluster's names (unique within a type, two specs of one type too),
+    types and migrate tables."""
+    cfg = load_config(EntryPointConfig, None, FAKE + [override])
+    cluster = Cluster(cfg.cluster)
+    assert len(cluster.nodes) > 1
+    assert topology(cluster) == jax_topology(None, FAKE + [override])
+    check_nodes(cluster)
+
+
+def test_cluster_model_factory_choices():
+    """The nodes share a factory given to the cluster (one weight copy),
+    take one each from a provider, or build one each from the config."""
+    from hydrainfer_tpu_torch.models.fake import FakeModelFactory
+    cfg = load_config(EntryPointConfig, None, FAKE + [
+        "cluster.nodes=[{node_type: EP}, {node_type: D}]"])
+    shared = FakeModelFactory(device="cpu")
+    made = []
+    for kw in ({"model_factory": shared},
+               {"model_factory_provider": lambda: made.append(FakeModelFactory(
+                   device="cpu")) or made[-1]},
+               {}):
+        factories = [n.model_factory for n in Cluster(cfg.cluster, **kw).nodes]
+        if "model_factory" in kw:
+            assert factories == [shared, shared]
+        else:
+            assert len(set(map(id, factories))) == 2
+            assert isinstance(factories[0], FakeModelFactory)
+    assert len(made) == 2
 
 
 def test_defaults():
@@ -270,12 +338,19 @@ def test_spec_node_overlay_merges_over_cluster_node():
 @pytest.mark.parametrize("name", ["single.yaml", "auto.yaml", "general.yaml", "hybrid.yaml"])
 def test_cluster_presets_boot_or_refuse(name):
     """single and auto (one CPU device) boot one EPD node on the fake model;
-    the multi-node presets load, then refuse at Cluster build."""
+    general boots E, P and D and hybrid EP and D on that one device, with
+    each spec's node preset merged in and the migrate tables wired."""
     cfg = load_config(EntryPointConfig, os.path.join(REPO, "config", "cluster", name), FAKE)
     if name in ("general.yaml", "hybrid.yaml"):
-        assert len(cfg.cluster.nodes) > 1
-        with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-            Cluster(cfg.cluster)
+        cluster = Cluster(cfg.cluster)
+        path = os.path.join(REPO, "config", "cluster", name)
+        assert topology(cluster) == jax_topology(path, FAKE)
+        assert [str(n.context.node_type) for n in cluster.nodes] == (
+            ["E", "P", "D"] if name == "general.yaml" else ["EP", "D"])
+        check_nodes(cluster)
+        d = cluster.nodes[-1]
+        assert (d.config.batch_scheduler.priority, d.config.tpot_slo, d.spec.tpot_slo) == \
+            ("decode", 0.1, 0.1)
         return
     cluster = Cluster(cfg.cluster)
     assert [str(n.context.node_type) for n in cluster.nodes] == ["EPD"]

@@ -13,7 +13,9 @@ they bound the JAX package's compile keys:
   (d) after the boot warm-up a serving pass moves no floor;
   (e) during a drain the decode keys' S and MB never fall, and the tail of
       a run adds at most 2 keys;
-  (f) a CPU node builds no graph, whatever cuda_graphs says.
+  (f) a CPU node builds no graph, whatever cuda_graphs says;
+  (g) graph captures and token waits from other threads never overlap,
+      under contention (a stand-in event).
 """
 import jax
 import jax.numpy as jnp
@@ -274,3 +276,50 @@ def test_cpu_node_builds_no_graph(cuda_graphs):
     outs = engine.generate(_requests(Request, SamplingParameters), timeout_s=600)
     assert [len(o.output_token_ids) for o in outs] == list(MAX_TOKENS)
     assert engine.node.fill_executor.graphs is None
+
+
+def test_capture_gate_holds_under_contention():
+    """The order between graph captures and token waits from other threads
+    (models/step_graphs.py) under contention, on the CPU with a stand-in
+    event: 16 threads wait over and over while the main thread enters the
+    capture gate 200 times; no wait's synchronize ever runs inside the
+    gate, and inside it no wait is counted."""
+    import sys
+    import threading
+    import time
+    from hydrainfer_tpu_torch.models import step_graphs
+    state = {"capturing": False, "overlaps": 0, "waits": 0}
+
+    class Event:
+        def synchronize(self):
+            if state["capturing"]:
+                state["overlaps"] += 1
+            time.sleep(0.0002)
+            state["waits"] += 1
+
+    stop = threading.Event()
+
+    def waiter():
+        while not stop.is_set():
+            step_graphs.wait_event(Event())
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    threads = [threading.Thread(target=waiter) for _ in range(16)]
+    try:
+        for t in threads:
+            t.start()
+        for _ in range(200):
+            with step_graphs._no_waits():
+                assert step_graphs._waits == 0
+                state["capturing"] = True
+                time.sleep(0.0002)
+                state["capturing"] = False
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=30)
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert state["overlaps"] == 0 and state["waits"] > 0
+    assert step_graphs._waits == 0 and not step_graphs._capturing

@@ -22,6 +22,9 @@ lookup-friendly requests), the verify key's replays give the eager engine's
 tokens and verify counts. A sampled key (its generator registered with the
 graph) draws fresh numbers at every replay over a flat distribution, and
 reseeding the generator repeats the replays' draws.
+
+With several nodes in one process, a node's token wait (another thread) and
+another node's capture are ordered: neither begins while the other runs.
 """
 import gc
 from dataclasses import replace
@@ -388,3 +391,44 @@ def test_reseeded_generator_repeats_replays(dev):
     assert graphs.replays == 6
     assert all(torch.equal(a, b) for a, b in zip(*runs))
     assert not all(torch.equal(runs[0][0], d) for d in runs[0][1:])
+
+
+def test_capture_orders_against_token_waits(dev):
+    """A token wait in another thread (a node's FillFuture.wait) and a graph
+    capture never overlap: a capture begins after the waits in progress end,
+    and a wait that starts during a capture begins after it."""
+    import threading
+    import time
+    order = []
+
+    def wait(event, tag):
+        step_graphs.wait_event(event)
+        order.append(tag)
+
+    torch.cuda._sleep(int(5e8))          # the card spins for a while
+    busy = torch.cuda.Event()
+    busy.record()
+    early = threading.Thread(target=wait, args=(busy, "early wait"))
+    early.start()
+    time.sleep(0.05)                     # the thread is inside its wait
+    x = torch.ones(8, device=dev)
+    graph = torch.cuda.CUDAGraph()
+    done = torch.cuda.Event()
+    done.record()
+    with step_graphs._no_waits():
+        # the early wait has ended: its event fired and no wait is counted
+        assert busy.query() and step_graphs._waits == 0
+        order.append("capture begins")
+        late = threading.Thread(target=wait, args=(done, "late wait"))
+        late.start()
+        time.sleep(0.05)
+        with torch.cuda.graph(graph):
+            y = x * 2
+        order.append("capture ends")
+    early.join(timeout=60)
+    late.join(timeout=60)
+    assert "early wait" in order
+    assert order[-3:] == ["capture begins", "capture ends", "late wait"]
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y, 2 * x)

@@ -38,7 +38,9 @@ form, and their boundary at 64/65), at ragged N (200, 72) and K (5472, 200,
 104), with bf16 out held within 2e-2 and f32 logits within 1e-4 of the f32
 plain version (a result missing one K slice breaks the bf16 bound:
 test_torch_quant_matmul.py); two calls agree bit for bit, and so do two
-replays of a CUDA graph that captured it.
+replays of a CUDA graph that captured it. The block migration between two
+caches on the card (gather_blocks, then scatter_blocks) moves int8 and bf16
+KV, MLA plane and image blocks bit for bit and touches no other block.
 """
 import numpy as np
 import pytest
@@ -831,3 +833,42 @@ def test_k3_counts_its_launches(dev):
     write_kv_pages(pages, k, v, torch.from_numpy(slots).to(dev), SCALE)
     torch.cuda.synchronize()
     assert write_kv_pages.launches == 1
+
+
+# ------------------------------------------------ block migration on one card
+
+@pytest.mark.parametrize("form,layers,heads,D,bs,dtype", [
+    ("kv_int8", 4, 64, 128, 16, torch.int8), ("kv_bf16", 2, 16, 128, 16, torch.bfloat16),
+    ("mla_plane", 3, 1, 576, 16, torch.int8), ("image", 1, 32, 128, 576, torch.bfloat16)])
+def test_block_migration_round_trip_on_the_card(dev, form, layers, heads, D, bs, dtype):
+    """gather_blocks on one cache and scatter_blocks into another on the same
+    card (as a pull between two nodes does) move the blocks bit for bit and
+    touch no other block; a payload through the host lands the same."""
+    from hydrainfer_tpu_torch.memory import (TokenCacheBlockManager,
+                                             TokenCacheBlockManagerConfig)
+    name = {torch.int8: "int8", torch.bfloat16: "bf16"}[dtype]
+    cfg = lambda n: TokenCacheBlockManagerConfig(n_layers=layers, n_tensors=1, n_blocks=n,
+                                                 block_size=bs, n_heads=heads, head_dim=D,
+                                                 dtype=name)
+    src, dst = TokenCacheBlockManager(cfg(9), dev), TokenCacheBlockManager(cfg(7), dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    if dtype == torch.int8:
+        src.cache_array.copy_(torch.randint(-127, 128, src.cache_array.shape, device=dev,
+                                            generator=gen, dtype=torch.int8))
+        dst.cache_array.fill_(-128)
+    else:
+        src.cache_array.copy_(torch.randn(src.cache_array.shape, device=dev, generator=gen,
+                                          dtype=dtype))
+        dst.cache_array.fill_(float("nan"))
+    before = dst.cache_array.clone()
+    src_ids, dst_ids = [8, 2, 5], [1, 6, 3]
+    dst.scatter_blocks(dst_ids, src.gather_blocks(src_ids))
+    torch.cuda.synchronize()
+    for s, d in zip(src_ids, dst_ids):
+        assert torch.equal(dst.cache_array[:, :, d], src.cache_array[:, :, s])
+    others = [i for i in range(7) if i not in dst_ids]
+    assert torch.equal(dst.cache_array[:, :, others].view(torch.uint8),
+                       before[:, :, others].view(torch.uint8))
+    host = src.gather_blocks(src_ids).cpu()
+    dst.scatter_blocks([0, 4, 2], host)
+    assert torch.equal(dst.gather_blocks([0, 4, 2]).cpu(), host)

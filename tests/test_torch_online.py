@@ -20,7 +20,9 @@ chat whose prompt counts the image's 16 tokens.
 Sampling: top-k 1 at temperature 0.8 gives the JAX server's chat text; a
 sampled completion answers, and a sampled stream ends with its deltas.
 Port-only cases: a malformed body gets a 400, a burst of 8 concurrent streams each ends with its max_tokens,
-stop() leaves no task running. The budget search: with one timer on both
+stop() leaves no task running. Disaggregated (the fake model, EP + D behind
+the server): concurrent chats answer, /metrics lists both nodes and the D
+node's pulls, and a lone completion gives the JAX EP + D server's text. The budget search: with one timer on both
 profilers the budgets are equal; a real search on the CPU executor gives
 back every KV block, image block and token-table slot; a failed search takes
 the default and is counted. IncrementalDecoder equals the JAX decoder on the
@@ -36,6 +38,7 @@ import os
 import socket
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -311,6 +314,33 @@ def test_fake_model_tokens_match_jax(fake_servers):
     assert port_out["usage"] == jax_out["usage"]
     (jax_chunks, _), (port_chunks, _) = (stream_chat(p, chat) for p in fake_servers)
     assert deltas(port_chunks) == deltas(jax_chunks)
+
+
+def test_disaggregated_cluster_serving():
+    """Requests served across an EP + D split through the HTTP surface (the
+    fake model): four concurrent chats each answer, /metrics lists both
+    nodes with the D node's pulls, and a lone completion (the schedules
+    match) gives the JAX EP + D server's text."""
+    split = ["cluster.node.model.name=fake", "cluster.nodes=[{node_type: EP}, {node_type: D}]"]
+    jax_server, port_server = serve_pair(split)
+    try:
+        port = port_server.port
+        payload = {"messages": [{"role": "user", "content": "hi"}], "max_tokens": 4,
+                   "ignore_eos": True}
+        with ThreadPoolExecutor(4) as pool:
+            outs = list(pool.map(lambda _: post(port, "/v1/chat/completions", payload),
+                                 range(4)))
+        assert all(len(o["choices"][0]["message"]["content"]) > 0 for o in outs)
+        nodes = json.loads(request(port, "GET", "/metrics")[1])
+        assert set(nodes) == {"EPNode:ep0", "DNode:d0"}
+        assert nodes["DNode:d0"]["migration_pulls"] == 4
+        assert nodes["EPNode:ep0"]["migrating_requests"] == 0
+        body = {"prompt": "once upon a time", "max_tokens": 6, "ignore_eos": True}
+        assert post(port, "/v1/completions", body)["choices"][0]["text"] == \
+            post(jax_server.port, "/v1/completions", body)["choices"][0]["text"]
+    finally:
+        jax_server.stop()
+        port_server.stop()
 
 
 @pytest.fixture(scope="module")
