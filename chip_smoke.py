@@ -103,6 +103,33 @@ Phases, each printing one JSON line:
            device ms, copy GB/s beside 2 x bytes over the HBM rate), the
            decode windows dispatched during a pull, the graph keys captured
            while serving and peak memory;
+  process  the process deployment on the card: LLaVA-1.5-7B at full width
+           (random:llava-7b-lm+mm, int8 weights, int8 KV), built by each
+           node process from the seed, E + P + D as three spawned processes
+           through ProcessCluster (general.yaml with the disagg phase's
+           overrides and pools, budget search off at 2048): a lone image
+           request, after which the blocks of its KV pull (P -> D) and
+           image pull (E -> P) must equal the source's bit for bit (read
+           back over RPC); a warm-up and a measured round of the disagg
+           phase's 16 requests: every request must finish with its tokens,
+           equal to the one-EPD-node reference's (the disagg phase's, else
+           built here from the same factory) or first differing at a near
+           tie, each node must launch only its type's kernels (DISAGG_LAUNCH,
+           counts over RPC), every pull must ride CUDA IPC, no request may
+           be left migrating, every pool's available blocks must be back and
+           the parent must allocate no card memory for the cluster; then the
+           D process is killed with 4 requests decoding on it: they must be
+           terminated, D respawned, and an image and a text request served
+           after. Then `python -m hydrainfer_tpu_torch.entrypoint.entrypoint
+           --config config/cluster/hybrid.yaml cluster.deployment=process`
+           (EP + D) as a child: 16 streaming chats at once, 8 with an
+           image_url, each to [DONE] with its 32 deltas; /metrics must list
+           both nodes with every pull over IPC; SIGTERM must give exit 0,
+           and no node process may be left alive or on the card. It reports
+           boot s, tokens/s and p50 TTFT beside the in-process numbers, the
+           pulls (count, MB, host ms each, GB/s beside 2 x bytes over the
+           HBM rate), each child's peak memory, the card's used memory, and
+           how two processes' GEMM loops share the card (`process.json`);
   mla      serve mla-2b-lm (DeepSeek-V2-Lite-shaped MLA, full width, int8
            o_proj/gate_up/down/lm_head, int8 single-plane latent KV) through
            OfflineEngine: 32 requests, chunked prefill mixing with decodes,
@@ -2887,6 +2914,457 @@ def phase_disagg(dev="cuda") -> dict:
         torch.cuda.empty_cache()
     result["ok"] = bool(ok)
     save("disagg.json", result)
+    # the process phase's reference and its in-process numbers, if it runs
+    _LLAVA_MM.update(factory=factory, epd_tokens=epd_tokens, epd=epd,
+                     general=result["general"])
+    return result
+
+
+# ----------------------------------------------------------- phase: process
+
+# the model of every node process (each builds it from the seed), over the
+# disagg phase's DISAGG_OVERRIDES and DISAGG_NODE
+PROCESS_MODEL = (f"cluster.node.model.name={LLAVA_MODEL}", "cluster.node.model.dtype=bf16",
+                 "cluster.node.model.quantization=int8",
+                 "cluster.node.model.kv_cache_dtype=int8")
+PROCESS_BOOT_LIMIT_S = 600
+# the requests in flight on the D node when it is killed, and their tokens
+RESPAWN_REQUESTS, RESPAWN_TOKENS = 4, 2048
+# the entry point as a child: hybrid.yaml's EP + D, explicit pools, the budget
+# search and the boot warm-up off (d.yaml's 256 running requests would have
+# the warm-up capture decode keys at S = 256)
+ENTRY_CONFIG = "config/cluster/hybrid.yaml"
+ENTRY_OVERRIDES = ("cluster.deployment=process", *PROCESS_MODEL,
+                   "cluster.node.n_kv_blocks=1024", "cluster.node.n_image_blocks=16",
+                   "cluster.node.profiler.enabled=false", "cluster.node.spec_ngram_k=0",
+                   "cluster.node.boot_warmup=false",
+                   "cluster.node.request_processor.num_request_process_workers=1")
+ENTRY_CHATS, ENTRY_IMAGES, ENTRY_TOKENS = 16, 8, 32
+# the context time-slicing probe: bf16 GEMMs of this size a process
+SLICE_N, SLICE_ITERS = 8192, 200
+
+
+def _process_config(preset):
+    """config/cluster/<preset> through the port's load_config with
+    DISAGG_OVERRIDES, PROCESS_MODEL and each spec's DISAGG_NODE overlay, as
+    a ProcessClusterConfig on the card."""
+    from hydrainfer_tpu_torch.cluster.process_node import ProcessClusterConfig
+    from hydrainfer_tpu_torch.config import deep_merge, load_config
+    from hydrainfer_tpu_torch.entrypoint.entrypoint import EntryPointConfig
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = load_config(EntryPointConfig, os.path.join(here, "config", "cluster", preset),
+                      DISAGG_OVERRIDES + PROCESS_MODEL)
+    for spec in cfg.cluster.nodes:
+        spec.node = deep_merge(spec.node or {}, DISAGG_NODE[spec.node_type])
+    return ProcessClusterConfig(nodes=cfg.cluster.nodes, node=cfg.cluster.node,
+                                start_timeout_s=PROCESS_BOOT_LIMIT_S,
+                                health_interval_s=1.0, health_strikes=3)
+
+
+async def _process_round(cluster, reqs, tokenizer, timeout_s=300):
+    """Serve `reqs` through ProcessCluster.add_request until each has
+    finished (parent-side processors); a node declared dead fails it."""
+    from hydrainfer_tpu_torch.engine.output_token_processor import (
+        OfflineOutputTokenProcessor, OutputTokenParams)
+    from hydrainfer_tpu_torch.engine.request_processor import RequestProcessParameters
+    from hydrainfer_tpu_torch.request import OfflineInferenceOutput
+    outs, done = [], []
+    for req in reqs:
+        outs.append(OfflineInferenceOutput(arrival_time=time.perf_counter()))
+        proc = OfflineOutputTokenProcessor(outs[-1], tokenizer, on_finish=done.append)
+        await cluster.add_request(req, RequestProcessParameters(
+            output_token_processors=[proc],
+            output_token_params=OutputTokenParams(stream_output=False)))
+    deadline = time.perf_counter() + timeout_s
+    while len(done) < len(reqs):
+        await asyncio.sleep(0.005)
+        dead = [h.name for h in cluster.handles if not h.alive]
+        if dead:
+            raise RuntimeError(f"node processes died: {dead}")
+        if time.perf_counter() > deadline:
+            raise TimeoutError(f"{len(done)}/{len(reqs)} finished")
+    return outs
+
+
+def _token_rows(blocks, n):
+    """The first n token rows of a gather_blocks payload (n_blocks, layers,
+    tensors, block, heads, dim), as raw bits."""
+    import torch
+    x = blocks.movedim(0, 2)
+    x = x.reshape(*x.shape[:2], -1, *x.shape[4:])[:, :, :n].contiguous()
+    return x.view(torch.int16 if x.element_size() == 2 else torch.int8)
+
+
+async def _first_pulls_bit_equal(cluster, rows) -> dict:
+    """For each node's latest pull of each kind (its metrics row), the
+    source's and the destination's blocks read back over RPC: the pulled
+    token rows must be equal bit for bit."""
+    import torch
+    handles = {h.name: h for h in cluster.handles}
+    out = {}
+    for dst_name, row in rows.items():
+        for src_name, kinds in row.get("migration_last_pulls", {}).items():
+            for kind, rec in kinds.items():
+                is_kv = kind == "kv"
+                src = await handles[src_name].client.call("gather_blocks", is_kv, rec["src"])
+                dst = await handles[dst_name].client.call("gather_blocks", is_kv, rec["dst"])
+                out[kind] = {"source": src_name, "destination": dst_name,
+                             "blocks": len(rec["src"]), "tokens": rec["tokens"],
+                             "dtype": str(dst.dtype),
+                             "bit_equal": bool(torch.equal(_token_rows(src, rec["tokens"]),
+                                                           _token_rows(dst, rec["tokens"])))}
+    return out
+
+
+async def _settled(cluster, rows0, timeout_s=30.0) -> dict:
+    """The nodes' metrics once no request is left migrating and every pool
+    has its boot-time available blocks back (a node frees a finished
+    request's blocks after it pushed the last token, so the parent may see
+    the round end first), or as they stand after `timeout_s`."""
+    deadline = time.perf_counter() + timeout_s
+    while True:
+        rows = await cluster.metrics_async()
+        if all(r.get("migrating_requests") == 0
+               and all(r.get(k) == v for k, v in rows0[n].items()
+                       if k.endswith("_available_blocks"))
+               for n, r in rows.items()) or time.perf_counter() > deadline:
+            return rows
+        await asyncio.sleep(0.05)
+
+
+def _delta(after: dict, before: dict, key: str):
+    return after.get(key, 0) - before.get(key, 0)
+
+
+def _smi(query: str) -> str:
+    out = subprocess.run(["nvidia-smi", f"--query-{query}", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=30)
+    return out.stdout.strip()
+
+
+async def _process_general(dev, tokenizer, reqs_warm, reqs, lone) -> dict:
+    """E + P + D as three spawned processes (module docstring, `process`):
+    boot, the lone request and the first pulls' bit check, a warm-up and a
+    measured round with their launch, pull and pool checks, then the D
+    node's kill and respawn."""
+    import torch
+    from hydrainfer_tpu_torch.cluster.process_node import ProcessCluster
+    from hydrainfer_tpu_torch.engine.output_token_processor import LogOutputTokenProcessor
+    from hydrainfer_tpu_torch.engine.request_processor import RequestProcessParameters
+    import numpy as np
+    torch.cuda.synchronize()
+    parent0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    cluster = ProcessCluster(_process_config("general.yaml"))
+    res, checks = {}, {}
+    try:
+        await cluster.wait_ready()
+        res["boot_s"] = time.perf_counter() - t0          # spawn to all pinged
+        await cluster.start()
+        rows0 = await cluster.metrics_async()
+        # the lone image request: E -> P -> D with nothing else running, so
+        # the blocks it moved are read back as they landed
+        lone_out = await _process_round(cluster, [lone], tokenizer)
+        checks["lone_tokens"] = len(lone_out[0].output_token_ids) == LLAVA_TOKENS
+        bits = await _first_pulls_bit_equal(cluster, await cluster.metrics_async())
+        res["first_pulls"] = bits
+        checks["first_pulls_bit_equal"] = (set(bits) == {"kv", "image"}
+                                           and all(b["bit_equal"] for b in bits.values()))
+        await _process_round(cluster, reqs_warm, tokenizer)
+        before = await _settled(cluster, rows0)
+        t1 = time.perf_counter()
+        outs = await _process_round(cluster, reqs, tokenizer)
+        elapsed = time.perf_counter() - t1
+        after = await _settled(cluster, rows0)
+        res["card_memory_used_mib"] = _smi("gpu=memory.used")
+        torch.cuda.synchronize()
+        checks["parent_card_memory_0"] = torch.cuda.memory_allocated() == parent0
+        n_tokens = [len(o.output_token_ids) for o in outs]
+        checks["tokens"] = all(n == LLAVA_TOKENS for n in n_tokens)
+        image = sorted(o.ttft for r, o in zip(reqs, outs) if r.image is not None)
+        text = sorted(o.ttft for r, o in zip(reqs, outs) if r.image is None)
+        res.update(tokens_per_s=sum(n_tokens) / elapsed, elapsed_s=elapsed,
+                   image_p50_ttft_s=image[len(image) // 2], text_p50_ttft_s=text[len(text) // 2])
+        nodes, launches = {}, {}
+        for h in cluster.handles:
+            a, b, r0 = after[h.name], before[h.name], rows0[h.name]
+            must, must_not = DISAGG_LAUNCH[str(h.node_type)]
+            lc = {k: a["launches"][k] - b["launches"][k] for k in a["launches"]}
+            for k, n in lc.items():
+                launches[k] = launches.get(k, 0) + n
+            pulls = _delta(a, b, "migration_pulls")
+            ipc = _delta(a, b, "migration_ipc_pulls")
+            mb = _delta(a, b, "migration_pull_mb")
+            host_s = _delta(a, b, "migration_pull_s_total")
+            export_s = _delta(a, b, "migration_ipc_export_s")
+            copy_s = _delta(a, b, "migration_ipc_copy_s")
+            row = {"pid": a["pid"], "launches": lc,
+                   "launches_ok": (all(lc[k] > 0 for k in must)
+                                   and all(lc[k] == 0 for k in must_not)),
+                   "pulls": pulls, "ipc_pulls": ipc,
+                   "shm_pulls": _delta(a, b, "migration_shm_pulls"),
+                   "pull_mb": mb, "pull_host_ms_each": 1e3 * host_s / pulls if pulls else None,
+                   # of which waiting for the source's export, and for the
+                   # copy on this card behind the windows queued before it
+                   "pull_export_ms_each": 1e3 * export_s / ipc if ipc else None,
+                   "pull_copy_ms_each": 1e3 * copy_s / ipc if ipc else None,
+                   "pull_gb_per_s": mb / 1e3 / host_s if host_s else None,
+                   "pull_bound_ms_each": (1e3 * 2 * mb * 1e6 / HBM_BYTES_PER_S / pulls
+                                          if pulls else None),
+                   "migrating_requests": a["migrating_requests"],
+                   "available_blocks_start": {k: r0[k] for k in r0 if k.endswith("_available_blocks")},
+                   "available_blocks_end": {k: a[k] for k in a if k.endswith("_available_blocks")},
+                   "peak_memory_bytes": a.get("cuda_peak_memory_allocated"),
+                   "memory_allocated_bytes": a.get("cuda_memory_allocated"),
+                   "alloc_conf": a.get("cuda_alloc_conf"), "graph_keys": a.get("graph_keys")}
+            row["ok"] = bool(row["launches_ok"] and row["migrating_requests"] == 0
+                             and row["available_blocks_start"] == row["available_blocks_end"]
+                             and ipc == pulls and row["shm_pulls"] == 0)
+            nodes[h.name] = row
+        checks["nodes"] = all(r["ok"] for r in nodes.values())
+        checks["pulls_in_both_kinds"] = (nodes["PNode:p0"]["pulls"] > 0
+                                         and nodes["DNode:d0"]["pulls"] > 0)
+        res["nodes"], res["launches"] = nodes, launches
+
+        # the D node killed with requests in flight on it
+        rng = np.random.default_rng(SEED + 8)
+        long_reqs = _requests(rng, RESPAWN_REQUESTS, DISAGG_TEXT_PROMPT, RESPAWN_TOKENS, "kill")
+        procs = [LogOutputTokenProcessor() for _ in long_reqs]
+        for req, proc in zip(long_reqs, procs):
+            await cluster.add_request(req, RequestProcessParameters(
+                output_token_processors=[proc]))
+        deadline = time.perf_counter() + 120
+        while not all(len(p.token_ids) >= 2 * 16 for p in procs):
+            if time.perf_counter() > deadline or any(p.finished for p in procs):
+                raise RuntimeError("the long requests never decoded on the D node")
+            await asyncio.sleep(0.01)
+        d = next(h for h in cluster.handles if h.name == "DNode:d0")
+        held = [cluster._node_by_request.get(r.request_id, (None,))[0] for r in long_reqs]
+        t_kill = time.perf_counter()
+        d.proc.kill()
+        while not all(p.finished for p in procs):
+            if time.perf_counter() - t_kill > 60:
+                raise RuntimeError("the killed node's requests were not terminated")
+            await asyncio.sleep(0.01)
+        terminated_s = time.perf_counter() - t_kill
+        while not (d.alive and d.respawns == 1):
+            if time.perf_counter() - t_kill > PROCESS_BOOT_LIMIT_S:
+                raise RuntimeError("the D node was not respawned")
+            await asyncio.sleep(0.1)
+        respawn_s = time.perf_counter() - t_kill
+        again = await _process_round(cluster, _disagg_requests(SEED + 9)[LLAVA_REQUESTS - 1:
+                                                                     LLAVA_REQUESTS + 1],
+                                     tokenizer)
+        checks["respawn"] = (all(x == "DNode:d0" for x in held)
+                             and all(p.terminated and len(p.token_ids) < RESPAWN_TOKENS
+                                     for p in procs)
+                             and all(len(o.output_token_ids) == LLAVA_TOKENS for o in again))
+        res["respawn"] = {"held_by": held, "tokens_at_kill": [len(p.token_ids) for p in procs],
+                          "terminated_s": terminated_s, "respawned_s": respawn_s,
+                          "after": [len(o.output_token_ids) for o in again]}
+    finally:
+        await cluster.stop()
+    res["tokens"] = [o.output_token_ids for o in outs]
+    res["checks"] = checks
+    return res
+
+
+def _timeslice_worker(n, iters, barrier, out):
+    """One process's bf16 GEMM loop, started with the others at the barrier."""
+    import torch
+    a = torch.randn(n, n, device="cuda", dtype=torch.bfloat16)
+    for _ in range(3):
+        a @ a
+    torch.cuda.synchronize()
+    barrier.wait()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        a @ a
+    torch.cuda.synchronize()
+    out.put(time.perf_counter() - t0)
+
+
+def _timeslice() -> dict:
+    """How CUDA contexts of several processes share the card: the same GEMM
+    loop in one process alone, then in two at once (seconds each)."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    out = {}
+    for n_proc in (1, 2):
+        barrier, q = ctx.Barrier(n_proc), ctx.Queue()
+        procs = [ctx.Process(target=_timeslice_worker,
+                             args=(SLICE_N, SLICE_ITERS, barrier, q)) for _ in range(n_proc)]
+        for p in procs:
+            p.start()
+        secs = [q.get(timeout=300) for _ in procs]
+        for p in procs:
+            p.join(timeout=30)
+        out[f"{n_proc}_process"] = secs
+    flops = 2 * SLICE_N ** 3 * SLICE_ITERS
+    alone = out["1_process"][0]
+    return {"gemm": f"{SLICE_ITERS} x bf16 {SLICE_N}^3 a process", "seconds": out,
+            "alone_tflops": flops / alone / 1e12,
+            "two_at_once_over_two_alone": max(out["2_process"]) / (2 * alone)}
+
+
+def _png_b64(rng) -> str:
+    import base64
+    import io
+    import numpy as np
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(rng.integers(0, 256, (336, 336, 3), dtype=np.uint8)).save(buf, "PNG")
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def _process_entrypoint() -> dict:
+    """`python -m hydrainfer_tpu_torch.entrypoint.entrypoint --config
+    config/cluster/hybrid.yaml cluster.deployment=process` (ENTRY_OVERRIDES)
+    as a child: ENTRY_CHATS streaming chats at once, ENTRY_IMAGES of them
+    with an image_url; every stream must end in [DONE] with its deltas,
+    /metrics must list both nodes with every pull over CUDA IPC, SIGTERM
+    must end the child with 0, and afterwards neither node process may be
+    alive or on the card."""
+    import signal
+    import numpy as np
+    root = os.path.dirname(os.path.abspath(__file__))
+    port = _free_port()
+    cmd = [sys.executable, "-m", "hydrainfer_tpu_torch.entrypoint.entrypoint",
+           "--config", ENTRY_CONFIG, *ENTRY_OVERRIDES, f"api_server.port={port}"]
+    os.makedirs(OUT_DIR, exist_ok=True)
+    log_path = os.path.join(OUT_DIR, "process_server.log")
+    env = dict(os.environ, HYDRAINFER_LOG_LEVEL="INFO")
+    rng = np.random.default_rng(SEED + 10)
+    letters = list("abcdefghijklmnopqrstuvwxyz ")
+    res, checks = {"command": cmd, "server_log": log_path}, {}
+    with open(log_path, "w") as log:
+        t0 = time.perf_counter()
+        child = subprocess.Popen(cmd, cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT)
+        try:
+            while True:
+                if child.poll() is not None:
+                    raise RuntimeError(f"the entry point exited with {child.returncode} "
+                                       f"while booting (log: {log_path})")
+                if time.perf_counter() - t0 > PROCESS_BOOT_LIMIT_S:
+                    raise RuntimeError("the entry point did not boot in time")
+                try:
+                    if _http(port, "GET", "/health", timeout=5)[0] == 200:
+                        break
+                except OSError:
+                    pass
+                time.sleep(0.5)
+            res["boot_s"] = time.perf_counter() - t0
+            chats = [("".join(rng.choice(letters, size=64)),
+                      _png_b64(rng) if i < ENTRY_IMAGES else None) for i in range(ENTRY_CHATS)]
+            from concurrent.futures import ThreadPoolExecutor
+            t1 = time.perf_counter()
+            with ThreadPoolExecutor(ENTRY_CHATS) as pool:
+                streams = list(pool.map(lambda c: _stream_chat(port, c[0], ENTRY_TOKENS,
+                                                               image_b64=c[1]), chats))
+            burst_s = time.perf_counter() - t1
+            status, body = _http(port, "GET", "/metrics", timeout=60)
+            rows = json.loads(body) if status == 200 else {}
+            n_deltas = [len(st["times"]) for st in streams]
+            checks["streams_done"] = all(st["status"] == 200 and st["done"] for st in streams)
+            checks["deltas"] = all(n == ENTRY_TOKENS for n in n_deltas)
+            checks["metrics_nodes"] = sorted(rows) == ["DNode:d0", "EPNode:ep0"]
+            d_row = rows.get("DNode:d0", {})
+            checks["ipc_pulls"] = (d_row.get("migration_pulls", 0) >= ENTRY_CHATS
+                                   and d_row.get("migration_ipc_pulls") == d_row["migration_pulls"])
+            first = lambda sel: sorted(st["times"][0] for st, c in zip(streams, chats)
+                                       if st["times"] and sel(c))
+            img_first, txt_first = first(lambda c: c[1]), first(lambda c: not c[1])
+            res.update(burst_s=burst_s, tokens_per_s=sum(n_deltas) / burst_s,
+                       image_p50_first_delta_s=img_first[len(img_first) // 2],
+                       text_p50_first_delta_s=txt_first[len(txt_first) // 2],
+                       nodes={k: {f: v.get(f) for f in ("pid", "migration_pulls",
+                                                         "migration_ipc_pulls",
+                                                         "migration_pull_mb",
+                                                         "cuda_peak_memory_allocated")}
+                              for k, v in rows.items()})
+            pids = [v.get("pid") for v in rows.values()]
+            child.send_signal(signal.SIGTERM)
+            rc = child.wait(timeout=ONLINE_STOP_LIMIT_S)
+            checks["sigterm_exit_0"] = rc == 0
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+
+    def gone(pid):
+        try:
+            with open(f"/proc/{pid}/status") as f:
+                return any(line.split()[1:2] == ["Z"] for line in f if line.startswith("State"))
+        except FileNotFoundError:
+            return True
+
+    time.sleep(1.0)
+    apps = _smi("compute-apps=pid")
+    res["compute_apps_after"] = apps
+    listed = {int(x) for x in apps.split() if x.strip().isdigit()}
+    checks["nodes_gone"] = (bool(pids) and all(p is not None and gone(p) for p in pids)
+                            and not listed & set(pids) and child.pid not in listed)
+    res["checks"] = checks
+    res["ok"] = all(checks.values())
+    return res
+
+
+def phase_process(dev="cuda") -> dict:
+    """The process deployment on the card (module docstring, `process`):
+    E + P + D as three spawned processes through ProcessCluster (each node
+    builds LLaVA-1.5-7B from the seed), the EPD reference's tokens (the
+    disagg phase's, else one EPD node's here, from the same factory), the
+    D node's kill and respawn, the entry point with deployment=process as a
+    child, and the context time-slicing probe."""
+    import gc
+    import torch
+    from hydrainfer_tpu_torch.models.factory import ModelFactoryConfig, getModelFactory
+    dev = torch.device(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tokenizer = getModelFactory(ModelFactoryConfig(name=LLAVA_MODEL), "cpu").getTokenizer()
+    reqs_warm, reqs = _disagg_requests(SEED + 6), _disagg_requests(SEED + 7)
+    lone = _llava_requests(__import__("numpy").random.default_rng(SEED + 11), 1,
+                           LLAVA_TOKENS, "lone")[0]
+    general = asyncio.run(_process_general(dev, tokenizer, reqs_warm, reqs, lone))
+    tokens = general.pop("tokens")
+    factory = _LLAVA_MM.get("factory")
+    epd_tokens = _LLAVA_MM.get("epd_tokens")
+    ref_from = "disagg phase (one EPD node in process)"
+    if epd_tokens is None:
+        if factory is None:
+            factory = _llava_factory_mm(dev)
+        epd, _, epd_tokens = _disagg_topology(factory, "single.yaml", None, True)
+        _LLAVA_MM.update(epd=epd)
+        ref_from = "one EPD node in process, this phase"
+    tie = _near_tie(factory.getLanguageModel(), factory.getTokenizer(), reqs, tokens,
+                    epd_tokens, dev, vision=factory)
+    general["tokens_identical_to_epd"] = tokens == epd_tokens
+    general["divergences"] = tie
+    general["reference"] = ref_from
+    epd, inproc = _LLAVA_MM.get("epd", {}), _LLAVA_MM.get("general")
+    general["beside"] = {k: {m: r.get(m) for m in ("tokens_per_s", "image_p50_ttft_s",
+                                                   "text_p50_ttft_s")}
+                         for k, r in (("epd_in_process", epd), ("general_in_process", inproc))
+                         if r}
+    _LLAVA_MM.clear()
+    del factory
+    gc.collect()
+    torch.cuda.empty_cache()
+    entry = _process_entrypoint()
+    slicing = _timeslice()
+    ok = all(general["checks"].values()) and tie["ok"] and entry["ok"]
+    import multiprocessing
+    import zmq
+    result = {"phase": "process", "ok": bool(ok), "gpu": gpu_name_and_limit(),
+              "pyzmq": zmq.__version__, "libzmq": zmq.zmq_version(),
+              "start_methods": multiprocessing.get_all_start_methods(),   # the default first
+              "model": LLAVA_MODEL + " (bf16 tower and projector, int8 weights, int8 KV),"
+                       " built by each node process from the seed",
+              "requests": f"{LLAVA_REQUESTS} image + {DISAGG_TEXT_REQUESTS} text "
+                          f"({DISAGG_TEXT_PROMPT} tokens), {LLAVA_TOKENS} tokens each",
+              "general": general, "entrypoint": entry, "timeslice": slicing}
+    save("process.json", result)
     return result
 
 
@@ -2936,13 +3414,17 @@ def _metrics(port: int) -> dict:
     return row
 
 
-def _stream_chat(port: int, prompt: str, max_tokens: int, temperature: float = 0.0) -> dict:
-    """One streaming chat request: the client-clock times of its deltas (the
-    content chunks; the finish chunk is not a delta) and whether it ended in
-    [DONE]."""
+def _stream_chat(port: int, prompt: str, max_tokens: int, temperature: float = 0.0,
+                 image_b64: str = None) -> dict:
+    """One streaming chat request (with an image_url part when image_b64 is
+    given): the client-clock times of its deltas (the content chunks; the
+    finish chunk is not a delta) and whether it ended in [DONE]."""
     import http.client
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=900)
-    body = {"messages": [{"role": "user", "content": prompt}],
+    content = prompt if image_b64 is None else [
+        {"type": "text", "text": prompt},
+        {"type": "image_url", "image_url": {"url": f"data:image/png;base64,{image_b64}"}}]
+    body = {"messages": [{"role": "user", "content": content}],
             "max_tokens": max_tokens, "ignore_eos": True, "stream": True,
             "temperature": temperature}
     t0 = time.perf_counter()
@@ -3157,11 +3639,31 @@ def gpu_name_and_limit() -> str:
         return f"nvidia-smi unavailable ({e})"
 
 
+def _why(res, path="") -> list:
+    """Where a phase's result failed: its error, every check that is False
+    and every part whose "ok" is False, by path (the stderr summary)."""
+    out = []
+    if isinstance(res, dict):
+        if "error" in res:
+            out.append(f"{path or 'phase'}: {res['error']}")
+        for k, v in res.items():
+            at = f"{path}.{k}" if path else str(k)
+            if v is False and (k == "ok" or path.endswith("checks")):
+                out.append(at if k != "ok" else path or "ok")
+            elif isinstance(v, (dict, list)):
+                out.extend(_why(v, at))
+    elif isinstance(res, list):
+        for i, v in enumerate(res):
+            out.extend(_why(v, f"{path}[{i}]"))
+    return out
+
+
 def main() -> int:
     global OUT_DIR
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
-                    default="build,kernels,tiny,serve,spec,sample,vlm,llava,disagg,mla,online")
+                    default="build,kernels,tiny,serve,spec,sample,vlm,llava,disagg,process,"
+                            "mla,online")
     ap.add_argument("--out-dir", default=OUT_DIR,
                     help="where the detail files go")
     args = ap.parse_args()
@@ -3186,6 +3688,8 @@ def main() -> int:
 
     failed, kernel_rows, counts = [], [], {"serve": {}, "spec": {}, "vlm": {}, "llava": {},
                                            "mla": {}}
+    process_counts = None       # the process phase's, summed over its node processes
+    why = {}                    # a failed phase: what failed in it
     for phase in phases:
         t0 = time.perf_counter()
         try:
@@ -3207,6 +3711,9 @@ def main() -> int:
                 res, counts["llava"] = phase_llava()
             elif phase == "disagg":
                 res = phase_disagg()
+            elif phase == "process":
+                res = phase_process()
+                process_counts = res["general"]["launches"]
             elif phase == "mla":
                 res, counts["mla"] = phase_mla()
             elif phase == "online":
@@ -3219,11 +3726,12 @@ def main() -> int:
         res["phase_s"] = time.perf_counter() - t0
         if phase in ("spec", "sample") and "sample" not in phases[phases.index(phase) + 1:]:
             _LLAVA.clear()          # the last phase on the shared llava-7b-lm weights
-        if "disagg" not in phases[phases.index(phase) + 1:]:
+        if not {"disagg", "process"} & set(phases[phases.index(phase) + 1:]):
             _LLAVA_MM.clear()       # no later phase serves the llava phase's factory
         emit(res)
         if not res["ok"]:
             failed.append(phase)
+            why[phase] = _why(res)[:20]
 
     print(gpu_name_and_limit(), flush=True)
     kernels = []
@@ -3235,6 +3743,11 @@ def main() -> int:
                         "replaces": replaces, "path": r["path"],
                         **({"form": r["form"]} if "form" in r else {}),
                         "launches": counts[r["path"]].get(_launch_key(r), 0),
+                        # the llava-7b rows: the kernel's launches (K3: both
+                        # forms) in the process phase's measured round
+                        **({"process_launches": process_counts.get(r["name"], 0)}
+                           if process_counts is not None and r["path"] in ("serve", "llava")
+                           else {}),
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -3252,6 +3765,8 @@ def main() -> int:
                         "shape": r["shape"], "ok": r["ok"]})
     emit({"kernels": kernels})
     if failed:
+        for phase in failed:
+            print(f"chip_smoke: {phase} failed at: {why[phase]}", file=sys.stderr)
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
     emit({"ok": True, "device": {"platform": "gpu",

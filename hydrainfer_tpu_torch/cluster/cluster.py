@@ -21,7 +21,10 @@ else build each from a `model_factory_provider`, else each its own from
 the free memory of their card, so on a shared card set the block counts.
 
 Tensor and pipeline parallelism (`tp_size`, `pp_size` > 1) wait for queue 1,
-item 9, and the `process` deployment and `attach_addr` for item 7.
+item 9. The `process` deployment (one OS process per node) and `attach_addr`
+belong to cluster/process_node.py:ProcessCluster, which EntryPoint builds
+for `deployment: process`; this class refuses both, where the JAX `Cluster`
+ignores them and builds the nodes in process.
 """
 import dataclasses
 from dataclasses import dataclass, field
@@ -50,7 +53,10 @@ class NodeSpec:
     # per-spec engine config overlay (config/node/*.yaml): a raw dict
     # deep-merged over the cluster-wide `node` config
     node: Optional[dict] = None
-    # the process deployment's attach address (not ported yet)
+    # ProcessCluster only: attach to a node already serving at this
+    # tcp://host:port (launched standalone with `python -m
+    # hydrainfer_tpu_torch.cluster.process_node`) instead of spawning one;
+    # n_replicas must be 1
     attach_addr: Optional[str] = None
 
 
@@ -71,8 +77,9 @@ class ClusterConfig:
     node: NodeConfig = field(default_factory=NodeConfig)
     tp_size: int = 1                    # > 1: not ported yet (queue 1, item 9)
     pp_size: int = 1                    # > 1: not ported yet (queue 1, item 9)
-    # "inprocess" = asyncio actors in this process; "process" (one OS process
-    # per node) is not ported yet (queue 1, item 7)
+    # "inprocess" = asyncio actors in this process; "process" = one OS
+    # process per node (cluster/process_node.py:ProcessCluster, which
+    # EntryPoint builds)
     deployment: str = "inprocess"
     host: str = "127.0.0.1"             # the process deployment's bind host
     # the port's device choice: "cpu" asks for the CPU, None means the card
@@ -124,8 +131,10 @@ class Cluster(RequestObserver):
     def __init__(self, config: ClusterConfig, model_factory: Optional[ModelFactory] = None,
                  devices: Optional[list] = None, model_factory_provider=None):
         if config.deployment != "inprocess":
-            raise NotImplementedError(f"deployment={config.deployment!r} is not ported "
-                                      "yet (ROADMAP.md queue 1, item 7)")
+            raise NotImplementedError(f"deployment={config.deployment!r}: Cluster builds "
+                                      "the nodes in this process; one process a node is "
+                                      "ProcessCluster's (cluster/process_node.py), which "
+                                      "EntryPoint builds for deployment=process")
         if config.tp_size > 1 or config.pp_size > 1:
             raise NotImplementedError("tensor and pipeline parallelism (tp_size, "
                                       "pp_size > 1) are not ported yet (ROADMAP.md "
@@ -137,9 +146,10 @@ class Cluster(RequestObserver):
         devices = devices if devices is not None else cluster_devices(config)
         specs = config.nodes or resolve_cluster_topology(config.cluster_type, len(devices))
         if any(spec.attach_addr for spec in specs):
-            raise NotImplementedError("attach_addr belongs to the process deployment, "
-                                      "which is not ported yet (ROADMAP.md queue 1, "
-                                      "item 7)")
+            raise NotImplementedError("attach_addr: Cluster builds the nodes in this "
+                                      "process; attaching to a running node is "
+                                      "ProcessCluster's (cluster/process_node.py), which "
+                                      "EntryPoint builds for deployment=process")
         self.nodes: List[AsyncEPDNode] = []
         name_counts = {}
         for spec in specs:

@@ -41,7 +41,8 @@ decodes reach the card between segments. A step that schedules nothing
 still advances the encode; image batches scheduled while it runs go back to
 the scheduler; the finished batch rejoins the scheduler like any other.
 
-Migration, the JAX package's 4-step protocol between nodes of this process:
+Migration, the JAX package's 4-step protocol between nodes (of this process,
+or of other processes through cluster/process_node.py's PeerNodeProxy):
   1. the source's `_execute_batch_migrate` resolves its pending tokens on
      the host (the token table does not travel), picks a target from the
      migrate graph's balancer for the request's scenario, and hands the
@@ -53,9 +54,10 @@ Migration, the JAX package's 4-step protocol between nodes of this process:
      the waiting queue;
   3. the target pulls the blocks in a background asyncio task (`_pull_one`):
      it allocates its own blocks, gathers the source's KV and image blocks
-     and scatters them into its caches (memory/token_cache.py), while its
-     step loop goes on dispatching decode windows; the request rejoins its
-     scheduler when the copy is queued;
+     and scatters them into its caches (memory/token_cache.py; a source in
+     another process gathers on its side and the proxy lands the payload,
+     `pull_blocks`), while its step loop goes on dispatching decode
+     windows; the request rejoins its scheduler when the copy is queued;
   4. the source frees the request's blocks and token slot
      (`free_migrate_request`).
 On one card the copies run on the current stream, where the source's cache
@@ -659,15 +661,24 @@ class AsyncEPDNode:
 
     async def _pull_virtual_cache(self, src_node, src_vc, is_kv: bool):
         """A virtual cache of this node holding src_vc's tokens, copied
-        block for block from the source's cache."""
+        block for block from the source's cache (a node of this process, or
+        another process's through its PeerNodeProxy)."""
         dst_mgr = self.kv_cache_manager if is_kv else self.image_cache_manager
         dst_vc = dst_mgr.allocate_virtual_cache()
         dst_mgr.realloc(dst_vc, src_vc.n_cache_tokens)
-        if src_vc.block_table:
+        if not src_vc.block_table:
+            return dst_vc
+        if getattr(src_node, "is_remote", False):
+            # a node of another process (cluster/process_node.py): its proxy
+            # gathers over the data plane the two processes share (CUDA IPC,
+            # shared memory or RPC) and lands the payload with scatter_blocks
+            nbytes = await src_node.pull_blocks(is_kv, src_vc, dst_mgr, dst_vc)
+        else:
             src_mgr = src_node.kv_cache_manager if is_kv else src_node.image_cache_manager
             blocks = src_mgr.gather_blocks(src_vc.block_table)
-            self._pull_stats["bytes"] += blocks.numel() * blocks.element_size()
+            nbytes = blocks.numel() * blocks.element_size()
             dst_mgr.scatter_blocks(dst_vc.block_table, blocks)
+        self._pull_stats["bytes"] += nbytes
         return dst_vc
 
     async def free_migrate_request(self, rcb: RequestControlBlock) -> None:

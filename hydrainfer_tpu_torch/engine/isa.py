@@ -196,6 +196,37 @@ class InstructionList:
             parts.append(("*" if node is self.curr else "") + repr(node))
         return "->".join(parts)
 
+    def __getstate__(self) -> dict:
+        """Pickled flat, the links as positions: a list holds a node per
+        decode token, and pickling the links themselves recurses once per
+        node, past what the pickler allows after a few thousand nodes (the
+        process deployment ships requests between processes)."""
+        nodes = list(self)
+        where = {id(n): i for i, n in enumerate(nodes)}
+        flat = []
+        for n in nodes:
+            attrs = {k: v for k, v in n.__dict__.items() if k not in ("next", "prev")}
+            dst = attrs.get("sample_dst")
+            at = where.get(id(dst)) if dst is not None else None
+            if at is not None:
+                del attrs["sample_dst"]
+            flat.append((type(n), attrs, at))
+        return {"nodes": flat, "curr": where.get(id(self.curr))}
+
+    def __setstate__(self, state: dict) -> None:
+        nodes = []
+        for cls, attrs, _ in state["nodes"]:
+            node = cls.__new__(cls)
+            node.__dict__.update(attrs)
+            nodes.append(node)
+        for node, (_, _, at) in zip(nodes, state["nodes"]):
+            if at is not None:
+                node.sample_dst = nodes[at]
+        for a, b in zip(nodes, nodes[1:]):
+            a.next, b.prev = b, a
+        self.head, self.tail = nodes[0], nodes[-1]
+        self.curr = None if state["curr"] is None else nodes[state["curr"]]
+
 
 class InstructionListBuilder:
     def __init__(self):

@@ -1,6 +1,5 @@
 """Output-token processors (port of
-hydrainfer_tpu/engine/output_token_processor.py; its ZMQ processor belongs to
-the process deployment, which is not ported yet).
+hydrainfer_tpu/engine/output_token_processor.py).
 
 A request registers one or more processors; the fill executor calls them per
 sampled token, with is_last on the request's final token.
@@ -71,6 +70,26 @@ class CallbackOutputTokenProcessor(OutputTokenProcessor):
 
     def terminate(self):
         self.callback(-1, "", True)
+
+
+class ZmqOutputTokenProcessor(OutputTokenProcessor):
+    """Cross-process streaming: (request_id, text) tuples over a ZMQ PUSH
+    socket, with a None-text terminator (what an API server's
+    `zmq_pull_addr` receives)."""
+
+    def __init__(self, request_id, zmq_send, tokenizer):
+        from ..models.tokenizer import IncrementalDecoder
+        self.request_id = request_id
+        self.zmq_send = zmq_send
+        self.decoder = IncrementalDecoder(tokenizer)
+
+    def append_token_id(self, token_id, is_last_token=False):
+        self.zmq_send.send_pyobj((self.request_id, self.decoder.push(token_id)))
+        if is_last_token:
+            self.zmq_send.send_pyobj((self.request_id, None))
+
+    def terminate(self):
+        self.zmq_send.send_pyobj((self.request_id, None))
 
 
 class OfflineOutputTokenProcessor(OutputTokenProcessor):

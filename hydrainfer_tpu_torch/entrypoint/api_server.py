@@ -7,13 +7,16 @@ base64 `image_url` content parts fold into the model's image token),
 Parsed requests go to the registered observers (the cluster). The engine
 pushes each token into the request's AsyncStream through a callback
 processor, with `loop.call_soon_threadsafe`: the engine and the server share
-one event loop, and a processing worker thread may end a stream too.
-
-Divergence from the JAX server until its queue item lands: `zmq_pull_addr`
-(the process deployment's token path) raises (ROADMAP.md queue 1, item 7).
+one event loop, and a processing worker thread may end a stream too. With
+`zmq_pull_addr` set, the server also binds a ZMQ PULL socket there and feeds
+the (request_id, text | None) tuples another process sends
+(engine/output_token_processor.py:ZmqOutputTokenProcessor) into the
+request's stream. /metrics takes each observer's `metrics()` or, for the
+process deployment, its awaited `metrics_async()`.
 """
 import asyncio
 import contextlib
+import inspect
 import json
 import time
 import uuid
@@ -49,7 +52,9 @@ class APIServerConfig:
     host: str = "127.0.0.1"
     port: int = 8000
     model_name: str = "hydrainfer-tpu"
-    zmq_pull_addr: Optional[str] = None   # the process deployment's token path
+    # where other processes PUSH (request_id, text | None) tuples for the
+    # streams of this server (None = no ZMQ token path)
+    zmq_pull_addr: Optional[str] = None
 
 
 @web.middleware
@@ -71,10 +76,6 @@ async def _error_middleware(request, handler):
 class APIServer:
     def __init__(self, config: APIServerConfig, tokenizer,
                  image_token: str = "<image>", image_token_calculator=None):
-        if config.zmq_pull_addr:
-            raise NotImplementedError("zmq_pull_addr is the process deployment's "
-                                      "token path, not ported yet (ROADMAP.md "
-                                      "queue 1, item 7)")
         self.config = config
         self.tokenizer = tokenizer
         self.image_token = image_token
@@ -83,6 +84,7 @@ class APIServer:
         self.image_token_calculator = image_token_calculator
         self.observers = []
         self.streams: Dict[str, AsyncStream] = {}
+        self._zmq_task: Optional[asyncio.Task] = None
         self.app = web.Application(middlewares=[_error_middleware])
         self.app.add_routes([
             web.get("/health", self.health),
@@ -142,19 +144,39 @@ class APIServer:
                           f"{fr.f_lineno} {fr.f_code.co_name}" for fr in frames]})
         return web.json_response(rows)
 
+    async def _zmq_recv_loop(self) -> None:
+        """Multi-process delivery: (request_id, text | None) tuples over ZMQ
+        into the request's stream (None ends it)."""
+        import zmq
+        import zmq.asyncio
+        sock = zmq.asyncio.Context.instance().socket(zmq.PULL)
+        sock.bind(self.config.zmq_pull_addr)
+        try:
+            while True:
+                request_id, text = await sock.recv_pyobj()
+                stream = self.streams.get(request_id)
+                if stream is not None:
+                    stream.put(text)
+        finally:
+            sock.close(linger=0)
+
     # ---------------- routes ----------------
 
     async def health(self, _request) -> web.Response:
         return web.Response(text="ok")
 
     async def metrics(self, _request) -> web.Response:
-        """Per-node serving metrics from every observer with a metrics()."""
+        """Per-node serving metrics from every observer with a metrics() or
+        a metrics_async() (the process deployment's, over RPC)."""
         out = {}
         for obs in self.observers:
-            m = getattr(obs, "metrics", None)
+            m = getattr(obs, "metrics", None) or getattr(obs, "metrics_async", None)
             if callable(m):
                 try:
-                    out.update(m())
+                    rows = m()
+                    if inspect.isawaitable(rows):
+                        rows = await rows
+                    out.update(rows)
                 except Exception:
                     logger.exception("metrics collection failed")
         return web.json_response(out)
@@ -293,6 +315,8 @@ class APIServer:
     # ---------------- lifecycle ----------------
 
     async def start(self) -> web.AppRunner:
+        if self.config.zmq_pull_addr and self._zmq_task is None:
+            self._zmq_task = asyncio.create_task(self._zmq_recv_loop())
         runner = web.AppRunner(self.app)
         await runner.setup()
         site = web.TCPSite(runner, self.config.host, self.config.port)

@@ -3,10 +3,15 @@
     python -m hydrainfer_tpu_torch.entrypoint.entrypoint --config config/serve.yaml \
         [key.path=value ...]
 
-builds the in-process cluster and the OpenAI-compatible API server from the
-config (the YAML presets under config/ are read as they are) and serves on
-the card; `cluster.platform=cpu` serves on the CPU. SIGTERM or SIGINT stops
-the cluster and the server, and the process exits 0.
+builds the cluster and the OpenAI-compatible API server from the config (the
+YAML presets under config/ are read as they are) and serves on the card;
+`cluster.platform=cpu` serves on the CPU. The cluster is the in-process one
+(cluster/cluster.py), or with `cluster.deployment=process` one OS process a
+node (cluster/process_node.py:ProcessCluster: spawned children, or nodes
+attached by `attach_addr`), in which case this process builds the model
+factory only for its tokenizer and vision config and holds nothing on the
+card. SIGTERM or SIGINT stops the cluster and the server, and the process
+exits 0.
 """
 import argparse
 import asyncio
@@ -30,8 +35,25 @@ class EntryPointConfig:
 class EntryPoint:
     def __init__(self, config: EntryPointConfig, model_factory=None):
         self.config = config
-        self.cluster = Cluster(config.cluster, model_factory=model_factory)
-        factory = self.cluster.nodes[0].model_factory
+        c = config.cluster
+        if c.deployment == "process":
+            if c.tp_size > 1 or c.pp_size > 1:
+                raise NotImplementedError("tensor and pipeline parallelism (tp_size, "
+                                          "pp_size > 1) are not ported yet (ROADMAP.md "
+                                          "queue 1, item 9)")
+            if c.xla_flags:
+                logger.warning(f"cluster.xla_flags is TPU-only and has no effect here: "
+                               f"{c.xla_flags!r}")
+            from ..cluster.process_node import ProcessCluster, ProcessClusterConfig
+            from ..models.factory import getModelFactory
+            self.cluster = ProcessCluster(ProcessClusterConfig(
+                cluster_type=c.cluster_type, nodes=c.nodes, node=c.node, host=c.host,
+                platform=c.platform))
+            # the tokenizer and the vision config only: no weights are built
+            factory = model_factory or getModelFactory(c.node.model, "cpu")
+        else:
+            self.cluster = Cluster(c, model_factory=model_factory)
+            factory = self.cluster.nodes[0].model_factory
         vision_cfg = factory.getVisionModelConfig()
         self.api_server = APIServer(
             config.api_server, factory.getTokenizer(),

@@ -5,7 +5,9 @@ through both packages' loaders, and every field the two dataclass trees
 share has the same value (`DIVERGENT` lists the shared fields whose default
 differs on purpose: none since speculative decoding is ported, with the JAX
 default spec_ngram_k = 12). Overrides coerce alike, unknown keys raise in both, a TPU-only key is
-accepted and logged, a still-to-port feature raises with its queue item,
+accepted and logged, a still-to-port feature raises with its queue item (the
+in-process Cluster refuses the process deployment's settings, which
+EntryPoint hands to a ProcessCluster with the JAX topology's nodes),
 and every preset builds its cluster on the CPU: the multi-node ones (general
 E / P / D, hybrid EP + D, explicit node lists and replicas) with the JAX
 cluster's node names, types and migrate tables.
@@ -20,6 +22,9 @@ import torch
 
 from hydrainfer_tpu.cluster.cluster import spec_node_config as jax_spec_node_config
 from hydrainfer_tpu.cluster.node import NodeConfig as JaxNodeConfig
+from hydrainfer_tpu.cluster.process_node import ProcessCluster as JaxProcessCluster
+from hydrainfer_tpu.cluster.process_node import \
+    ProcessClusterConfig as JaxProcessClusterConfig
 from hydrainfer_tpu.config import load_config as jax_load_config
 from hydrainfer_tpu.entrypoint.entrypoint import EntryPointConfig as JaxEntryPointConfig
 from hydrainfer_tpu_torch.cluster import node as node_mod
@@ -29,8 +34,9 @@ from hydrainfer_tpu_torch.cluster.cluster import (Cluster, NodeSpec,
 from hydrainfer_tpu_torch.cluster.migrate import NodeType
 from hydrainfer_tpu_torch.cluster.node import (TPU_ONLY_FIELDS, AsyncEPDNode, NodeConfig,
                                                NodeContext, tpu_only_settings)
+from hydrainfer_tpu_torch.cluster.process_node import ProcessCluster
 from hydrainfer_tpu_torch.config import build_dataclass, load_config
-from hydrainfer_tpu_torch.entrypoint.entrypoint import EntryPointConfig
+from hydrainfer_tpu_torch.entrypoint.entrypoint import EntryPoint, EntryPointConfig
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOP = sorted(glob.glob(os.path.join(REPO, "config", "*.yaml"))
@@ -209,15 +215,46 @@ def test_spec_ngram_k_builds_a_node(override):
     assert NodeConfig().spec_ngram_k == JaxNodeConfig().spec_ngram_k == 12
 
 
-@pytest.mark.parametrize("override,item", [
-    ("cluster.tp_size=2", "item 9"), ("cluster.pp_size=2", "item 9"),
-    ("cluster.deployment=process", "item 7"),
+@pytest.mark.parametrize("override,refusal", [
+    ("cluster.tp_size=2", "queue 1, item 9"), ("cluster.pp_size=2", "queue 1, item 9"),
+    ("cluster.deployment=process", "ProcessCluster"),
     ("cluster.nodes=[{node_type: P, attach_addr: 'tcp://127.0.0.1:5555'}, "
-     "{node_type: D}]", "item 7")])
-def test_cluster_refuses_what_is_not_ported(override, item):
+     "{node_type: D}]", "ProcessCluster")])
+def test_cluster_refuses_what_is_not_ported(override, refusal):
+    """The in-process Cluster refuses tensor and pipeline parallelism (not
+    ported yet) and the process deployment's settings, which belong to
+    ProcessCluster (the JAX Cluster ignores them and builds the nodes in
+    process). With deployment=process, EntryPoint builds a ProcessCluster
+    whose nodes have the JAX ProcessCluster's names and types (one EPD node
+    for a cluster_type preset, as the JAX one resolves it); an attach spec
+    spawns nothing and takes its name from the node's first ping."""
     cfg = load_config(EntryPointConfig, None, FAKE + [override])
-    with pytest.raises(NotImplementedError, match=f"queue 1, {item}"):
+    with pytest.raises(NotImplementedError, match=refusal):
         Cluster(cfg.cluster)
+    if refusal != "ProcessCluster":
+        return
+    overrides = FAKE + [override, "cluster.deployment=process"]
+    cluster = EntryPoint(load_config(EntryPointConfig, None, overrides)).cluster
+    c = jax_load_config(JaxEntryPointConfig, None, overrides).cluster
+    jax_cluster = JaxProcessCluster(JaxProcessClusterConfig(
+        cluster_type=c.cluster_type, nodes=c.nodes, node=c.node, platform="cpu"))
+    try:
+        assert isinstance(cluster, ProcessCluster)
+        assert ([(h.name, str(h.node_type), h.addr if h.proc is None else None)
+                 for h in cluster.handles]
+                == [(h.name, str(h.node_type), h.addr if h.proc is None else None)
+                    for h in jax_cluster.handles])
+        assert [h.proc.name for h in cluster.handles if h.proc is not None] == \
+            [h.name for h in cluster.handles if h.proc is not None]
+    finally:
+        for cl in (cluster, jax_cluster):     # children that were never started
+            for h in cl.handles:
+                h.client.close()
+                if h.proc is not None:
+                    h.proc.terminate()
+                    h.proc.join(timeout=30)
+                    assert not h.proc.is_alive()
+            cl.token_sock.close(linger=0)
 
 
 def topology(cluster):

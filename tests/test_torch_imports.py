@@ -49,7 +49,9 @@ def test_port_and_chip_smoke_import_no_jax():
     assert "hydrainfer_tpu_torch.entrypoint.offline" in res["imported"]
     for name in ("ops.cuda.build", "ops.cuda.mha_varlen", "models.qwen2_vl",
                  "models.weight_loader", "ops.cuda.paged_attention_latent",
-                 "models.clip", "models.llava", "ops.token_pruning"):
+                 "models.clip", "models.llava", "ops.token_pruning",
+                 "cluster.rpc", "cluster.process_node", "utils.socket_utils",
+                 "utils.zmq_utils"):
         assert "hydrainfer_tpu_torch." + name in res["imported"]
     assert res["bad"] == []
 

@@ -482,8 +482,34 @@ def test_token_read_waits_off_the_loop():
 
 
 def test_zmq_token_path_is_refused():
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        APIServer(APIServerConfig(zmq_pull_addr="tcp://127.0.0.1:5555"), SimpleTokenizer())
+    """zmq_pull_addr, once refused, is the API server's ZMQ token path: the
+    (request_id, text | None) tuples a ZmqOutputTokenProcessor in another
+    process PUSHes there end up in the request's stream, in order, and None
+    ends it; tuples for unknown requests are dropped."""
+    from hydrainfer_tpu_torch.engine.output_token_processor import ZmqOutputTokenProcessor
+    from hydrainfer_tpu_torch.utils.socket_utils import find_free_port
+    from hydrainfer_tpu_torch.utils.zmq_utils import ZmqConfig, init_zmq_send
+    zmq_port = find_free_port()
+    server = APIServer(APIServerConfig(port=find_free_port(),
+                                       zmq_pull_addr=f"tcp://127.0.0.1:{zmq_port}"),
+                       SimpleTokenizer())
+    tokens = [ord(c) + SimpleTokenizer.OFFSET for c in "zmq ok"]
+
+    async def main():
+        runner = await server.start()
+        send = init_zmq_send(ZmqConfig(host="127.0.0.1", port=zmq_port))
+        try:
+            stream = server.make_stream("r0")
+            send.send_pyobj(("nobody", "dropped"))
+            proc = ZmqOutputTokenProcessor("r0", send, SimpleTokenizer())
+            for i, t in enumerate(tokens):
+                proc.append_token_id(t, is_last_token=i == len(tokens) - 1)
+            return [text async for text in stream]
+        finally:
+            send.close(linger=0)
+            await runner.cleanup()
+
+    assert asyncio.run(asyncio.wait_for(main(), 30)) == list("zmq ok")
 
 
 # ------------------------------------------------------------ budget search
