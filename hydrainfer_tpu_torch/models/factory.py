@@ -309,10 +309,12 @@ def getModelFactory(config: ModelFactoryConfig, device=None) -> ModelFactory:
         random CLIP tower and the LLaVA projector (CLIP-L/14-336, or
         CLIP_TINY for an arch whose name contains "tiny");
       - name "fake", or no path: FakeModelFactory;
-      - a checkpoint directory whose config.json names Qwen2-VL:
-        Qwen2VLModelFactory; LlavaForConditionalGeneration:
-        LlavaModelFactory; LlamaForCausalLM or Qwen2ForCausalLM:
-        TextOnlyModelFactory.
+      - a checkpoint directory whose config.json names
+        LlavaForConditionalGeneration: LlavaModelFactory;
+        LlavaNextForConditionalGeneration: LlavaNextModelFactory; Qwen2-VL:
+        Qwen2VLModelFactory; InternVLChatModel or model_type "internvl":
+        InternVLModelFactory; LlamaForCausalLM or Qwen2ForCausalLM:
+        TextOnlyModelFactory (the JAX package's order).
     Every other architecture raises, naming the queue item that ports it.
     dtype "auto" becomes bf16, as in the JAX package."""
     import json
@@ -339,22 +341,27 @@ def getModelFactory(config: ModelFactoryConfig, device=None) -> ModelFactory:
         json_config = json.load(f)
     architecture = (json_config.get("architectures") or [None])[0]
     model_type = json_config.get("model_type")
-    if architecture == "Qwen2VLForConditionalGeneration" or model_type == "qwen2_vl":
-        from .qwen2_vl import Qwen2VLModelFactory
-        return Qwen2VLModelFactory(config, device=device)
     if architecture == "LlavaForConditionalGeneration":
         from .llava import LlavaModelFactory
         return LlavaModelFactory(config, device=device)
+    if architecture == "LlavaNextForConditionalGeneration":
+        from .llavanext import LlavaNextModelFactory
+        return LlavaNextModelFactory(config, device=device)
+    if architecture == "Qwen2VLForConditionalGeneration" or model_type == "qwen2_vl":
+        from .qwen2_vl import Qwen2VLModelFactory
+        return Qwen2VLModelFactory(config, device=device)
+    if architecture == "InternVLChatModel" or model_type == "internvl":
+        from .internvl import InternVLModelFactory
+        return InternVLModelFactory(config, device=device)
     if architecture in ("LlamaForCausalLM", "Qwen2ForCausalLM"):
         from .text_only import TextOnlyModelFactory
         return TextOnlyModelFactory(config, device=device)
-    queue = {"LlavaNextForConditionalGeneration": "8",
-             "InternVLChatModel": "8", "DeepseekV2ForCausalLM": "8",
-             "DeepseekV3ForCausalLM": "8", "DeepseekForCausalLM": "8",
-             "MixtralForCausalLM": "8", "GPT2LMHeadModel": "8"}
+    queue = {"DeepseekV2ForCausalLM": "8", "DeepseekV3ForCausalLM": "8",
+             "DeepseekForCausalLM": "8", "MixtralForCausalLM": "8",
+             "GPT2LMHeadModel": "8"}
     item = queue.get(architecture)
     if item is None:
-        item = {"internvl": "8", "deepseek_vl_v2": "8", "deepseek_v2": "8",
+        item = {"deepseek_vl_v2": "8", "deepseek_v2": "8",
                 "deepseek_v3": "8"}.get(model_type)
     where = f"ROADMAP.md queue 1, item {item}" if item else "no queue item yet"
     raise ValueError(f"unsupported architecture {architecture} / model_type "

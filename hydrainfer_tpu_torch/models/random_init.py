@@ -28,6 +28,11 @@ ARCH_CONFIGS = {
         n_layers=32, hidden_size=4096, intermediate_size=11008,
         n_qo_heads=32, n_kv_heads=32, head_dim=128, vocab_size=32064,
         max_position_embeddings=4096),
+    # vicuna-13b inside llava-v1.6 (LLaVA-NeXT-13B); int8 weights ~13.0 GB
+    "llava-13b-lm": DecoderConfig(
+        n_layers=40, hidden_size=5120, intermediate_size=13824,
+        n_qo_heads=40, n_kv_heads=40, head_dim=128, vocab_size=32064,
+        max_position_embeddings=4096),
     # Qwen2-VL-2B language tower (its M-RoPE sections [16, 24, 24] come with
     # the checkpoint's rope_scaling, not with the architecture)
     "qwen2-vl-2b-lm": DecoderConfig(

@@ -10,11 +10,15 @@ JAX model (whose weight packing consumes it).
 
 `from_jax_vision_numpy` does the same for a vision tower's weights, numpy
 leaves again, copying the nested dicts, lists and (weight, bias) tuples as
-they are. It carries both towers the port has: Qwen2-VL's, in the layout of
+they are, and an absent leaf (None) as None. It carries every tower the
+port has: Qwen2-VL's, in the layout of
 hydrainfer_tpu/models/qwen2_vl.py:convert_qwen2_vision_weights (patch_embed,
-blocks, merger), and LLaVA's, in the layout of
+blocks, merger); LLaVA's, in the layout of
 hydrainfer_tpu/models/random_init.py:init_clip_weights(lm_hidden=...) and of
-the JAX LlavaModelFactory (the CLIP tower under "clip", then the projector).
+the JAX LlavaModelFactory (the CLIP tower under "clip", then the projector);
+LLaVA-NeXT's (LLaVA's plus "newline"); and InternVL's (the InternViT tree
+under "vit", with its layer scales and optional qk-norms, then "proj_norm",
+"proj1" and "proj2").
 """
 import numpy as np
 import torch
@@ -57,7 +61,7 @@ def _nested(x, device):
         return {k: _nested(v, device) for k, v in x.items()}
     if isinstance(x, (list, tuple)):
         return type(x)(_nested(v, device) for v in x)
-    return _tensor(x, device)
+    return None if x is None else _tensor(x, device)
 
 
 def from_jax_vision_numpy(tree: dict, device=None) -> dict:
@@ -65,5 +69,9 @@ def from_jax_vision_numpy(tree: dict, device=None) -> dict:
     tensors on `device`. Qwen2-VL: {"patch_embed", "blocks": [{ln1, qkv,
     proj, ln2, fc1, fc2}], "merger": {ln_q, mlp0, mlp2}}. LLaVA: {"clip":
     {patch_embed, class_embed, pos_embed, pre_norm, "layers": [{ln1, qkv,
-    out, ln2, fc1, fc2}]}, "proj1", "proj2"}; every pair is (weight, bias)."""
+    out, ln2, fc1, fc2}]}, "proj1", "proj2"}, plus "newline" for LLaVA-NeXT.
+    InternVL: {"vit": {patch_embed, patch_bias, cls, pos, "layers": [{qkv,
+    proj, ls1, ls2, norm1, norm2, fc1, fc2[, q_norm, k_norm]}]}, "proj_norm",
+    "proj1", "proj2"}. Every pair is (weight, bias); a norm's bias may be
+    None (InternViT's RMS norm)."""
     return _nested(tree, resolve_device(device))

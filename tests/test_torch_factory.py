@@ -4,8 +4,9 @@
 bf16, as in the JAX package), quantization and KV scale; `+mm` makes it
 multimodal (CLIP_TINY for a tiny arch, else CLIP-L/14-336); `fake` or no
 path gives FakeModelFactory; a
-checkpoint directory dispatches on its config.json, and an architecture the
-port does not have raises, naming the queue item that ports it. A tiny Llama
+checkpoint directory dispatches on its config.json (LLaVA-NeXT and InternVL,
+in both its layouts, among them), and an architecture the port does not have
+raises, naming the queue item that ports it. A tiny Llama
 checkpoint built in process with transformers goes through both packages'
 getModelFactory(path) and serves the same greedy tokens on a PD node.
 """
@@ -42,13 +43,47 @@ def test_get_model_factory_dispatch(tmp_path):
         (336, 336)) == 576
     assert getModelFactory(ModelFactoryConfig(name="random:tiny-lm"), "cpu") \
         .getVisionModelConfig() is None
-    for arch, item in (("LlavaNextForConditionalGeneration", "item 8"),
+    for arch, item in (("MixtralForCausalLM", "item 8"),
                        ("GPT2LMHeadModel", "item 8"), ("SomethingElse", "no queue item")):
         d = tmp_path / arch
         d.mkdir()
         (d / "config.json").write_text(json.dumps({"architectures": [arch]}))
         with pytest.raises(ValueError, match=item):
             getModelFactory(ModelFactoryConfig(path=str(d)), "cpu")
+
+
+_TEXT = {"model_type": "llama", "vocab_size": 64, "hidden_size": 48,
+         "intermediate_size": 96, "num_hidden_layers": 2, "num_attention_heads": 4,
+         "num_key_value_heads": 2}
+_VIT = {"hidden_size": 64, "intermediate_size": 128, "num_hidden_layers": 2,
+        "num_attention_heads": 4, "image_size": 56, "patch_size": 14}
+
+
+@pytest.mark.parametrize("config,factory_name", [
+    ({"architectures": ["LlavaNextForConditionalGeneration"], "text_config": _TEXT,
+      "vision_config": {**_VIT, "image_size": 28}}, "LlavaNextModelFactory"),
+    ({"architectures": ["InternVLChatModel"], "vision_config": _VIT,
+      "llm_config": {**_TEXT, "model_type": "internlm2"}}, "InternVLModelFactory"),
+    ({"architectures": ["InternVLForConditionalGeneration"], "model_type": "internvl",
+      "vision_config": {**_VIT, "image_size": [56, 56], "patch_size": [14, 14]},
+      "text_config": _TEXT}, "InternVLModelFactory"),
+], ids=["llavanext", "internvl_original", "internvl_native"])
+def test_multimodal_families_dispatch(tmp_path, config, factory_name):
+    """LLaVA-NeXT and both InternVL layouts dispatch to the port's factories
+    (by architecture, or by model_type "internvl"), as in the JAX package."""
+    from hydrainfer_tpu_torch.models.factory import ModelFactoryConfig, getModelFactory
+    (tmp_path / "config.json").write_text(json.dumps(config))
+    f = getModelFactory(ModelFactoryConfig(path=str(tmp_path)), "cpu")
+    assert type(f).__name__ == factory_name
+    lc = f.getLanguageModelConfig()
+    assert (lc.n_layers, lc.n_qo_heads, lc.n_kv_heads, lc.hidden_size) == (2, 4, 2, 48)
+    vcfg = f.getVisionModelConfig()
+    if factory_name == "InternVLModelFactory":
+        assert f.hf_style == (config.get("model_type") == "internvl")
+        assert vcfg.image_token_id == 92546        # the JAX default
+        assert vcfg.image_token_calculator.get_num_image_tokens((56, 56)) == 4
+    else:
+        assert f.pinpoints[0] == [336, 672] and vcfg.image_token_id == 32000
 
 
 def test_text_only_factory_matches_jax(tmp_path, monkeypatch):
