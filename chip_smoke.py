@@ -5,10 +5,12 @@
     python3 chip_smoke.py --phases build,kernels --out-dir DIR
     python3 chip_smoke.py --phases build,kernels,mla      # the quick MLA check
     python3 chip_smoke.py --phases build,kernels,llavanext,internvl   # the tiling towers
+    python3 chip_smoke.py --phases build,kernels,deepseek,vl2   # DeepSeek MoE and VL2
 
 Phases, each printing one JSON line:
   build    compile the Hopper kernels of hydrainfer_tpu_torch/csrc (nvcc,
-           sm_90a, one process per source) and report the build time;
+           sm_90a, one process per source) and report the build time, the
+           library versions and whether torch has _grouped_mm;
   kernels  hold each kernel against its plain PyTorch version on the card at
            the shapes of the serving paths: K1-K4 at llava-7b-lm (serve),
            at qwen2-vl-2b-lm (vlm: GQA 6:1), at llava-13b-lm (next13b: MHA,
@@ -29,6 +31,15 @@ Phases, each printing one JSON line:
            sum and a prefill-budget sum); K2 and K4 also at the speculative
            verify step's shape (llava-7b-lm, 8 segments of 13 rows, T = 128,
            max_q 16; K4 on every projection at M = 128, lm_head included);
+           K6, K3 and K4 at DeepSeek-V2-Lite (deepseek: the mla path's
+           batches at V2-Lite's YaRN softmax scale; K4 also at the dense
+           layer's and the shared experts' shapes, M 32 and 2048), K1-K4 at
+           DeepSeek-VL2-Tiny's LM (vl2: MHA 10 x d128, K4's lm_head at N =
+           129280) and K5 at its encode (28 tiles of SigLIP's 784 rows, 16
+           heads of 72 padded to 80, the padding columns 0); and the MoE
+           grouped product (torch._grouped_mm, a library call: no TPU kernel)
+           at V2-Lite's experts, T = 32 and 2048, beside its bound, and the
+           whole moe_ffn at T = 32 from a CUDA graph (`grouped_mm`);
   tiny     serve tiny-lm and mla-tiny-lm in f32 through OfflineEngine on the
            card (decode steps from CUDA graphs) and on the CPU with the same
            weights and key floors, plain and with n-gram speculation at k = 3
@@ -180,6 +191,30 @@ Phases, each printing one JSON line:
            K3 and K4 must have launched in the measured round and K1 and K2
            never, and one prefill's logits through the kernels must agree
            with the plain versions;
+  deepseek serve DeepSeek-V2-Lite at full width (the widths and depth of
+           deepseek-ai/DeepSeek-V2-Lite's config.json, random weights from the
+           seed: 27 layers, MLA over the int8 latent cache, YaRN x40, one
+           dense layer, 26 layers of 64 routed experts, 6 a token, and 2
+           shared; int8 as quantize_tree picks, the experts bf16) as the mla
+           phase serves mla-2b-lm: every request must finish, K6, K3 and K4
+           launch and K1 and K2 never, a K = 16 window replays its graph (the
+           MoE dispatch captured), a graphs-off round gives identical tokens,
+           and a 512-token prefill in chunks of 256 through the kernels gives
+           the plain versions' logits on the first 8 layers (mean |error|);
+           it reports the routing choices that differ between the two paths
+           (each with its score gap), the decode step's device ms beside its
+           byte bound, the distinct experts a decode step touches a layer,
+           and the tiny-checkpoint check (q-LoRA, noaux_tc, YaRN);
+  vl2      serve DeepSeek-VL2-Tiny at full width (deepseek-ai/deepseek-vl2-tiny's
+           widths, random weights from the seed: the bf16 SigLIP-so400m, its
+           heads padded 72 -> 80 for K5, the 2x2 downsample projector, a
+           12-layer MoE LM with int8 weights and int8 KV) with the
+           llavanext phase's checks, on one EPD node and on EP + D: eight
+           requests, two each at 384 x 384, 768 x 768, 1152 wide x 384 and
+           384 wide x 768 (2, 5, 4, 3 tiles; 5776 image tokens a round); it
+           reports the encode's wall and device time against the tower's
+           operations, and the tiny-checkpoint check (the original VL2
+           naming);
   online   serve llava-7b-lm (full width, int8 weights, int8 KV) online
            through the real entry point, run as a child process: `python -m
            hydrainfer_tpu_torch.entrypoint.entrypoint --config
@@ -292,8 +327,75 @@ INTERNLM2_7B = dict(n_layers=32, hidden_size=4096, intermediate_size=14336, n_qo
                     max_position_embeddings=32768, rope_theta=1e6, rms_norm_eps=1e-5)
 INTERNVL_KV_BLOCKS, INTERNVL_IMAGE_BLOCKS = 2048, 64
 MM_TEXT, MM_TOKENS, MM_BUDGET = 32, 32, 2048
+# the deepseek phase: DeepSeek-V2-Lite, the text config of
+# deepseek-ai/DeepSeek-V2-Lite's config.json (its rope, routing and MLA
+# fields; the port's deepseek_decoder_config reads it as from the file):
+# 27 layers x 2048, 16 heads, MLA (kv_lora 512, rope 64, nope 128, v 128, no
+# q-LoRA), the first layer dense (10944), then 64 routed experts of 1408, 6 a
+# token (greedy softmax, norm_topk_prob false, scaling 1.0) and 2 shared;
+# vocab 102400; YaRN factor 40 over 4096 positions, mscale = mscale_all_dim =
+# 0.707, 163840 positions. 32 requests x 128-token prompts x 128 tokens
+# (the mla phase's traffic)
+DEEPSEEK_V2_LITE = {
+    "model_type": "deepseek_v2", "vocab_size": 102400, "hidden_size": 2048,
+    "intermediate_size": 10944, "moe_intermediate_size": 1408, "num_hidden_layers": 27,
+    "num_attention_heads": 16, "num_key_value_heads": 16, "n_shared_experts": 2,
+    "n_routed_experts": 64, "routed_scaling_factor": 1.0, "kv_lora_rank": 512,
+    "q_lora_rank": None, "qk_rope_head_dim": 64, "v_head_dim": 128, "qk_nope_head_dim": 128,
+    "topk_method": "greedy", "n_group": 1, "topk_group": 1, "num_experts_per_tok": 6,
+    "first_k_dense_replace": 1, "norm_topk_prob": False, "scoring_func": "softmax",
+    "max_position_embeddings": 163840, "rope_theta": 10000, "rms_norm_eps": 1e-6,
+    "rope_scaling": {"type": "yarn", "factor": 40, "original_max_position_embeddings": 4096,
+                     "beta_fast": 32, "beta_slow": 1, "mscale": 0.707,
+                     "mscale_all_dim": 0.707},
+    "tie_word_embeddings": False}
+DEEPSEEK_REQUESTS, DEEPSEEK_PROMPT, DEEPSEEK_TOKENS = 32, 128, 128
+# the logits checks hold an f32 copy of the model: the first 8 layers (the
+# dense one and 7 MoE layers, 15.5 GB of f32 experts); all 27 would need
+# 57.6 GB beside the 30.6 GB bf16 model
+DEEPSEEK_CHECK_LAYERS = 8
+# the vl2 phase: DeepSeek-VL2-Tiny, deepseek-ai/deepseek-vl2-tiny's
+# config.json: SigLIP-so400m at 384 (27 layers x 1152, 16 heads of 72, MLP
+# 4304, 28 x 28 patches), the 2x2 downsample projector (depth 2, 4608 ->
+# 1280 -> 1280: 196 tokens a tile), the default six candidate resolutions,
+# and its language_config: 12 layers x 1280, 10 MHA heads of 128, the first
+# layer dense (6848), then 64 experts of 896, 6 a token (greedy softmax,
+# norm_topk_prob false) and 2 shared, vocab 129280. The file also lists
+# kv_lora_rank with use_mla false: deepseek_decoder_config keys MLA on
+# kv_lora_rank (as JAX's) and refuses that pair, so the MLA fields are left
+# out here
+VL2_VISION = dict(hidden_size=1152, intermediate_size=4304, n_layers=27, n_heads=16,
+                  image_size=384, patch_size=14)
+VL2_N_EMBED = 1280
+VL2_TINY_LM = {
+    "model_type": "deepseek_v2", "vocab_size": 129280, "hidden_size": 1280,
+    "intermediate_size": 6848, "moe_intermediate_size": 896, "num_hidden_layers": 12,
+    "num_attention_heads": 10, "num_key_value_heads": 10, "n_shared_experts": 2,
+    "n_routed_experts": 64, "routed_scaling_factor": 1.0, "topk_method": "greedy",
+    "n_group": 1, "topk_group": 1, "num_experts_per_tok": 6, "first_k_dense_replace": 1,
+    "norm_topk_prob": False, "scoring_func": "softmax", "max_position_embeddings": 4096,
+    "rope_theta": 10000, "rms_norm_eps": 1e-6, "tie_word_embeddings": False}
+# two requests at each (h, w): 2, 5, 4 and 3 tiles; 421, 1023, 813 and 631
+# image tokens (28 tiles, 5776 image tokens a round)
+VL2_IMAGES = [(384, 384), (768, 768), (384, 1152), (768, 384)] * 2
+VL2_KV_BLOCKS, VL2_IMAGE_BLOCKS = 1024, 32
 # architectures the script defines itself, by the names PATH_SHAPES uses
-LOCAL_ARCHS = {"internlm2-7b": INTERNLM2_7B}
+LOCAL_ARCHS = {"internlm2-7b": lambda: _decoder_cfg(**INTERNLM2_7B),
+               "deepseek-v2-lite": lambda: _deepseek_cfg(DEEPSEEK_V2_LITE),
+               "deepseek-vl2-tiny-lm": lambda: _deepseek_cfg(VL2_TINY_LM)}
+# the MoE architectures' shared experts (the moe_intermediate_size of all
+# n_shared_experts in one MLP): K4's shapes beside the dense layer's
+MOE_TEXT = {"deepseek-v2-lite": DEEPSEEK_V2_LITE, "deepseek-vl2-tiny-lm": VL2_TINY_LM}
+
+
+def _decoder_cfg(**kw):
+    from hydrainfer_tpu_torch.models.decoder import DecoderConfig
+    return DecoderConfig(**kw)
+
+
+def _deepseek_cfg(text_cfg: dict):
+    from hydrainfer_tpu_torch.models.deepseek_v3 import deepseek_decoder_config
+    return deepseek_decoder_config(text_cfg)
 
 
 def emit(obj) -> None:
@@ -392,9 +494,12 @@ def phase_build() -> dict:
             versions[mod] = __import__(mod).__version__
         except ImportError:
             versions[mod] = "absent"
+    versions["torch"] = torch.__version__
     return {"phase": "build", "ok": True, "seconds": seconds,
             "card_free_bytes_at_start": free, "card_total_bytes": total,
-            "per_kernel_s": per_kernel, "nvcc": build.nvcc_path(), "versions": versions}
+            "per_kernel_s": per_kernel, "nvcc": build.nvcc_path(), "versions": versions,
+            # the MoE dispatch's grouped product (ops/moe.py) needs it
+            "torch_grouped_mm": hasattr(torch, "_grouped_mm")}
 
 
 # -------------------------------------------------------------- phase: kernels
@@ -441,6 +546,17 @@ PATH_SHAPES["internvl"] = dict(
     arch="internlm2-7b", decode=[(1, n + 16) for n in _INTERNVL_PROMPTS],
     mixed=[(288, 288), (800, 800), (945, 3360), (1, 304), (1, 816)], T=2048,
     kv_decode=(8, 8), kv_prefill=(2048, 2035), budget=2048)
+# the deepseek phase's batches are the mla path's (V2-Lite's attention has
+# mla-2b-lm's geometry); vl2: decodes at 16 tokens in, and a 2048-token
+# budget of two image prompts, the first chunk of a third and 2 decodes. K4
+# at these paths: the decode step's M and the budget only
+PATH_SHAPES["deepseek"] = dict(PATH_SHAPES["mla"], arch="deepseek-v2-lite",
+                               gemm_sweep=(32, 2048))
+_VL2_PROMPTS = [MM_TEXT + n for n in (421, 1023, 813, 631)] * 2
+PATH_SHAPES["vl2"] = dict(
+    arch="deepseek-vl2-tiny-lm", decode=[(1, n + 16) for n in _VL2_PROMPTS],
+    mixed=[(453, 453), (1055, 1055), (536, 845), (1, 469), (1, 679)], T=2048,
+    kv_decode=(8, 8), kv_prefill=(2048, 2046), budget=2048, gemm_sweep=(16, 2048))
 # the speculative verify step of the spec phase (llava-7b-lm, S floor 8,
 # K1 = 13): 8 segments of 13 rows padded to T = 128 (max_q 16) through K2,
 # and every int8 projection, lm_head included, at M = T through K4
@@ -453,10 +569,24 @@ def _arch_name(path: str) -> str:
 
 
 def _arch_cfg(path: str):
-    from hydrainfer_tpu_torch.models.decoder import DecoderConfig
     from hydrainfer_tpu_torch.models.random_init import ARCH_CONFIGS
     name = _arch_name(path)
-    return DecoderConfig(**LOCAL_ARCHS[name]) if name in LOCAL_ARCHS else ARCH_CONFIGS[name]
+    return LOCAL_ARCHS[name]() if name in LOCAL_ARCHS else ARCH_CONFIGS[name]
+
+
+def _int8_shapes(path: str) -> dict:
+    """{name: (K, N)} of the path's int8 matmuls: int8_matmul_shapes (a MoE
+    model's gate_up and down there are its dense layer's), and a MoE
+    model's shared experts."""
+    from hydrainfer_tpu_torch.models.random_init import int8_matmul_shapes
+    shapes = int8_matmul_shapes(_arch_cfg(path))
+    text = MOE_TEXT.get(_arch_name(path))
+    if text is not None:
+        head = shapes.pop("lm_head")
+        n = text["moe_intermediate_size"] * text["n_shared_experts"]
+        shapes.update({"shared_gate_up": (text["hidden_size"], 2 * n),
+                       "shared_down": (n, text["hidden_size"]), "lm_head": head})
+    return shapes
 
 
 def _pool_blocks(specs, bs: int) -> int:
@@ -505,13 +635,12 @@ def check_quant_matmul(gen, dev, path, m_values=None) -> dict:
     import torch
     from hydrainfer_tpu_torch.ops.cuda.quant_matmul import (plan, quant_matmul_int8,
                                                             quant_matmul_int8_plain)
-    from hydrainfer_tpu_torch.models.random_init import int8_matmul_shapes
     if m_values is not None:
         m_row = m_prefill = m_values[0]
     else:
         m_row = PATH_SHAPES[path].get("gemm_m", 16)
         m_prefill = PATH_SHAPES[path]["budget"]
-    projections = int8_matmul_shapes(_arch_cfg(path))
+    projections = _int8_shapes(path)
     rows, max_err, ok = [], 0.0, True
     for name, (K, N) in projections.items():
         out_dtype = torch.float32 if name == "lm_head" else torch.bfloat16
@@ -524,7 +653,8 @@ def check_quant_matmul(gen, dev, path, m_values=None) -> dict:
         n_bf = max(1, math.ceil(120e6 / (2 * K * N)))
         w_bfs = [w_bf] + [w_bf.clone() for _ in range(n_bf - 1)]
         w_t, sc_bf = w.t().contiguous(), scale.to(torch.bfloat16)
-        for M in m_values or sorted({1, 16, 48, 256, 2048, m_row, m_prefill}):
+        for M in (m_values or PATH_SHAPES[path].get("gemm_sweep")
+                  or sorted({1, 16, 48, 256, 2048, m_row, m_prefill})):
             x = torch.randn((M, K), generator=gen).to(dev, torch.bfloat16)
             got = quant_matmul_int8(x, w, scale, out_dtype)
             ref = quant_matmul_int8_plain(x, w, scale, out_dtype)
@@ -861,22 +991,23 @@ def _sdpa_calls(q, kv, mask, scale) -> dict:
     return calls
 
 
-def check_latent(gen, dev) -> list:
-    """K6 on the mla path: a decode window of 32 sequences (kv 129-253, the
-    split-KV decode form, max_q = 1) and one mixed 2048-token batch (the
-    64-row form), each with bf16 queries (the serving form) and f32 queries,
-    over an int8 plane of 16 heads x 576. The bf16 form is held against the
-    plain version run in f32 on the same inputs, the f32 form against the
-    plain version as it is."""
+def check_latent(gen, dev, path="mla") -> list:
+    """K6 on an MLA path (mla; deepseek, at V2-Lite's YaRN softmax scale): a
+    decode window of 32 sequences (kv 129-253, the split-KV decode form,
+    max_q = 1) and one mixed 2048-token batch (the 64-row form), each with
+    bf16 queries (the serving form) and f32 queries, over an int8 plane of
+    16 heads x 576. The bf16 form is held against the plain version run in
+    f32 on the same inputs, the f32 form against the plain version as it
+    is."""
     import torch
     from hydrainfer_tpu_torch.ops.cuda.paged_attention import \
         paged_attention_varlen_plain as latent_plain      # K6's plain version
     from hydrainfer_tpu_torch.ops.cuda import split_kv
     from hydrainfer_tpu_torch.ops.cuda.paged_attention_latent import \
         paged_attention_latent
-    cfg, shp = _arch_cfg("mla"), PATH_SHAPES["mla"]
+    cfg, shp = _arch_cfg(path), PATH_SHAPES[path]
     H, D, bs, kv_scale = cfg.n_qo_heads, cfg.head_dim, 16, 0.05
-    sm = 1.0 / math.sqrt(cfg.mla_nope_dim + cfg.mla_rope_dim)
+    sm = cfg.mla_softmax_scale or 1.0 / math.sqrt(cfg.mla_nope_dim + cfg.mla_rope_dim)
     forms = {}
     for form in ("decode", "mixed"):
         specs = shp[form]
@@ -972,10 +1103,11 @@ def check_latent(gen, dev) -> list:
         drain[f"graph_ms_S{S}"] = graph_ms(fn)
     drain["max_abs_diff"] = (outs[0].float() - outs[1].float()).abs().max().item()
     forms["drain_16_of_32"] = drain
-    save("paged_attention_latent.json", forms)
+    save("paged_attention_latent.json" if path == "mla"
+         else f"paged_attention_latent_{path}.json", forms)
     # the decode window carries most of the path's launches: it is the row
     row, mixed = forms["decode"], forms["mixed"]
-    return [{"name": "paged_attention_latent", "path": "mla",
+    return [{"name": "paged_attention_latent", "path": path,
              "ok": (row["ok"] and mixed["ok"]
                     and drain["max_abs_diff"] <= 2e-2 * max(1.0, outs[0].abs().max().item())),
              "drain_16_of_32": drain,
@@ -1067,22 +1199,28 @@ def check_kv_writer(gen, dev, path, form) -> dict:
             "bound_ms": b_ms, "bound_by": b_by}
 
 
-def _k5_vit(gen, dev, sizes, H, D, plain_group: int = 0) -> dict:
+def _k5_vit(gen, dev, sizes, H, D, plain_group: int = 0, d_real: int = 0) -> dict:
     """K5 in the ViT form, one segment of `sizes[i]` rows per image (or
     tile), H heads x dD, bf16, v a strided view of the fused qkv as the
     towers pass it: held against the plain version, timed eager and from a
     CUDA graph beside its bound, the plain version and the fastest library
     form. plain_group > 0: the plain version, which forms (H, T, T), runs
     over groups of that many segments (its outputs concatenated: the same
-    function), and the dense-mask SDPA form (a T x T mask) is left out."""
+    function), and the dense-mask SDPA form (a T x T mask) is left out.
+    d_real < D: heads of d_real padded with zero columns to D, as SigLIP's
+    load-time padding writes them (scale, bound and the library forms at
+    d_real; the output's padding columns must be 0)."""
     import torch
     import torch.nn.functional as F
     from hydrainfer_tpu_torch.ops.cuda.mha_varlen import mha_varlen_flash, mha_varlen_plain
-    sm = D ** -0.5
+    dr = d_real or D
+    sm = dr ** -0.5
     ids = torch.cat([torch.full((n,), i, dtype=torch.int32)
                      for i, n in enumerate(sizes)]).to(dev)
     T = ids.shape[0]
-    qkv = torch.randn((T, 3, H, D), generator=gen).to(dev, torch.bfloat16)
+    qkv = torch.randn((T, 3, H, D), generator=gen)
+    qkv[..., dr:] = 0
+    qkv = qkv.to(dev, torch.bfloat16)
     q, k, v = qkv[:, 0].contiguous(), qkv[:, 1].contiguous(), qkv[:, 2]
     starts = [0]
     for n in sizes:
@@ -1098,13 +1236,17 @@ def _k5_vit(gen, dev, sizes, H, D, plain_group: int = 0) -> dict:
     ref = plain()
     err = (got.float() - ref.float()).abs().max().item()
     tol = 3e-2 * max(1e-3, ref.float().abs().max().item())
+    pad_zero = bool((got[..., dr:] == 0).all())
     pairs = sum(n * n for n in sizes)
-    b_ms, b_by = bound_ms(4 * T * H * D * 2 + 4 * T, 4.0 * H * D * pairs)
-    qs, ks, vs = (t.transpose(0, 1)[None] for t in (q, k, v))
-    mask = None if plain_group else ids[:, None] == ids[None, :]
+    b_ms, b_by = bound_ms(4 * T * H * dr * 2 + 4 * T, 4.0 * H * dr * pairs)
     ms = time_ms(lambda: mha_varlen_flash(q, k, v, ids, sm))
     ms_graph = graph_ms(lambda: mha_varlen_flash(q, k, v, ids, sm))
     plain_ms = time_ms(plain, iters=3)
+    if dr < D:          # the library forms compute the unpadded function
+        q, k, v = (t[..., :dr].contiguous() for t in (q, k, v))
+        ref = ref[..., :dr]
+    qs, ks, vs = (t.transpose(0, 1)[None] for t in (q, k, v))
+    mask = None if plain_group else ids[:, None] == ids[None, :]
     # library yardsticks, each held to the plain version first; library_ms is
     # the fastest that ran. SDPA with the block-diagonal mask computes all
     # T^2 scores; SDPA over jagged nested q/k/v and aten's varlen flash
@@ -1132,7 +1274,7 @@ def _k5_vit(gen, dev, sizes, H, D, plain_group: int = 0) -> dict:
     library, lib = _fastest(forms, ref, tol)
     return {"T": T, "images": sizes, "err": err, "tol": tol, "ms": ms, "graph_ms": ms_graph,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library": library,
-            "lib": lib, "plain_groups": len(groups)}
+            "lib": lib, "plain_groups": len(groups), "padding_columns_zero": pad_zero}
 
 
 def _k5_row(vit: dict, path: str, ok: bool, err: float, shape: str) -> dict:
@@ -1161,26 +1303,96 @@ def check_mha_varlen_llava(gen, dev) -> dict:
 
 def check_mha_varlen_tiles(gen, dev, path) -> dict:
     """K5 at a tiling tower's encode shape: the tiles of the phase's eight
-    images, one segment a tile, 16 heads x d64; the plain version over
-    groups of 4 tiles (next13b: 34 tiles of CLIP-L's 577 rows; internvl: 48
-    of InternViT-300M's 1025)."""
-    from hydrainfer_tpu_torch.models import internvl, llavanext
+    images, one segment a tile; the plain version over groups of 4 tiles
+    (next13b: 34 tiles of CLIP-L's 577 rows, 16 heads x d64; internvl: 48 of
+    InternViT-300M's 1025, 16 x d64; vl2: 28 of SigLIP's 784, 16 heads of
+    72 padded to 80)."""
+    from hydrainfer_tpu_torch.models import deepseek_vl2, internvl, llavanext
     from hydrainfer_tpu_torch.models.random_init import CLIP_L_336
+    d_real = 0
     if path == "next13b":
         calc = llavanext.LlavaNextImageTokenCalculator(llavanext.DEFAULT_PINPOINTS, 336,
                                                        24)
         images, rows, H, D = NEXT_IMAGES, CLIP_L_336.n_patches + 1, 16, 64
         what = "CLIP-L/14-336"
+    elif path == "vl2":
+        vcfg = deepseek_vl2.SigLIPConfig(**VL2_VISION)
+        calc = deepseek_vl2.DeepSeekVL2ImageTokenCalculator(deepseek_vl2.DEFAULT_CANDIDATES)
+        images, rows, H = VL2_IMAGES, vcfg.n_patches_side ** 2, vcfg.n_heads
+        D, d_real = deepseek_vl2.padded_head_dim(vcfg), vcfg.hidden_size // vcfg.n_heads
+        what = "SigLIP-so400m-384"
     else:
         calc = internvl.InternVLImageTokenCalculator(256, 448, 12, True)
         images, rows, H = INTERNVL_IMAGES, 1 + (448 // 14) ** 2, INTERNVL_VIT["n_heads"]
         D, what = INTERNVL_VIT["hidden_size"] // H, "InternViT-300M-448px"
     n_tiles = sum(calc.n_tiles(hw) for hw in images)
-    vit = _k5_vit(gen, dev, [rows] * n_tiles, H, D, plain_group=4)
-    save(f"mha_varlen_{path}.json", {k: vit[k] for k in ("T", "err", "tol", "library")})
-    return _k5_row(vit, path, vit["err"] <= vit["tol"], vit["err"],
-                   f"ViT form: {n_tiles} tiles x {rows} rows ({what}), {H} heads x d{D}, "
+    vit = _k5_vit(gen, dev, [rows] * n_tiles, H, D, plain_group=4, d_real=d_real)
+    save(f"mha_varlen_{path}.json", {k: vit[k] for k in ("T", "err", "tol", "library",
+                                                        "padding_columns_zero")})
+    heads = f"{H} heads x d{d_real} padded to {D}" if d_real else f"{H} heads x d{D}"
+    return _k5_row(vit, path, vit["err"] <= vit["tol"] and vit["padding_columns_zero"],
+                   vit["err"], f"ViT form: {n_tiles} tiles x {rows} rows ({what}), {heads}, "
                    "bf16, v strided; plain version over groups of 4 tiles")
+
+
+def check_grouped_mm(gen, dev) -> dict:
+    """The MoE grouped product (torch._grouped_mm: a library call, as JAX's
+    ragged_dot; no TPU kernel) at DeepSeek-V2-Lite's experts, 64 x (2048 ->
+    2 x 1408) and (1408 -> 2048), bf16, at a decode step (T = 32: 192 rows)
+    and a prefill budget (T = 2048: 12288 rows), rows routed by random
+    top-6 softmax routing: each product held to the per-group f32 matmul,
+    timed eager and from a CUDA graph beside its bound (the experts the
+    routing touched read once, the rows read and written once; 2 n K N
+    operations); and the whole moe_ffn (sort, both products, the weighted
+    scatter) at T = 32 from a CUDA graph, held to moe_ffn_dense."""
+    import torch
+    from hydrainfer_tpu_torch.ops import moe
+    text = DEEPSEEK_V2_LITE
+    d, I, E = text["hidden_size"], text["moe_intermediate_size"], text["n_routed_experts"]
+    k = text["num_experts_per_tok"]
+    w_gu = (torch.randn((E, d, 2 * I), generator=gen) * 0.02).to(dev, torch.bfloat16)
+    w_dn = (torch.randn((E, I, d), generator=gen) * 0.02).to(dev, torch.bfloat16)
+    out, ok = {}, True
+    for T in (32, 2048):
+        logits = torch.randn((T, E), generator=gen).to(dev)
+        weights, ids = moe.route(logits, k, norm_topk=False)
+        _, offs = moe.dispatch_offsets(ids, E)
+        ends = offs.tolist()
+        n = ids.numel()
+        touched = sum(b > a for a, b in zip([0] + ends[:-1], ends))
+        row = {"rows": n, "experts_touched": touched}
+        for name, w in (("gate_up", w_gu), ("down", w_dn)):
+            K, N = w.shape[1], w.shape[2]
+            x = torch.randn((n, K), generator=gen).to(dev, torch.bfloat16)
+            got = moe.grouped_mm(x, w, offs)
+            ref = torch.cat([x[a:b].float() @ w[e].float()
+                             for e, (a, b) in enumerate(zip([0] + ends[:-1], ends))])
+            err = (got.float() - ref).abs().max().item()
+            tol = 1e-2 * max(1.0, ref.abs().max().item())
+            ok &= err <= tol
+            fn = lambda x=x, w=w: moe.grouped_mm(x, w, offs)   # noqa: E731
+            b_ms, b_by = bound_ms(touched * K * N * 2 + n * (K + N) * 2 + 4 * E,
+                                  2.0 * n * K * N)
+            row[name] = {"K": K, "N": N, "max_abs_err": err, "tol": tol, "ms": time_ms(fn),
+                         "graph_ms": graph_ms(fn), "bound_ms": b_ms, "bound_by": b_by}
+        row["both_graph_ms"] = row["gate_up"]["graph_ms"] + row["down"]["graph_ms"]
+        row["both_bound_ms"] = row["gate_up"]["bound_ms"] + row["down"]["bound_ms"]
+        if T == 32:
+            x = torch.randn((T, d), generator=gen).to(dev, torch.bfloat16)
+            fn = lambda: moe.moe_ffn(x, w_gu, w_dn, weights, ids)   # noqa: E731
+            ref = moe.moe_ffn_dense(x, w_gu, w_dn, weights, ids).float()
+            err = (fn().float() - ref).abs().max().item()
+            tol = 2e-2 * max(1e-3, ref.abs().max().item())
+            ok &= err <= tol
+            row["moe_ffn"] = {"max_abs_err": err, "tol": tol, "ms": time_ms(fn),
+                              "graph_ms": graph_ms(fn)}
+        out[f"T={T}"] = row
+    save("grouped_mm.json", out)
+    return {"ok": bool(ok), "what": "torch._grouped_mm at DeepSeek-V2-Lite's experts, bf16 "
+                                    "(library; the port's MoE dispatch)",
+            "tolerance": "1e-2 x max(1, max|f32 per-group matmul|); moe_ffn 2e-2 x "
+                         "max|moe_ffn_dense| (bf16 rounding of h and of the down product)",
+            **out}
 
 
 def check_mha_varlen(gen, dev) -> dict:
@@ -1260,8 +1472,8 @@ def phase_kernels() -> tuple:
         results.extend(rows if isinstance(rows, list) else [rows])
 
     for path in PATH_SHAPES:
-        if path == "mla":
-            run("latent@mla", check_latent)
+        if _arch_cfg(path).mla_kv_lora:
+            run(f"latent@{path}", check_latent, path)
         else:
             run(f"attention@{path}", check_attention, path)
         run(f"kv_writer@{path}", lambda g, d: [check_kv_writer(g, d, path, "decode"),
@@ -1270,12 +1482,15 @@ def phase_kernels() -> tuple:
     run("verify", check_verify)
     run("mha_varlen@vlm", check_mha_varlen)
     run("mha_varlen@llava", check_mha_varlen_llava)
-    for path in ("next13b", "internvl"):
+    for path in ("next13b", "internvl", "vl2"):
         run(f"mha_varlen@{path}", check_mha_varlen_tiles, path)
+    t0 = time.perf_counter()
+    grouped = check_grouped_mm(gen, dev)
+    seconds["grouped_mm"] = time.perf_counter() - t0
     torch.cuda.synchronize()
     save("kernels.json", results)
-    ok = all(r["ok"] for r in results)
-    return {"phase": "kernels", "ok": ok, "check_s": seconds,
+    ok = all(r["ok"] for r in results) and grouped["ok"]
+    return {"phase": "kernels", "ok": ok, "check_s": seconds, "grouped_mm": grouped,
             "checks": {f"{_launch_key(r)}@{r['path']}": {
                 "ok": r["ok"], "max_abs_err": r["max_abs_err"], "ms": r["ms"]}
                 for r in results}}, results
@@ -1646,13 +1861,14 @@ class GraphRounds:
                 and self.graphs.pool_bytes() <= self.headroom)
 
 
-def _eager_round(factory, dev, n_blocks, token_budget, reqs, ref_outs, phase) -> dict:
+def _eager_round(factory, dev, n_blocks, token_budget, reqs, ref_outs, phase,
+                 profiled=True) -> dict:
     """The serve phase's A/B: a second engine on the same model, with
     cuda_graphs off and the same boot warm-up (the same key floors), serves a
-    warm-up round, the measured round's requests again and a profiled
-    round. Its greedy tokens must equal the graphs-on round's. Its own
-    prompts come from their own generator, so the phase's later checks draw
-    the data they drew without this round."""
+    warm-up round, the measured round's requests again and (with
+    `profiled`) a profiled round. Its greedy tokens must equal the graphs-on
+    round's. Its own prompts come from their own generator, so the phase's
+    later checks draw the data they drew without this round."""
     import numpy as np
     import torch
     from hydrainfer_tpu_torch.request import Request, SamplingParameters
@@ -1670,9 +1886,9 @@ def _eager_round(factory, dev, n_blocks, token_budget, reqs, ref_outs, phase) ->
     outs = engine.generate(again, timeout_s=600)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    profiled = _profile_round(engine, _requests(rng, n, len(reqs[0].prompt), max_tokens,
-                                                "prof_eager"),
-                              f"{phase}_eager_profile.json")
+    profiled = (_profile_round(engine, _requests(rng, n, len(reqs[0].prompt), max_tokens,
+                                                 "prof_eager"),
+                               f"{phase}_eager_profile.json") if profiled else {})
     ttfts = sorted(o.ttft for o in outs)
     return {"cuda_graphs": False,
             "tokens_per_s": sum(len(o.output_token_ids) for o in outs) / elapsed,
@@ -1682,15 +1898,26 @@ def _eager_round(factory, dev, n_blocks, token_budget, reqs, ref_outs, phase) ->
             **{k: v for k, v in profiled.items() if k != "profile_top_kernels"}}
 
 
+def _serve_logits(lm, rng, dev) -> dict:
+    """The serve phase's logits check: one 64-token prefill (_logits_check)."""
+    return _logits_check(lm, [int(t) for t in rng.integers(10, 120, size=64)], dev,
+                         "prefill_logits")
+
+
 def phase_serve(arch="llava-7b-lm", dev="cuda", n_requests=8, prompt_len=128,
                 max_tokens=32, token_budget=256, phase="serve", must_run=SERVE_KERNELS,
-                must_not_run=(), eager_round=True) -> tuple:
-    """Text serving of `arch` (int8 weights, int8 KV at 0.05) through
+                must_not_run=(), eager_round=True, factory=None, logits_fn=_serve_logits,
+                extra_fn=None, eager_profile=True) -> tuple:
+    """Text serving of `arch` (int8 weights, int8 KV at 0.05; `factory`
+    where given, else a RandomWeightFactory from the seed) through
     OfflineEngine with CUDA graphs on: boot (the decode warm-up), a warm-up
     round, the measured round, a profiled round. Every kernel of must_run has
     to launch in the measured round, and none of must_not_run; the round must
     replay graphs and capture none. With eager_round, the same model then
-    serves the measured round's requests with graphs off (_eager_round)."""
+    serves the measured round's requests with graphs off (_eager_round;
+    profiled unless eager_profile is off). logits_fn(lm, rng, dev) holds the
+    logits; extra_fn(engine, graphs, lm),
+    run last, adds its fields (and its "ok") to the result."""
     import numpy as np
     import torch
     from hydrainfer_tpu_torch.engine import executor as ex
@@ -1698,9 +1925,9 @@ def phase_serve(arch="llava-7b-lm", dev="cuda", n_requests=8, prompt_len=128,
     from hydrainfer_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
     dev = torch.device(dev)
     t0 = time.perf_counter()
-    factory = RandomWeightFactory(arch, dtype=torch.bfloat16,
-                                  quantization="int8", kv_scale=0.05, device=dev,
-                                  seed=SEED)
+    if factory is None:
+        factory = RandomWeightFactory(arch, dtype=torch.bfloat16, quantization="int8",
+                                      kv_scale=0.05, device=dev, seed=SEED)
     lm = factory.getLanguageModel()
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
@@ -1725,6 +1952,7 @@ def phase_serve(arch="llava-7b-lm", dev="cuda", n_requests=8, prompt_len=128,
     try:
         # warm-up round (cuBLAS and allocator set-up, the keys the boot
         # warm-up did not meet), then the measured round
+        t_rounds = time.perf_counter()
         engine.generate(_requests(rng, n_requests, prompt_len, max_tokens, "warm"),
                         timeout_s=600)
         windows.clear()
@@ -1746,8 +1974,11 @@ def phase_serve(arch="llava-7b-lm", dev="cuda", n_requests=8, prompt_len=128,
         profiled = _profile_round(engine, _requests(rng, n_requests, prompt_len,
                                                     max_tokens, "prof"),
                                   f"{phase}_profile.json")
-        eager = (_eager_round(factory, dev, n_blocks, token_budget, reqs, outs, phase)
-                 if eager_round else None)
+        parts = {"graphs_rounds": time.perf_counter() - t_rounds}
+        t1 = time.perf_counter()
+        eager = (_eager_round(factory, dev, n_blocks, token_budget, reqs, outs, phase,
+                              eager_profile) if eager_round else None)
+        parts["eager_round"] = time.perf_counter() - t1
     finally:
         ex.FillExecutor._multi_step_window = orig
         k3.restore()
@@ -1758,13 +1989,17 @@ def phase_serve(arch="llava-7b-lm", dev="cuda", n_requests=8, prompt_len=128,
         0 <= t < vocab for o in outs for t in o.output_token_ids)
     ttfts = sorted(o.ttft for o in outs)
 
-    logits = _logits_check(lm, [int(t) for t in rng.integers(10, 120, size=64)], dev,
-                           "prefill_logits")
+    t1 = time.perf_counter()
+    logits = logits_fn(lm, rng, dev)
+    parts["logits"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    extra = extra_fn(engine, graphs, lm) if extra_fn is not None else {}
+    parts["extra"] = time.perf_counter() - t1
     windows = measured_windows
     # the llava text path runs K1-K4 (K5 is the ViT's, K6 the MLA path's);
     # the MLA path runs K6, K3 and K4, and never K1 or K2
-    ok = (tokens_ok and logits.pop("ok") and 16 in windows and graphs.ok()
-          and all(counts[k] > 0 for k in must_run)
+    ok = (tokens_ok and logits.pop("ok") and extra.pop("ok", True) and 16 in windows
+          and graphs.ok() and all(counts[k] > 0 for k in must_run)
           and all(counts[k] == 0 for k in must_not_run)
           and (eager is None or eager["tokens_identical_to_graphs_round"]))
     result = {"phase": phase, "ok": bool(ok), "gpu": gpu_name_and_limit(),
@@ -1781,7 +2016,8 @@ def phase_serve(arch="llava-7b-lm", dev="cuda", n_requests=8, prompt_len=128,
               "n_k16_windows": windows.count(16), "launches": counts,
               "kv_writer_launches": k3_split, "graphs": graphs.report(), **logits,
               "peak_memory_bytes": peak, **profiled,
-              **({"eager_round": eager} if eager is not None else {})}
+              **({"eager_round": eager} if eager is not None else {}), **extra,
+              "parts_s": parts}
     return result, counts
 
 
@@ -3723,11 +3959,15 @@ def _internvl_factory(dev, seed=SEED):
 
 def _tower_f32(vm):
     """The same tower with every weight in f32."""
+    from hydrainfer_tpu_torch.models.deepseek_vl2 import DeepSeekVL2VisionModel
     from hydrainfer_tpu_torch.models.internvl import InternVLVisionModel
     from hydrainfer_tpu_torch.models.llavanext import LlavaNextVisionModel
     if isinstance(vm, LlavaNextVisionModel):
         return LlavaNextVisionModel(_f32_tree(vm.weights), vm.clip_cfg, vm.pinpoints,
                                     vm.select_strategy)
+    if isinstance(vm, DeepSeekVL2VisionModel):
+        return DeepSeekVL2VisionModel(_f32_tree(vm.weights), vm.cfg, vm.calc, vm.downsample,
+                                      vm.global_view_pos)
     return InternVLVisionModel(_f32_tree(vm.weights), vm.cfg, vm.downsample_ratio)
 
 
@@ -3810,6 +4050,103 @@ def _mm_epd(name, path, factory, images, kv_blocks, image_blocks, feature_image,
     return result, counts, reqs, [o.output_token_ids for o in outs]
 
 
+def _tiny_deepseek_tensors(family, rng) -> tuple:
+    """_tiny_tensors of the DeepSeek families. deepseek: a DeepseekV3ForCausalLM
+    in HF's names, 2 layers x 64, MLA with q-LoRA (rank 24; kv_lora 16, rope
+    8, nope 16, v 16, 4 heads), the first layer dense, then 8 experts of 32
+    in 4 groups, 2 a token under noaux_tc (sigmoid, a nonzero correction
+    bias, the best 2 groups, scaling 2.5) and one shared; YaRN factor 2 over
+    64 positions, mscale 1. deepseek_vl2: the original VL2 naming, SigLIP 2
+    layers x 72 (2 heads of 36, padded to 48) over 28-pixel tiles, the
+    depth-2 projector, a DeepSeek-V2 LM 2 layers x 64 (2 q / 1 kv heads,
+    d32, the first layer dense, then 4 experts of 32, 2 a token, greedy
+    softmax, one shared), candidates 28 x 28, 28 x 56, 56 x 28."""
+    import numpy as np
+    f = lambda *shape: (rng.standard_normal(shape) * 0.05).astype(np.float32)
+    one = lambda n: np.ones(n, np.float32)
+    zero = lambda n: np.zeros(n, np.float32)
+    V, hid, t = 128, 64, {}
+    lm = "model." if family == "deepseek" else "language.model."
+    text = {"vocab_size": V, "hidden_size": hid, "intermediate_size": 128,
+            "moe_intermediate_size": 32, "num_hidden_layers": 2, "n_shared_experts": 1,
+            "first_k_dense_replace": 1, "max_position_embeddings": 256, "rms_norm_eps": 1e-6,
+            "rope_theta": 10000.0, "eos_token_id": 63}
+    if family == "deepseek":
+        text.update(model_type="deepseek_v3", architectures=["DeepseekV3ForCausalLM"],
+                    num_attention_heads=4, num_key_value_heads=4, n_routed_experts=8,
+                    num_experts_per_tok=2, n_group=4, topk_group=2, topk_method="noaux_tc",
+                    scoring_func="sigmoid", norm_topk_prob=True, routed_scaling_factor=2.5,
+                    kv_lora_rank=16, q_lora_rank=24, qk_rope_head_dim=8, qk_nope_head_dim=16,
+                    v_head_dim=16, rope_interleave=True,
+                    rope_scaling={"type": "yarn", "factor": 2.0,
+                                  "original_max_position_embeddings": 64, "mscale": 1.0,
+                                  "mscale_all_dim": 1.0, "beta_fast": 32, "beta_slow": 1})
+    else:
+        text.update(model_type="deepseek_v2", num_attention_heads=2, num_key_value_heads=1,
+                    n_routed_experts=4, num_experts_per_tok=2, topk_method="greedy",
+                    scoring_func="softmax", norm_topk_prob=False, routed_scaling_factor=1.0)
+    E, I = text["n_routed_experts"], 32
+    t[lm + "embed_tokens.weight"], t[lm + "norm.weight"] = f(V, hid), one(hid)
+    for i in range(2):
+        p = f"{lm}layers.{i}."
+        t[p + "input_layernorm.weight"] = t[p + "post_attention_layernorm.weight"] = one(hid)
+        if family == "deepseek":
+            t.update({p + "self_attn.q_a_proj.weight": f(24, hid),
+                      p + "self_attn.q_a_layernorm.weight": one(24),
+                      p + "self_attn.q_b_proj.weight": f(4 * 24, 24),
+                      p + "self_attn.kv_a_proj_with_mqa.weight": f(24, hid),
+                      p + "self_attn.kv_a_layernorm.weight": one(16),
+                      p + "self_attn.kv_b_proj.weight": f(4 * 32, 16),
+                      p + "self_attn.o_proj.weight": f(hid, 4 * 16)})
+        else:
+            t.update({p + "self_attn.q_proj.weight": f(64, hid),
+                      p + "self_attn.k_proj.weight": f(32, hid),
+                      p + "self_attn.v_proj.weight": f(32, hid),
+                      p + "self_attn.o_proj.weight": f(hid, 64)})
+        if i == 0:
+            t.update({p + "mlp.gate_proj.weight": f(128, hid), p + "mlp.up_proj.weight": f(128, hid),
+                      p + "mlp.down_proj.weight": f(hid, 128)})
+            continue
+        t[p + "mlp.gate.weight"] = f(E, hid)
+        if family == "deepseek":
+            t[p + "mlp.gate.e_score_correction_bias"] = rng.uniform(
+                -0.05, 0.05, E).astype(np.float32)
+        for e in range(E):
+            q = f"{p}mlp.experts.{e}."
+            t.update({q + "gate_proj.weight": f(I, hid), q + "up_proj.weight": f(I, hid),
+                      q + "down_proj.weight": f(hid, I)})
+        q = p + "mlp.shared_experts."
+        t.update({q + "gate_proj.weight": f(I, hid), q + "up_proj.weight": f(I, hid),
+                  q + "down_proj.weight": f(hid, I)})
+    if family == "deepseek":
+        t["lm_head.weight"] = f(V, hid)
+        return t, text
+    t["language.lm_head.weight"] = f(V, hid)
+    C = 72
+    t.update({"vision.patch_embed.proj.weight": f(C, 3, 14, 14),
+              "vision.patch_embed.proj.bias": f(C), "vision.pos_embed": f(1, 4, C),
+              "vision.norm.weight": one(C), "vision.norm.bias": zero(C),
+              "projector.layers.0.weight": f(32, 4 * C), "projector.layers.0.bias": f(32),
+              "projector.layers.2.weight": f(hid, 32), "projector.layers.2.bias": f(hid),
+              "image_newline": f(hid), "view_seperator": f(hid)})
+    for i in range(2):
+        p = f"vision.blocks.{i}."
+        for n in ("norm1", "norm2"):
+            t[p + n + ".weight"], t[p + n + ".bias"] = one(C), zero(C)
+        t.update({p + "attn.qkv.weight": f(3 * C, C), p + "attn.qkv.bias": f(3 * C),
+                  p + "attn.proj.weight": f(C, C), p + "attn.proj.bias": f(C),
+                  p + "mlp.fc1.weight": f(2 * C, C), p + "mlp.fc1.bias": f(2 * C),
+                  p + "mlp.fc2.weight": f(C, 2 * C), p + "mlp.fc2.bias": f(C)})
+    cfg = {"model_type": "deepseek_vl_v2", "global_view_pos": "head", "image_token_id": 60,
+           "candidate_resolutions": [[28, 28], [28, 56], [56, 28]],
+           "vision_config": {"params": {"width": C, "layers": 2, "heads": 2,
+                                        "intermediate_size": 2 * C, "image_size": 28,
+                                        "patch_size": 14}},
+           "projector_config": {"depth": 2, "downsample_ratio": 2, "n_embed": 32},
+           "language_config": text}
+    return t, cfg
+
+
 def _tiny_tensors(family, rng) -> tuple:
     """A tiny checkpoint of `family` as numpy tensors and its config.json, in
     the layout the CPU tests load: LLaVA-NeXT with transformers' nested names
@@ -3817,8 +4154,11 @@ def _tiny_tensors(family, rng) -> tuple:
     28), (56, 56)); InternVL in the original layout (InternViT 2 layers x 64
     over 56-pixel tiles, mlp1, an InternLM2 LM with fused wqkv). Both LMs:
     2 layers x 64, 2 q / 1 kv heads (d32), vocab 128 (the boot warm-up's
-    prompts draw ids up to 99), image token 60."""
+    prompts draw ids up to 99), image token 60. The DeepSeek families:
+    _tiny_deepseek_tensors."""
     import numpy as np
+    if family in ("deepseek", "deepseek_vl2"):
+        return _tiny_deepseek_tensors(family, rng)
     f = lambda *shape: (rng.standard_normal(shape) * 0.05).astype(np.float32)
     one = lambda n: np.ones(n, np.float32)
     zero = lambda n: np.zeros(n, np.float32)
@@ -3913,8 +4253,10 @@ def _tiny_checkpoint_check(family, devices=("cuda", "cpu")) -> dict:
     getModelFactory(path) in f32 on one EPD node on each of `devices` (the
     card and the CPU; budget 16, so the image prompt prefills in chunks): an
     image request and a text request, 8 tokens each; the greedy tokens must
-    be equal. Without safetensors the check says so on a line of its own
-    and is skipped."""
+    be equal. The text-only deepseek family serves two text requests on a
+    PD node. A DeepSeek model runs with CUDA graphs off: in f32 the grouped
+    product reads its group sizes on the host (ops/moe.py). Without
+    safetensors the check says so on a line of its own and is skipped."""
     import tempfile
     import numpy as np
     try:
@@ -3929,7 +4271,8 @@ def _tiny_checkpoint_check(family, devices=("cuda", "cpu")) -> dict:
     from hydrainfer_tpu_torch.models.tokenizer import SimpleTokenizer
     from hydrainfer_tpu_torch.request import Request, SamplingParameters
     tensors, cfg = _tiny_tensors(family, np.random.default_rng(SEED + 11))
-    size = (50, 50) if family == "llavanext" else (112, 168)
+    size = {"llavanext": (50, 50), "deepseek_vl2": (28, 50)}.get(family, (112, 168))
+    moe = family in ("deepseek", "deepseek_vl2")
     tokens = []
     with tempfile.TemporaryDirectory() as tmp:
         save_file(tensors, os.path.join(tmp, "model.safetensors"))
@@ -3941,18 +4284,23 @@ def _tiny_checkpoint_check(family, devices=("cuda", "cpu")) -> dict:
             if family == "llavanext":
                 factory.getProcessor = lambda: AnyresImageProcessor(
                     cfg["image_grid_pinpoints"], 28)
-            engine = _engine(factory, device, 2, 16, 128, 16, node_type="EPD",
-                             n_image_blocks=8, spec_ngram_k=0)
+            text_only = family == "deepseek"
+            engine = _engine(factory, device, 2, 16, 128, 16,
+                             node_type="PD" if text_only else "EPD",
+                             n_image_blocks=-1 if text_only else 8, spec_ngram_k=0,
+                             cuda_graphs=not moe)
             rng = np.random.default_rng(SEED + 12)
             img = Image.fromarray(rng.integers(0, 256, (*size, 3), dtype=np.uint8))
             sp = lambda: SamplingParameters(max_tokens=8, ignore_eos=True)
             outs = engine.generate([
-                Request(request_id="m", prompt="<image> !%&!", image=img, sampling_params=sp()),
+                Request(request_id="m", prompt="&% !!%& %" if text_only else "<image> !%&!",
+                        image=None if text_only else img, sampling_params=sp()),
                 Request(request_id="t", prompt="!! % &&", sampling_params=sp())],
                 timeout_s=300)
             tokens.append([o.output_token_ids for o in outs])
             del engine, factory
-    return {"tiny_checkpoint": {"tokens": dict(zip(devices, tokens)), "image": list(size),
+    return {"tiny_checkpoint": {"tokens": dict(zip(devices, tokens)),
+                                "image": None if family == "deepseek" else list(size),
                                 "ok": tokens[0] == tokens[1]
                                 and all(len(x) == 8 for x in tokens[0])}}
 
@@ -4015,6 +4363,326 @@ def phase_internvl(dev="cuda") -> tuple:
     tiny = result["tiny_checkpoint"]
     result["ok"] = bool(result["ok"] and (not isinstance(tiny, dict) or tiny["ok"]))
     save("internvl.json", result)
+    return result, counts
+
+
+# ------------------------------------------------- phases: deepseek, vl2
+
+def _moe_lm_factory(dev, text_cfg: dict, seed=SEED):
+    """A DeepSeek MoE language model at the widths of `text_cfg` (a config.json
+    text config, read by the port's deepseek_decoder_config) with random
+    weights from the seed, N(0, 0.02^2), built a layer at a time: MLA (plain
+    q) or fused-qkv attention, the first first_k_dense_replace layers dense,
+    then the router (hidden, E), the stacked experts (E, hidden, 2I) and (E,
+    I, hidden) and the shared experts as gate_up / down; int8 as
+    quantize_tree picks (o_proj, qkv, the dense and shared MLPs, lm_head:
+    the experts, the router and MLA's q and latent projections stay bf16),
+    int8 KV at 0.05. A RandomWeightFactory over those weights (its
+    architecture replaced, as _internvl_factory does)."""
+    import torch
+    from hydrainfer_tpu_torch.models.deepseek_v3 import deepseek_decoder_config
+    from hydrainfer_tpu_torch.models.random_init import RandomWeightFactory
+    from hydrainfer_tpu_torch.ops.quant import quantize_tree
+    cfg = deepseek_decoder_config(text_cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bf16 = torch.bfloat16
+    init = lambda *shape: (torch.randn(shape, generator=gen, device=dev) * 0.02).to(bf16)
+    ones = lambda n: torch.ones(n, dtype=bf16, device=dev)
+    H, E, Hq = cfg.hidden_size, cfg.n_experts, cfg.n_qo_heads
+    I = text_cfg["moe_intermediate_size"]
+    shared = I * text_cfg["n_shared_experts"]
+    layers = []
+    for layer in range(cfg.n_layers):
+        if cfg.mla_kv_lora:
+            r, dr, dn, dv = cfg.mla_kv_lora, cfg.mla_rope_dim, cfg.mla_nope_dim, cfg.mla_v_dim
+            lw = {"q_proj": init(H, Hq * (dn + dr)), "kv_a": init(H, r + dr),
+                  "kv_a_norm": ones(r), "w_uk": init(r, Hq, dn), "w_uv": init(r, Hq, dv),
+                  "o_proj": init(Hq * dv, H)}
+        else:
+            D, kvh = cfg.head_dim, cfg.n_kv_heads
+            lw = {"qkv_proj": init(H, (Hq + 2 * kvh) * D), "o_proj": init(Hq * D, H)}
+        lw.update(input_norm=ones(H), post_norm=ones(H))
+        if layer < text_cfg["first_k_dense_replace"]:
+            lw.update(gate_up=init(H, 2 * cfg.intermediate_size),
+                      down=init(cfg.intermediate_size, H))
+        else:
+            lw.update(moe_router=init(H, E), moe_gate_up=init(E, H, 2 * I),
+                      moe_down=init(E, I, H), gate_up=init(H, 2 * shared),
+                      down=init(shared, H))
+        layers.append(quantize_tree({"layers": [lw]}, "int8")["layers"][0])
+    weights = quantize_tree({"embed": init(cfg.vocab_size, H), "layers": layers,
+                             "norm": ones(H), "lm_head": init(H, cfg.vocab_size)}, "int8")
+    factory = RandomWeightFactory("tiny-lm", dtype=bf16, quantization="int8", kv_scale=0.05,
+                                  device=dev, seed=seed, weights=weights)
+    factory.cfg = cfg
+    return factory
+
+
+class RouteSpy:
+    """Wraps the decoder's MoE routing (models/decoder.py:_route). It keeps
+    the expert ids of the last `keep` calls made outside a graph capture
+    with exactly `decode_rows` rows (the decode steps of a full batch: one
+    row a sequence); while `record` is a list, it collects every call's ids
+    and the score gap between the top-k-th and the next choice instead."""
+
+    def __init__(self, keep: int, decode_rows: int):
+        from collections import deque
+        from hydrainfer_tpu_torch.models import decoder
+        self.decoder, self.orig = decoder, decoder._route
+        self.decode = deque(maxlen=keep)
+        self.decode_rows = decode_rows
+        self.record = None
+
+        def spy(h, lw, cfg):
+            import torch
+            from hydrainfer_tpu_torch.ops import moe
+            weights, idx = self.orig(h, lw, cfg)
+            if self.record is not None:
+                scores = moe.route_scores(self.decoder.router_logits(h, lw), cfg.moe_scoring)
+                top = torch.topk(scores, cfg.moe_top_k + 1, dim=-1).values
+                self.record.append((idx.clone(), top[:, -2] - top[:, -1]))
+            elif (h.shape[0] == self.decode_rows
+                  and not torch.cuda.is_current_stream_capturing()):
+                self.decode.append(idx.clone())
+            return weights, idx
+
+        decoder._route = spy
+
+    def restore(self) -> None:
+        self.decoder._route = self.orig
+
+    def distinct_experts(self, n_moe_layers: int) -> dict:
+        """Distinct experts per MoE layer in each of the last decode steps
+        kept (consecutive groups of n_moe_layers calls)."""
+        calls = list(self.decode)
+        calls = calls[len(calls) % n_moe_layers:]
+        steps = [[int(c.unique().numel()) for c in calls[i:i + n_moe_layers]]
+                 for i in range(0, len(calls), n_moe_layers)]
+        flat = [n for st in steps for n in st]
+        return {"rows": int(calls[-1].shape[0]) if calls else 0, "steps": len(steps),
+                "per_layer_last_step": steps[-1] if steps else [],
+                "mean": sum(flat) / len(flat) if flat else None,
+                "min": min(flat, default=None), "max": max(flat, default=None)}
+
+
+def _routing_flips(lm, tokens, dev, spy) -> dict:
+    """One bf16 prefill through the kernels and through the plain versions:
+    the (token, MoE layer) routing choices whose expert sets differ, each
+    with the plain path's gap between its top-k-th and (k+1)-th score (a flip
+    at a near tie is not a fault: the two paths round differently)."""
+    import torch
+    runs = []
+    with torch.no_grad():
+        for fn in (_prefill_logits, _plain_logits):
+            spy.record = []
+            fn(lm, tokens, dev)
+            runs.append(spy.record)
+    spy.record = None
+    flips = []
+    for layer, ((a, _), (b, gap)) in enumerate(zip(*runs)):
+        differ = (a.sort(dim=-1).values != b.sort(dim=-1).values).any(dim=-1)
+        for t in differ.nonzero().flatten().tolist():
+            flips.append({"layer": layer, "token": t, "gap": float(gap[t])})
+    gaps = [f["gap"] for f in flips]
+    return {"routing_choices": len(runs[1]) * len(tokens), "routing_flips": len(flips),
+            "routing_flip_gaps": sorted(gaps)[:20], "routing_flip_max_gap": max(gaps, default=None),
+            "routing_flips_first": flips[:10]}
+
+
+def _cut_lm(lm, n_layers: int):
+    """The same model's first n_layers layers (shared tensors) and its head."""
+    from dataclasses import replace
+    from hydrainfer_tpu_torch.models.llama import LlamaForCausalLM
+    return LlamaForCausalLM({**lm.weights, "layers": lm.weights["layers"][:n_layers]},
+                            replace(lm.cfg, n_layers=n_layers))
+
+
+def phase_deepseek(dev="cuda") -> tuple:
+    """DeepSeek-V2-Lite at full width (DEEPSEEK_V2_LITE, seeded random weights,
+    _moe_lm_factory: 27 layers, MLA on the int8 single-plane latent cache,
+    64 routed experts through the grouped product, YaRN), served as the mla
+    phase serves mla-2b-lm (phase_serve: 32 requests x 128-token prompts x
+    128 tokens, budget 2048, K = 16 windows from CUDA graphs; K6, K3 and K4
+    launch, K1 and K2 never; a graphs-off round gives identical tokens; it
+    is not profiled: the profiler's bookkeeping of an eager round's ~10^6
+    events takes minutes).
+    Logits: a 512-token prefill in chunks of 256 through the kernels and the
+    plain versions on the first DEEPSEEK_CHECK_LAYERS layers (_logits_check,
+    mean |error| over every 32nd row), and the routing choices that differ
+    between the two paths in the full model's bf16 prefill. Reports the
+    decode step's device ms (a K = 16 window's graph replay over 16) beside
+    its byte bound (the weights a step reads: the experts the eager round's
+    last decode step touched, the rest whole but the embedding; KV not
+    counted), the
+    distinct experts a MoE layer's decode step touches, and the
+    tiny-checkpoint check (q-LoRA, noaux_tc with a correction bias, YaRN;
+    f32 on the card with graphs off and on the CPU)."""
+    import torch
+    dev = torch.device(dev)
+    t0 = time.perf_counter()
+    factory = _moe_lm_factory(dev, DEEPSEEK_V2_LITE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = factory.cfg
+    n_moe = cfg.n_layers - DEEPSEEK_V2_LITE["first_k_dense_replace"]
+    spy = RouteSpy(4 * n_moe, DEEPSEEK_REQUESTS)
+
+    def logits(lm, rng, dev):
+        tokens = [int(t) for t in rng.integers(10, 120, size=512)]
+        res = _logits_check(_cut_lm(lm, DEEPSEEK_CHECK_LAYERS), tokens, dev,
+                            "prefill_logits", mean_rows=True, chunk=256, every=32)
+        res["prefill_logits_layers"] = DEEPSEEK_CHECK_LAYERS
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        res.update(_routing_flips(lm, tokens[:256], dev, spy))
+        res["routing_flips_s"] = time.perf_counter() - t0
+        return res
+
+    def extra(engine, graphs, lm):
+        experts = spy.distinct_experts(n_moe)
+        keys = [(d, n, g) for (d, n), g in graphs.graphs.graphs.items() if n == 16]
+        d, n, g = max(keys, key=lambda x: x[0].S)
+        step_ms = _replay_ms(g.graph, replays=5) / n
+        lw = lm.weights["layers"][-1]
+        expert_bytes = sum(lw[k].numel() * lw[k].element_size()
+                           for k in ("moe_gate_up", "moe_down")) // cfg.n_experts
+        touched = experts["per_layer_last_step"]
+        embed = lm.weights["embed"]
+        n_bytes = (factory.param_bytes() - embed.numel() * embed.element_size()
+                   - n_moe * cfg.n_experts * expert_bytes + sum(touched) * expert_bytes)
+        return {"ok": bool(touched) and experts["rows"] == DEEPSEEK_REQUESTS,
+                "decode_step_device_ms": step_ms, "decode_step_key": f"T={d.T} S={d.S}",
+                "decode_step_bound_ms": 1e3 * n_bytes / HBM_BYTES_PER_S,
+                "decode_step_bound_bytes": n_bytes,
+                "distinct_experts_per_decode_step": experts}
+
+    try:
+        result, counts = phase_serve(
+            "deepseek-v2-lite", dev, DEEPSEEK_REQUESTS, DEEPSEEK_PROMPT, DEEPSEEK_TOKENS, 2048,
+            phase="deepseek", must_run=MLA_KERNELS,
+            must_not_run=("mha_decode", "paged_attention"), eager_round=True,
+            factory=factory, logits_fn=logits, extra_fn=extra, eager_profile=False)
+    finally:
+        spy.restore()
+    result["weight_init_s"] = init_s
+    result["model"] = ("DeepSeek-V2-Lite (deepseek-ai/DeepSeek-V2-Lite widths and depth): "
+                       "27 layers x 2048, MLA 16 heads (kv_lora 512 + rope 64), YaRN x40, "
+                       "1 dense layer (10944), 26 MoE layers of 64 x 1408 experts (6 a "
+                       "token) + 2 shared, vocab 102400")
+    del factory
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    result.update(_tiny_checkpoint_check("deepseek"))
+    result["parts_s"]["tiny_checkpoint"] = time.perf_counter() - t0
+    tiny = result["tiny_checkpoint"]
+    result["ok"] = bool(result["ok"] and (not isinstance(tiny, dict) or tiny["ok"]))
+    save("deepseek.json", result)
+    return result, counts
+
+
+def _vl2_factory(dev, seed=SEED):
+    """DeepSeek-VL2-Tiny at full width with random weights from the seed: the
+    bf16 SigLIP-so400m tower (VL2_VISION; heads padded 72 -> 80 when the
+    model is built), the 4608 -> 1280 -> 1280 projector, image_newline and
+    view_seperator (seed + 1), the VL2_TINY_LM language model
+    (_moe_lm_factory), the default six candidate resolutions and the
+    port's processor (PIL and numpy)."""
+    import torch
+    from hydrainfer_tpu_torch.models.deepseek_vl2 import (
+        DEFAULT_CANDIDATES, DeepSeekVL2ImageProcessorAdapter, DeepSeekVL2ImageTokenCalculator,
+        DeepSeekVL2VisionModel, SigLIPConfig)
+    from hydrainfer_tpu_torch.models.factory import VisionModelConfig
+    lm_factory = _moe_lm_factory(dev, VL2_TINY_LM, seed)
+    vcfg = SigLIPConfig(**VL2_VISION)
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    init = lambda *shape: (torch.randn(shape, generator=gen, device=dev) * 0.02).to(bf16)
+    full = lambda n, x: torch.full((n,), x, dtype=bf16, device=dev)
+    E, M, P = vcfg.hidden_size, vcfg.intermediate_size, vcfg.patch_size
+    norm = lambda n: (full(n, 1.0), full(n, 0.0))
+    vit = {"patch_embed": init(3 * P * P, E), "patch_bias": full(E, 0.0),
+           "pos": init(vcfg.n_patches_side ** 2, E), "norm": norm(E),
+           "layers": [{"ln1": norm(E), "qkv": (init(E, 3 * E), full(3 * E, 0.0)),
+                       "proj": (init(E, E), full(E, 0.0)), "ln2": norm(E),
+                       "fc1": (init(E, M), full(M, 0.0)), "fc2": (init(M, E), full(E, 0.0))}
+                      for _ in range(vcfg.n_layers)]}
+    hidden = lm_factory.cfg.hidden_size
+    weights = {"vit": vit, "proj": [(init(4 * E, VL2_N_EMBED), full(VL2_N_EMBED, 0.0)),
+                                    (init(VL2_N_EMBED, hidden), full(hidden, 0.0))],
+               "newline": init(hidden), "view_sep": init(hidden)}
+    calc = DeepSeekVL2ImageTokenCalculator(DEFAULT_CANDIDATES, vcfg.image_size, P, 2)
+    return _mm_factory(lm_factory, DeepSeekVL2VisionModel(weights, vcfg, calc),
+                       VisionModelConfig("<image>", 9, calc),
+                       DeepSeekVL2ImageProcessorAdapter(calc))
+
+
+def _siglip_tflop(n_tiles: int) -> float:
+    """The operations of an encode of n_tiles tiles: SigLIP's patch
+    embedding, 27 layers (qkv, proj, the MLP, the attention's two products
+    at the real head dim) and the projector, 2 per multiply-add."""
+    c = VL2_VISION
+    L, E, M = (math.ceil(c["image_size"] / c["patch_size"])) ** 2, c["hidden_size"], \
+        c["intermediate_size"]
+    layer = 2 * L * E * 3 * E + 2 * L * E * E + 4 * L * E * M + 4 * L * L * E
+    embed = 2 * L * 3 * c["patch_size"] ** 2 * E
+    proj = 2 * (L // 4) * (4 * E * VL2_N_EMBED + VL2_N_EMBED * VL2_TINY_LM["hidden_size"])
+    return n_tiles * (c["n_layers"] * layer + embed + proj) / 1e12
+
+
+def phase_vl2(dev="cuda") -> tuple:
+    """DeepSeek-VL2-Tiny at full width (_vl2_factory) on one EPD node (_mm_epd:
+    VL2_IMAGES, 28 tiles and 5776 image tokens a round; the features of the
+    768 x 768 image through K5 and the plain attention, the 1055-token
+    prompt of that image, K1-K5 launched), then the same requests on an
+    in-process Cluster from config/cluster/hybrid.yaml (EP + D, one shared
+    factory): every request finishes with its tokens, equal to the EPD
+    node's or first differing at a near tie; the first migrated KV blocks
+    equal the source's bit for bit; every node launches its type's kernels.
+    Reports the round's encode against the tower's operations. Then the
+    tiny-checkpoint check (the original VL2 naming; f32 on the card with
+    graphs off and on the CPU)."""
+    import torch
+    dev = torch.device(dev)
+    t0 = time.perf_counter()
+    factory = _vl2_factory(dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    result, counts, reqs, epd_tokens = _mm_epd("vl2", "vl2", factory, VL2_IMAGES,
+                                               VL2_KV_BLOCKS, VL2_IMAGE_BLOCKS, 1, 1, dev)
+    result["weight_init_s"] = init_s
+    result["model"] = ("DeepSeek-VL2-Tiny (deepseek-ai/deepseek-vl2-tiny widths): "
+                       "SigLIP-so400m-384 (27 layers x 1152, 16 heads of 72 padded to 80, "
+                       "784 rows a tile), projector 4608 -> 1280 -> 1280 (196 tokens a "
+                       "tile); LM 12 layers x 1280, 10 MHA heads x 128, 1 dense layer "
+                       "(6848), 11 MoE layers of 64 x 896 experts (6 a token) + 2 shared, "
+                       "vocab 129280")
+    tflop = _siglip_tflop(result["tiles_a_round"])
+    result["encode_tflop_a_round"] = tflop
+    if result.get("encode_profile_device_ms"):
+        result["encode_tflops_per_s"] = tflop / (result["encode_profile_device_ms"] / 1e3)
+    overlay = {"EP": {"n_kv_blocks": VL2_KV_BLOCKS, "n_image_blocks": VL2_IMAGE_BLOCKS},
+               "D": {"n_kv_blocks": VL2_KV_BLOCKS}}
+    hybrid, _, tokens = _disagg_topology(
+        factory, "hybrid.yaml", None, True,
+        make_requests=lambda seed: _mm_requests(VL2_IMAGES, seed, "ep_d"), overlay=overlay)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tie = _near_tie(factory.getLanguageModel(), factory.getTokenizer(), reqs, tokens,
+                    epd_tokens, dev, vision=factory)
+    hybrid["tokens_identical_to_epd"] = tokens == epd_tokens
+    hybrid["divergences"] = tie
+    hybrid["ok"] = bool(hybrid["ok"] and tie["ok"])
+    result["ep_d"] = hybrid
+    del factory
+    gc.collect()
+    torch.cuda.empty_cache()
+    result.update(_tiny_checkpoint_check("deepseek_vl2"))
+    tiny = result["tiny_checkpoint"]
+    result["ok"] = bool(result["ok"] and hybrid["ok"]
+                        and (not isinstance(tiny, dict) or tiny["ok"]))
+    save("vl2.json", result)
     return result, counts
 
 
@@ -4313,7 +4981,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="build,kernels,tiny,serve,spec,sample,vlm,llava,disagg,process,"
-                            "llavanext,internvl,mla,online")
+                            "llavanext,internvl,mla,deepseek,vl2,online")
     ap.add_argument("--out-dir", default=OUT_DIR,
                     help="where the detail files go")
     args = ap.parse_args()
@@ -4337,7 +5005,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     failed, kernel_rows, counts = [], [], {"serve": {}, "spec": {}, "vlm": {}, "llava": {},
-                                           "next13b": {}, "internvl": {}, "mla": {}}
+                                           "next13b": {}, "internvl": {}, "mla": {},
+                                           "deepseek": {}, "vl2": {}}
     process_counts = None       # the process phase's, summed over its node processes
     why = {}                    # a failed phase: what failed in it
     for phase in phases:
@@ -4375,6 +5044,10 @@ def main() -> int:
                 res, counts["internvl"] = phase_internvl()
             elif phase == "mla":
                 res, counts["mla"] = phase_mla()
+            elif phase == "deepseek":
+                res, counts["deepseek"] = phase_deepseek()
+            elif phase == "vl2":
+                res, counts["vl2"] = phase_vl2()
             elif phase == "online":
                 res = phase_online()
             else:

@@ -338,9 +338,11 @@ class AsyncEPDNode:
                 block_size=self.config.kv_block_size,
                 n_heads=lc.n_kv_heads if lc.kv_single_plane else 2 * lc.n_kv_heads,
                 head_dim=lc.head_dim, dtype=kv_dtype)
-        # one image-cache slot per feature token: n_qo_heads * head_dim values
-        # hold its LM-hidden feature; a block holds a 336x336 image's tokens
-        # unless image_block_size says otherwise
+        # one image-cache slot per feature token: one hidden-wide row holds
+        # its LM-hidden feature (the JAX node sizes it n_qo_heads x head_dim,
+        # the same width except for MLA, whose head_dim is the latent width);
+        # a block holds a 336x336 image's tokens unless image_block_size says
+        # otherwise
         with_images = nt.has_image_cache and self.vision_config is not None
         img_cfg = None
         if with_images:
@@ -350,7 +352,8 @@ class AsyncEPDNode:
                     .get_num_image_tokens((336, 336)) or 576
             img_cfg = TokenCacheBlockManagerConfig(
                 n_layers=1, n_tensors=1, n_blocks=max(self.config.n_image_blocks, 1),
-                block_size=block, n_heads=lc.n_qo_heads, head_dim=lc.head_dim,
+                block_size=block,
+                n_heads=1, head_dim=lc.hidden_size,
                 dtype=model_dtype)
         auto_kv = kv_cfg is not None and self.config.n_kv_blocks == -1
         auto_img = with_images and self.config.n_image_blocks == -1

@@ -1,6 +1,6 @@
 """Shared paged-attention decoder for Llama-family language models (port of
-hydrainfer_tpu/models/decoder.py, dense-MLP form, with standard attention or
-DeepSeek's multi-head latent attention).
+hydrainfer_tpu/models/decoder.py: standard attention or DeepSeek's
+multi-head latent attention, a dense or a mixture-of-experts MLP).
 
 One step runs embed -> the image splice (vision features overwrite the
 embeddings at <image> positions) -> a Python loop over the decoder layers ->
@@ -33,17 +33,26 @@ local id), never from `positions`.
 Weights: {"embed": (V, H), "layers": [per-layer dict], "norm": (H,),
 "lm_head": (H, V) tensor or QuantizedTensor}; each layer holds qkv_proj,
 o_proj, gate_up, down (tensors or QuantizedTensors), input_norm, post_norm
-and optionally qkv_bias. An MLA layer (cfg.mla_kv_lora > 0) holds q_proj,
-kv_a, kv_a_norm, w_uk (r, H, dn) and w_uv (r, H, dv) in place of qkv_proj;
-its KV cache is the single-plane latent cache (L, 1, NB, BS, 1, r + dr), one
-[c_kv | k_pe] vector per token. Its rope weights are stored pair-interleaved
-(HF rope_interleave) and its softmax scale is 1/sqrt(nope + rope).
+and optionally qkv_bias. An MLA layer (cfg.mla_kv_lora > 0) holds q_proj
+(or the q-LoRA stack q_a, q_a_norm, q_b), kv_a, kv_a_norm, w_uk (r, H, dn)
+and w_uv (r, H, dv) in place of qkv_proj; its KV cache is the single-plane
+latent cache (L, 1, NB, BS, 1, r + dr), one [c_kv | k_pe] vector per token.
+Its rope weights are stored pair-interleaved unless cfg.mla_rope_interleave
+is off, and its softmax scale is cfg.mla_softmax_scale (0: 1/sqrt(nope +
+rope)). A MoE layer (cfg.moe_top_k > 0 and a moe_router in the layer)
+holds moe_router (H, E), moe_router_bias (E,) under group-limited routing,
+the stacked experts moe_gate_up (E, H, 2I) and moe_down (E, I, H), and its
+shared experts, if any, as gate_up and down (ops/moe.py); the other layers
+of such a model are dense.
 """
+import math
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 
+from ..ops import moe
 from ..ops.activation import silu_and_mul
 from ..ops.attention import paged_attention
 from ..ops.cache_ops import write_kv_cache, write_latent_cache
@@ -82,18 +91,63 @@ class DecoderConfig:
     mla_rope_dim: int = 0
     mla_nope_dim: int = 0
     mla_v_dim: int = 0
+    # HF rope_interleave: the MLA rope weights are stored pair-interleaved
+    mla_rope_interleave: bool = True
+    # 0 = 1/sqrt(nope + rope); YaRN checkpoints bake mscale^2 in here
+    mla_softmax_scale: float = 0.0
     # width of the rope tables when it differs from head_dim (MLA ropes only
     # mla_rope_dim of each head); 0 = head_dim
     rope_head_dim: int = 0
+    # YaRN rope scaling: (factor, original_max_pos, beta_fast, beta_slow,
+    # attention_factor, truncate); () = plain rope. attention_factor scales
+    # cos/sin (HF modeling_rope_utils._compute_yarn_parameters)
+    yarn: tuple = ()
+    # sparse MoE MLP (0 = dense): such layers carry moe_router, moe_gate_up
+    # and moe_down (ops/moe.py)
+    moe_top_k: int = 0
+    n_experts: int = 0
+    moe_scoring: str = "softmax"       # softmax | sigmoid
+    moe_norm_topk: bool = True
+    moe_routed_scaling: float = 1.0
+    # group-limited routing: experts in moe_n_groups groups, the best
+    # moe_topk_groups kept, then top-k inside; 0 = plain top-k routing.
+    # "noaux_tc" (V3: sigmoid + correction bias, groups by top-2 sum) or
+    # "group_limited_greedy" (V2: softmax, no bias, groups by max)
+    moe_n_groups: int = 0
+    moe_topk_groups: int = 0
+    moe_group_method: str = "noaux_tc"
 
 
 def init_rope_tables(cfg: DecoderConfig, device=None):
-    """(max_position, rope_dim // 2) f32 cos and sin tables."""
+    """(max_position, rope_dim // 2) f32 cos and sin tables. Under YaRN the
+    inverse frequencies blend the interpolated and the extrapolated ones
+    with a linear ramp over the correction range (in f64, as JAX), and
+    cos/sin carry the attention factor."""
     d = cfg.rope_head_dim or cfg.head_dim
-    inv = 1.0 / (cfg.rope_theta ** (torch.arange(0, d, 2, dtype=torch.float32) / d))
+    base, att = cfg.rope_theta, 1.0
+    if cfg.yarn:
+        factor, orig_max, bfast, bslow, att, trunc = cfg.yarn
+        pos_freqs = base ** (np.arange(0, d, 2, dtype=np.float64) / d)
+
+        def corr_dim(rot):
+            return (d * math.log(orig_max / (rot * 2 * math.pi))) / (2 * math.log(base))
+
+        low, high = corr_dim(bfast), corr_dim(bslow)
+        if trunc:
+            low, high = math.floor(low), math.ceil(high)
+        low, high = max(low, 0), min(high, d - 1)
+        if low == high:
+            high += 0.001
+        ramp = np.clip((np.arange(d // 2, dtype=np.float64) - low) / (high - low), 0, 1)
+        ex_f = 1.0 - ramp
+        inv = torch.from_numpy(
+            (1.0 / (factor * pos_freqs) * (1 - ex_f) + 1.0 / pos_freqs * ex_f)
+            .astype(np.float32))
+    else:
+        inv = 1.0 / (base ** (torch.arange(0, d, 2, dtype=torch.float32) / d))
     t = torch.arange(cfg.max_position_embeddings, dtype=torch.float32)
     freqs = torch.outer(t, inv)
-    return torch.cos(freqs).to(device), torch.sin(freqs).to(device)
+    return (torch.cos(freqs) * att).to(device), (torch.sin(freqs) * att).to(device)
 
 
 def _attention_block(x, cache, layer_id, lw, batch: LanguageModelBatch, cos, sin,
@@ -131,22 +185,29 @@ def _mla_attention_block(x, cache, layer_id, lw, batch: LanguageModelBatch, cos,
     the absorbed form: q_nope is projected into the latent space with W_UK,
     scores are taken against the cached [c_kv | k_pe] vectors directly (one
     plane serving as K and V, kernel K6), and the first kv_lora columns of the
-    output, the latent context, are expanded per head with W_UV. The JAX layer
-    pads q and the cached vector to a 128-lane cache width; the port's cache
-    is exactly kv_lora + rope wide, so nothing is padded."""
+    output, the latent context, are expanded per head with W_UV. q comes
+    from q_proj or from the q-LoRA stack (q_a -> q_a_norm -> q_b). The JAX
+    layer pads q and the cached vector to a 128-lane cache width; the port's
+    cache is exactly kv_lora + rope wide, so nothing is padded."""
     T = x.shape[0]
     H = cfg.n_qo_heads
     r, dr = cfg.mla_kv_lora, cfg.mla_rope_dim
     dn, dv = cfg.mla_nope_dim, cfg.mla_v_dim
     eps = cfg.rms_norm_eps
     h = rms_norm(x, lw["input_norm"], eps)
-    q = qmatmul(h, lw["q_proj"]).reshape(T, H, dn + dr)
+    if "q_a" in lw:
+        q = qmatmul(rms_norm(qmatmul(h, lw["q_a"]), lw["q_a_norm"], eps), lw["q_b"])
+    else:
+        q = qmatmul(h, lw["q_proj"])
+    q = q.reshape(T, H, dn + dr)
     q_nope, q_pe = q[..., :dn], q[..., dn:]
     ckv = qmatmul(h, lw["kv_a"])                              # (T, r + dr)
     c_kv = rms_norm(ckv[:, :r], lw["kv_a_norm"], eps)
     k_pe = ckv[:, None, r:]                                   # (T, 1, dr)
-    q_pe = apply_rotary_emb(_deinterleave(q_pe), cos, sin, False)
-    k_pe = apply_rotary_emb(_deinterleave(k_pe), cos, sin, False)
+    if cfg.mla_rope_interleave:
+        q_pe, k_pe = _deinterleave(q_pe), _deinterleave(k_pe)
+    q_pe = apply_rotary_emb(q_pe, cos, sin, False)
+    k_pe = apply_rotary_emb(k_pe, cos, sin, False)
     # absorbed latent query: W_UK is (r, H, dn)
     q_lat = torch.einsum("thn,rhn->thr", q_nope, lw["w_uk"])
     q_full = torch.cat([q_lat, q_pe], dim=-1)                # (T, H, r + dr)
@@ -154,13 +215,44 @@ def _mla_attention_block(x, cache, layer_id, lw, batch: LanguageModelBatch, cos,
     # in place, with the int8 quantize fused in (kernel K3's single-plane form)
     write_latent_cache(cache, layer_id, batch.attention.new_kv_slot_ids, kv_vec,
                        cfg.kv_scale)
-    attn = paged_attention(q_full, cache, layer_id, batch.attention,
-                           1.0 / ((dn + dr) ** 0.5), max_q, kv_scale=cfg.kv_scale)
+    scale = cfg.mla_softmax_scale or 1.0 / ((dn + dr) ** 0.5)
+    attn = paged_attention(q_full, cache, layer_id, batch.attention, scale, max_q,
+                           kv_scale=cfg.kv_scale)
     out = torch.einsum("thr,rhv->thv", attn[..., :r], lw["w_uv"])
     return x + qmatmul(out.reshape(T, H * dv), lw["o_proj"])
 
 
-def _mlp(h: torch.Tensor, lw: dict) -> torch.Tensor:
+def router_logits(h: torch.Tensor, lw: dict) -> torch.Tensor:
+    """A MoE layer's router logits, in f32."""
+    return h.float() @ lw["moe_router"].float()
+
+
+def _route(h: torch.Tensor, lw: dict, cfg: DecoderConfig):
+    """A MoE layer's routing from f32 router logits: (weights, expert ids),
+    (T, k) each."""
+    logits = router_logits(h, lw)
+    if cfg.moe_n_groups > 0:
+        if cfg.moe_group_method == "group_limited_greedy":
+            return moe.grouped_topk(logits, None, cfg.moe_n_groups, cfg.moe_topk_groups,
+                                    cfg.moe_top_k, scoring="softmax", group_agg="max",
+                                    norm_topk=cfg.moe_norm_topk,
+                                    routed_scaling=cfg.moe_routed_scaling)
+        return moe.grouped_topk_sigmoid(logits, lw["moe_router_bias"], cfg.moe_n_groups,
+                                        cfg.moe_topk_groups, cfg.moe_top_k,
+                                        routed_scaling=cfg.moe_routed_scaling)
+    return moe.route(logits, cfg.moe_top_k, scoring=cfg.moe_scoring,
+                     norm_topk=cfg.moe_norm_topk, routed_scaling=cfg.moe_routed_scaling)
+
+
+def _mlp(h: torch.Tensor, lw: dict, cfg: DecoderConfig) -> torch.Tensor:
+    """The dense MLP, or in a MoE layer the routed experts (ops/moe.py) plus
+    the shared experts, if the layer has them."""
+    if cfg.moe_top_k > 0 and "moe_router" in lw:
+        weights, idx = _route(h, lw, cfg)
+        out = moe.moe_ffn(h, lw["moe_gate_up"], lw["moe_down"], weights, idx)
+        if "gate_up" in lw:
+            out = out + qmatmul(silu_and_mul(qmatmul(h, lw["gate_up"])), lw["down"])
+        return out
     return qmatmul(silu_and_mul(qmatmul(h, lw["gate_up"])), lw["down"])
 
 
@@ -168,7 +260,7 @@ def _layer_body(x, cache, layer_id, lw, batch: LanguageModelBatch, cos, sin,
                 cfg: DecoderConfig, max_q: int):
     """One decoder layer: attention block + MLP block."""
     x = _attention_block(x, cache, layer_id, lw, batch, cos, sin, cfg, max_q)
-    return x + _mlp(rms_norm(x, lw["post_norm"], cfg.rms_norm_eps), lw)
+    return x + _mlp(rms_norm(x, lw["post_norm"], cfg.rms_norm_eps), lw, cfg)
 
 
 def decoder_forward(weights: dict, cache: torch.Tensor, batch: LanguageModelBatch,
@@ -218,16 +310,17 @@ def _last_layer_and_head(weights, cache, x, batch: LanguageModelBatch, cos, sin,
     # the last layer's attention sees all T tokens (their KV must be written);
     # then only the sampled rows continue through the MLP and the head. (The
     # JAX MLA last layer runs its MLP over all T rows and discards after it;
-    # the MLP is row-wise, so discarding first gives the same numbers.)
+    # the MLP is row-wise, and so is a MoE layer's routing, so discarding
+    # first gives the same numbers.)
     lw = weights["layers"][-1]
     x = _attention_block(x, cache, cfg.n_layers - 1, lw, batch, cos, sin, cfg,
                          max_q)
     if spec > 0:
         # speculative verify: every row's next token matters, so no discard
-        x = x + _mlp(rms_norm(x, lw["post_norm"], cfg.rms_norm_eps), lw)
+        x = x + _mlp(rms_norm(x, lw["post_norm"], cfg.rms_norm_eps), lw, cfg)
         return _spec_verify_head(weights, x, batch, cfg, token_table, spec, generator)
     x = x[batch.sample_token_idx.clamp(min=0).long()]          # token discard
-    x = x + _mlp(rms_norm(x, lw["post_norm"], cfg.rms_norm_eps), lw)
+    x = x + _mlp(rms_norm(x, lw["post_norm"], cfg.rms_norm_eps), lw, cfg)
     tokens, logits = _final_head(weights, x, batch, cfg, token_table, generator)
     return (tokens, logits) if return_logits else tokens
 

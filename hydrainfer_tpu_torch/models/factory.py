@@ -313,8 +313,11 @@ def getModelFactory(config: ModelFactoryConfig, device=None) -> ModelFactory:
         LlavaForConditionalGeneration: LlavaModelFactory;
         LlavaNextForConditionalGeneration: LlavaNextModelFactory; Qwen2-VL:
         Qwen2VLModelFactory; InternVLChatModel or model_type "internvl":
-        InternVLModelFactory; LlamaForCausalLM or Qwen2ForCausalLM:
-        TextOnlyModelFactory (the JAX package's order).
+        InternVLModelFactory; model_type "deepseek_vl_v2":
+        DeepSeekVL2ModelFactory; model_type "deepseek_v2" / "deepseek_v3" or
+        a DeepSeek causal-LM architecture: DeepSeekModelFactory;
+        LlamaForCausalLM or Qwen2ForCausalLM: TextOnlyModelFactory (the JAX
+        package's order).
     Every other architecture raises, naming the queue item that ports it.
     dtype "auto" becomes bf16, as in the JAX package."""
     import json
@@ -353,16 +356,17 @@ def getModelFactory(config: ModelFactoryConfig, device=None) -> ModelFactory:
     if architecture == "InternVLChatModel" or model_type == "internvl":
         from .internvl import InternVLModelFactory
         return InternVLModelFactory(config, device=device)
+    if model_type == "deepseek_vl_v2":
+        from .deepseek_vl2 import DeepSeekVL2ModelFactory
+        return DeepSeekVL2ModelFactory(config, device=device)
+    if model_type in ("deepseek_v2", "deepseek_v3") or architecture in (
+            "DeepseekV2ForCausalLM", "DeepseekV3ForCausalLM", "DeepseekForCausalLM"):
+        from .deepseek_v3 import DeepSeekModelFactory
+        return DeepSeekModelFactory(config, device=device)
     if architecture in ("LlamaForCausalLM", "Qwen2ForCausalLM"):
         from .text_only import TextOnlyModelFactory
         return TextOnlyModelFactory(config, device=device)
-    queue = {"DeepseekV2ForCausalLM": "8", "DeepseekV3ForCausalLM": "8",
-             "DeepseekForCausalLM": "8", "MixtralForCausalLM": "8",
-             "GPT2LMHeadModel": "8"}
-    item = queue.get(architecture)
-    if item is None:
-        item = {"deepseek_vl_v2": "8", "deepseek_v2": "8",
-                "deepseek_v3": "8"}.get(model_type)
+    item = {"MixtralForCausalLM": "8", "GPT2LMHeadModel": "8"}.get(architecture)
     where = f"ROADMAP.md queue 1, item {item}" if item else "no queue item yet"
     raise ValueError(f"unsupported architecture {architecture} / model_type "
                      f"{model_type}: not ported ({where})")

@@ -6,7 +6,10 @@ leaf already turned into numpy (a quantized leaf is any object with `.q` and
 `.scale` numpy arrays), and returns the port's weight dict. It imports
 nothing of the JAX package: the caller does the JAX-side conversion, e.g.
 ``jax.tree_util.tree_map(np.asarray, tree)``, BEFORE handing the tree to the
-JAX model (whose weight packing consumes it).
+JAX model (whose weight packing consumes it). Every leaf carries over as it
+is, so a DeepSeek layer's leaves do too: the q-LoRA stack (q_a, q_a_norm,
+q_b), the router and its correction bias, and the 3-D stacked experts
+(moe_gate_up (E, H, 2I), moe_down (E, I, H)).
 
 `from_jax_vision_numpy` does the same for a vision tower's weights, numpy
 leaves again, copying the nested dicts, lists and (weight, bias) tuples as
@@ -18,7 +21,9 @@ hydrainfer_tpu/models/random_init.py:init_clip_weights(lm_hidden=...) and of
 the JAX LlavaModelFactory (the CLIP tower under "clip", then the projector);
 LLaVA-NeXT's (LLaVA's plus "newline"); and InternVL's (the InternViT tree
 under "vit", with its layer scales and optional qk-norms, then "proj_norm",
-"proj1" and "proj2").
+"proj1" and "proj2"); and DeepSeek-VL2's (the SigLIP tree under "vit", the
+projector's layers as a list of (weight, bias) under "proj", "newline" and
+"view_sep"; the port's tower pads SigLIP's heads itself when it is built).
 """
 import numpy as np
 import torch
@@ -72,6 +77,8 @@ def from_jax_vision_numpy(tree: dict, device=None) -> dict:
     out, ln2, fc1, fc2}]}, "proj1", "proj2"}, plus "newline" for LLaVA-NeXT.
     InternVL: {"vit": {patch_embed, patch_bias, cls, pos, "layers": [{qkv,
     proj, ls1, ls2, norm1, norm2, fc1, fc2[, q_norm, k_norm]}]}, "proj_norm",
-    "proj1", "proj2"}. Every pair is (weight, bias); a norm's bias may be
+    "proj1", "proj2"}. DeepSeek-VL2: {"vit": {patch_embed, patch_bias, pos,
+    "layers": [{ln1, qkv, proj, ln2, fc1, fc2}], norm}, "proj": [(w, b), ...],
+    "newline", "view_sep"}. Every pair is (weight, bias); a norm's bias may be
     None (InternViT's RMS norm)."""
     return _nested(tree, resolve_device(device))

@@ -4,9 +4,11 @@
 bf16, as in the JAX package), quantization and KV scale; `+mm` makes it
 multimodal (CLIP_TINY for a tiny arch, else CLIP-L/14-336); `fake` or no
 path gives FakeModelFactory; a
-checkpoint directory dispatches on its config.json (LLaVA-NeXT and InternVL,
-in both its layouts, among them), and an architecture the port does not have
-raises, naming the queue item that ports it. A tiny Llama
+checkpoint directory dispatches on its config.json (LLaVA-NeXT, InternVL
+in both its layouts, and the DeepSeek V2 / V3 and DeepSeek-VL2 families, to
+the factories the JAX package picks, among them), and an architecture the
+port does not have (Mixtral, GPT-2) raises, naming the queue item that
+ports it. A tiny Llama
 checkpoint built in process with transformers goes through both packages'
 getModelFactory(path) and serves the same greedy tokens on a PD node.
 """
@@ -84,6 +86,45 @@ def test_multimodal_families_dispatch(tmp_path, config, factory_name):
         assert vcfg.image_token_calculator.get_num_image_tokens((56, 56)) == 4
     else:
         assert f.pinpoints[0] == [336, 672] and vcfg.image_token_id == 32000
+
+
+_DS_TEXT = {"vocab_size": 64, "hidden_size": 48, "intermediate_size": 96,
+            "moe_intermediate_size": 32, "num_hidden_layers": 2, "num_attention_heads": 4,
+            "num_key_value_heads": 4, "n_routed_experts": 4, "num_experts_per_tok": 2,
+            "n_shared_experts": 1, "first_k_dense_replace": 1, "topk_method": "greedy"}
+
+
+@pytest.mark.parametrize("config,factory_name", [
+    ({"architectures": ["DeepseekV2ForCausalLM"], "model_type": "deepseek_v2", **_DS_TEXT},
+     "DeepSeekModelFactory"),
+    ({"architectures": ["DeepseekV3ForCausalLM"], "model_type": "deepseek_v3", **_DS_TEXT,
+      "kv_lora_rank": 16, "qk_rope_head_dim": 8, "qk_nope_head_dim": 16, "v_head_dim": 16},
+     "DeepSeekModelFactory"),
+    ({"architectures": ["DeepseekForCausalLM"], **_DS_TEXT}, "DeepSeekModelFactory"),
+    ({"model_type": "deepseek_v3", **_DS_TEXT}, "DeepSeekModelFactory"),
+    ({"model_type": "deepseek_vl_v2", "language_config": _DS_TEXT,
+      "vision_config": {"params": {"width": 64, "layers": 2, "heads": 4}}},
+     "DeepSeekVL2ModelFactory"),
+], ids=["v2", "v3_mla", "deepseek_arch", "v3_model_type", "vl2"])
+def test_deepseek_families_dispatch(tmp_path, config, factory_name):
+    """The DeepSeek architectures and model types dispatch to the port's
+    DeepSeek factories, as the JAX package's getModelFactory does; an MLA
+    config asks for the single-plane cache."""
+    from hydrainfer_tpu.models.factory import ModelFactoryConfig as JaxMFC
+    from hydrainfer_tpu.models.factory import getModelFactory as jax_get_factory
+    from hydrainfer_tpu_torch.models.factory import ModelFactoryConfig, getModelFactory
+    (tmp_path / "config.json").write_text(json.dumps(config))
+    f = getModelFactory(ModelFactoryConfig(path=str(tmp_path)), "cpu")
+    assert type(f).__name__ == factory_name
+    assert type(jax_get_factory(JaxMFC(path=str(tmp_path)))).__name__ == factory_name
+    lc = f.getLanguageModelConfig()
+    assert (lc.n_layers, lc.hidden_size, lc.vocab_size) == (2, 48, 64)
+    assert lc.kv_single_plane == ("kv_lora_rank" in config)
+    assert f.decoder_cfg.moe_top_k == 2 and f.decoder_cfg.n_experts == 4
+    if factory_name == "DeepSeekVL2ModelFactory":
+        assert f.getVisionModelConfig().image_token_id == 128815     # the JAX default
+    else:
+        assert f.getVisionModel() is None and f.getVisionModelConfig() is None
 
 
 def test_text_only_factory_matches_jax(tmp_path, monkeypatch):

@@ -51,7 +51,8 @@ def test_port_and_chip_smoke_import_no_jax():
                  "models.weight_loader", "ops.cuda.paged_attention_latent",
                  "models.clip", "models.llava", "ops.token_pruning",
                  "cluster.rpc", "cluster.process_node", "utils.socket_utils",
-                 "utils.zmq_utils"):
+                 "utils.zmq_utils", "ops.moe", "models.deepseek_v3",
+                 "models.deepseek_vl2"):
         assert "hydrainfer_tpu_torch." + name in res["imported"]
     assert res["bad"] == []
 

@@ -40,7 +40,11 @@ plain version (a result missing one K slice breaks the bf16 bound:
 test_torch_quant_matmul.py); two calls agree bit for bit, and so do two
 replays of a CUDA graph that captured it. The block migration between two
 caches on the card (gather_blocks, then scatter_blocks) moves int8 and bf16
-KV, MLA plane and image blocks bit for bit and touches no other block.
+KV, MLA plane and image blocks bit for bit and touches no other block. K5
+also runs at SigLIP's 16 heads of 72 padded to 80 (DeepSeek-VL2), its
+padding columns exactly 0. The MoE grouped product (torch._grouped_mm, a
+library call) is held to the dense plain version in bf16 within 2e-2, and a
+MoE layer captured in a CUDA graph replays its eager result bit for bit.
 """
 import numpy as np
 import pytest
@@ -872,3 +876,89 @@ def test_block_migration_round_trip_on_the_card(dev, form, layers, heads, D, bs,
     host = src.gather_blocks(src_ids).cpu()
     dst.scatter_blocks([0, 4, 2], host)
     assert torch.equal(dst.gather_blocks([0, 4, 2]).cpu(), host)
+
+
+# ------------------------------------------------ DeepSeek-VL2 and MoE on the card
+
+def test_k5_siglip_heads_padded_72_to_80(dev):
+    """SigLIP-so400m's attention as the VL2 encode runs it: 784-row tiles,
+    16 heads of 72 padded with zero columns to 80 (the load-time padding of
+    models/deepseek_vl2.py), V a strided view of the fused qkv, scaled by
+    1/sqrt(72): the first 72 columns held to the plain attention over the
+    unpadded heads, the padding columns exactly 0."""
+    qkv, ids = vit_case([784] * 3, 0, 16, 80, seed=13)
+    qkv[..., 72:] = 0
+    x = torch.from_numpy(qkv).to(dev, torch.bfloat16)
+    q, k, v = x[:, 0].contiguous(), x[:, 1].contiguous(), x[:, 2]
+    i = torch.from_numpy(ids).to(dev)
+    got = mha_varlen_flash(q, k, v, i, 72 ** -0.5)
+    real = x[..., :72].float()
+    ref = mha_varlen_plain(real[:, 0], real[:, 1], real[:, 2], i, 72 ** -0.5)[0]
+    torch.cuda.synchronize()
+    assert got.shape[-1] == 80 and not got[..., 72:].any()
+    hold_bf16(got[..., :72], ref, len(ids))
+
+
+def _moe_case(dev, T, E=16, k=6, d=256, I=128, seed=14):
+    from hydrainfer_tpu_torch.ops import moe
+    rng = np.random.default_rng(seed)
+    on = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    x = on(rng.standard_normal((T, d))).to(torch.bfloat16)
+    gate_up = (on(rng.standard_normal((E, d, 2 * I))) * 0.05).to(torch.bfloat16)
+    down = (on(rng.standard_normal((E, I, d))) * 0.05).to(torch.bfloat16)
+    logits = on(rng.standard_normal((T, E)))
+    logits[:, 3] = -30.0                        # an expert no token picks
+    weights, ids = moe.route(logits, k, norm_topk=False)
+    return x, gate_up, down, weights, ids
+
+
+@pytest.mark.parametrize("T", [1, 32, 300])
+def test_moe_ffn_on_the_card(dev, T):
+    """The grouped-product dispatch (torch._grouped_mm, bf16) against the
+    dense plain version in f32 on the same inputs, within 2e-2 x max|plain|
+    (bf16 rounding of the gate_up product and of the down product)."""
+    from hydrainfer_tpu_torch.ops import moe
+    x, gate_up, down, weights, ids = _moe_case(dev, T)
+    got = moe.moe_ffn(x, gate_up, down, weights, ids)
+    ref = moe.moe_ffn_dense(x.float(), gate_up.float(), down.float(), weights, ids)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    tol = 2e-2 * ref.abs().max().item()
+    assert (got.float() - ref).abs().max().item() <= tol
+
+
+def test_moe_layer_graph_replay_equals_eager(dev):
+    """A MoE layer (routing from f32 router logits, the grouped products, the
+    shared experts through K4) captured in a CUDA graph: a replay on new
+    inputs written into the captured buffers equals the eager call on them,
+    bit for bit; the dispatch reads nothing on the host."""
+    from dataclasses import replace
+    from hydrainfer_tpu_torch.models.decoder import DecoderConfig, _mlp
+    from hydrainfer_tpu_torch.ops.quant import quantize_int8
+    x, gate_up, down, _, _ = _moe_case(dev, 32)
+    rng = np.random.default_rng(15)
+    on = lambda *s: (torch.from_numpy(rng.standard_normal(s).astype(np.float32)) * 0.05
+                     ).to(dev)
+    lw = {"moe_router": on(256, 16).to(torch.bfloat16), "moe_gate_up": gate_up,
+          "moe_down": down, "gate_up": quantize_int8(on(256, 512)),
+          "down": quantize_int8(on(256, 256))}
+    cfg = replace(DecoderConfig(n_layers=1, hidden_size=256, intermediate_size=256,
+                                n_qo_heads=2, n_kv_heads=2, head_dim=128, vocab_size=64,
+                                max_position_embeddings=64),
+                  moe_top_k=6, n_experts=16, moe_norm_topk=False)
+    static = x.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _mlp(static, lw, cfg)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = _mlp(static, lw, cfg)
+    for seed in (1, 2):
+        new = torch.from_numpy(np.random.default_rng(seed).standard_normal((32, 256))
+                               .astype(np.float32)).to(dev, torch.bfloat16)
+        static.copy_(new)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, _mlp(new, lw, cfg))
