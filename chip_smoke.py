@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases build,kernels,mla      # the quick MLA check
     python3 chip_smoke.py --phases build,kernels,llavanext,internvl   # the tiling towers
     python3 chip_smoke.py --phases build,kernels,deepseek,vl2   # DeepSeek MoE and VL2
+    python3 chip_smoke.py --phases build,kernels,mixtral,gpt2   # Mixtral and GPT-2
 
 Phases, each printing one JSON line:
   build    compile the Hopper kernels of hydrainfer_tpu_torch/csrc (nvcc,
@@ -39,7 +40,12 @@ Phases, each printing one JSON line:
            heads of 72 padded to 80, the padding columns 0); and the MoE
            grouped product (torch._grouped_mm, a library call: no TPU kernel)
            at V2-Lite's experts, T = 32 and 2048, beside its bound, and the
-           whole moe_ffn at T = 32 from a CUDA graph (`grouped_mm`);
+           whole moe_ffn at T = 32 from a CUDA graph (`grouped_mm`), and the
+           same at Mixtral-8x7B's experts (`grouped_mm_mixtral`); K1-K4 at
+           Mixtral-8x7B (mixtral: GQA 4:1 x d128, int8 KV; K4 at qkv, o and
+           lm_head, the experts being bf16) and K1-K3 at GPT-2 XL (gpt2: 25
+           heads x d64 over a bf16 cache, K3 writing bf16 rows bit for bit;
+           no K4: the weights are bf16);
   tiny     serve tiny-lm and mla-tiny-lm in f32 through OfflineEngine on the
            card (decode steps from CUDA graphs) and on the CPU with the same
            weights and key floors, plain and with n-gram speculation at k = 3
@@ -200,7 +206,9 @@ Phases, each printing one JSON line:
            launch and K1 and K2 never, a K = 16 window replays its graph (the
            MoE dispatch captured), a graphs-off round gives identical tokens,
            and a 512-token prefill in chunks of 256 through the kernels gives
-           the plain versions' logits on the first 8 layers (mean |error|);
+           the plain versions' logits at all 27 layers (mean |error|; the
+           f32 reference built one layer at a time, its MoE layers' plain
+           path routed as the kernel path);
            it reports the routing choices that differ between the two paths
            (each with its score gap), the decode step's device ms beside its
            byte bound, the distinct experts a decode step touches a layer,
@@ -215,6 +223,23 @@ Phases, each printing one JSON line:
            reports the encode's wall and device time against the tower's
            operations, and the tiny-checkpoint check (the original VL2
            naming);
+  mixtral  serve Mixtral-8x7B at its published widths and 20 of its 32
+           layers (mistralai/Mixtral-8x7B-v0.1's config.json, random weights
+           from the seed: GQA 4:1 x d128 over the int8 KV cache, every layer
+           8 experts of 14336, 2 a token, bf16; int8 qkv, o_proj and lm_head;
+           56.4 GB of experts: 32 layers would not fit) as the deepseek phase
+           serves V2-Lite, with 64 tokens a request: K1-K4 and the grouped
+           product launch, graphs-off tokens identical, the logits check at
+           all 20 layers, the routing flips, the decode step's device ms
+           beside its byte bound, and the tiny-checkpoint check (f32, graphs
+           off on the card);
+  gpt2     serve GPT-2 XL at full width and depth (openai-community/gpt2-xl's
+           config.json, random weights from the seed, bf16 weights and KV):
+           32 requests x 128-token prompts x 128 tokens, budget 2048, single
+           graphed steps (GPT-2 takes no fused window): K1, K2 and K3 launch
+           and K4 never, graphs-off tokens identical, a 512-token prefill's
+           logits through the kernels against the plain versions, and the
+           tiny-checkpoint check (f32, graphs on);
   online   serve llava-7b-lm (full width, int8 weights, int8 KV) online
            through the real entry point, run as a child process: `python -m
            hydrainfer_tpu_torch.entrypoint.entrypoint --config
@@ -249,6 +274,7 @@ package.
 """
 import argparse
 import asyncio
+import contextlib
 import gc
 import json
 import math
@@ -350,10 +376,29 @@ DEEPSEEK_V2_LITE = {
                      "mscale_all_dim": 0.707},
     "tie_word_embeddings": False}
 DEEPSEEK_REQUESTS, DEEPSEEK_PROMPT, DEEPSEEK_TOKENS = 32, 128, 128
-# the logits checks hold an f32 copy of the model: the first 8 layers (the
-# dense one and 7 MoE layers, 15.5 GB of f32 experts); all 27 would need
-# 57.6 GB beside the 30.6 GB bf16 model
-DEEPSEEK_CHECK_LAYERS = 8
+# the mixtral phase: Mixtral-8x7B, the widths of mistralai/Mixtral-8x7B-v0.1's
+# config.json: 4096 wide, 32 q / 8 kv heads of 128 (GQA 4:1), 8 experts of
+# 14336, 2 a token (softmax, renormalised), vocab 32000, rope_theta 1e6,
+# rms_norm_eps 1e-5, no sliding window. Its depth is cut to MIXTRAL_LAYERS of
+# 32: bf16 experts take 2.82 GB a layer (90 GB at 32 layers); 20 layers hold
+# 56.4 GB, leaving room for the pools and a one-layer f32 reference (5.6 GB
+# of f32 experts). 32 requests x 128-token prompts x 64 tokens
+MIXTRAL_8X7B = {
+    "architectures": ["MixtralForCausalLM"], "model_type": "mixtral", "vocab_size": 32000,
+    "hidden_size": 4096, "intermediate_size": 14336, "num_hidden_layers": 32,
+    "num_attention_heads": 32, "num_key_value_heads": 8, "num_local_experts": 8,
+    "num_experts_per_tok": 2, "max_position_embeddings": 32768, "rope_theta": 1e6,
+    "rms_norm_eps": 1e-5, "sliding_window": None, "tie_word_embeddings": False}
+MIXTRAL_LAYERS = 20
+MIXTRAL_REQUESTS, MIXTRAL_PROMPT, MIXTRAL_TOKENS = 32, 128, 64
+# the gpt2 phase: GPT-2 XL, openai-community/gpt2-xl's config.json: 48 layers x
+# 1600, 25 heads of 64, inner 6400 (4 x), vocab 50257, 1024 positions,
+# gelu_new; bf16 weights (3.1 GB) and a bf16 KV cache; single-step windows.
+# 32 requests x 128-token prompts x 128 tokens (positions end at 256 < 1024)
+GPT2_XL = {"architectures": ["GPT2LMHeadModel"], "model_type": "gpt2", "vocab_size": 50257,
+           "n_embd": 1600, "n_layer": 48, "n_head": 25, "n_positions": 1024,
+           "activation_function": "gelu_new", "layer_norm_epsilon": 1e-5}
+GPT2_REQUESTS, GPT2_PROMPT, GPT2_TOKENS = 32, 128, 128
 # the vl2 phase: DeepSeek-VL2-Tiny, deepseek-ai/deepseek-vl2-tiny's
 # config.json: SigLIP-so400m at 384 (27 layers x 1152, 16 heads of 72, MLP
 # 4304, 28 x 28 patches), the 2x2 downsample projector (depth 2, 4608 ->
@@ -382,7 +427,9 @@ VL2_KV_BLOCKS, VL2_IMAGE_BLOCKS = 1024, 32
 # architectures the script defines itself, by the names PATH_SHAPES uses
 LOCAL_ARCHS = {"internlm2-7b": lambda: _decoder_cfg(**INTERNLM2_7B),
                "deepseek-v2-lite": lambda: _deepseek_cfg(DEEPSEEK_V2_LITE),
-               "deepseek-vl2-tiny-lm": lambda: _deepseek_cfg(VL2_TINY_LM)}
+               "deepseek-vl2-tiny-lm": lambda: _deepseek_cfg(VL2_TINY_LM),
+               "mixtral-8x7b": lambda: _mixtral_cfg(MIXTRAL_LAYERS),
+               "gpt2-xl": lambda: _gpt2_cfg()}
 # the MoE architectures' shared experts (the moe_intermediate_size of all
 # n_shared_experts in one MLP): K4's shapes beside the dense layer's
 MOE_TEXT = {"deepseek-v2-lite": DEEPSEEK_V2_LITE, "deepseek-vl2-tiny-lm": VL2_TINY_LM}
@@ -396,6 +443,19 @@ def _decoder_cfg(**kw):
 def _deepseek_cfg(text_cfg: dict):
     from hydrainfer_tpu_torch.models.deepseek_v3 import deepseek_decoder_config
     return deepseek_decoder_config(text_cfg)
+
+
+def _mixtral_cfg(n_layers: int):
+    """Mixtral-8x7B's decoder config, as the port's factory reads the file,
+    at n_layers."""
+    from dataclasses import replace
+    from hydrainfer_tpu_torch.models.mixtral import mixtral_decoder_config
+    return replace(mixtral_decoder_config(MIXTRAL_8X7B), n_layers=n_layers)
+
+
+def _gpt2_cfg():
+    from hydrainfer_tpu_torch.models.gpt2 import gpt2_config_from_hf
+    return gpt2_config_from_hf(GPT2_XL)
 
 
 def emit(obj) -> None:
@@ -557,6 +617,14 @@ PATH_SHAPES["vl2"] = dict(
     arch="deepseek-vl2-tiny-lm", decode=[(1, n + 16) for n in _VL2_PROMPTS],
     mixed=[(453, 453), (1055, 1055), (536, 845), (1, 469), (1, 679)], T=2048,
     kv_decode=(8, 8), kv_prefill=(2048, 2046), budget=2048, gemm_sweep=(16, 2048))
+# mixtral: 32 decoding sequences at kv 144-206, and one 2048-token budget of
+# 16 whole prompts; gpt2: the same batches over GPT-2 XL's bf16 cache (kv:
+# the cache's dtype; no int8 matmul, so no K4)
+PATH_SHAPES["mixtral"] = dict(
+    arch="mixtral-8x7b", decode=[(1, 144 + 2 * s) for s in range(32)],
+    mixed=[(128, 128)] * 16, T=2048, kv_decode=(32, 32), kv_prefill=(2048, 2048), gemm_m=32,
+    budget=2048, gemm_sweep=(32, 2048))
+PATH_SHAPES["gpt2"] = dict(PATH_SHAPES["mixtral"], arch="gpt2-xl", kv="bf16")
 # the speculative verify step of the spec phase (llava-7b-lm, S floor 8,
 # K1 = 13): 8 segments of 13 rows padded to T = 128 (max_q 16) through K2,
 # and every int8 projection, lm_head included, at M = T through K4
@@ -574,19 +642,45 @@ def _arch_cfg(path: str):
     return LOCAL_ARCHS[name]() if name in LOCAL_ARCHS else ARCH_CONFIGS[name]
 
 
+def _is_mla(cfg) -> bool:
+    """Whether a model's cache is the single-plane latent one (GPT-2's
+    config, which has no MLA fields, is multi-head)."""
+    return bool(getattr(cfg, "mla_kv_lora", 0))
+
+
+def _runs_k4(path: str) -> bool:
+    """Whether the path runs int8 matmuls (K4): every path but gpt2's bf16."""
+    return PATH_SHAPES[path].get("kv") != "bf16"
+
+
 def _int8_shapes(path: str) -> dict:
     """{name: (K, N)} of the path's int8 matmuls: int8_matmul_shapes (a MoE
     model's gate_up and down there are its dense layer's), and a MoE
     model's shared experts."""
     from hydrainfer_tpu_torch.models.random_init import int8_matmul_shapes
-    shapes = int8_matmul_shapes(_arch_cfg(path))
+    cfg = _arch_cfg(path)
+    shapes = int8_matmul_shapes(cfg)
     text = MOE_TEXT.get(_arch_name(path))
     if text is not None:
         head = shapes.pop("lm_head")
         n = text["moe_intermediate_size"] * text["n_shared_experts"]
         shapes.update({"shared_gate_up": (text["hidden_size"], 2 * n),
                        "shared_down": (n, text["hidden_size"]), "lm_head": head})
+    elif cfg.moe_top_k:
+        # every MLP is the routed experts (bf16, the grouped product): Mixtral
+        del shapes["gate_up"], shapes["down"]
     return shapes
+
+
+def _kv_scale(path: str):
+    """The KV scale of a path's cache: 0.05 over int8, None over the bf16
+    cache of a path whose PATH_SHAPES entry says kv="bf16"."""
+    shp = VERIFY_SHAPES if path == "spec" else PATH_SHAPES[path]
+    return None if shp.get("kv") == "bf16" else 0.05
+
+
+def _kv_what(kv_scale) -> str:
+    return "bf16 KV" if kv_scale is None else "int8 KV"
 
 
 def _pool_blocks(specs, bs: int) -> int:
@@ -597,11 +691,14 @@ def _pool_blocks(specs, bs: int) -> int:
 
 
 def _paged_case(gen, seq_specs, n_blocks, bs, kvh, d, kv_scale, dev):
-    """An int8 page pool holding each sequence's kv_len tokens, plus the
-    flattened query geometry of seq_specs = [(q_len, kv_len), ...]."""
+    """An int8 page pool (bf16 where kv_scale is None) holding each
+    sequence's kv_len tokens, plus the flattened query geometry of seq_specs
+    = [(q_len, kv_len), ...]."""
     import torch
     S = len(seq_specs)
-    pages = torch.zeros((n_blocks, bs, 2 * kvh, d), dtype=torch.int8, device=dev)
+    pages = torch.zeros((n_blocks, bs, 2 * kvh, d),
+                        dtype=torch.int8 if kv_scale is not None else torch.bfloat16,
+                        device=dev)
     mb = max(-(-kv // bs) for _, kv in seq_specs)
     tables = torch.full((S, mb), -1, dtype=torch.int32)
     perm = torch.randperm(n_blocks - 1, generator=gen)[: S * mb] + 1
@@ -609,7 +706,8 @@ def _paged_case(gen, seq_specs, n_blocks, bs, kvh, d, kv_scale, dev):
         nb = -(-kv // bs)
         tables[s, :nb] = perm[s * mb: s * mb + nb].to(torch.int32)
     vals = torch.randn((n_blocks, bs, 2 * kvh, d), generator=gen)
-    pages.copy_(torch.clamp(torch.round(vals / kv_scale), -127, 127).to(torch.int8))
+    pages.copy_(vals if kv_scale is None else
+                torch.clamp(torch.round(vals / kv_scale), -127, 127).to(torch.int8))
     kv_lens = torch.tensor([kv for _, kv in seq_specs], dtype=torch.int32)
     cu = [0]
     for q, _ in seq_specs:
@@ -742,9 +840,9 @@ def check_attention(gen, dev, path) -> list:
     from hydrainfer_tpu_torch.ops.cuda.paged_attention import (
         paged_attention_varlen, paged_attention_varlen_plain)
     cfg, shp = _arch_cfg(path), PATH_SHAPES[path]
-    H, kvh, D, bs, kv_scale = cfg.n_qo_heads, cfg.n_kv_heads, cfg.head_dim, 16, 0.05
+    H, kvh, D, bs, kv_scale = cfg.n_qo_heads, cfg.n_kv_heads, cfg.head_dim, 16, _kv_scale(path)
     sm = 1.0 / math.sqrt(D)
-    heads = f"{H} q / {kvh} kv heads x d{D}, int8 KV, BS 16"
+    heads = f"{H} q / {kvh} kv heads x d{D}, {_kv_what(kv_scale)}, BS 16"
     dense_kv = lambda pages, tables, kv_lens: _dense_kv(pages, tables, kv_lens, H, kvh, D,
                                                        kv_scale)
     out = []
@@ -768,8 +866,8 @@ def check_attention(gen, dev, path) -> list:
         mask[s, ..., :n] = True
     qd = q[:, :, None, :]
     n_kv = int(kv_lens.sum())
-    b_ms, b_by = bound_ms(q.numel() * 2 * 2 + n_kv * 2 * kvh * D + S * 4 * (1 + tables.shape[1]),
-                          4.0 * H * D * n_kv)
+    b_ms, b_by = bound_ms(q.numel() * 2 * 2 + n_kv * 2 * kvh * D * pages.element_size()
+                          + S * 4 * (1 + tables.shape[1]), 4.0 * H * D * n_kv)
     # the varlen forms over the same gathered K/V: one query row a sequence,
     # (sum kv, KVH, D) for flash (GQA in the call), repeated over the query
     # heads for the memory-efficient form; no mask (a decode row sees all)
@@ -816,15 +914,17 @@ def check_attention(gen, dev, path) -> list:
 
 
 def _dense_kv(pages, tables, kv_lens, H, kvh, D, kv_scale):
-    """K/V of each sequence gathered dense, dequantized (bf16) and repeated
-    over each kv head's query heads: (H, n, D) each."""
+    """K/V of each sequence gathered dense, dequantized (bf16; a bf16 cache,
+    kv_scale None, as it is) and repeated over each kv head's query heads:
+    (H, n, D) each."""
     import torch
     ks, vs = [], []
     for s in range(tables.shape[0]):
         n = int(kv_lens[s])
         rows = pages[tables[s].clamp(min=0).long()].reshape(-1, 2 * kvh, D)[:n]
         for plane, out in ((rows[:, 0::2], ks), (rows[:, 1::2], vs)):
-            out.append((plane.float() * kv_scale).to(torch.bfloat16)
+            out.append((plane.float() * (1.0 if kv_scale is None else kv_scale))
+                       .to(torch.bfloat16)
                        .transpose(0, 1).repeat_interleave(H // kvh, 0))
     return ks, vs
 
@@ -838,9 +938,9 @@ def check_paged_mixed(gen, dev, path, specs, T, what) -> dict:
     from hydrainfer_tpu_torch.ops.cuda.paged_attention import (
         paged_attention_varlen, paged_attention_varlen_plain)
     cfg = _arch_cfg(path)
-    H, kvh, D, bs, kv_scale = cfg.n_qo_heads, cfg.n_kv_heads, cfg.head_dim, 16, 0.05
+    H, kvh, D, bs, kv_scale = cfg.n_qo_heads, cfg.n_kv_heads, cfg.head_dim, 16, _kv_scale(path)
     sm = 1.0 / math.sqrt(D)
-    heads = f"{H} q / {kvh} kv heads x d{D}, int8 KV, BS 16"
+    heads = f"{H} q / {kvh} kv heads x d{D}, {_kv_what(kv_scale)}, BS 16"
     pages, tables, kv_lens, cu, ns = _paged_case(gen, specs, _pool_blocks(specs, bs), bs,
                                                  kvh, D, kv_scale, dev)
     T_real = int(cu[-1])
@@ -891,7 +991,7 @@ def check_paged_mixed(gen, dev, path, specs, T, what) -> dict:
                                           "padding_rows_zero": pad_zero,
                                           "library": library})
     n_kv = int(kv_lens.sum())
-    b_ms, b_by = bound_ms(T_real * H * D * 2 * 2 + n_kv * 2 * kvh * D,
+    b_ms, b_by = bound_ms(T_real * H * D * 2 * 2 + n_kv * 2 * kvh * D * pages.element_size(),
                           4.0 * H * D * visible)
     kernel = lambda: paged_attention_varlen(q, pages, kv_lens, tables, cu, ns, sm, kv_scale)
     return {"name": "paged_attention", "path": path, "ok": err <= 3e-2 and pad_zero,
@@ -1130,13 +1230,16 @@ def check_kv_writer(gen, dev, path, form) -> dict:
     int8 pages holding a sentinel: bit for bit the host's quantize
     clip(rint(x_f32 / f32(scale)), -127, 127) in the real rows' slots and
     the sentinel everywhere else, within one step of the plain version, and
-    two replays of a CUDA graph that captured it leave identical pages."""
+    two replays of a CUDA graph that captured it leave identical pages. A
+    path over a bf16 cache (gpt2) writes the rows as they are: bit for bit
+    them, and the plain version's pages exactly."""
     import numpy as np
     import torch
     from hydrainfer_tpu_torch.ops.cuda.kv_writer import write_kv_pages, write_kv_pages_plain
     cfg = _arch_cfg(path)
     H, kvh, D, bs, nb, kv_scale = (cfg.n_qo_heads, cfg.n_kv_heads, cfg.head_dim, 16, 512,
-                                   0.05)
+                                   _kv_scale(path))
+    cache_dtype = torch.bfloat16 if kv_scale is None else torch.int8
     T, T_real = PATH_SHAPES[path][f"kv_{form}"]
     # a prefill's slots: runs of consecutive slots in shuffled blocks, the
     # padded tail dropped; a decode step's: one slot in each sequence's block
@@ -1148,7 +1251,7 @@ def check_kv_writer(gen, dev, path, form) -> dict:
         slots = (blocks[:, None] * bs + torch.arange(bs)[None]).reshape(-1)[:T]
     slots[T_real:] = -1
     slots = slots.to(torch.int32)
-    if cfg.mla_kv_lora:
+    if _is_mla(cfg):
         # single-plane form: the (T, 1, D) [c_kv | k_pe] rows as they are
         k, v = torch.randn((T, 1, D), generator=gen).to(dev, torch.bfloat16), None
         planes, what = 1, "single-plane latent rows"
@@ -1160,16 +1263,18 @@ def check_kv_writer(gen, dev, path, form) -> dict:
         v = qkv[:, (H + kvh) * D:].reshape(T, kvh, D)   # strided rows, as in the model
         planes, what = 2 * kvh, f"{kvh} kv heads"
         both = torch.stack([k, v], 2).reshape(T, 2 * kvh, D)
-    keep = (slots >= 0).numpy()
-    host = np.clip(np.rint(both.float().cpu().numpy() / np.float32(kv_scale)), -127, 127)
-    expect = np.full((nb * bs, planes, D), KV_SENTINEL, np.int8)
-    expect[slots.numpy()[keep]] = host[keep].astype(np.int8)
+    keep = slots >= 0
+    host = (both.cpu() if kv_scale is None else torch.from_numpy(np.clip(
+        np.rint(both.float().cpu().numpy() / np.float32(kv_scale)), -127, 127)
+        .astype(np.int8)))
+    expect = torch.full((nb * bs, planes, D), KV_SENTINEL, dtype=cache_dtype)
+    expect[slots[keep].long()] = host[keep]
     slots = slots.to(dev)
-    got = torch.full((nb, bs, planes, D), KV_SENTINEL, dtype=torch.int8, device=dev)
+    got = torch.full((nb, bs, planes, D), KV_SENTINEL, dtype=cache_dtype, device=dev)
     ref = torch.full_like(got, KV_SENTINEL)
     write_kv_pages(got, k, v, slots, kv_scale)
     write_kv_pages_plain(ref, k, v, slots, kv_scale)
-    exact = bool(np.array_equal(got.cpu().numpy().reshape(expect.shape), expect))
+    exact = torch.equal(got.cpu().view(expect.shape), expect)
     err = (got.float() - ref.float()).abs().max().item()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
@@ -1181,15 +1286,18 @@ def check_kv_writer(gen, dev, path, form) -> dict:
         torch.cuda.synchronize()
         replays.append(got.cpu())
     replays_equal = bool(torch.equal(*replays))
-    rows = torch.from_numpy(host[keep].astype(np.int8)).to(dev)
+    rows = host[keep].to(dev)
     flat, idx = ref.view(-1, planes, D), slots[slots >= 0].long()
-    b_ms, b_by = bound_ms(T_real * planes * D * 2 + T * 4 + T_real * planes * D, 0.0)
+    b_ms, b_by = bound_ms(T_real * planes * D * (2 + got.element_size()) + T * 4, 0.0)
     return {"name": "kv_writer", "path": path, "form": form,
-            "ok": exact and err <= 1.0 and replays_equal, "max_abs_err": err,
+            "ok": exact and err <= (1.0 if kv_scale else 0.0) and replays_equal,
+            "max_abs_err": err,
             "bit_exact_vs_host": exact, "graph_replays_equal": replays_equal,
-            "tolerance": "bit for bit the host's quantize; 1 int8 step from the plain "
-                         "version (its division may round through a reciprocal)",
-            "shape": f"{form}: {T_real} of {T} rows -> int8 pages, {what} x d{D}, BS 16",
+            "tolerance": ("bit for bit the host's quantize; 1 int8 step from the plain "
+                          "version (its division may round through a reciprocal)"
+                          if kv_scale else "bit for bit the rows and the plain version"),
+            "shape": f"{form}: {T_real} of {T} rows -> "
+                     f"{'bf16' if kv_scale is None else 'int8'} pages, {what} x d{D}, BS 16",
             "ms": time_ms(lambda: write_kv_pages(got, k, v, slots, kv_scale)),
             "graph_ms": graph_ms(lambda: write_kv_pages(got, k, v, slots, kv_scale)),
             "plain_ms": time_ms(lambda: write_kv_pages_plain(ref, k, v, slots,
@@ -1335,27 +1443,39 @@ def check_mha_varlen_tiles(gen, dev, path) -> dict:
                    "bf16, v strided; plain version over groups of 4 tiles")
 
 
-def check_grouped_mm(gen, dev) -> dict:
+def check_grouped_mm(gen, dev, model="deepseek") -> dict:
     """The MoE grouped product (torch._grouped_mm: a library call, as JAX's
-    ragged_dot; no TPU kernel) at DeepSeek-V2-Lite's experts, 64 x (2048 ->
-    2 x 1408) and (1408 -> 2048), bf16, at a decode step (T = 32: 192 rows)
-    and a prefill budget (T = 2048: 12288 rows), rows routed by random
-    top-6 softmax routing: each product held to the per-group f32 matmul,
-    timed eager and from a CUDA graph beside its bound (the experts the
-    routing touched read once, the rows read and written once; 2 n K N
-    operations); and the whole moe_ffn (sort, both products, the weighted
-    scatter) at T = 32 from a CUDA graph, held to moe_ffn_dense."""
+    ragged_dot; no TPU kernel) at a model's experts: DeepSeek-V2-Lite's, 64 x
+    (2048 -> 2 x 1408) and (1408 -> 2048), top-6 softmax routing; or
+    Mixtral-8x7B's, 8 x (4096 -> 2 x 14336) and (14336 -> 4096), top-2
+    renormalised (its weights drawn on the card: 2.8 GB); bf16, at a decode
+    step (T = 32) and a prefill budget (T = 2048), rows routed by random
+    logits: each product held to the per-group f32 matmul, timed eager and
+    from a CUDA graph beside its bound (the experts the routing touched read
+    once, the rows read and written once; 2 n K N operations); and the whole
+    moe_ffn (sort, both products, the weighted combine) at T = 32 from a CUDA
+    graph, held to moe_ffn_dense."""
     import torch
     from hydrainfer_tpu_torch.ops import moe
-    text = DEEPSEEK_V2_LITE
-    d, I, E = text["hidden_size"], text["moe_intermediate_size"], text["n_routed_experts"]
+    if model == "mixtral":
+        text = MIXTRAL_8X7B
+        d, I, E = text["hidden_size"], text["intermediate_size"], text["num_local_experts"]
+        wgen = torch.Generator(device=dev).manual_seed(SEED + 21)
+        draw = lambda *shape: (torch.randn(shape, generator=wgen, device=dev)  # noqa: E731
+                               * 0.02).to(torch.bfloat16)
+        norm_topk = True
+    else:
+        text = DEEPSEEK_V2_LITE
+        d, I, E = text["hidden_size"], text["moe_intermediate_size"], text["n_routed_experts"]
+        draw = lambda *shape: (torch.randn(shape, generator=gen)  # noqa: E731
+                               * 0.02).to(dev, torch.bfloat16)
+        norm_topk = False
     k = text["num_experts_per_tok"]
-    w_gu = (torch.randn((E, d, 2 * I), generator=gen) * 0.02).to(dev, torch.bfloat16)
-    w_dn = (torch.randn((E, I, d), generator=gen) * 0.02).to(dev, torch.bfloat16)
+    w_gu, w_dn = draw(E, d, 2 * I), draw(E, I, d)
     out, ok = {}, True
     for T in (32, 2048):
         logits = torch.randn((T, E), generator=gen).to(dev)
-        weights, ids = moe.route(logits, k, norm_topk=False)
+        weights, ids = moe.route(logits, k, norm_topk=norm_topk)
         _, offs = moe.dispatch_offsets(ids, E)
         ends = offs.tolist()
         n = ids.numel()
@@ -1387,8 +1507,9 @@ def check_grouped_mm(gen, dev) -> dict:
             row["moe_ffn"] = {"max_abs_err": err, "tol": tol, "ms": time_ms(fn),
                               "graph_ms": graph_ms(fn)}
         out[f"T={T}"] = row
-    save("grouped_mm.json", out)
-    return {"ok": bool(ok), "what": "torch._grouped_mm at DeepSeek-V2-Lite's experts, bf16 "
+    save("grouped_mm.json" if model == "deepseek" else f"grouped_mm_{model}.json", out)
+    name = {"deepseek": "DeepSeek-V2-Lite", "mixtral": "Mixtral-8x7B"}[model]
+    return {"ok": bool(ok), "what": f"torch._grouped_mm at {name}'s experts, bf16 "
                                     "(library; the port's MoE dispatch)",
             "tolerance": "1e-2 x max(1, max|f32 per-group matmul|); moe_ffn 2e-2 x "
                          "max|moe_ffn_dense| (bf16 rounding of h and of the down product)",
@@ -1472,25 +1593,31 @@ def phase_kernels() -> tuple:
         results.extend(rows if isinstance(rows, list) else [rows])
 
     for path in PATH_SHAPES:
-        if _arch_cfg(path).mla_kv_lora:
+        if _is_mla(_arch_cfg(path)):
             run(f"latent@{path}", check_latent, path)
         else:
             run(f"attention@{path}", check_attention, path)
         run(f"kv_writer@{path}", lambda g, d: [check_kv_writer(g, d, path, "decode"),
                                                check_kv_writer(g, d, path, "prefill")])
-        run(f"quant_matmul@{path}", check_quant_matmul, path)
+        if _runs_k4(path):
+            run(f"quant_matmul@{path}", check_quant_matmul, path)
     run("verify", check_verify)
     run("mha_varlen@vlm", check_mha_varlen)
     run("mha_varlen@llava", check_mha_varlen_llava)
     for path in ("next13b", "internvl", "vl2"):
         run(f"mha_varlen@{path}", check_mha_varlen_tiles, path)
-    t0 = time.perf_counter()
-    grouped = check_grouped_mm(gen, dev)
-    seconds["grouped_mm"] = time.perf_counter() - t0
+    grouped = {}
+    for model in ("deepseek", "mixtral"):
+        t0 = time.perf_counter()
+        grouped[model] = check_grouped_mm(gen, dev, model)
+        seconds[f"grouped_mm@{model}"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
     torch.cuda.synchronize()
     save("kernels.json", results)
-    ok = all(r["ok"] for r in results) and grouped["ok"]
-    return {"phase": "kernels", "ok": ok, "check_s": seconds, "grouped_mm": grouped,
+    ok = all(r["ok"] for r in results) and all(g["ok"] for g in grouped.values())
+    return {"phase": "kernels", "ok": ok, "check_s": seconds,
+            "grouped_mm": grouped["deepseek"], "grouped_mm_mixtral": grouped["mixtral"],
             "checks": {f"{_launch_key(r)}@{r['path']}": {
                 "ok": r["ok"], "max_abs_err": r["max_abs_err"], "ms": r["ms"]}
                 for r in results}}, results
@@ -1591,31 +1718,25 @@ def phase_tiny(devices=("cuda", "cpu"), archs=("tiny-lm", "mla-tiny-lm")) -> dic
     return {**res, "ok": bool(ok)}
 
 
-def _prefill_logits(lm, tokens, device, positions=None, positions_hw=None,
-                    image_features=None, image_dst_idx=None, chunk=0, every=0):
-    """One prefill of `lm` on a scratch cache; returns f32 logits. Rope
-    positions default to 0..T-1; an image-bearing prefill passes its M-RoPE
-    streams and the features spliced at image_dst_idx. chunk > 0: the
-    prompt goes in chunks of that many tokens, each after the cache the
-    earlier ones wrote, with the image features of its own positions (as a
-    budget cuts a long prompt). The logits of each chunk's last token, and
-    with every > 0 also of every every-th token of each chunk: (rows,
-    vocab)."""
+def _prefill_batches(cfg, tokens, device, positions=None, positions_hw=None,
+                     image_features=None, image_dst_idx=None, chunk=0, every=0):
+    """The batches of one prefill on a scratch cache (block 0 left out):
+    [(batch, rows)], and the cache's shape. Rope positions default to
+    0..T-1; an image-bearing prefill passes its M-RoPE streams and the
+    features spliced at image_dst_idx. chunk > 0: the prompt goes in chunks
+    of that many tokens, each after the cache the earlier ones wrote, with
+    the image features of its own positions (as a budget cuts a long
+    prompt). Each chunk samples its last token, and with every > 0 also
+    every every-th token."""
     import torch
-    from hydrainfer_tpu_torch.models.decoder import decoder_forward
     from hydrainfer_tpu_torch.models.factory import LanguageModelBatch
     from hydrainfer_tpu_torch.ops.attention import PagedAttentionParams
-    cfg = lm.cfg
     T, bs = len(tokens), 16
     nb = -(-T // bs) + 1
-    planes = 1 if cfg.mla_kv_lora else 2 * cfg.n_kv_heads
-    cache = torch.zeros((cfg.n_layers, 1, nb, bs, planes, cfg.head_dim),
-                        dtype=torch.int8 if cfg.kv_scale is not None else lm.dtype,
-                        device=device)
-    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=device)
+    planes = 1 if _is_mla(cfg) else 2 * cfg.n_kv_heads
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=device)  # noqa: E731
     pos = list(range(T)) if positions is None else list(positions)
     dst = [] if image_dst_idx is None else list(image_dst_idx)
-    table = torch.zeros(2, dtype=torch.int32, device=device)
     out = []
     for a in range(0, T, chunk or T):
         b = min(T, a + (chunk or T))
@@ -1628,76 +1749,200 @@ def _prefill_logits(lm, tokens, device, positions=None, positions_hw=None,
         # the features of this chunk's image positions (dst is ascending)
         rows = [i for i, d in enumerate(dst) if a <= d < b]
         sampled = sorted(set(range(every - 1, n, every)) | {n - 1}) if every else [n - 1]
-        batch = LanguageModelBatch(
+        out.append((LanguageModelBatch(
             token_ids=i32(tokens[a:b]), positions=attn.positions, attention=attn,
             sample_token_idx=i32(sampled), token_src_slots=i32([-1] * n),
             sample_dst_slots=i32([-1] * len(sampled)),
             image_features=image_features[rows[0]:rows[-1] + 1] if rows else None,
             image_dst_idx=i32([dst[i] - a for i in rows]) if rows else None,
             positions_hw=(None if positions_hw is None
-                          else i32([list(h[a:b]) for h in positions_hw])))
-        _, logits = decoder_forward(lm.weights, cache, batch, lm.cos_tab, lm.sin_tab,
-                                    cfg, n, table, return_logits=True)
+                          else i32([list(h[a:b]) for h in positions_hw]))), n))
+    return out, (cfg.n_layers, 1, nb, bs, planes, cfg.head_dim)
+
+
+def _prefill_logits(lm, tokens, device, **batch_kw):
+    """One prefill of `lm` (_prefill_batches) on a scratch cache; returns the
+    sampled rows' f32 logits, (rows, vocab)."""
+    import torch
+    from hydrainfer_tpu_torch.models.decoder import decoder_forward
+    batches, shape = _prefill_batches(lm.cfg, tokens, device, **batch_kw)
+    int8_kv = getattr(lm.cfg, "kv_scale", None) is not None      # GPT-2: none
+    cache = torch.zeros(shape, dtype=torch.int8 if int8_kv else lm.dtype, device=device)
+    table = torch.zeros(2, dtype=torch.int32, device=device)
+    out = []
+    for batch, n in batches:
+        if hasattr(lm, "forward_with_logits"):          # GPT-2
+            _, logits = lm.forward_with_logits(cache, batch, n)
+        else:
+            _, logits = decoder_forward(lm.weights, cache, batch, lm.cos_tab, lm.sin_tab,
+                                        lm.cfg, n, table, return_logits=True)
         out.append(logits.float())
     return torch.cat(out)
 
 
-def _f32_weights(weights: dict) -> dict:
-    """The same model with f32 activations: float leaves to f32, the int8
-    matrices shared as they are."""
+def _f32_tree(x):
+    """A weight tree with f32 activations: float tensors to f32, int8
+    matrices shared as they are, dicts, lists and pairs walked."""
     import torch
-    f32 = lambda v: v.float() if isinstance(v, torch.Tensor) else v
-    out = {k: f32(v) for k, v in weights.items() if k != "layers"}
-    out["layers"] = [{k: f32(v) for k, v in lw.items()} for lw in weights["layers"]]
-    return out
+    if isinstance(x, dict):
+        return {k: _f32_tree(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_f32_tree(v) for v in x)
+    return x.float() if isinstance(x, torch.Tensor) else x
+
+
+def _f32_lm(lm):
+    """The same model with f32 activations and an f32 KV cache."""
+    from dataclasses import replace
+    from hydrainfer_tpu_torch.models.gpt2 import GPT2ForCausalLM
+    from hydrainfer_tpu_torch.models.llama import LlamaForCausalLM
+    if isinstance(lm, GPT2ForCausalLM):
+        return GPT2ForCausalLM(_f32_tree(lm.weights), lm.cfg)
+    return LlamaForCausalLM(_f32_tree(lm.weights), replace(lm.cfg, kv_scale=None))
+
+
+def _plain_swaps() -> list:
+    """(module, name, plain version) of every kernel wrapper the model code
+    looks up by name at call time."""
+    from hydrainfer_tpu_torch.ops import attention, cache_ops, quant
+    from hydrainfer_tpu_torch.ops.cuda import (kv_writer, mha_decode, paged_attention,
+                                               quant_matmul)
+    return [(quant, "quant_matmul_int8", quant_matmul.quant_matmul_int8_plain),
+            (cache_ops, "write_kv_pages", kv_writer.write_kv_pages_plain),
+            (attention, "mha_decode_attention", mha_decode.mha_decode_attention_plain),
+            (attention, "paged_attention_varlen",
+             paged_attention.paged_attention_varlen_plain),
+            (attention, "paged_attention_latent",
+             paged_attention.paged_attention_varlen_plain)]
+
+
+class _Plain:
+    """Within it, every kernel wrapper is swapped for its plain PyTorch
+    version."""
+
+    def __enter__(self):
+        swaps = _plain_swaps()
+        self.saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
 
 
 def _plain_logits(lm, tokens, device, **batch_kw):
     """The same prefill with every kernel wrapper swapped for its plain
-    PyTorch version (the wrappers are looked up by name at call time)."""
-    from hydrainfer_tpu_torch.ops import attention, cache_ops, quant
-    from hydrainfer_tpu_torch.ops.cuda import (kv_writer, mha_decode, paged_attention,
-                                               quant_matmul)
-    swaps = [(quant, "quant_matmul_int8", quant_matmul.quant_matmul_int8_plain),
-             (cache_ops, "write_kv_pages", kv_writer.write_kv_pages_plain),
-             (attention, "mha_decode_attention", mha_decode.mha_decode_attention_plain),
-             (attention, "paged_attention_varlen",
-              paged_attention.paged_attention_varlen_plain),
-             (attention, "paged_attention_latent",
-              paged_attention.paged_attention_varlen_plain)]
-    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
-    try:
-        for mod, name, fn in swaps:
-            setattr(mod, name, fn)
+    PyTorch version."""
+    with _Plain():
         return _prefill_logits(lm, tokens, device, **batch_kw)
+
+
+def _layered_f32_logits(lm, tokens, device, **batch_kw):
+    """The f32 prefill through the kernels and through the plain versions,
+    built one layer at a time: each layer is cast to f32 (int8 matrices
+    shared), run over every chunk on both paths (each with its own f32
+    cache) and freed, so the f32 copy held at once is one layer's, not the
+    model's. The same arithmetic as _prefill_logits on _f32_lm(lm):
+    decoder_forward's embedding, layers and head. In a MoE layer the plain
+    path takes the kernel path's routing (expert ids and weights): the two
+    differ by summation order only, and where that moves a choice at a near
+    tie the expert's output, not the arithmetic, would set the difference.
+    Such choices are counted, each with the plain path's gap between its
+    top-k-th and (k+1)-th score. Returns (kernels, plain) f32 logits and
+    {"routing_flips", "routing_flip_max_gap"}."""
+    from dataclasses import replace
+    import torch
+    from hydrainfer_tpu_torch.models import decoder
+    from hydrainfer_tpu_torch.ops import moe
+    from hydrainfer_tpu_torch.ops.rope import mrope_gather
+    cfg = replace(lm.cfg, kv_scale=None)
+    batches, shape = _prefill_batches(cfg, tokens, device, **batch_kw)
+    table = torch.zeros(2, dtype=torch.int32, device=device)
+    embed = lm.weights["embed"].float()
+    xs, ropes = [], []
+    for batch, _ in batches:
+        xs.append(decoder._splice_images(embed[batch.token_ids.long()], batch))
+        if cfg.mrope_section and batch.positions_hw is not None:
+            ropes.append(mrope_gather(lm.cos_tab, lm.sin_tab, batch.positions,
+                                      batch.positions_hw[0], batch.positions_hw[1],
+                                      cfg.mrope_section))
+        else:
+            ropes.append((lm.cos_tab[batch.positions.long()],
+                          lm.sin_tab[batch.positions.long()]))
+    del embed
+    paths = {"kernels": ([x for x in xs], torch.zeros(shape, device=device), []),
+             "plain": ([x for x in xs], torch.zeros(shape, device=device), [])}
+    head = {"norm": lm.weights["norm"].float(), "lm_head": _f32_tree(lm.weights["lm_head"])}
+    last = cfg.n_layers - 1
+    route, taken, flips = decoder._route, [], []
+
+    def record(h, lw, cfg):
+        taken.append(route(h, lw, cfg))
+        return taken[-1]
+
+    def replay(h, lw, cfg):
+        _, idx = route(h, lw, cfg)
+        kw, kidx = taken.pop(0)
+        differ = (idx.sort(dim=-1).values != kidx.sort(dim=-1).values).any(dim=-1)
+        if bool(differ.any()):
+            scores = moe.route_scores(decoder.router_logits(h, lw), cfg.moe_scoring)
+            top = torch.topk(scores, cfg.moe_top_k + 1, dim=-1).values
+            flips.extend((top[:, -2] - top[:, -1])[differ].tolist())
+        return kw, kidx
+
+    try:
+        for layer_id, lw in enumerate(lm.weights["layers"]):
+            lw32 = _f32_tree(lw)
+            for name, (x, cache, logits) in paths.items():
+                decoder._route = replay if name == "plain" else record
+                with _Plain() if name == "plain" else contextlib.nullcontext():
+                    for i, (batch, n) in enumerate(batches):
+                        cos, sin = ropes[i]
+                        if layer_id < last:
+                            x[i] = decoder._layer_body(x[i], cache, layer_id, lw32, batch,
+                                                       cos, sin, cfg, n)
+                        else:
+                            _, lg = decoder._last_layer_and_head(
+                                {**head, "layers": [lw32]}, cache, x[i], batch, cos, sin,
+                                cfg, n, table, True)
+                            logits.append(lg.float())
+            del lw32
     finally:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
+        decoder._route = route
+    return (torch.cat(paths["kernels"][2]), torch.cat(paths["plain"][2]),
+            {"routing_flips": len(flips), "routing_flip_max_gap": max(flips, default=None)})
 
 
-def _logits_check(lm, tokens, device, prefix, mean_rows=False, **batch_kw) -> dict:
+def _logits_check(lm, tokens, device, prefix, mean_rows=False, layered=False,
+                  **batch_kw) -> dict:
     """Full-width agreement on one prefill: the kernels against the plain
     versions with f32 activations and an f32 KV cache (only the summation
     order differs: with an int8 cache a sum-order difference of one ulp can
     flip a rounding and move a K/V entry by a whole step), and the bf16
-    int8-KV serving path's distance from that f32 reference beside the bf16
-    plain path's: at most LOGITS_RATIO times it, in max |error| over the
-    logits, or with mean_rows (a prefill whose logits are read at many rows)
-    in mean |error| over them. Both paths' bf16 rounding is the same
-    function's, so at a few thousand tokens the max over the logits of a row
-    or of a few dozen rows is one extreme draw, whose ratio between the two
-    paths spread 0.86-1.16 over ten prompts each of the llavanext and
-    internvl phases (PERF.md, PR 14) while their means agreed."""
-    from dataclasses import replace
+    serving path's (int8 or bf16 KV) distance from that f32 reference beside
+    the bf16 plain path's: at most LOGITS_RATIO times it, in max |error|
+    over the logits, or with mean_rows (a prefill whose logits are read at
+    many rows) in mean |error| over them. Both paths' bf16 rounding is the
+    same function's, so at a few thousand tokens the max over the logits of
+    a row or of a few dozen rows is one extreme draw, whose ratio between
+    the two paths spread 0.86-1.16 over ten prompts each of the llavanext
+    and internvl phases (PERF.md, Findings) while their means agreed. layered:
+    the f32 runs are built one layer at a time (_layered_f32_logits), for a
+    model whose f32 copy would not fit beside it (its MoE layers' plain path
+    routed as the kernel path, the f32 routing flips reported)."""
     import torch
-    from hydrainfer_tpu_torch.models.llama import LlamaForCausalLM
-    lm32 = LlamaForCausalLM(_f32_weights(lm.weights), replace(lm.cfg, kv_scale=None))
+    routing = {}
     with torch.no_grad():
-        ref32 = _plain_logits(lm32, tokens, device, **batch_kw)
-        got32 = _prefill_logits(lm32, tokens, device, **batch_kw)
+        if layered:
+            got32, ref32, routing = _layered_f32_logits(lm, tokens, device, **batch_kw)
+        else:
+            lm32 = _f32_lm(lm)
+            ref32 = _plain_logits(lm32, tokens, device, **batch_kw)
+            got32 = _prefill_logits(lm32, tokens, device, **batch_kw)
+            del lm32
         got16 = _prefill_logits(lm, tokens, device, **batch_kw)
         plain16 = _plain_logits(lm, tokens, device, **batch_kw)
-    del lm32
     scale32 = ref32.abs().max().item()
     err32 = (got32 - ref32).abs().max().item()
     err16_kernel = (got16 - ref32).abs().max().item()
@@ -1709,6 +1954,7 @@ def _logits_check(lm, tokens, device, prefix, mean_rows=False, **batch_kw) -> di
     ok = (bool(torch.isfinite(got16).all() and torch.isfinite(got32).all())
           and err32 <= 1e-3 * scale32 and bf16_ok)
     return {"ok": ok, f"{prefix}_tokens": len(tokens), f"{prefix}_rows": ref32.shape[0],
+            **{f"{prefix}_f32_{k}": v for k, v in routing.items()},
             f"{prefix}_f32_max_abs": scale32,
             f"{prefix}_f32_kernel_vs_plain_err": err32,
             f"{prefix}_bf16_kernel_vs_f32_err": err16_kernel,
@@ -1718,7 +1964,7 @@ def _logits_check(lm, tokens, device, prefix, mean_rows=False, **batch_kw) -> di
             f"{prefix}_bf16_plain_vs_f32_mean_err": mean16_plain,
             f"{prefix}_bf16_mean_ratio": mean16_kernel / max(mean16_plain, 1e-30),
             f"{prefix}_tolerance": "f32 activations and KV: 1e-3 x max|logit| (sum "
-                                   f"order over the layers); bf16 + int8 KV: {LOGITS_RATIO}x "
+                                   f"order over the layers); bf16: {LOGITS_RATIO}x "
                                    "the plain path's distance from f32 ("
                                    + ("mean |error| over the rows)" if mean_rows
                                       else "max |error|)")}
@@ -1767,28 +2013,35 @@ class KvWriteSplit:
     decode (every query one token, max_q == 1) or prefill (chunks, alone or
     mixed with decodes), and by the rows (T) each launch wrote. It wraps the
     decoder's attention block, which writes its layer's K/V through K3, and
-    reads K3's own launch count around each call made outside a graph
-    capture. A replayed graph calls no Python: each replay since `reset` of
-    a node's graphs (all decode steps) adds the K3 launches its capture
-    recorded, at its key's T."""
+    GPT-2's step, which writes every layer's, and reads K3's own launch
+    count around each call made outside a graph capture. A replayed graph
+    calls no Python: each replay since `reset` of a node's graphs (all
+    decode steps) adds the K3 launches its capture recorded, at its key's
+    T."""
 
     def __init__(self):
         import torch
-        from hydrainfer_tpu_torch.models import decoder
+        from hydrainfer_tpu_torch.models import decoder, gpt2
         from hydrainfer_tpu_torch.ops.cuda import write_kv_pages
-        self.decoder, self.orig = decoder, decoder._attention_block
+        # (module, function, its positional args -> (rows, max_q))
+        targets = [(decoder, "_attention_block", lambda a: (a[0].shape[0], a[8])),
+                   (gpt2, "gpt2_forward", lambda a: (a[3].token_ids.shape[0], a[5]))]
+        self.saved = [(mod, name, getattr(mod, name)) for mod, name, _ in targets]
         self.reset()
 
-        def spy(x, cache, layer_id, lw, batch, cos, sin, cfg, max_q):
-            before = write_kv_pages.launches
-            out = self.orig(x, cache, layer_id, lw, batch, cos, sin, cfg, max_q)
-            if not torch.cuda.is_current_stream_capturing():
-                rows = self.rows["decode" if max_q == 1 else "prefill"]
-                rows[x.shape[0]] = (rows.get(x.shape[0], 0)
-                                    + write_kv_pages.launches - before)
-            return out
+        def wrap(fn, geometry):
+            def spy(*args, **kw):
+                before = write_kv_pages.launches
+                out = fn(*args, **kw)
+                if not torch.cuda.is_current_stream_capturing():
+                    n, max_q = geometry(args)
+                    rows = self.rows["decode" if max_q == 1 else "prefill"]
+                    rows[n] = rows.get(n, 0) + write_kv_pages.launches - before
+                return out
+            return spy
 
-        decoder._attention_block = spy
+        for (mod, name, geometry), (_, _, fn) in zip(targets, self.saved):
+            setattr(mod, name, wrap(fn, geometry))
 
     def reset(self, graphs=None) -> None:
         self.rows = {"decode": {}, "prefill": {}}
@@ -1797,7 +2050,8 @@ class KvWriteSplit:
                          if graphs is not None else {})
 
     def restore(self) -> None:
-        self.decoder._attention_block = self.orig
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
 
     def _rows(self) -> dict:
         rows = {form: dict(r) for form, r in self.rows.items()}
@@ -1907,13 +2161,16 @@ def _serve_logits(lm, rng, dev) -> dict:
 def phase_serve(arch="llava-7b-lm", dev="cuda", n_requests=8, prompt_len=128,
                 max_tokens=32, token_budget=256, phase="serve", must_run=SERVE_KERNELS,
                 must_not_run=(), eager_round=True, factory=None, logits_fn=_serve_logits,
-                extra_fn=None, eager_profile=True) -> tuple:
+                extra_fn=None, eager_profile=True, window=16,
+                precision=("int8", "int8 (scale 0.05)")) -> tuple:
     """Text serving of `arch` (int8 weights, int8 KV at 0.05; `factory`
-    where given, else a RandomWeightFactory from the seed) through
-    OfflineEngine with CUDA graphs on: boot (the decode warm-up), a warm-up
-    round, the measured round, a profiled round. Every kernel of must_run has
-    to launch in the measured round, and none of must_not_run; the round must
-    replay graphs and capture none. With eager_round, the same model then
+    where given, else a RandomWeightFactory from the seed, its weights and
+    KV cache as `precision` says) through OfflineEngine with CUDA graphs on:
+    boot (the decode warm-up), a warm-up round, the measured round, a
+    profiled round. Every kernel of must_run has to launch in the measured
+    round, and none of must_not_run; a `window`-step window must run (1: a
+    model without fused windows); the round must replay graphs and capture
+    none. With eager_round, the same model then
     serves the measured round's requests with graphs off (_eager_round;
     profiled unless eager_profile is off). logits_fn(lm, rng, dev) holds the
     logits; extra_fn(engine, graphs, lm),
@@ -1998,13 +2255,15 @@ def phase_serve(arch="llava-7b-lm", dev="cuda", n_requests=8, prompt_len=128,
     windows = measured_windows
     # the llava text path runs K1-K4 (K5 is the ViT's, K6 the MLA path's);
     # the MLA path runs K6, K3 and K4, and never K1 or K2
-    ok = (tokens_ok and logits.pop("ok") and extra.pop("ok", True) and 16 in windows
+    # both popped before the test: a short-circuit would leave an "ok" behind
+    # that the result's spread would then write over the phase's
+    logits_ok, extra_ok = logits.pop("ok"), extra.pop("ok", True)
+    ok = (tokens_ok and logits_ok and extra_ok and window in windows
           and graphs.ok() and all(counts[k] > 0 for k in must_run)
           and all(counts[k] == 0 for k in must_not_run)
           and (eager is None or eager["tokens_identical_to_graphs_round"]))
     result = {"phase": phase, "ok": bool(ok), "gpu": gpu_name_and_limit(),
-              "arch": arch,
-              "weights": "int8", "kv_cache": "int8 (scale 0.05)",
+              "arch": arch, "weights": precision[0], "kv_cache": precision[1],
               "n_requests": n_requests, "prompt_len": prompt_len,
               "max_tokens": max_tokens, "token_budget": token_budget,
               "tokens_per_request": n_tokens, "tokens_per_s": sum(n_tokens) / elapsed,
@@ -2013,7 +2272,7 @@ def phase_serve(arch="llava-7b-lm", dev="cuda", n_requests=8, prompt_len=128,
               "weight_init_s": init_s, "boot_s": boot_s,
               "param_bytes": factory.param_bytes(),
               "fused_windows": sorted(set(windows)),
-              "n_k16_windows": windows.count(16), "launches": counts,
+              f"n_k{window}_windows": windows.count(window), "launches": counts,
               "kv_writer_launches": k3_split, "graphs": graphs.report(), **logits,
               "peak_memory_bytes": peak, **profiled,
               **({"eager_round": eager} if eager is not None else {}), **extra,
@@ -2565,16 +2824,6 @@ def _vlm_requests(rng, max_tokens, tag):
                             image=img, sampling_params=SamplingParameters(
                                 max_tokens=max_tokens, ignore_eos=True)))
     return reqs
-
-
-def _f32_tree(x):
-    """A weight tree with every tensor in f32 (dicts, lists and pairs kept)."""
-    import torch
-    if isinstance(x, torch.Tensor):
-        return x.float()
-    if isinstance(x, (tuple, list)):
-        return type(x)(_f32_tree(v) for v in x)
-    return {k: _f32_tree(v) for k, v in x.items()}
 
 
 def _features_check(vm, vm32, pixel_values, params, depth: int) -> dict:
@@ -4147,6 +4396,54 @@ def _tiny_deepseek_tensors(family, rng) -> tuple:
     return t, cfg
 
 
+def _tiny_text_tensors(family, rng) -> tuple:
+    """A tiny text-only checkpoint in transformers' names, vocab 128: Mixtral
+    (2 layers x 64, 2 q / 1 kv heads of 32, 4 experts of 64, 2 a token; the
+    router's weights 10x the others', so no routing choice is a near tie) or
+    GPT-2 (2 layers x 64, 2 heads of 32, 256 positions, Conv1D weights (in,
+    out) under `transformer.`, the head tied)."""
+    import numpy as np
+    f = lambda *shape: (rng.standard_normal(shape) * 0.05).astype(np.float32)  # noqa: E731
+    one = lambda n: np.ones(n, np.float32)  # noqa: E731
+    zero = lambda n: np.zeros(n, np.float32)  # noqa: E731
+    V, d = 128, 64
+    t = {}
+    if family == "mixtral":
+        t.update({"model.embed_tokens.weight": f(V, d), "lm_head.weight": f(V, d),
+                  "model.norm.weight": one(d)})
+        for i in range(2):
+            p = f"model.layers.{i}."
+            t.update({p + "self_attn.q_proj.weight": f(d, d),
+                      p + "self_attn.k_proj.weight": f(32, d),
+                      p + "self_attn.v_proj.weight": f(32, d),
+                      p + "self_attn.o_proj.weight": f(d, d),
+                      p + "input_layernorm.weight": one(d),
+                      p + "post_attention_layernorm.weight": one(d),
+                      p + "block_sparse_moe.gate.weight": 10 * f(4, d)})
+            for e in range(4):
+                x = f"{p}block_sparse_moe.experts.{e}."
+                t.update({x + "w1.weight": f(64, d), x + "w3.weight": f(64, d),
+                          x + "w2.weight": f(d, 64)})
+        return t, {"architectures": ["MixtralForCausalLM"], "model_type": "mixtral",
+                   "vocab_size": V, "hidden_size": d, "intermediate_size": 64,
+                   "num_hidden_layers": 2, "num_attention_heads": 2, "num_key_value_heads": 1,
+                   "num_local_experts": 4, "num_experts_per_tok": 2,
+                   "max_position_embeddings": 256, "rms_norm_eps": 1e-5, "rope_theta": 1e6}
+    p = "transformer."
+    t.update({p + "wte.weight": f(V, d), p + "wpe.weight": f(256, d),
+              p + "ln_f.weight": one(d), p + "ln_f.bias": zero(d)})
+    for i in range(2):
+        h = f"{p}h.{i}."
+        t.update({h + "ln_1.weight": one(d), h + "ln_1.bias": zero(d),
+                  h + "ln_2.weight": one(d), h + "ln_2.bias": zero(d),
+                  h + "attn.c_attn.weight": f(d, 3 * d), h + "attn.c_attn.bias": f(3 * d),
+                  h + "attn.c_proj.weight": f(d, d), h + "attn.c_proj.bias": f(d),
+                  h + "mlp.c_fc.weight": f(d, 4 * d), h + "mlp.c_fc.bias": f(4 * d),
+                  h + "mlp.c_proj.weight": f(4 * d, d), h + "mlp.c_proj.bias": f(d)})
+    return t, {"architectures": ["GPT2LMHeadModel"], "model_type": "gpt2", "vocab_size": V,
+               "n_embd": d, "n_layer": 2, "n_head": 2, "n_positions": 256}
+
+
 def _tiny_tensors(family, rng) -> tuple:
     """A tiny checkpoint of `family` as numpy tensors and its config.json, in
     the layout the CPU tests load: LLaVA-NeXT with transformers' nested names
@@ -4155,10 +4452,12 @@ def _tiny_tensors(family, rng) -> tuple:
     over 56-pixel tiles, mlp1, an InternLM2 LM with fused wqkv). Both LMs:
     2 layers x 64, 2 q / 1 kv heads (d32), vocab 128 (the boot warm-up's
     prompts draw ids up to 99), image token 60. The DeepSeek families:
-    _tiny_deepseek_tensors."""
+    _tiny_deepseek_tensors; Mixtral and GPT-2: _tiny_text_tensors."""
     import numpy as np
     if family in ("deepseek", "deepseek_vl2"):
         return _tiny_deepseek_tensors(family, rng)
+    if family in ("mixtral", "gpt2"):
+        return _tiny_text_tensors(family, rng)
     f = lambda *shape: (rng.standard_normal(shape) * 0.05).astype(np.float32)
     one = lambda n: np.ones(n, np.float32)
     zero = lambda n: np.zeros(n, np.float32)
@@ -4253,9 +4552,10 @@ def _tiny_checkpoint_check(family, devices=("cuda", "cpu")) -> dict:
     getModelFactory(path) in f32 on one EPD node on each of `devices` (the
     card and the CPU; budget 16, so the image prompt prefills in chunks): an
     image request and a text request, 8 tokens each; the greedy tokens must
-    be equal. The text-only deepseek family serves two text requests on a
-    PD node. A DeepSeek model runs with CUDA graphs off: in f32 the grouped
-    product reads its group sizes on the host (ops/moe.py). Without
+    be equal. The text-only families (deepseek, mixtral, gpt2) serve two
+    text requests on a PD node. A MoE model (DeepSeek, Mixtral) runs with
+    CUDA graphs off: in f32 the grouped product reads its group sizes on the
+    host (ops/moe.py). Without
     safetensors the check says so on a line of its own and is skipped."""
     import tempfile
     import numpy as np
@@ -4272,7 +4572,8 @@ def _tiny_checkpoint_check(family, devices=("cuda", "cpu")) -> dict:
     from hydrainfer_tpu_torch.request import Request, SamplingParameters
     tensors, cfg = _tiny_tensors(family, np.random.default_rng(SEED + 11))
     size = {"llavanext": (50, 50), "deepseek_vl2": (28, 50)}.get(family, (112, 168))
-    moe = family in ("deepseek", "deepseek_vl2")
+    moe = family in ("deepseek", "deepseek_vl2", "mixtral")
+    text_only = family in ("deepseek", "mixtral", "gpt2")
     tokens = []
     with tempfile.TemporaryDirectory() as tmp:
         save_file(tensors, os.path.join(tmp, "model.safetensors"))
@@ -4284,7 +4585,6 @@ def _tiny_checkpoint_check(family, devices=("cuda", "cpu")) -> dict:
             if family == "llavanext":
                 factory.getProcessor = lambda: AnyresImageProcessor(
                     cfg["image_grid_pinpoints"], 28)
-            text_only = family == "deepseek"
             engine = _engine(factory, device, 2, 16, 128, 16,
                              node_type="PD" if text_only else "EPD",
                              n_image_blocks=-1 if text_only else 8, spec_ngram_k=0,
@@ -4300,7 +4600,7 @@ def _tiny_checkpoint_check(family, devices=("cuda", "cpu")) -> dict:
             tokens.append([o.output_token_ids for o in outs])
             del engine, factory
     return {"tiny_checkpoint": {"tokens": dict(zip(devices, tokens)),
-                                "image": None if family == "deepseek" else list(size),
+                                "image": None if text_only else list(size),
                                 "ok": tokens[0] == tokens[1]
                                 and all(len(x) == 8 for x in tokens[0])}}
 
@@ -4368,29 +4668,37 @@ def phase_internvl(dev="cuda") -> tuple:
 
 # ------------------------------------------------- phases: deepseek, vl2
 
-def _moe_lm_factory(dev, text_cfg: dict, seed=SEED):
-    """A DeepSeek MoE language model at the widths of `text_cfg` (a config.json
-    text config, read by the port's deepseek_decoder_config) with random
-    weights from the seed, N(0, 0.02^2), built a layer at a time: MLA (plain
-    q) or fused-qkv attention, the first first_k_dense_replace layers dense,
-    then the router (hidden, E), the stacked experts (E, hidden, 2I) and (E,
-    I, hidden) and the shared experts as gate_up / down; int8 as
-    quantize_tree picks (o_proj, qkv, the dense and shared MLPs, lm_head:
-    the experts, the router and MLA's q and latent projections stay bf16),
-    int8 KV at 0.05. A RandomWeightFactory over those weights (its
-    architecture replaced, as _internvl_factory does)."""
+def _moe_lm_factory(dev, text_cfg: dict, seed=SEED, n_layers=0):
+    """A MoE language model at the widths of `text_cfg` (a config.json text
+    config, read by the port's deepseek_decoder_config, or for model_type
+    mixtral by mixtral_decoder_config) with random weights from the seed,
+    N(0, 0.02^2), built a layer at a time: MLA (plain q) or fused-qkv
+    attention, the first first_k_dense_replace layers dense, then the router
+    (hidden, E), the stacked experts (E, hidden, 2I) and (E, I, hidden) and
+    the shared experts, if any, as gate_up / down; int8 as quantize_tree
+    picks (o_proj, qkv, the dense and shared MLPs, lm_head: the experts, the
+    router and MLA's q and latent projections stay bf16), int8 KV at 0.05.
+    n_layers > 0 cuts the depth to that many layers. A RandomWeightFactory
+    over those weights (its architecture replaced, as _internvl_factory
+    does)."""
+    from dataclasses import replace
     import torch
     from hydrainfer_tpu_torch.models.deepseek_v3 import deepseek_decoder_config
+    from hydrainfer_tpu_torch.models.mixtral import mixtral_decoder_config
     from hydrainfer_tpu_torch.models.random_init import RandomWeightFactory
     from hydrainfer_tpu_torch.ops.quant import quantize_tree
-    cfg = deepseek_decoder_config(text_cfg)
+    if text_cfg.get("model_type") == "mixtral":
+        cfg, I = mixtral_decoder_config(text_cfg), text_cfg["intermediate_size"]
+    else:
+        cfg, I = deepseek_decoder_config(text_cfg), text_cfg["moe_intermediate_size"]
+    if n_layers:
+        cfg = replace(cfg, n_layers=n_layers)
     gen = torch.Generator(device=dev).manual_seed(seed)
     bf16 = torch.bfloat16
     init = lambda *shape: (torch.randn(shape, generator=gen, device=dev) * 0.02).to(bf16)
     ones = lambda n: torch.ones(n, dtype=bf16, device=dev)
     H, E, Hq = cfg.hidden_size, cfg.n_experts, cfg.n_qo_heads
-    I = text_cfg["moe_intermediate_size"]
-    shared = I * text_cfg["n_shared_experts"]
+    shared = I * text_cfg.get("n_shared_experts", 0)
     layers = []
     for layer in range(cfg.n_layers):
         if cfg.mla_kv_lora:
@@ -4402,13 +4710,14 @@ def _moe_lm_factory(dev, text_cfg: dict, seed=SEED):
             D, kvh = cfg.head_dim, cfg.n_kv_heads
             lw = {"qkv_proj": init(H, (Hq + 2 * kvh) * D), "o_proj": init(Hq * D, H)}
         lw.update(input_norm=ones(H), post_norm=ones(H))
-        if layer < text_cfg["first_k_dense_replace"]:
+        if layer < text_cfg.get("first_k_dense_replace", 0):
             lw.update(gate_up=init(H, 2 * cfg.intermediate_size),
                       down=init(cfg.intermediate_size, H))
         else:
             lw.update(moe_router=init(H, E), moe_gate_up=init(E, H, 2 * I),
-                      moe_down=init(E, I, H), gate_up=init(H, 2 * shared),
-                      down=init(shared, H))
+                      moe_down=init(E, I, H))
+            if shared:
+                lw.update(gate_up=init(H, 2 * shared), down=init(shared, H))
         layers.append(quantize_tree({"layers": [lw]}, "int8")["layers"][0])
     weights = quantize_tree({"embed": init(cfg.vocab_size, H), "layers": layers,
                              "norm": ones(H), "lm_head": init(H, cfg.vocab_size)}, "int8")
@@ -4469,7 +4778,8 @@ def _routing_flips(lm, tokens, dev, spy) -> dict:
     """One bf16 prefill through the kernels and through the plain versions:
     the (token, MoE layer) routing choices whose expert sets differ, each
     with the plain path's gap between its top-k-th and (k+1)-th score (a flip
-    at a near tie is not a fault: the two paths round differently)."""
+    at a near tie is not a fault: the two paths round differently), and the
+    flips of the first layer that flips, the near-tie test."""
     import torch
     runs = []
     with torch.no_grad():
@@ -4484,62 +4794,47 @@ def _routing_flips(lm, tokens, dev, spy) -> dict:
         for t in differ.nonzero().flatten().tolist():
             flips.append({"layer": layer, "token": t, "gap": float(gap[t])})
     gaps = [f["gap"] for f in flips]
+    # the near-tie test is the first layer that flips: up to it the two paths'
+    # inputs differ by rounding alone; after it a flipped token's state, and
+    # through attention every later token's, differs, and flips at any gap
+    first = [f for f in flips if f["layer"] == flips[0]["layer"]] if flips else []
     return {"routing_choices": len(runs[1]) * len(tokens), "routing_flips": len(flips),
             "routing_flip_gaps": sorted(gaps)[:20], "routing_flip_max_gap": max(gaps, default=None),
-            "routing_flips_first": flips[:10]}
+            "routing_flips_first": flips[:10],
+            "routing_first_flipped_layer": first[0]["layer"] if first else None,
+            "routing_first_layer_flips": len(first),
+            "routing_first_layer_max_gap": max((f["gap"] for f in first), default=None)}
 
 
-def _cut_lm(lm, n_layers: int):
-    """The same model's first n_layers layers (shared tensors) and its head."""
-    from dataclasses import replace
-    from hydrainfer_tpu_torch.models.llama import LlamaForCausalLM
-    return LlamaForCausalLM({**lm.weights, "layers": lm.weights["layers"][:n_layers]},
-                            replace(lm.cfg, n_layers=n_layers))
-
-
-def phase_deepseek(dev="cuda") -> tuple:
-    """DeepSeek-V2-Lite at full width (DEEPSEEK_V2_LITE, seeded random weights,
-    _moe_lm_factory: 27 layers, MLA on the int8 single-plane latent cache,
-    64 routed experts through the grouped product, YaRN), served as the mla
-    phase serves mla-2b-lm (phase_serve: 32 requests x 128-token prompts x
-    128 tokens, budget 2048, K = 16 windows from CUDA graphs; K6, K3 and K4
-    launch, K1 and K2 never; a graphs-off round gives identical tokens; it
-    is not profiled: the profiler's bookkeeping of an eager round's ~10^6
-    events takes minutes).
-    Logits: a 512-token prefill in chunks of 256 through the kernels and the
-    plain versions on the first DEEPSEEK_CHECK_LAYERS layers (_logits_check,
-    mean |error| over every 32nd row), and the routing choices that differ
-    between the two paths in the full model's bf16 prefill. Reports the
-    decode step's device ms (a K = 16 window's graph replay over 16) beside
-    its byte bound (the weights a step reads: the experts the eager round's
-    last decode step touched, the rest whole but the embedding; KV not
-    counted), the
-    distinct experts a MoE layer's decode step touches, and the
-    tiny-checkpoint check (q-LoRA, noaux_tc with a correction bias, YaRN;
-    f32 on the card with graphs off and on the CPU)."""
-    import torch
-    dev = torch.device(dev)
-    t0 = time.perf_counter()
-    factory = _moe_lm_factory(dev, DEEPSEEK_V2_LITE)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    cfg = factory.cfg
-    n_moe = cfg.n_layers - DEEPSEEK_V2_LITE["first_k_dense_replace"]
-    spy = RouteSpy(4 * n_moe, DEEPSEEK_REQUESTS)
-
+def _moe_logits(spy):
+    """A MoE phase's logits_fn: a 512-token prefill in chunks of 256 through
+    the kernels and through the plain versions at every layer, the f32
+    reference built a layer at a time (_logits_check, layered; mean |error|
+    over every 32nd row), and the routing choices that differ between the
+    two paths in the bf16 prefill of its first 256 tokens."""
     def logits(lm, rng, dev):
+        import torch
         tokens = [int(t) for t in rng.integers(10, 120, size=512)]
-        res = _logits_check(_cut_lm(lm, DEEPSEEK_CHECK_LAYERS), tokens, dev,
-                            "prefill_logits", mean_rows=True, chunk=256, every=32)
-        res["prefill_logits_layers"] = DEEPSEEK_CHECK_LAYERS
+        res = _logits_check(lm, tokens, dev, "prefill_logits", mean_rows=True, layered=True,
+                            chunk=256, every=32)
+        res["prefill_logits_layers"] = lm.cfg.n_layers
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         res.update(_routing_flips(lm, tokens[:256], dev, spy))
         res["routing_flips_s"] = time.perf_counter() - t0
         return res
+    return logits
 
+
+def _moe_extra(factory, spy, n_moe: int, n_requests: int):
+    """A MoE phase's extra_fn: the decode step's device ms (the widest K = 16
+    window's graph replay over 16) beside its byte bound (the weights a step
+    reads: the experts the eager round's last decode step touched, the rest
+    whole but the embedding; KV not counted), and the distinct experts a MoE
+    layer's decode step touches."""
     def extra(engine, graphs, lm):
+        cfg = lm.cfg
         experts = spy.distinct_experts(n_moe)
         keys = [(d, n, g) for (d, n), g in graphs.graphs.graphs.items() if n == 16]
         d, n, g = max(keys, key=lambda x: x[0].S)
@@ -4551,18 +4846,47 @@ def phase_deepseek(dev="cuda") -> tuple:
         embed = lm.weights["embed"]
         n_bytes = (factory.param_bytes() - embed.numel() * embed.element_size()
                    - n_moe * cfg.n_experts * expert_bytes + sum(touched) * expert_bytes)
-        return {"ok": bool(touched) and experts["rows"] == DEEPSEEK_REQUESTS,
+        return {"ok": bool(touched) and experts["rows"] == n_requests,
                 "decode_step_device_ms": step_ms, "decode_step_key": f"T={d.T} S={d.S}",
                 "decode_step_bound_ms": 1e3 * n_bytes / HBM_BYTES_PER_S,
                 "decode_step_bound_bytes": n_bytes,
                 "distinct_experts_per_decode_step": experts}
+    return extra
 
+
+def phase_deepseek(dev="cuda") -> tuple:
+    """DeepSeek-V2-Lite at full width (DEEPSEEK_V2_LITE, seeded random weights,
+    _moe_lm_factory: 27 layers, MLA on the int8 single-plane latent cache,
+    64 routed experts through the grouped product, YaRN), served as the mla
+    phase serves mla-2b-lm (phase_serve: 32 requests x 128-token prompts x
+    128 tokens, budget 2048, K = 16 windows from CUDA graphs; K6, K3 and K4
+    launch, K1 and K2 never; a graphs-off round gives identical tokens; it
+    is not profiled: the profiler's bookkeeping of an eager round's ~10^6
+    events takes minutes).
+    Logits (_moe_logits): a 512-token prefill in chunks of 256 through the
+    kernels and the plain versions at all 27 layers, the f32 reference built
+    a layer at a time, and the routing choices that differ between the two
+    paths in the bf16 prefill. Reports the decode step's device ms beside
+    its byte bound and the distinct experts a MoE layer's decode step
+    touches (_moe_extra), and the tiny-checkpoint check (q-LoRA, noaux_tc
+    with a correction bias, YaRN; f32 on the card with graphs off and on the
+    CPU)."""
+    import torch
+    dev = torch.device(dev)
+    t0 = time.perf_counter()
+    factory = _moe_lm_factory(dev, DEEPSEEK_V2_LITE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = factory.cfg
+    n_moe = cfg.n_layers - DEEPSEEK_V2_LITE["first_k_dense_replace"]
+    spy = RouteSpy(4 * n_moe, DEEPSEEK_REQUESTS)
     try:
         result, counts = phase_serve(
             "deepseek-v2-lite", dev, DEEPSEEK_REQUESTS, DEEPSEEK_PROMPT, DEEPSEEK_TOKENS, 2048,
-            phase="deepseek", must_run=MLA_KERNELS,
+            phase="deepseek", must_run=MLA_KERNELS + ("grouped_mm",),
             must_not_run=("mha_decode", "paged_attention"), eager_round=True,
-            factory=factory, logits_fn=logits, extra_fn=extra, eager_profile=False)
+            factory=factory, logits_fn=_moe_logits(spy),
+            extra_fn=_moe_extra(factory, spy, n_moe, DEEPSEEK_REQUESTS), eager_profile=False)
     finally:
         spy.restore()
     result["weight_init_s"] = init_s
@@ -4579,6 +4903,168 @@ def phase_deepseek(dev="cuda") -> tuple:
     tiny = result["tiny_checkpoint"]
     result["ok"] = bool(result["ok"] and (not isinstance(tiny, dict) or tiny["ok"]))
     save("deepseek.json", result)
+    return result, counts
+
+
+def phase_mixtral(dev="cuda") -> tuple:
+    """Mixtral-8x7B at its published widths, MIXTRAL_LAYERS of 32 layers
+    (MIXTRAL_8X7B, seeded random weights, _moe_lm_factory: GQA 4:1 x d128
+    over the int8 KV cache, every layer 8 routed experts of 14336 through the
+    grouped product, 2 a token; int8 qkv, o_proj and lm_head, the experts
+    and the router bf16), served as the deepseek phase serves V2-Lite
+    (phase_serve: 32 requests x 128-token prompts x 64 tokens, budget 2048,
+    K = 16 windows from CUDA graphs; K1-K4 and the grouped product launch; a
+    graphs-off round gives identical tokens, not profiled). Logits at all 20
+    layers, the f32 reference a layer at a time, and the routing flips
+    (_moe_logits); the decode step's device ms beside its byte bound
+    (_moe_extra); then the tiny-checkpoint check (f32, on the card with
+    graphs off and on the CPU)."""
+    import torch
+    dev = torch.device(dev)
+    t0 = time.perf_counter()
+    factory = _moe_lm_factory(dev, MIXTRAL_8X7B, n_layers=MIXTRAL_LAYERS)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    spy = RouteSpy(4 * MIXTRAL_LAYERS, MIXTRAL_REQUESTS)
+    try:
+        result, counts = phase_serve(
+            "mixtral-8x7b", dev, MIXTRAL_REQUESTS, MIXTRAL_PROMPT, MIXTRAL_TOKENS, 2048,
+            phase="mixtral", must_run=SERVE_KERNELS + ("grouped_mm",), eager_round=True,
+            factory=factory, logits_fn=_moe_logits(spy),
+            extra_fn=_moe_extra(factory, spy, MIXTRAL_LAYERS, MIXTRAL_REQUESTS),
+            eager_profile=False)
+    finally:
+        spy.restore()
+    result["weight_init_s"] = init_s
+    result["model"] = (f"Mixtral-8x7B (mistralai/Mixtral-8x7B-v0.1 widths), {MIXTRAL_LAYERS} "
+                       "of 32 layers (the depth cut: bf16 experts are 2.82 GB a layer, 90 GB "
+                       "at 32) x 4096, 32 q / 8 kv heads x 128, 8 experts of 14336 (2 a "
+                       "token), vocab 32000, rope_theta 1e6; int8 qkv/o/lm_head, bf16 "
+                       "experts and router")
+    del factory
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    result.update(_tiny_checkpoint_check("mixtral"))
+    result["parts_s"]["tiny_checkpoint"] = time.perf_counter() - t0
+    tiny = result["tiny_checkpoint"]
+    result["ok"] = bool(result["ok"] and (not isinstance(tiny, dict) or tiny["ok"]))
+    save("mixtral.json", result)
+    return result, counts
+
+
+class _GPT2Factory:
+    """GPT-2 XL at its published widths (GPT2_XL) with random weights from
+    the seed, N(0, 0.02^2) (biases too; the layer norms' weights 1 and
+    biases 0), bf16, built a layer at a time on the card; the node's view
+    from the port's gpt2_language_config, the SimpleTokenizer."""
+
+    def __init__(self, dev, seed=SEED):
+        import torch
+        from hydrainfer_tpu_torch.models.gpt2 import GPT2ForCausalLM
+        self.cfg = c = _gpt2_cfg()
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        bf16 = torch.bfloat16
+        init = lambda *shape: (torch.randn(shape, generator=gen, device=dev)  # noqa: E731
+                               * 0.02).to(bf16)
+        norm = lambda: (torch.ones(c.hidden_size, dtype=bf16, device=dev),  # noqa: E731
+                        torch.zeros(c.hidden_size, dtype=bf16, device=dev))
+        H = c.hidden_size
+        pair = lambda k, n: (init(k, n), init(n))  # noqa: E731
+        weights = {"wte": init(c.vocab_size, H), "wpe": init(c.max_position_embeddings, H),
+                   "layers": [{"ln1": norm(), "c_attn": pair(H, 3 * H), "c_proj": pair(H, H),
+                               "ln2": norm(), "c_fc": pair(H, 4 * H),
+                               "c_proj2": pair(4 * H, H)} for _ in range(c.n_layers)],
+                   "ln_f": norm()}
+        self.lm = GPT2ForCausalLM(weights, c)
+
+    def getLanguageModel(self):
+        return self.lm
+
+    def getLanguageModelConfig(self):
+        from hydrainfer_tpu_torch.models.gpt2 import gpt2_language_config
+        return gpt2_language_config(self.cfg)
+
+    def getVisionModel(self):
+        return None
+
+    def getVisionModelConfig(self):
+        return None
+
+    def getProcessor(self):
+        return None
+
+    def getTokenizer(self):
+        from hydrainfer_tpu_torch.models.tokenizer import SimpleTokenizer
+        return SimpleTokenizer()
+
+    def param_bytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in _leaves(self.lm.weights))
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
+def phase_gpt2(dev="cuda") -> tuple:
+    """GPT-2 XL at full width and depth (_GPT2Factory: 48 layers x 1600, 25
+    heads of 64, bf16 weights and a bf16 KV cache), served through
+    OfflineEngine as phase_serve serves a text model: 32 requests x
+    128-token prompts x 128 tokens, budget 2048, single-step windows (GPT-2
+    takes no fused window) from CUDA graphs; K1, K2 and K3 launch, K4 never;
+    a graphs-off round gives identical tokens (not profiled). Logits: a
+    512-token prefill in chunks of 256 at full depth through the kernels and
+    the plain versions (_logits_check, mean |error| over every 32nd row). The
+    decode step's device ms beside its byte bound. Then the tiny-checkpoint
+    check (f32, graphs on, on the card and on the
+    CPU)."""
+    import torch
+    dev = torch.device(dev)
+    t0 = time.perf_counter()
+    factory = _GPT2Factory(dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    def logits(lm, rng, dev):
+        tokens = [int(t) for t in rng.integers(10, 120, size=512)]
+        return _logits_check(lm, tokens, dev, "prefill_logits", mean_rows=True, chunk=256,
+                             every=32)
+
+    def extra(engine, graphs, lm):
+        """The widest decode key's graph replay beside its byte bound: the
+        layers' weights and the f32 tied head read once (the embedding rows
+        and the KV not counted)."""
+        d, g = max(((d, g) for (d, _), g in graphs.graphs.graphs.items() if d.max_q == 1),
+                   key=lambda x: x[0].S)
+        n_bytes = sum(t.numel() * t.element_size()
+                      for t in _leaves([lm.weights["layers"], lm.weights["ln_f"], lm.head]))
+        return {"decode_step_device_ms": _replay_ms(g.graph), "decode_step_key":
+                f"T={d.T} S={d.S}", "decode_step_bound_ms": 1e3 * n_bytes / HBM_BYTES_PER_S,
+                "decode_step_bound_bytes": n_bytes}
+
+    result, counts = phase_serve(
+        "gpt2-xl", dev, GPT2_REQUESTS, GPT2_PROMPT, GPT2_TOKENS, 2048, phase="gpt2",
+        must_run=("mha_decode", "paged_attention", "kv_writer"),
+        must_not_run=("quant_matmul", "grouped_mm"), eager_round=True, factory=factory,
+        logits_fn=logits, extra_fn=extra, eager_profile=False, window=1,
+        precision=("bf16", "bf16"))
+    result["weight_init_s"] = init_s
+    result["model"] = ("GPT-2 XL (openai-community/gpt2-xl widths and depth): 48 layers x "
+                       "1600, 25 heads x 64, MLP 6400 (tanh GELU), vocab 50257, 1024 "
+                       "learned positions, tied f32 head")
+    del factory
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    result.update(_tiny_checkpoint_check("gpt2"))
+    result["parts_s"]["tiny_checkpoint"] = time.perf_counter() - t0
+    tiny = result["tiny_checkpoint"]
+    result["ok"] = bool(result["ok"] and (not isinstance(tiny, dict) or tiny["ok"]))
+    save("gpt2.json", result)
     return result, counts
 
 
@@ -4981,7 +5467,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="build,kernels,tiny,serve,spec,sample,vlm,llava,disagg,process,"
-                            "llavanext,internvl,mla,deepseek,vl2,online")
+                            "llavanext,internvl,mla,deepseek,vl2,mixtral,gpt2,online")
     ap.add_argument("--out-dir", default=OUT_DIR,
                     help="where the detail files go")
     args = ap.parse_args()
@@ -5006,7 +5492,8 @@ def main() -> int:
 
     failed, kernel_rows, counts = [], [], {"serve": {}, "spec": {}, "vlm": {}, "llava": {},
                                            "next13b": {}, "internvl": {}, "mla": {},
-                                           "deepseek": {}, "vl2": {}}
+                                           "deepseek": {}, "vl2": {}, "mixtral": {},
+                                           "gpt2": {}}
     process_counts = None       # the process phase's, summed over its node processes
     why = {}                    # a failed phase: what failed in it
     for phase in phases:
@@ -5048,6 +5535,10 @@ def main() -> int:
                 res, counts["deepseek"] = phase_deepseek()
             elif phase == "vl2":
                 res, counts["vl2"] = phase_vl2()
+            elif phase == "mixtral":
+                res, counts["mixtral"] = phase_mixtral()
+            elif phase == "gpt2":
+                res, counts["gpt2"] = phase_gpt2()
             elif phase == "online":
                 res = phase_online()
             else:

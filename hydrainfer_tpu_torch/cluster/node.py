@@ -410,6 +410,11 @@ class AsyncEPDNode:
     # ---------------- request intake ----------------
 
     async def add_request(self, request, params: RequestProcessParameters) -> None:
+        if (self.language_config.greedy_only
+                and request.sampling_params.temperature > 0):
+            # the JAX model would decode such a request greedily in silence
+            raise ValueError(f"request {request.request_id}: this model decodes "
+                             "greedily only; send temperature 0")
         request.sampling_params.eos_token_ids = list(
             request.sampling_params.eos_token_ids)
         self.request_processor.process(request, params)

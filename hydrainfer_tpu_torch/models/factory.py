@@ -55,6 +55,9 @@ class LanguageModelConfig:
     # the KV cache holds one plane per token (the MLA latent vector) instead
     # of interleaved K/V heads
     kv_single_plane: bool = False
+    # the model decodes greedily only (GPT-2): a request with temperature > 0
+    # is refused at the node
+    greedy_only: bool = False
 
 
 @dataclass
@@ -316,10 +319,11 @@ def getModelFactory(config: ModelFactoryConfig, device=None) -> ModelFactory:
         InternVLModelFactory; model_type "deepseek_vl_v2":
         DeepSeekVL2ModelFactory; model_type "deepseek_v2" / "deepseek_v3" or
         a DeepSeek causal-LM architecture: DeepSeekModelFactory;
-        LlamaForCausalLM or Qwen2ForCausalLM: TextOnlyModelFactory (the JAX
-        package's order).
-    Every other architecture raises, naming the queue item that ports it.
-    dtype "auto" becomes bf16, as in the JAX package."""
+        MixtralForCausalLM: MixtralModelFactory; GPT2LMHeadModel:
+        GPT2ModelFactory; LlamaForCausalLM or Qwen2ForCausalLM:
+        TextOnlyModelFactory (the JAX package's order).
+    Every other architecture raises, as in the JAX package. dtype "auto"
+    becomes bf16, as in the JAX package."""
     import json
     import os
     if config.dtype == "auto":
@@ -363,10 +367,14 @@ def getModelFactory(config: ModelFactoryConfig, device=None) -> ModelFactory:
             "DeepseekV2ForCausalLM", "DeepseekV3ForCausalLM", "DeepseekForCausalLM"):
         from .deepseek_v3 import DeepSeekModelFactory
         return DeepSeekModelFactory(config, device=device)
+    if architecture == "MixtralForCausalLM":
+        from .mixtral import MixtralModelFactory
+        return MixtralModelFactory(config, device=device)
+    if architecture == "GPT2LMHeadModel":
+        from .gpt2 import GPT2ModelFactory
+        return GPT2ModelFactory(config, device=device)
     if architecture in ("LlamaForCausalLM", "Qwen2ForCausalLM"):
         from .text_only import TextOnlyModelFactory
         return TextOnlyModelFactory(config, device=device)
-    item = {"MixtralForCausalLM": "8", "GPT2LMHeadModel": "8"}.get(architecture)
-    where = f"ROADMAP.md queue 1, item {item}" if item else "no queue item yet"
     raise ValueError(f"unsupported architecture {architecture} / model_type "
-                     f"{model_type}: not ported ({where})")
+                     f"{model_type}: not ported (no queue item yet)")

@@ -9,7 +9,11 @@ nothing of the JAX package: the caller does the JAX-side conversion, e.g.
 JAX model (whose weight packing consumes it). Every leaf carries over as it
 is, so a DeepSeek layer's leaves do too: the q-LoRA stack (q_a, q_a_norm,
 q_b), the router and its correction bias, and the 3-D stacked experts
-(moe_gate_up (E, H, 2I), moe_down (E, I, H)).
+(moe_gate_up (E, H, 2I), moe_down (E, I, H)), and so do Mixtral's (the
+Llama tree plus the router and the stacked experts). GPT-2's tree
+(hydrainfer_tpu/models/gpt2.py:convert_gpt2_weights: top-level "wte", "wpe"
+and the (weight, bias) pair "ln_f"; layers of (weight, bias) pairs) carries
+over pair by pair.
 
 `from_jax_vision_numpy` does the same for a vision tower's weights, numpy
 leaves again, copying the nested dicts, lists and (weight, bias) tuples as
@@ -42,6 +46,8 @@ def _tensor(a, device) -> torch.Tensor:
 
 
 def _leaf(x, device):
+    if isinstance(x, tuple):                # GPT-2's (weight, bias) pairs
+        return tuple(_leaf(v, device) for v in x)
     if hasattr(x, "q") and hasattr(x, "scale"):
         if getattr(x, "bits", 8) != 8 or getattr(x, "group", 0) \
                 or getattr(x, "fmt", "int") != "int":
@@ -51,9 +57,10 @@ def _leaf(x, device):
 
 
 def from_jax_numpy(tree: dict, device=None) -> dict:
-    """{"embed", "layers": [dict], "norm", "lm_head"} of numpy leaves -> the
-    port's weights on `device` (the card unless "cpu" is asked for). None
-    entries (absent biases) are dropped."""
+    """{"embed", "layers": [dict], "norm", "lm_head"} (GPT-2: {"wte", "wpe",
+    "layers", "ln_f"}) of numpy leaves -> the port's weights on `device` (the
+    card unless "cpu" is asked for). None entries (absent biases) are
+    dropped."""
     device = resolve_device(device)
     out = {k: _leaf(v, device) for k, v in tree.items() if k != "layers"}
     out["layers"] = [{k: _leaf(v, device) for k, v in lw.items() if v is not None}

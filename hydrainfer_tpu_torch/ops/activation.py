@@ -2,9 +2,10 @@
 
 The fused gate activation takes the concatenated [gate, up] projection and
 returns silu(gate) * up, with the silu taken in f32. quick_gelu (the CLIP-style
-x * sigmoid(1.702 x) of the ViT blocks) and the exact, erf-based GELU (the
-Qwen2-VL merger's jax.nn.gelu(approximate=False)) also compute in f32 and
-return the input's dtype.
+x * sigmoid(1.702 x) of the ViT blocks), the exact, erf-based GELU (the
+Qwen2-VL merger's jax.nn.gelu(approximate=False)) and the tanh GELU (GPT-2's
+gelu_new, jax.nn.gelu(approximate=True)) also compute in f32 and return the
+input's dtype.
 """
 import torch
 import torch.nn.functional as F
@@ -22,3 +23,7 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x.float(), approximate="none").to(x.dtype)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x.float(), approximate="tanh").to(x.dtype)

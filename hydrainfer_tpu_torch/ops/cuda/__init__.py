@@ -5,8 +5,11 @@ wrapper takes the plain version for CPU tensors only, launches the CUDA kernel
 (built from ``csrc/``) for CUDA tensors or raises, and counts its launches in
 the wrapper's ``launches`` attribute. A CUDA graph replay runs no wrapper:
 ``add_launch_counts`` credits the launches its capture recorded
-(models/step_graphs.py), so the counts mean the same either way.
+(models/step_graphs.py), so the counts mean the same either way. The MoE dispatch's grouped product
+(ops/moe.py:grouped_mm, a library call that replaces no TPU kernel) is
+counted the same way, so a path's runs can show it.
 """
+from ..moe import grouped_mm
 from .kv_writer import write_kv_pages
 from .mha_decode import mha_decode_attention
 from .mha_varlen import mha_varlen_flash
@@ -21,6 +24,7 @@ WRAPPERS = {
     "quant_matmul": quant_matmul_int8,
     "mha_varlen": mha_varlen_flash,
     "paged_attention_latent": paged_attention_latent,
+    "grouped_mm": grouped_mm,
 }
 
 

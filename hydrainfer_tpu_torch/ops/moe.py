@@ -21,7 +21,9 @@ On the card torch._grouped_mm runs bf16 only on its fast path; its f32 form
 loops over the groups with their sizes read on the host, so an f32 MoE
 model on the card runs without CUDA graphs, and a capture of it raises
 (`grouped_mm`). torch._grouped_mm wants every row stride a multiple of 16
-bytes (d and the expert width a multiple of 8 in bf16). `moe_ffn_ep`
+bytes (d and the expert width a multiple of 8 in bf16). `grouped_mm` counts
+its calls on the card in `launches`, as the kernel wrappers do (it is in
+ops/cuda's WRAPPERS, so graph replays add theirs). `moe_ffn_ep`
 (expert parallelism) comes with tensor parallelism.
 """
 from typing import Optional, Tuple
@@ -102,7 +104,12 @@ def grouped_mm(a: torch.Tensor, b: torch.Tensor, offs: torch.Tensor) -> torch.Te
             and torch.cuda.is_current_stream_capturing()):
         raise RuntimeError("torch._grouped_mm reads the group sizes on the host outside "
                            "bf16: serve a non-bf16 MoE model with cuda_graphs off")
+    if a.is_cuda:
+        grouped_mm.launches += 1
     return torch._grouped_mm(a, b, offs=offs)
+
+
+grouped_mm.launches = 0
 
 
 def dispatch_offsets(expert_ids: torch.Tensor, n_experts: int):

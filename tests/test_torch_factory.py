@@ -6,9 +6,8 @@ multimodal (CLIP_TINY for a tiny arch, else CLIP-L/14-336); `fake` or no
 path gives FakeModelFactory; a
 checkpoint directory dispatches on its config.json (LLaVA-NeXT, InternVL
 in both its layouts, and the DeepSeek V2 / V3 and DeepSeek-VL2 families, to
-the factories the JAX package picks, among them), and an architecture the
-port does not have (Mixtral, GPT-2) raises, naming the queue item that
-ports it. A tiny Llama
+the factories the JAX package picks, among them; Mixtral and GPT-2 too), and
+an architecture neither package has raises. A tiny Llama
 checkpoint built in process with transformers goes through both packages'
 getModelFactory(path) and serves the same greedy tokens on a PD node.
 """
@@ -45,13 +44,27 @@ def test_get_model_factory_dispatch(tmp_path):
         (336, 336)) == 576
     assert getModelFactory(ModelFactoryConfig(name="random:tiny-lm"), "cpu") \
         .getVisionModelConfig() is None
-    for arch, item in (("MixtralForCausalLM", "item 8"),
-                       ("GPT2LMHeadModel", "item 8"), ("SomethingElse", "no queue item")):
+    from hydrainfer_tpu.models.factory import ModelFactoryConfig as JaxMFC
+    from hydrainfer_tpu.models.factory import getModelFactory as jax_get_factory
+    for arch, extra, name in (
+            ("MixtralForCausalLM", {**_TEXT, "num_local_experts": 4,
+                                    "num_experts_per_tok": 2}, "MixtralModelFactory"),
+            ("GPT2LMHeadModel", {"vocab_size": 64, "n_embd": 48, "n_layer": 2, "n_head": 4,
+                                 "n_positions": 128}, "GPT2ModelFactory"),
+            ("SomethingElse", {}, None)):
         d = tmp_path / arch
         d.mkdir()
-        (d / "config.json").write_text(json.dumps({"architectures": [arch]}))
-        with pytest.raises(ValueError, match=item):
-            getModelFactory(ModelFactoryConfig(path=str(d)), "cpu")
+        (d / "config.json").write_text(json.dumps({"architectures": [arch], **extra}))
+        if name is None:
+            with pytest.raises(ValueError, match="no queue item"):
+                getModelFactory(ModelFactoryConfig(path=str(d)), "cpu")
+            continue
+        f = getModelFactory(ModelFactoryConfig(path=str(d)), "cpu")
+        assert type(f).__name__ == name
+        assert type(jax_get_factory(JaxMFC(path=str(d)))).__name__ == name
+        lc = f.getLanguageModelConfig()
+        assert (lc.n_layers, lc.hidden_size, lc.vocab_size) == (2, 48, 64)
+        assert lc.greedy_only == (name == "GPT2ModelFactory")
 
 
 _TEXT = {"model_type": "llama", "vocab_size": 64, "hidden_size": 48,

@@ -45,6 +45,9 @@ also runs at SigLIP's 16 heads of 72 padded to 80 (DeepSeek-VL2), its
 padding columns exactly 0. The MoE grouped product (torch._grouped_mm, a
 library call) is held to the dense plain version in bf16 within 2e-2, and a
 MoE layer captured in a CUDA graph replays its eager result bit for bit.
+K1 and K2's tensor-core forms also run at GPT-2 XL's 25 heads x d64 over a
+bf16 cache and at Mixtral-8x7B's GQA 4:1 x d128 over an int8 cache, and K3
+writes GPT-2 XL's bf16 rows into a bf16 cache bit for bit.
 """
 import numpy as np
 import pytest
@@ -133,6 +136,8 @@ K1_MMA = [
     ("gqa8_bf16_d64", 8, 1, 64, 16, torch.bfloat16),
     ("gqa4_int8_d256_bs4", 4, 1, 256, 4, torch.int8),
     ("mha2_bf16_d32", 2, 2, 32, 16, torch.bfloat16),
+    ("gpt2_xl_mha25_bf16_d64", 25, 25, 64, 16, torch.bfloat16),   # GPT-2 XL's heads
+    ("mixtral_gqa4_int8", 32, 8, 128, 16, torch.int8),           # Mixtral-8x7B's
 ]
 # kv lengths on both sides of the 16-row sub-tiles, the 64 rows of a block's
 # first pass and the split boundaries, and a table over 128 pages
@@ -202,6 +207,8 @@ K2_MMA = [
     ("mha_int8_bs4", 8, 8, 128, 4, torch.int8),        # a 75-page table
     ("gqa2_bf16_d64", 4, 2, 64, 16, torch.bfloat16),
     ("gqa6_bf16_d80", 6, 1, 80, 16, torch.bfloat16),
+    ("gpt2_xl_mha25_bf16_d64", 25, 25, 64, 16, torch.bfloat16),
+    ("mixtral_gqa4_int8", 32, 8, 128, 16, torch.int8),
 ]
 # chunks longer than one q tile (130 tokens), continuations starting off a
 # tile boundary (64 over 192, 37 over 101), decodes, a short prefill
@@ -780,6 +787,18 @@ def test_k3_bit_exact_at_path_shapes(dev, kvh, D, single, T):
     k, v = _on(dev, k, v)
     got = _k3_run(dev, k, v, slots, shape, torch.int8, SCALE, expect_vec_bytes=16)
     assert torch.equal(got, _k3_expect(rows, slots, shape, torch.int8, SCALE))
+
+
+@pytest.mark.parametrize("T", [32, 452])
+def test_k3_bf16_cache_at_gpt2_xl_shapes(dev, T):
+    """GPT-2 XL's write: 25 heads x d64 of bf16 rows, k and v strided views
+    of the fused c_attn output, into a bf16 cache (no quantize), at a
+    decode step and a prefill's rows: bit for bit the rows, the sentinel
+    left in every other slot, 16-byte vectors."""
+    k, v, slots, rows, shape = _k3_case(T, 25, 64, False, torch.bfloat16, n_pad=2 + T // 9)
+    k, v = _on(dev, k, v)
+    got = _k3_run(dev, k, v, slots, shape, torch.bfloat16, None, expect_vec_bytes=16)
+    assert torch.equal(got, _k3_expect(rows, slots, shape, torch.bfloat16, None))
 
 
 @pytest.mark.parametrize("in_dtype,cache_dtype,kvh,D,single,v_shift,k_shift,vec_bytes", [

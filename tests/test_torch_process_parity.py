@@ -239,9 +239,15 @@ def test_pd_processes_match_jax_nodes(llama_ckpt, quant, kv_int8):
 
 
 def test_pd_processes_match_jax_process_cluster(llama_ckpt):
+    # the reference's liveness monitor is off (health_interval_s=0): it is
+    # not what this test compares, and on a loaded CPU it declares a D child
+    # dead while XLA compiles a decode window there; the JAX parent then ends
+    # only the requests keyed to their entry node, and the rest hang. The
+    # port cluster keeps its monitor.
     jax_cluster = JaxProcessCluster(JaxProcessClusterConfig(
         nodes=[JaxNodeSpec("P", 1), JaxNodeSpec("D", 1)],
-        node=jax_node_config(llama_ckpt, "none", False), platform="cpu"))
+        node=jax_node_config(llama_ckpt, "none", False), platform="cpu",
+        health_interval_s=0))
     cluster = port_cluster(["P", "D"], port_node_config(llama_ckpt, "none", False))
     got, _ = serve_port(cluster, text_requests(Request, SamplingParameters))
     ref, jax_metrics = serve(jax_cluster, text_requests(JaxRequest, JaxSP), JaxRPParams,
