@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases build,kernels,llavanext,internvl   # the tiling towers
     python3 chip_smoke.py --phases build,kernels,deepseek,vl2   # DeepSeek MoE and VL2
     python3 chip_smoke.py --phases build,kernels,mixtral,gpt2   # Mixtral and GPT-2
+    python3 chip_smoke.py --phases build,quant      # llava-7b-lm at int4 and fp8
 
 Phases, each printing one JSON line:
   build    compile the Hopper kernels of hydrainfer_tpu_torch/csrc (nvcc,
@@ -45,7 +46,13 @@ Phases, each printing one JSON line:
            Mixtral-8x7B (mixtral: GQA 4:1 x d128, int8 KV; K4 at qkv, o and
            lm_head, the experts being bf16) and K1-K3 at GPT-2 XL (gpt2: 25
            heads x d64 over a bf16 cache, K3 writing bf16 rows bit for bit;
-           no K4: the weights are bf16);
+           no K4: the weights are bf16); and K4's int4 (group 128) and fp8
+           forms at llava-7b-lm's four projections, M 16 and 256 (the fp8
+           lm_head alone too), weights quantized on the card by the port's
+           quantize functions, each held to its plain version, beside its
+           byte bound (int4: packed values and group scales) and torch.mm
+           on the dequantized bf16 weight (rows quant_matmul_int4 and
+           quant_matmul_fp8, paths quant_int4 and quant_fp8);
   tiny     serve tiny-lm and mla-tiny-lm in f32 through OfflineEngine on the
            card (decode steps from CUDA graphs) and on the CPU with the same
            weights and key floors, plain and with n-gram speculation at k = 3
@@ -60,6 +67,18 @@ Phases, each printing one JSON line:
            agree with the same model run through the plain PyTorch versions;
            then the same model serves the measured round's requests again
            with CUDA graphs off (`eager_round`): the tokens must be identical;
+  quant    serve llava-7b-lm's language tower at full width and depth at
+           int4 (group 128, lm_head int8) and then at fp8 (e4m3 per
+           column), int8 KV, as the serve phase serves int8 (8 x 128 x 32,
+           budget 256, K = 16 graphed windows): every request finishes,
+           K1-K3 and K4's form for the mode launch in the measured round
+           and K4's int8 form only for the lm_head (int4: 128 int4
+           launches to each int8 one; fp8: none), one prefill's logits
+           through the kernels agree with the plain versions, and a short
+           round (2 x 8 tokens) from the graphs equals it with graphs off;
+           it reports tokens/s, p50 TTFT, the decode step's device ms
+           beside its byte bound (1.07 ms at int4, 1.97 at fp8), peak
+           memory and weight bytes;
   spec     n-gram speculative decoding on llava-7b-lm (full width, int8
            weights, int8 KV): four lookup-friendly requests (a seeded 32-token
            sequence repeated four times, 128 tokens each) on an engine of 8
@@ -124,7 +143,12 @@ Phases, each printing one JSON line:
            and p50 TTFT (image, text) beside the EPD node's, the pulls (MB,
            device ms, copy GB/s beside 2 x bytes over the HBM rate), the
            decode windows dispatched during a pull, the graph keys captured
-           while serving and peak memory;
+           while serving and peak memory; general's nodes run with
+           log_latency_breakdown on, and each request of its measured round
+           must log one breakdown under the JAX stage names (an image
+           request its encode, two pulls, prefill and decode; a text one a
+           pull, prefill and decode), every span non-negative and within
+           the request's wall time;
   process  the process deployment on the card: LLaVA-1.5-7B at full width
            (random:llava-7b-lm+mm, int8 weights, int8 KV), built by each
            node process from the seed, E + P + D as three spawned processes
@@ -202,7 +226,7 @@ Phases, each printing one JSON line:
            seed: 27 layers, MLA over the int8 latent cache, YaRN x40, one
            dense layer, 26 layers of 64 routed experts, 6 a token, and 2
            shared; int8 as quantize_tree picks, the experts bf16) as the mla
-           phase serves mla-2b-lm: every request must finish, K6, K3 and K4
+           phase serves mla-2b-lm, 64 tokens a request: every request must finish, K6, K3 and K4
            launch and K1 and K2 never, a K = 16 window replays its graph (the
            MoE dispatch captured), a graphs-off round gives identical tokens,
            and a 512-token prefill in chunks of 256 through the kernels gives
@@ -235,7 +259,7 @@ Phases, each printing one JSON line:
            off on the card);
   gpt2     serve GPT-2 XL at full width and depth (openai-community/gpt2-xl's
            config.json, random weights from the seed, bf16 weights and KV):
-           32 requests x 128-token prompts x 128 tokens, budget 2048, single
+           32 requests x 128-token prompts x 64 tokens, budget 2048, single
            graphed steps (GPT-2 takes no fused window): K1, K2 and K3 launch
            and K4 never, graphs-off tokens identical, a 512-token prefill's
            logits through the kernels against the plain versions, and the
@@ -307,7 +331,18 @@ KERNEL_SOURCES = {
     # the same pallas_call in its CKV = 1 (single-plane latent) form
     "paged_attention_latent": ("hydrainfer_tpu_torch/csrc/paged_attention_latent.cu",
                                "hydrainfer_tpu/ops/pallas/paged_attention.py:405"),
+    # K4's int4 and fp8 forms: no pallas_call; the JAX package runs them
+    # through XLA's dequant-in-dot (its qmatmul, ops/quant.py:169-203)
+    "quant_matmul_int4": ("hydrainfer_tpu_torch/csrc/quant_matmul_int4.cu",
+                          "hydrainfer_tpu/ops/quant.py:169"),
+    "quant_matmul_fp8": ("hydrainfer_tpu_torch/csrc/quant_matmul_fp8.cu",
+                         "hydrainfer_tpu/ops/quant.py:169"),
 }
+# the quant phase: llava-7b-lm's language tower at each mode (int8 KV), the
+# serve phase's traffic; the int4 and fp8 K4 rows of the kernels phase
+QUANT_MODES = ("int4", "fp8")
+QUANT_ARCH = "llava-7b-lm"
+QUANT_EAGER_REQUESTS, QUANT_EAGER_TOKENS = 2, 8
 SERVE_KERNELS = ("mha_decode", "paged_attention", "kv_writer", "quant_matmul")
 VLM_KERNELS = SERVE_KERNELS + ("mha_varlen",)
 # the MLA path's kernels; K1 and K2 must not run on it
@@ -360,8 +395,8 @@ MM_TEXT, MM_TOKENS, MM_BUDGET = 32, 32, 2048
 # q-LoRA), the first layer dense (10944), then 64 routed experts of 1408, 6 a
 # token (greedy softmax, norm_topk_prob false, scaling 1.0) and 2 shared;
 # vocab 102400; YaRN factor 40 over 4096 positions, mscale = mscale_all_dim =
-# 0.707, 163840 positions. 32 requests x 128-token prompts x 128 tokens
-# (the mla phase's traffic)
+# 0.707, 163840 positions. 32 requests x 128-token prompts x 64 tokens (the
+# mla phase's requests, decoded half as far to keep the script in its limit)
 DEEPSEEK_V2_LITE = {
     "model_type": "deepseek_v2", "vocab_size": 102400, "hidden_size": 2048,
     "intermediate_size": 10944, "moe_intermediate_size": 1408, "num_hidden_layers": 27,
@@ -375,7 +410,7 @@ DEEPSEEK_V2_LITE = {
                      "beta_fast": 32, "beta_slow": 1, "mscale": 0.707,
                      "mscale_all_dim": 0.707},
     "tie_word_embeddings": False}
-DEEPSEEK_REQUESTS, DEEPSEEK_PROMPT, DEEPSEEK_TOKENS = 32, 128, 128
+DEEPSEEK_REQUESTS, DEEPSEEK_PROMPT, DEEPSEEK_TOKENS = 32, 128, 64
 # the mixtral phase: Mixtral-8x7B, the widths of mistralai/Mixtral-8x7B-v0.1's
 # config.json: 4096 wide, 32 q / 8 kv heads of 128 (GQA 4:1), 8 experts of
 # 14336, 2 a token (softmax, renormalised), vocab 32000, rope_theta 1e6,
@@ -394,11 +429,11 @@ MIXTRAL_REQUESTS, MIXTRAL_PROMPT, MIXTRAL_TOKENS = 32, 128, 64
 # the gpt2 phase: GPT-2 XL, openai-community/gpt2-xl's config.json: 48 layers x
 # 1600, 25 heads of 64, inner 6400 (4 x), vocab 50257, 1024 positions,
 # gelu_new; bf16 weights (3.1 GB) and a bf16 KV cache; single-step windows.
-# 32 requests x 128-token prompts x 128 tokens (positions end at 256 < 1024)
+# 32 requests x 128-token prompts x 64 tokens (positions end at 192 < 1024)
 GPT2_XL = {"architectures": ["GPT2LMHeadModel"], "model_type": "gpt2", "vocab_size": 50257,
            "n_embd": 1600, "n_layer": 48, "n_head": 25, "n_positions": 1024,
            "activation_function": "gelu_new", "layer_norm_epsilon": 1e-5}
-GPT2_REQUESTS, GPT2_PROMPT, GPT2_TOKENS = 32, 128, 128
+GPT2_REQUESTS, GPT2_PROMPT, GPT2_TOKENS = 32, 128, 64
 # the vl2 phase: DeepSeek-VL2-Tiny, deepseek-ai/deepseek-vl2-tiny's
 # config.json: SigLIP-so400m at 384 (27 layers x 1152, 16 heads of 72, MLP
 # 4304, 28 x 28 patches), the 2x2 downsample projector (depth 2, 4608 ->
@@ -598,14 +633,16 @@ PATH_SHAPES = {
 # the next prompts, and decodes
 _NEXT_PROMPTS = [MM_TEXT + n for n in (2928, 2340, 1752, 2376)] * 2
 _INTERNVL_PROMPTS = [MM_TEXT + n for n in (256, 768, 1792, 3328)] * 2
+# K4 at these two paths: the decode step's M and the budget only (the
+# kernels line's two sums; the M sweep runs at serve, vlm and mla)
 PATH_SHAPES["next13b"] = dict(
     arch=NEXT_ARCH, decode=[(1, n + 16) for n in _NEXT_PROMPTS],
     mixed=[(912, 2960), (1121, 1121), (1, 1800), (1, 2424)], T=2048, kv_decode=(8, 8),
-    kv_prefill=(2048, 2035), budget=2048)
+    kv_prefill=(2048, 2035), budget=2048, gemm_sweep=(16, 2048))
 PATH_SHAPES["internvl"] = dict(
     arch="internlm2-7b", decode=[(1, n + 16) for n in _INTERNVL_PROMPTS],
     mixed=[(288, 288), (800, 800), (945, 3360), (1, 304), (1, 816)], T=2048,
-    kv_decode=(8, 8), kv_prefill=(2048, 2035), budget=2048)
+    kv_decode=(8, 8), kv_prefill=(2048, 2035), budget=2048, gemm_sweep=(16, 2048))
 # the deepseek phase's batches are the mla path's (V2-Lite's attention has
 # mla-2b-lm's geometry); vl2: decodes at 16 tokens in, and a 2048-token
 # budget of two image prompts, the first chunk of a third and 2 decodes. K4
@@ -722,16 +759,17 @@ def check_quant_matmul(gen, dev, path, m_values=None) -> dict:
     over an M sweep across the skinny/wide boundary: held to the plain
     version, timed eager and from a CUDA graph over rotating weight copies
     (so no launch finds its weight in L2), beside its bound and the fastest
-    library form: torch._weight_int8pack_mm, or torch.mm on the weight
-    dequantized to bf16 outside the timed call (rotated the same way), each
-    held to the plain version first. The kernels line sums one decode step
+    library form: torch._weight_int8pack_mm (M <= 64 only: far the slowest
+    above), or torch.mm on the weight dequantized to bf16 outside the timed
+    call (rotated the same way), each held to the plain version first. The kernels line sums one decode step
     (M = the decode batch) and one prefill budget (qkv, o, gate_up, down at
     M = the path's token budget; the lm_head sees only the sampled rows).
     `m_values`: the M values to check instead of the sweep (the verify
     step's T: its kernels line sums every projection, lm_head included, at
     that M)."""
     import torch
-    from hydrainfer_tpu_torch.ops.cuda.quant_matmul import (plan, quant_matmul_int8,
+    from hydrainfer_tpu_torch.ops.cuda.quant_matmul import (SKINNY_MAX_M, plan,
+                                                            quant_matmul_int8,
                                                             quant_matmul_int8_plain)
     if m_values is not None:
         m_row = m_prefill = m_values[0]
@@ -774,13 +812,16 @@ def check_quant_matmul(gen, dev, path, m_values=None) -> dict:
             timed_graph = M == m_row or (M == m_prefill and name != "lm_head")
             plain_ms = time_ms(lambda: quant_matmul_int8_plain(x, w, scale, out_dtype),
                                iters=5)
-            # the library forms put out bf16: held within bf16 rounding
-            library, lib = _fastest({
-                "torch._weight_int8pack_mm": (
-                    lambda: lambda: torch._weight_int8pack_mm(x, w_t, sc_bf), lambda o: o),
-                "torch.mm, weight dequantized to bf16 outside the timed call": (
-                    lambda: rotating(w_bfs, lambda wb: torch.mm(x, wb)), lambda o: o),
-            }, ref, 1e-2 * scale_ref)
+            # the library forms put out bf16: held within bf16 rounding.
+            # torch._weight_int8pack_mm only up to the skinny form's M: above
+            # it, it takes 2-1700 ms a call (seconds of the time limit a row)
+            # where torch.mm takes under 1
+            forms = {"torch.mm, weight dequantized to bf16 outside the timed call": (
+                lambda: rotating(w_bfs, lambda wb: torch.mm(x, wb)), lambda o: o)}
+            if M <= SKINNY_MAX_M:
+                forms["torch._weight_int8pack_mm"] = (
+                    lambda: lambda: torch._weight_int8pack_mm(x, w_t, sc_bf), lambda o: o)
+            library, lib = _fastest(forms, ref, 1e-2 * scale_ref)
             out_bytes = torch.empty((), dtype=out_dtype).element_size()
             b_ms, b_by = bound_ms(M * K * 2 + K * N + N * 4 + M * N * out_bytes,
                                   2.0 * M * K * N)
@@ -830,6 +871,109 @@ def check_quant_matmul(gen, dev, path, m_values=None) -> dict:
             "lm_head_graph_ms": head["graph_ms"], "lm_head_bound_ms": head["bound_ms"],
             "lm_head_library_ms": head["library_ms"],
             "lm_head_library_graph_ms": head["library_graph_ms"]}
+
+
+def check_quant_forms(gen, dev, mode: str) -> dict:
+    """K4's int4 (g = 128) or fp8 form at llava-7b-lm's four layer
+    projections (and, at fp8, its lm_head, f32 out), the weights N(0, 1/K)
+    quantized on the card by the port's quantize_tree function for the mode:
+    each held to its plain version (JAX's arithmetic) at serve's decode step
+    (M 16) and prefill budget (M 256), then timed eager and from a CUDA graph
+    over rotating weight copies (no launch finds its weight in L2), beside
+    its byte or operation bound (the stored bytes: int4's packed values and
+    f32 group scales) and torch.mm on the weight dequantized to bf16 outside
+    the timed call. The kernels line sums the four projections at M 16 and,
+    as prefill_*, at M 256."""
+    import torch
+    from hydrainfer_tpu_torch.models.random_init import (ARCH_CONFIGS, quant_matmul_forms,
+                                                         quant_weight_bytes)
+    from hydrainfer_tpu_torch.ops.cuda import quant_matmul as qmm
+    from hydrainfer_tpu_torch.ops.quant import _fmt, dequantize, quantize_fp8, quantize_int4
+    quant = {"int4": quantize_int4, "fp8": quantize_fp8}[mode]
+    kernel = {"int4": qmm.quant_matmul_int4, "fp8": qmm.quant_matmul_fp8}[mode]
+    plain = {"int4": qmm.quant_matmul_int4_plain, "fp8": qmm.quant_matmul_fp8_plain}[mode]
+    m_step, m_prefill = 16, PATH_SHAPES["serve"]["budget"]
+    forms = {name: f for name, f in quant_matmul_forms(ARCH_CONFIGS[QUANT_ARCH], mode).items()
+             if f[2] == mode}
+    rows, max_err, ok = [], 0.0, True
+    for name, (K, N, fmt, group) in forms.items():
+        out_dtype = torch.float32 if name == "lm_head" else torch.bfloat16
+        w = (torch.randn((K, N), generator=gen) / math.sqrt(K)).to(dev)
+        qt = quant(w)
+        del w
+        assert _fmt(qt) == fmt and qt.group == group, (name, qt.group, group)
+        w_bytes = quant_weight_bytes(K, N, fmt, group)
+        n_copies = max(1, math.ceil(120e6 / w_bytes))
+        qs = [qt.q] + [qt.q.clone() for _ in range(n_copies - 1)]
+        w_bf = dequantize(qt, torch.bfloat16)
+        n_bf = max(1, math.ceil(120e6 / (2 * K * N)))
+        w_bfs = [w_bf] + [w_bf.clone() for _ in range(n_bf - 1)]
+        for M in (m_step, m_prefill) if name != "lm_head" else (m_step,):
+            x = torch.randn((M, K), generator=gen).to(dev, torch.bfloat16)
+            got = kernel(x, qt.q, qt.scale, qt.group, out_dtype)
+            ref = plain(x, qt.q, qt.scale, qt.group, torch.float32)
+            err = (got.float() - ref).abs().max().item()
+            scale_ref = max(1.0, ref.abs().max().item())
+            tol = (1e-2 if out_dtype == torch.bfloat16 else 1e-4) * scale_ref
+            ok &= err <= tol
+            max_err = max(max_err, err)
+
+            def rotating(copies, fn):
+                it = iter(range(10 ** 9))
+                return lambda: fn(copies[next(it) % len(copies)])
+
+            call = rotating(qs, lambda q: kernel(x, q, qt.scale, qt.group, out_dtype))
+            library, lib = _fastest({
+                "torch.mm, weight dequantized to bf16 outside the timed call": (
+                    lambda: rotating(w_bfs, lambda wb: torch.mm(x, wb)), lambda o: o)},
+                ref, 1e-2 * scale_ref)
+            out_bytes = 4 if out_dtype == torch.float32 else 2
+            b_ms, b_by = bound_ms(M * K * 2 + w_bytes + M * N * out_bytes, 2.0 * M * K * N)
+            p = qmm.plan(M, K, N)
+            rows.append({"proj": name, "M": M, "K": K, "N": N, "fmt": fmt, "group": group,
+                         "weight_bytes": w_bytes, "form": p.form, "bn": p.bn,
+                         "splits": p.splits, "max_abs_err": err, "tol": tol,
+                         "ms": time_ms(call), "graph_ms": graph_ms(call),
+                         "plain_ms": time_ms(lambda: plain(x, qt.q, qt.scale, qt.group,
+                                                           out_dtype), iters=5),
+                         "library_ms": library[lib]["ms"] if lib else None,
+                         "library_graph_ms": library[lib].get("graph_ms") if lib else None,
+                         "library": lib, "library_forms": library,
+                         "bound_ms": b_ms, "bound_by": b_by})
+        del qs, w_bfs, qt
+    save(f"quant_matmul_{mode}.json", rows)
+
+    def total(sel, key):
+        vals = [r[key] for r in sel]
+        return sum(vals) if all(v is not None for v in vals) else None
+
+    step = [r for r in rows if r["M"] == m_step and r["proj"] != "lm_head"]
+    pre = [r for r in rows if r["M"] == m_prefill]
+    head = [r for r in rows if r["proj"] == "lm_head"]
+    layer = ", ".join(f"{r['proj']} {r['K']}x{r['N']} g{r['group']}" for r in step)
+    row = {"name": f"quant_matmul_{mode}", "path": f"quant_{mode}", "ok": bool(ok),
+           "max_abs_err": max_err,
+           "tolerance": "1e-2 x max|plain| (bf16 out), 1e-4 x max|plain| (f32 logits)",
+           "shape": f"{QUANT_ARCH} at {mode}: {layer}, summed at M={m_step}; prefill: at "
+                    f"M={m_prefill}" + (", lm_head (f32 out) alone as lm_head_*" if head
+                                        else "; its lm_head is int8 (K4's int8 form)"),
+           "ms": total(step, "ms"), "graph_ms": total(step, "graph_ms"),
+           "plain_ms": total(step, "plain_ms"), "bound_ms": total(step, "bound_ms"),
+           "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in step)
+           else "operations",
+           "library_ms": total(step, "library_ms"),
+           "library_graph_ms": total(step, "library_graph_ms"),
+           "library": "torch.mm on the weight dequantized to bf16 outside the timed call",
+           "prefill_ms": total(pre, "ms"), "prefill_graph_ms": total(pre, "graph_ms"),
+           "prefill_bound_ms": total(pre, "bound_ms"),
+           "prefill_library_ms": total(pre, "library_ms"),
+           "prefill_library_graph_ms": total(pre, "library_graph_ms")}
+    if head:
+        h = head[0]
+        row.update({"lm_head_n": h["N"], "lm_head_ms": h["ms"], "lm_head_graph_ms": h["graph_ms"],
+                    "lm_head_bound_ms": h["bound_ms"], "lm_head_library_ms": h["library_ms"],
+                    "lm_head_library_graph_ms": h["library_graph_ms"]})
+    return row
 
 
 def check_attention(gen, dev, path) -> list:
@@ -1602,6 +1746,8 @@ def phase_kernels() -> tuple:
         if _runs_k4(path):
             run(f"quant_matmul@{path}", check_quant_matmul, path)
     run("verify", check_verify)
+    for mode in QUANT_MODES:
+        run(f"quant_matmul_{mode}", check_quant_forms, mode)
     run("mha_varlen@vlm", check_mha_varlen)
     run("mha_varlen@llava", check_mha_varlen_llava)
     for path in ("next13b", "internvl", "vl2"):
@@ -1808,6 +1954,8 @@ def _plain_swaps() -> list:
     from hydrainfer_tpu_torch.ops.cuda import (kv_writer, mha_decode, paged_attention,
                                                quant_matmul)
     return [(quant, "quant_matmul_int8", quant_matmul.quant_matmul_int8_plain),
+            (quant, "quant_matmul_int4", quant_matmul.quant_matmul_int4_plain),
+            (quant, "quant_matmul_fp8", quant_matmul.quant_matmul_fp8_plain),
             (cache_ops, "write_kv_pages", kv_writer.write_kv_pages_plain),
             (attention, "mha_decode_attention", mha_decode.mha_decode_attention_plain),
             (attention, "paged_attention_varlen",
@@ -2288,6 +2436,114 @@ def phase_mla(dev="cuda") -> tuple:
     return phase_serve(MLA_ARCH, dev, MLA_REQUESTS, MLA_PROMPT, MLA_TOKENS, 2048,
                        phase="mla", must_run=MLA_KERNELS,
                        must_not_run=("mha_decode", "paged_attention"), eager_round=False)
+
+
+# ------------------------------------------------------------ phase: quant
+
+def _decode_step(graphs, lm, mode: str) -> dict:
+    """The decode step's device ms (the widest K = 16 window's graph replay
+    over 16) beside its byte bound: the weights a step reads as stored (the
+    layers' four projections, int4's group scales included, and the
+    lm_head, at `mode`; the embedding gather, the norms and the KV not
+    counted)."""
+    from hydrainfer_tpu_torch.models.random_init import quant_matmul_forms, quant_weight_bytes
+    keys = [(d, n, g) for (d, n), g in graphs.graphs.graphs.items() if n == 16]
+    d, n, g = max(keys, key=lambda x: x[0].S)
+    forms = quant_matmul_forms(lm.cfg, mode)
+    layer = sum(quant_weight_bytes(*f) for k, f in forms.items() if k != "lm_head")
+    n_bytes = lm.cfg.n_layers * layer + quant_weight_bytes(*forms["lm_head"])
+    return {"decode_step_device_ms": _replay_ms(g.graph, replays=5) / n,
+            "decode_step_key": f"T={d.T} S={d.S}",
+            "decode_step_bound_ms": 1e3 * n_bytes / HBM_BYTES_PER_S,
+            "decode_step_bound_bytes": n_bytes,
+            "quantized_forms": {k: {"K": f[0], "N": f[1], "fmt": f[2], "group": f[3]}
+                                for k, f in forms.items()}}
+
+
+def _quant_extra(mode: str, factory, dev):
+    """The quant phase's extra_fn for one mode: the decode step
+    (_decode_step), the weight bytes, and a short round
+    (QUANT_EAGER_REQUESTS x QUANT_EAGER_TOKENS) served by this engine from
+    its graphs and by a second engine on the same model with graphs off:
+    the greedy tokens must be identical."""
+    import numpy as np
+    from hydrainfer_tpu_torch.request import Request, SamplingParameters
+
+    def extra(engine, graphs, lm):
+        step = _decode_step(graphs, lm, mode)
+        rng = np.random.default_rng(SEED + 3)
+        prompts = [r.prompt for r in _requests(rng, QUANT_EAGER_REQUESTS, 128,
+                                               QUANT_EAGER_TOKENS, "q")]
+
+        def short(eng, tag):
+            reqs = [Request(request_id=f"{tag}{i}", prompt=p,
+                            sampling_params=SamplingParameters(
+                                max_tokens=QUANT_EAGER_TOKENS, ignore_eos=True))
+                    for i, p in enumerate(prompts)]
+            return [o.output_token_ids for o in eng.generate(reqs, timeout_s=600)]
+
+        replays0 = graphs.graphs.replays
+        graphed = short(engine, "qg")
+        replayed = graphs.graphs.replays - replays0
+        eager_engine = _engine(factory, dev, 8, 16, 256, PATH_SHAPES["serve"]["budget"],
+                               cuda_graphs=False)
+        eager = short(eager_engine, "qe")
+        del eager_engine
+        return {"ok": graphed == eager and replayed > 0
+                and all(len(t) == QUANT_EAGER_TOKENS for t in graphed),
+                **step, "weight_bytes": factory.param_bytes(),
+                "short_round": f"{QUANT_EAGER_REQUESTS} x {QUANT_EAGER_TOKENS} tokens",
+                "short_round_graph_replays": replayed,
+                "short_round_tokens_identical_graphs_off": graphed == eager}
+    return extra
+
+
+def phase_quant(dev="cuda") -> tuple:
+    """llava-7b-lm's language tower at full width and depth (32 layers,
+    seeded random weights quantized layer by layer as they are built) at
+    int4 (group 128; the lm_head int8) and then at fp8 (e4m3, per column),
+    int8 KV at 0.05, each served as the serve phase serves int8: 8 requests x
+    128-token prompts x 32 tokens, budget 256, K = 16 windows from CUDA
+    graphs, a warm-up, a measured and a profiled round. Checks per mode:
+    every request finishes with its tokens; K1-K3 and K4's form for the mode
+    launch in the measured round, and K4's int8 form only for the lm_head
+    (int4: 4 x 32 int4 launches for each int8 one; fp8: none); one 64-token
+    prefill's logits through the kernels against the plain versions
+    (_logits_check); a short round from the graphs equals the same round
+    with graphs off. Reports tokens/s, p50 TTFT, the decode step's device ms
+    beside its byte bound, peak memory and weight bytes."""
+    import gc
+    import torch
+    from hydrainfer_tpu_torch.models.random_init import ARCH_CONFIGS, RandomWeightFactory
+    n_proj = 4 * ARCH_CONFIGS[QUANT_ARCH].n_layers
+    result, counts, ok = {"phase": "quant", "gpu": gpu_name_and_limit()}, {}, True
+    for mode in QUANT_MODES:
+        factory = RandomWeightFactory(QUANT_ARCH, dtype=torch.bfloat16, quantization=mode,
+                                      kv_scale=0.05, device=torch.device(dev), seed=SEED)
+        kernel = f"quant_matmul_{mode}"
+        res, c = phase_serve(
+            QUANT_ARCH, dev, phase=f"quant_{mode}", factory=factory,
+            must_run=("mha_decode", "paged_attention", "kv_writer", kernel)
+            + (("quant_matmul",) if mode == "int4" else ()),
+            must_not_run=("quant_matmul",) if mode == "fp8" else (),
+            eager_round=False, extra_fn=_quant_extra(mode, factory, dev),
+            precision=(f"{mode} (" + ("group 128, lm_head int8" if mode == "int4"
+                                      else "e4m3, per column") + ")", "int8 (scale 0.05)"))
+        # K4's int8 form serves the lm_head alone: one call a forward step
+        # beside the 4 x 32 projections of the mode's form
+        head_ok = (c[kernel] == n_proj * c["quant_matmul"] if mode == "int4"
+                   else c["quant_matmul"] == 0)
+        res["lm_head_only_on_int8"] = head_ok
+        res["ok"] = bool(res["ok"] and head_ok)
+        ok = ok and res["ok"]
+        result[mode] = res
+        counts[mode] = c
+        del factory
+        gc.collect()
+        torch.cuda.empty_cache()
+    result["ok"] = bool(ok)
+    save("quant.json", result)
+    return result, counts
 
 
 # ------------------------------------------------------- phases: spec, sample
@@ -3497,12 +3753,62 @@ async def _cluster_round(cluster, reqs, timeout_s=300):
     return outs
 
 
+# the disagg phase's general topology logs the latency breakdown on every node
+BREAKDOWN_OVERLAY = {t: {"log_latency_breakdown": True} for t in ("E", "P", "D")}
+
+
+class BreakdownLog:
+    """The breakdowns the port's nodes log (cluster/node.py's
+    log_latency_breakdown, replaced while recording), each with the time it
+    was logged."""
+
+    def __init__(self):
+        from hydrainfer_tpu_torch.cluster import node
+        self.node, self.saved, self.logged = node, node.log_latency_breakdown, []
+
+    def start(self) -> None:
+        self.t0 = time.perf_counter()
+        self.node.log_latency_breakdown = lambda m: self.logged.append(
+            (m.breakdown(), time.perf_counter()))
+
+    def restore(self) -> None:
+        self.node.log_latency_breakdown = self.saved
+
+    def report(self, reqs) -> dict:
+        """Each finished request logged once; JAX's stage names (an image
+        request: its encode, two pulls (E -> P the ep_transfer, P -> D the
+        pd_transfer, as the JAX node names a request's first and second
+        pull), prefill and decode; a text one: one pull, prefill and
+        decode); every span non-negative and within the request's wall time
+        (the round's start to its log)."""
+        from hydrainfer_tpu_torch.engine.metric import STAGES
+        n_images = sum(r.image is not None for r in reqs)
+        text = {"prefill_execute", "decode_execute", "ep_transfer"}
+        image = text | {"encode_execute", "pd_transfer"}
+        names = [set(b) for b, _ in self.logged]
+        spans_ok = all(0.0 <= dt <= at - self.t0 for b, at in self.logged for dt in b.values())
+        ok = (len(self.logged) == len(reqs) and all(n <= set(STAGES) for n in names)
+              and sum("encode_execute" in n for n in names) == n_images
+              and all(n >= (image if "encode_execute" in n else text) for n in names)
+              and spans_ok)
+        stage_sets = {}
+        for n in names:
+            key = ",".join(st for st in STAGES if st in n)
+            stage_sets[key] = stage_sets.get(key, 0) + 1
+        return {"ok": bool(ok), "logged": len(self.logged), "requests": len(reqs),
+                "spans_within_wall_time": bool(spans_ok), "stage_sets": stage_sets,
+                "max_s": {st: max((b[st] for b, _ in self.logged if st in b), default=None)
+                          for st in STAGES}}
+
+
 def _disagg_topology(factory, preset, types, with_images, make_requests=None,
-                     overlay=None) -> tuple:
+                     overlay=None, breakdown=False) -> tuple:
     """Boot the topology, serve a warm-up round and the measured round, and
     check it (module docstring, `disagg`). make_requests(seed): each round's
-    requests (_disagg_requests by default); overlay: _disagg_cluster's.
-    Returns (report, the measured requests, their tokens)."""
+    requests (_disagg_requests by default); overlay: _disagg_cluster's;
+    breakdown: check the latency breakdown the nodes log in the measured
+    round (BreakdownLog; the overlay turns it on). Returns (report, the
+    measured requests, their tokens)."""
     import torch
     if make_requests is None:
         make_requests = lambda seed: _disagg_requests(seed, with_images)  # noqa: E731
@@ -3525,6 +3831,7 @@ def _disagg_topology(factory, preset, types, with_images, make_requests=None,
 
     keys0 = {n.name: keys(n) for n in nodes}
     spies = [NodeSpy(n) for n in nodes]
+    log = BreakdownLog() if breakdown else None
     try:
         asyncio.run(_cluster_round(cluster, make_requests(SEED + 6)))
         keys1 = {n.name: keys(n) for n in nodes}
@@ -3533,6 +3840,8 @@ def _disagg_topology(factory, preset, types, with_images, make_requests=None,
         reqs = make_requests(SEED + 7)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        if log is not None:
+            log.start()
         t1 = time.perf_counter()
         outs = asyncio.run(_cluster_round(cluster, reqs))
         torch.cuda.synchronize()
@@ -3540,6 +3849,8 @@ def _disagg_topology(factory, preset, types, with_images, make_requests=None,
     finally:
         for s in spies:
             s.restore()
+        if log is not None:
+            log.restore()
     n_tokens = [len(o.output_token_ids) for o in outs]
     tokens_ok = n_tokens == [r.sampling_params.max_tokens for r in reqs]
     image = [o.ttft for r, o in zip(reqs, outs) if r.image is not None]
@@ -3582,6 +3893,9 @@ def _disagg_topology(factory, preset, types, with_images, make_requests=None,
               "image_p50_ttft_s": sorted(image)[len(image) // 2] if image else None,
               "text_p50_ttft_s": sorted(text)[len(text) // 2] if text else None,
               "peak_memory_bytes": torch.cuda.max_memory_allocated(), "nodes": per_node}
+    if log is not None:
+        report["latency_breakdown"] = log.report(reqs)
+        ok = ok and report["latency_breakdown"]["ok"]
     report["ok"] = bool(ok)
     del cluster, spies, nodes
     return report, reqs, [o.output_token_ids for o in outs]
@@ -3638,7 +3952,11 @@ def phase_disagg(dev="cuda") -> dict:
     for name, preset, types, with_images in (("hybrid", "hybrid.yaml", None, True),
                                              ("general", "general.yaml", None, True),
                                              ("pd_text", "general.yaml", ("P", "D"), False)):
-        rep, reqs, tokens = _disagg_topology(factory, preset, types, with_images)
+        # general's nodes log the latency breakdown (BreakdownLog)
+        logs = name == "general"
+        rep, reqs, tokens = _disagg_topology(factory, preset, types, with_images,
+                                             overlay=BREAKDOWN_OVERLAY if logs else None,
+                                             breakdown=logs)
         ref = epd_tokens if with_images else epd_tokens[LLAVA_REQUESTS:]
         tie = _near_tie(factory.getLanguageModel(), factory.getTokenizer(), reqs, tokens, ref,
                         dev, vision=factory)
@@ -4859,7 +5177,7 @@ def phase_deepseek(dev="cuda") -> tuple:
     _moe_lm_factory: 27 layers, MLA on the int8 single-plane latent cache,
     64 routed experts through the grouped product, YaRN), served as the mla
     phase serves mla-2b-lm (phase_serve: 32 requests x 128-token prompts x
-    128 tokens, budget 2048, K = 16 windows from CUDA graphs; K6, K3 and K4
+    64 tokens, budget 2048, K = 16 windows from CUDA graphs; K6, K3 and K4
     launch, K1 and K2 never; a graphs-off round gives identical tokens; it
     is not profiled: the profiler's bookkeeping of an eager round's ~10^6
     events takes minutes).
@@ -5014,7 +5332,7 @@ def phase_gpt2(dev="cuda") -> tuple:
     """GPT-2 XL at full width and depth (_GPT2Factory: 48 layers x 1600, 25
     heads of 64, bf16 weights and a bf16 KV cache), served through
     OfflineEngine as phase_serve serves a text model: 32 requests x
-    128-token prompts x 128 tokens, budget 2048, single-step windows (GPT-2
+    128-token prompts x 64 tokens, budget 2048, single-step windows (GPT-2
     takes no fused window) from CUDA graphs; K1, K2 and K3 launch, K4 never;
     a graphs-off round gives identical tokens (not profiled). Logits: a
     512-token prefill in chunks of 256 at full depth through the kernels and
@@ -5466,7 +5784,7 @@ def main() -> int:
     global OUT_DIR
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
-                    default="build,kernels,tiny,serve,spec,sample,vlm,llava,disagg,process,"
+                    default="build,kernels,tiny,serve,quant,spec,sample,vlm,llava,disagg,process,"
                             "llavanext,internvl,mla,deepseek,vl2,mixtral,gpt2,online")
     ap.add_argument("--out-dir", default=OUT_DIR,
                     help="where the detail files go")
@@ -5493,7 +5811,7 @@ def main() -> int:
     failed, kernel_rows, counts = [], [], {"serve": {}, "spec": {}, "vlm": {}, "llava": {},
                                            "next13b": {}, "internvl": {}, "mla": {},
                                            "deepseek": {}, "vl2": {}, "mixtral": {},
-                                           "gpt2": {}}
+                                           "gpt2": {}, "quant_int4": {}, "quant_fp8": {}}
     process_counts = None       # the process phase's, summed over its node processes
     why = {}                    # a failed phase: what failed in it
     for phase in phases:
@@ -5511,7 +5829,15 @@ def main() -> int:
             elif phase == "tiny":
                 res = phase_tiny()
             elif phase == "serve":
-                res, counts["serve"] = phase_serve()
+                # the int8 decode step beside the quant phase's int4 and fp8;
+                # the graphs-off round unprofiled: the profiler's bookkeeping
+                # of an eager round costs tens of seconds of the time limit
+                res, counts["serve"] = phase_serve(
+                    extra_fn=lambda engine, graphs, lm: _decode_step(graphs, lm, "int8"),
+                    eager_profile=False)
+            elif phase == "quant":
+                res, by_mode = phase_quant()
+                counts.update({f"quant_{m}": c for m, c in by_mode.items()})
             elif phase == "spec":
                 res, counts["spec"] = phase_spec()
             elif phase == "sample":

@@ -78,6 +78,7 @@ import torch
 from ..engine.executor import FillExecutor, ImageEmbedExecutor
 from ..engine.isa import (EmptyInstruction, EPMigrate, Fill, ImageEmbed,
                           MigrateRequest, PullCache)
+from ..engine.metric import log_latency_breakdown
 from ..engine.profiler import BatchSchedulerProfiler, BatchSchedulerProfilerConfig
 from ..engine.rcb import BatchRequest, RequestControlBlock
 from ..engine.request_processor import (RequestProcessParameters,
@@ -218,9 +219,6 @@ def adaptive_postprocess_k(n_running: int, n_waiting: int, max_running: int,
 
 class AsyncEPDNode:
     def __init__(self, config: NodeConfig, context: NodeContext):
-        if config.log_latency_breakdown:
-            raise NotImplementedError("log_latency_breakdown is not ported yet "
-                                      "(ROADMAP.md queue 1, item 10)")
         self.config = config
         self.context = context
         self.name = f"{context.node_type}Node:{context.name}"
@@ -230,6 +228,9 @@ class AsyncEPDNode:
             logger.warning(f"{self.name}: TPU-only settings have no effect here: "
                            f"{tpu_only}")
         self._pending_fills = []
+        # log_latency_breakdown: per request (id of its rcb), the fill steps
+        # dispatched whose tokens have not reached the host yet
+        self._unread = {}
         self._stop = False
         self._tasks = []
         # in-flight cache pulls (background tasks) and what they moved
@@ -449,6 +450,8 @@ class AsyncEPDNode:
                 raise RuntimeError(f"unsupported instruction {type(inst)}")
 
         iee = self.image_embed_executor
+        stamped = (self._stamp_execute_begin(fills, embeds)
+                   if self.config.log_latency_breakdown else None)
         if len(fills):
             if not await self._speculate(fills):
                 # full fused window when throughput-bound, single steps when
@@ -458,8 +461,12 @@ class AsyncEPDNode:
                     n_steps = min(n_steps, self.config.encode_chunk_window)
                 if n_steps > 1:
                     n_steps = min(n_steps, self._load_k(n_steps))
-                self._pending_fills.append(
-                    self.fill_executor.execute(fills, n_steps=n_steps))
+                fut = self.fill_executor.execute(fills, n_steps=n_steps)
+                if stamped is not None:
+                    fut.on_read = lambda: self._stamp_execute_end(stamped)
+                self._pending_fills.append(fut)
+            elif stamped is not None:
+                self._stamp_execute_end(stamped)      # the verify step was read
         else:
             await self.flush_fills()
         # the encode after the fills: decode windows stay ahead of it in the
@@ -475,6 +482,12 @@ class AsyncEPDNode:
             embeds = BatchRequest()
         elif len(embeds):
             iee.execute(embeds)
+            if stamped is not None:
+                # the whole-tower encode's span ends where the JAX node's
+                # does: after the step's encode call
+                now = time.perf_counter()
+                for rcb, _ in embeds:
+                    rcb.metric.encode_execute.append(now)
         empties.step()
         await self._drain_pipeline()
         # the hand-offs after this step's dispatches and reads, as the JAX
@@ -492,7 +505,55 @@ class AsyncEPDNode:
         iee = self.image_embed_executor
         if iee is None or not iee.busy:
             return BatchRequest()
-        return iee.advance() or BatchRequest()
+        done = iee.advance() or BatchRequest()
+        if self.config.log_latency_breakdown:
+            now = time.perf_counter()
+            for rcb, _ in done:
+                rcb.metric.encode_execute.append(now)
+        return done
+
+    def _stamp_execute_begin(self, fills: BatchRequest, embeds: BatchRequest) -> list:
+        """Open the execute spans of this step's requests, as the JAX node
+        does: a fill's prefill_execute (more than one token) or
+        decode_execute span begins at its first step, an embed's
+        encode_execute span unless one is open. Returns (rcb, span) of each
+        fill, for _stamp_execute_end."""
+        now = time.perf_counter()
+        stamped = []
+        for rcb, inst in fills:
+            m = rcb.metric
+            span = m.prefill_execute if len(inst.position_ids) > 1 else m.decode_execute
+            if not span:
+                span.append(now)
+            stamped.append((rcb, span))
+            self._unread[id(rcb)] = self._unread.get(id(rcb), 0) + 1
+        for rcb, _ in embeds:
+            if len(rcb.metric.encode_execute) % 2 == 0:
+                rcb.metric.encode_execute.append(now)
+        return stamped
+
+    def _stamp_execute_end(self, stamped: list) -> None:
+        """Close (or move to now) the execute spans of one dispatched fill
+        step. It is called where the step's sampled tokens reach the host
+        (FillFuture.on_read, the async pipeline's read), not where the step
+        was dispatched: the JAX node's end stamp follows its own drain. A
+        request that finished before this read logs its breakdown here."""
+        now = time.perf_counter()
+        for rcb, span in stamped:
+            if len(span) == 1:
+                span.append(now)
+            elif len(span) > 1:
+                span[1] = now
+            left = self._unread.pop(id(rcb)) - 1
+            if left:
+                self._unread[id(rcb)] = left
+            elif rcb.metric.finished_time:
+                log_latency_breakdown(rcb.metric)
+
+    def _log_finished(self, rcb: RequestControlBlock) -> None:
+        """A finished request's breakdown, once its last tokens are read."""
+        if self.config.log_latency_breakdown and id(rcb) not in self._unread:
+            log_latency_breakdown(rcb.metric)
 
     async def _speculate(self, fills: BatchRequest) -> bool:
         """One speculative verify step for `fills`, if they qualify; whether
@@ -523,6 +584,7 @@ class AsyncEPDNode:
             if rcb.is_finished():
                 rcb.metric.finished_time = now
                 self._free_cache(rcb)
+                self._log_finished(rcb)
             else:
                 self.batch_scheduler.schedule_running(rcb)
 
@@ -627,7 +689,11 @@ class AsyncEPDNode:
         t0 = time.perf_counter()
         src_node = inst.src_node
         src_kv, src_img = rcb.virtual_kv_cache, rcb.virtual_image_cache
-        stage = rcb.metric.pd_transfer if src_kv is not None else rcb.metric.ep_transfer
+        # the JAX node's rule: a request's first pull is its ep_transfer
+        # span, a second its pd_transfer (so a text request's one P -> D
+        # pull logs as ep_transfer there too)
+        m = rcb.metric
+        stage = m.ep_transfer if not m.ep_transfer else m.pd_transfer
         stage.append(t0)
         old = copy.copy(rcb)
         # the token slot is the source executor's (freed through `old`); this
@@ -664,6 +730,7 @@ class AsyncEPDNode:
         if rcb.is_finished():
             rcb.metric.finished_time = now
             self._free_cache(rcb)
+            self._log_finished(rcb)
         else:
             self.batch_scheduler.schedule_running(rcb)
 

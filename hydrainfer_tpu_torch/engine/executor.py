@@ -82,6 +82,9 @@ class FillFuture(Future):
         self.n_steps = n_steps      # device steps this read covers
         # postprocess(plan, sampled): the host's consumption of the tokens
         self.postprocess = postprocess or postprocess_plan
+        # called once the tokens are on the host and postprocessed (the
+        # node's latency-breakdown stamp)
+        self.on_read = None
         self._done = False
         if sampled_dev.device.type == "cuda":
             # queued on the stream right behind the step: when the step was a
@@ -115,6 +118,8 @@ class FillFuture(Future):
             sampled = self._host.numpy()
         with hostprof.span("fill.postprocess"):
             self.postprocess(self.plan, sampled)
+        if self.on_read is not None:
+            self.on_read()
 
 
 def _tokens_done(rcb) -> bool:

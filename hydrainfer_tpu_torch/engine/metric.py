@@ -1,11 +1,16 @@
-"""Per-request latency metrics (port of hydrainfer_tpu/engine/metric.py).
+"""Per-request latency breakdown metrics (port of hydrainfer_tpu/engine/metric.py).
 
 Each stage list collects [begin, end] perf_counter stamps; the scheduler
-stamps the queueing spans.
+stamps the queueing spans, the node (with NodeConfig.log_latency_breakdown)
+the execute and transfer spans, and log_latency_breakdown emits each
+stage's duration under the JAX package's names.
 """
 from dataclasses import dataclass, field
 from typing import List
 
+from ..utils.logger import getLogger
+
+logger = getLogger(__name__)
 
 STAGES = ("encode_queueing", "encode_execute", "ep_transfer",
           "prefill_queueing", "prefill_execute", "pd_transfer",
@@ -35,3 +40,7 @@ class RequestMetric:
                 out[stage] = span[1] - span[0]
         return out
 
+
+def log_latency_breakdown(metric: RequestMetric) -> None:
+    for stage, dt in metric.breakdown().items():
+        logger.info(f"{stage} time: {dt}")

@@ -233,7 +233,7 @@ class ModelFactoryConfig:
     # implementation and layer-loop strategy; the port has one of each
     attention_impl: str = "auto"
     layer_loop: str = "auto"
-    quantization: str = "none"      # weight-only: none | int8
+    quantization: str = "none"      # weight-only: none | int8 | int4 | fp8
     kv_cache_dtype: str = "auto"    # auto (= model dtype) | int8
     kv_scale: float = 0.05          # static scale of an int8 KV cache
 

@@ -3,8 +3,9 @@ hydrainfer_tpu/models/random_init.py).
 
 The tensors have the shapes and dtypes of the converted checkpoints, so the
 run's cost is that of the real model. Weights come from a seeded
-torch.Generator on the target device; with int8 quantization each layer is
-quantized as it is built, so the full-precision tree never exists whole.
+torch.Generator on the target device; with quantization (int8, int4 or fp8)
+each layer is quantized as it is built, so the full-precision tree never
+exists whole.
 A multimodal factory adds a random CLIP tower (CLIP-L/14-336 by default)
 with the LLaVA projector to the language model's hidden size.
 (torch and jax.random give different numbers from one seed: tests that compare
@@ -86,6 +87,28 @@ def int8_matmul_shapes(cfg: DecoderConfig) -> dict:
     shapes.update({"o": (o_in, H), "gate_up": (H, 2 * cfg.intermediate_size),
                    "down": (cfg.intermediate_size, H), "lm_head": (H, cfg.vocab_size)})
     return shapes
+
+
+def quant_matmul_forms(cfg: DecoderConfig, mode: str) -> dict:
+    """{name: (K, N, fmt, group)} of int8_matmul_shapes' matmuls as
+    quantize_tree stores them in `mode` (int8 | int4 | fp8): int4 at the
+    group ops/quant.py:_group_for picks for K (0 = per column), its lm_head
+    int8; fp8 per column."""
+    from ..ops.quant import GROUP_SIZE, _group_for
+    out = {}
+    for name, (K, N) in int8_matmul_shapes(cfg).items():
+        if mode == "int4" and name != "lm_head":
+            out[name] = (K, N, "int4", _group_for(K, GROUP_SIZE))
+        else:
+            out[name] = (K, N, "fp8" if mode == "fp8" else "int8", 0)
+    return out
+
+
+def quant_weight_bytes(K: int, N: int, fmt: str, group: int = 0) -> int:
+    """Bytes of one quantized (K, N) weight as stored: the values (int4 two
+    a byte) and the f32 scales, (K / group, N) with a group, else (N,)."""
+    values = K * N // 2 if fmt == "int4" else K * N
+    return values + 4 * N * (K // group if group else 1)
 
 
 def _initializer(seed: int, dtype, device):

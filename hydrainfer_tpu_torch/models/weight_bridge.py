@@ -3,7 +3,9 @@
 `from_jax_numpy` takes the tree that
 hydrainfer_tpu.models.random_init.init_decoder_weights returns, with every
 leaf already turned into numpy (a quantized leaf is any object with `.q` and
-`.scale` numpy arrays), and returns the port's weight dict. It imports
+`.scale` numpy arrays; its `bits`, `fmt` and `group` carry over: int8,
+int4 packed two a byte, fp8 as ml_dtypes float8_e4m3fn), and returns the
+port's weight dict. It imports
 nothing of the JAX package: the caller does the JAX-side conversion, e.g.
 ``jax.tree_util.tree_map(np.asarray, tree)``, BEFORE handing the tree to the
 JAX model (whose weight packing consumes it). Every leaf carries over as it
@@ -38,8 +40,11 @@ from ..utils.device import resolve_device
 
 def _tensor(a, device) -> torch.Tensor:
     a = np.array(a)                         # a writable copy
-    if a.dtype.name == "bfloat16":          # ml_dtypes bfloat16: share the bits
+    # ml_dtypes bfloat16 and float8_e4m3fn: share the bits
+    if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    elif a.dtype.name == "float8_e4m3fn":
+        t = torch.from_numpy(a.view(np.uint8)).view(torch.float8_e4m3fn)
     else:
         t = torch.from_numpy(a)
     return t.to(device)
@@ -49,10 +54,9 @@ def _leaf(x, device):
     if isinstance(x, tuple):                # GPT-2's (weight, bias) pairs
         return tuple(_leaf(v, device) for v in x)
     if hasattr(x, "q") and hasattr(x, "scale"):
-        if getattr(x, "bits", 8) != 8 or getattr(x, "group", 0) \
-                or getattr(x, "fmt", "int") != "int":
-            raise NotImplementedError("only per-column int8 weights bridge over")
-        return QuantizedTensor(_tensor(x.q, device), _tensor(x.scale, device))
+        return QuantizedTensor(_tensor(x.q, device), _tensor(x.scale, device),
+                               bits=getattr(x, "bits", 8), fmt=getattr(x, "fmt", "int"),
+                               group=getattr(x, "group", 0))
     return _tensor(x, device)
 
 

@@ -15,13 +15,15 @@ from .mha_decode import mha_decode_attention
 from .mha_varlen import mha_varlen_flash
 from .paged_attention import paged_attention_varlen
 from .paged_attention_latent import paged_attention_latent
-from .quant_matmul import quant_matmul_int8
+from .quant_matmul import quant_matmul_fp8, quant_matmul_int4, quant_matmul_int8
 
 WRAPPERS = {
     "mha_decode": mha_decode_attention,
     "paged_attention": paged_attention_varlen,
     "kv_writer": write_kv_pages,
     "quant_matmul": quant_matmul_int8,
+    "quant_matmul_int4": quant_matmul_int4,
+    "quant_matmul_fp8": quant_matmul_fp8,
     "mha_varlen": mha_varlen_flash,
     "paged_attention_latent": paged_attention_latent,
     "grouped_mm": grouped_mm,

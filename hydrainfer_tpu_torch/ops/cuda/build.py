@@ -3,7 +3,7 @@
 Each ``csrc/<name>.cu`` compiles on its own with ``nvcc -gencode
 arch=compute_90a,code=sm_90a -O3 -shared`` into
 ``hydrainfer_tpu_torch/_build/<name>-<hash>.so`` (the directory is
-git-ignored). The hash covers the source, the shared header and the flags, so
+git-ignored). The hash covers the source, the shared headers and the flags, so
 an edited source rebuilds and an unchanged one is loaded as it is. The first
 call to a kernel builds its library; ``build_all`` starts one nvcc per source
 at once. Nothing here runs when the module is imported.
@@ -24,7 +24,7 @@ PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 KERNELS = ("mha_decode", "paged_attention", "kv_writer", "quant_matmul", "mha_varlen",
-           "paged_attention_latent")
+           "paged_attention_latent", "quant_matmul_int4", "quant_matmul_fp8")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v"]
 
@@ -40,6 +40,8 @@ SIGNATURES = {
     "kv_writer": ("hydra_kv_write",
                   [_P, _P, _L, _L, _P, _P] + [_I] * 7 + [_L, _I, _L, _I, _F, _P]),
     "quant_matmul": ("hydra_quant_matmul", [_P] * 4 + [_I] * 8 + [_P]),
+    "quant_matmul_int4": ("hydra_quant_matmul_int4", [_P] * 4 + [_I] * 9 + [_P]),
+    "quant_matmul_fp8": ("hydra_quant_matmul_fp8", [_P] * 4 + [_I] * 9 + [_P]),
     "mha_varlen": ("hydra_mha_varlen",
                    [_P] * 4 + [_L] * 4 + [_P] * 5 + [_I] * 4 + [_F, _I, _P]),
     "paged_attention_latent": ("hydra_paged_attention_latent",
@@ -63,7 +65,7 @@ def nvcc_path() -> str:
 def library_path(name: str) -> Path:
     h = hashlib.sha256()
     for part in ((CSRC_DIR / f"{name}.cu").read_bytes(),
-                 (CSRC_DIR / "common.cuh").read_bytes(),
+                 *(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh"))),
                  " ".join(NVCC_FLAGS).encode()):
         h.update(part)
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"

@@ -184,9 +184,15 @@ def test_strict_preset_logs_its_tpu_only_key(monkeypatch):
 
 @pytest.mark.parametrize("override,item", [("log_latency_breakdown=true", "item 10")])
 def test_still_to_port_feature_raises_with_its_queue_item(override, item):
+    """No node setting is refused any more: each one a queue item once
+    refused (log_latency_breakdown, item 10) now loads and builds a node
+    that keeps it (tests/test_torch_breakdown.py runs it)."""
+    key, value = override.split("=")
     cfg = load_config(NodeConfig, None, [override])
-    with pytest.raises(NotImplementedError, match=f"queue 1, {item}"):
-        AsyncEPDNode(cfg, NodeContext(node_type=NodeType("PD"), device="cpu"))
+    assert getattr(cfg, key) is (value == "true")
+    node = AsyncEPDNode(cfg, NodeContext(node_type=NodeType("PD"), device="cpu"))
+    assert getattr(node.config, key) is (value == "true")
+    node.init(_fake_factory())
 
 
 @pytest.mark.parametrize("node_type", ["EPD", "PD"])

@@ -52,7 +52,8 @@ def test_port_and_chip_smoke_import_no_jax():
                  "models.clip", "models.llava", "ops.token_pruning",
                  "cluster.rpc", "cluster.process_node", "utils.socket_utils",
                  "utils.zmq_utils", "ops.moe", "models.deepseek_v3",
-                 "models.deepseek_vl2", "models.mixtral", "models.gpt2"):
+                 "models.deepseek_vl2", "models.mixtral", "models.gpt2", "utils.debug",
+                 "utils.profiler", "utils.statistic", "utils.image_utils"):
         assert "hydrainfer_tpu_torch." + name in res["imported"]
     assert res["bad"] == []
 

@@ -124,3 +124,29 @@ def test_k6_bound_catches_a_missing_tile(form):
     miss = paged_attention_varlen_plain(q, clean, kl, t, cu, ns, sm, SCALE)
     row = int(cu[s])
     assert (miss[row] - ref[row]).abs().max().item() > bound
+
+
+@pytest.mark.parametrize("mode,layer_mb,step_gb", [("int8", 202.545, 6.613),
+                                                   ("int4", 107.512, 3.572),
+                                                   ("fp8", 202.545, 6.613)])
+def test_k4_byte_bound_counts_the_stored_bytes(mode, layer_mb, step_gb):
+    """K4's byte bound at llava-7b-lm counts each weight as stored: int4
+    packed two a byte plus its f32 group scales (g = 128: K / 128 rows), int8
+    and fp8 a byte plus a column scale; the lm_head int8 in int4 mode. One
+    layer's four projections, and a whole decode step's weights (32 layers
+    and the lm_head), over 3.35 TB/s: 1.07 ms at int4 against 1.97 at int8."""
+    from hydrainfer_tpu_torch.models.random_init import (ARCH_CONFIGS, quant_matmul_forms,
+                                                         quant_weight_bytes)
+    cfg = ARCH_CONFIGS["llava-7b-lm"]
+    forms = quant_matmul_forms(cfg, mode)
+    nbytes = {name: quant_weight_bytes(*f) for name, f in forms.items()}
+    layer = sum(v for k, v in nbytes.items() if k != "lm_head")
+    assert layer / 1e6 == pytest.approx(layer_mb, abs=0.001)
+    assert nbytes["lm_head"] == 4096 * 32064 + 4 * 32064
+    if mode == "int4":
+        assert {f[3] for k, f in forms.items() if k != "lm_head"} == {128}
+        # the packed values and the scales
+        assert layer == 202_375_168 // 2 + 4 * (32 * (12288 + 4096 + 22016) + 86 * 4096)
+    step = cfg.n_layers * layer + nbytes["lm_head"]
+    assert step / 1e9 == pytest.approx(step_gb, abs=0.001)
+    assert 1e3 * step / 3.35e12 == pytest.approx({"int4": 1.07}.get(mode, 1.97), abs=0.01)

@@ -38,7 +38,13 @@ form, and their boundary at 64/65), at ragged N (200, 72) and K (5472, 200,
 104), with bf16 out held within 2e-2 and f32 logits within 1e-4 of the f32
 plain version (a result missing one K slice breaks the bf16 bound:
 test_torch_quant_matmul.py); two calls agree bit for bit, and so do two
-replays of a CUDA graph that captured it. The block migration between two
+replays of a CUDA graph that captured it. K4's int4 and fp8 forms (weights
+from the port's own quantize_int4 / quantize_fp8, group 0, 32, 64 and 128)
+are held to their plain versions (JAX's arithmetic: with a group the weight
+is rounded to x's dtype before the product) at M 1, 16, 64, 65 and 256, N
+201 (no row 16-byte aligned) and 256, bf16 and f32 x, within the int8
+form's bounds, at the llava-7b-lm projections, bit for bit across two calls
+and two graph replays; their shared-memory plans equal the kernels'. The block migration between two
 caches on the card (gather_blocks, then scatter_blocks) moves int8 and bf16
 KV, MLA plane and image blocks bit for bit and touches no other block. K5
 also runs at SigLIP's 16 heads of 72 padded to 80 (DeepSeek-VL2), its
@@ -65,7 +71,12 @@ from hydrainfer_tpu_torch.ops.cuda.mha_varlen import mha_varlen_plain
 from hydrainfer_tpu_torch.ops.cuda.paged_attention import \
     paged_attention_varlen_plain
 from hydrainfer_tpu_torch.ops.cuda.quant_matmul import (FORM_CODES, plan,
+                                                        quant_matmul_fp8,
+                                                        quant_matmul_fp8_plain,
+                                                        quant_matmul_int4,
+                                                        quant_matmul_int4_plain,
                                                         quant_matmul_int8_plain)
+from hydrainfer_tpu_torch.ops.quant import quantize_fp8, quantize_int4
 
 pytestmark = pytest.mark.cuda
 SCALE = 0.05
@@ -388,6 +399,110 @@ def test_k4_counts_its_launches(dev):
     before = quant_matmul_int8.launches
     quant_matmul_int8(x, w, scale)
     assert quant_matmul_int8.launches == before + 1
+
+
+K4_FORMS = {"int4": (quantize_int4, quant_matmul_int4, quant_matmul_int4_plain),
+            "fp8": (quantize_fp8, quant_matmul_fp8, quant_matmul_fp8_plain)}
+
+
+def _k4_form_case(fmt, group, M, K, N, seed=11):
+    """x (M, K) f32 and a weight of K x N values ~N(0, 1/K) quantized by the
+    port's own quantize function at `group` (0: per column)."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((K, N)) / K ** 0.5).astype(np.float32))
+    qt = K4_FORMS[fmt][0](w, group=group)
+    assert qt.group == group
+    return x, qt
+
+
+def _check_k4_form(dev, fmt, group, M, K, N, x_dtype, out_dtype, seed=11):
+    _, kernel, plain = K4_FORMS[fmt]
+    x, qt = _k4_form_case(fmt, group, M, K, N, seed)
+    x, w, scale = x.to(dev, x_dtype), qt.q.to(dev), qt.scale.to(dev)
+    got = kernel(x, w, scale, qt.group, out_dtype)
+    ref = plain(x, w, scale, qt.group, torch.float32)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and got.shape == (M, N)
+    tol = 1e-4 if out_dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), ref, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("x_dtype,out_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+    (torch.float32, torch.float32)], ids=["bf16", "bf16_f32out", "f32"])
+@pytest.mark.parametrize("N", [201, 256])
+@pytest.mark.parametrize("M", [1, 16, 64, 65, 256])
+@pytest.mark.parametrize("group", [0, 32, 64, 128])
+@pytest.mark.parametrize("fmt", list(K4_FORMS))
+def test_k4_int4_fp8_forms(dev, fmt, group, M, N, x_dtype, out_dtype):
+    """K = 384 (six K tiles; 12, 6 or 3 groups), N = 201 (odd: no weight or
+    scale row 16-byte aligned, masked loads at every row) and 256."""
+    _check_k4_form(dev, fmt, group, M, 384, N, x_dtype, out_dtype)
+
+
+# llava-7b-lm's projections: the int4 and fp8 forms serve them in the quant phase
+_LLAVA_K4 = {k: v for k, v in int8_matmul_shapes(ARCH_CONFIGS["llava-7b-lm"]).items()}
+
+
+@pytest.mark.parametrize("M", [16, 256])
+@pytest.mark.parametrize("proj", list(_LLAVA_K4))
+@pytest.mark.parametrize("fmt,group", [("int4", 128), ("fp8", 0), ("fp8", 128)])
+def test_k4_forms_at_llava_shapes(dev, fmt, group, proj, M):
+    K, N = _LLAVA_K4[proj]
+    out_dtype = torch.float32 if proj == "lm_head" else torch.bfloat16
+    _check_k4_form(dev, fmt, group, M, K, N, torch.bfloat16, out_dtype, seed=M + K + N)
+
+
+@pytest.mark.parametrize("fmt,group", [("int4", 128), ("int4", 0), ("fp8", 0), ("fp8", 64)])
+def test_k4_forms_deterministic_and_graph_replay(dev, fmt, group):
+    """serve's down at M = 16 (a skinny split) and o at M = 256 (a wide
+    split): two calls agree bit for bit, and two replays of a CUDA graph
+    that captured the call give the eager result."""
+    _, kernel, _ = K4_FORMS[fmt]
+    for M, K, N in ((16, 11008, 4096), (256, 4096, 4096)):
+        x, qt = _k4_form_case(fmt, group, M, K, N, seed=8)
+        x, w, scale = x.to(dev, torch.bfloat16), qt.q.to(dev), qt.scale.to(dev)
+        eager = kernel(x, w, scale, qt.group)
+        assert torch.equal(eager, kernel(x, w, scale, qt.group))
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            kernel(x, w, scale, qt.group)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = kernel(x, w, scale, qt.group)
+        for _ in range(2):
+            out.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, eager)
+
+
+@pytest.mark.parametrize("M", [1, 8, 16, 17, 32, 64, 65, 256, 2048])
+@pytest.mark.parametrize("fmt", list(K4_FORMS))
+def test_k4_forms_plan_states_the_kernels_shared_memory(dev, fmt, M):
+    import ctypes
+    from hydrainfer_tpu_torch.ops.cuda import build
+    name = f"quant_matmul_{fmt}"
+    build.build_all([name])
+    smem = getattr(ctypes.CDLL(str(build.library_path(name))), f"hydra_{name}_smem")
+    smem.argtypes, smem.restype = [ctypes.c_int] * 4, ctypes.c_int
+    form = plan(M, 4096, 4096).form
+    for bn in ((64, 128, 256) if form == "skinny" else (128,)):
+        p = plan(M, 4096, 4096)._replace(bn=bn)
+        for grouped in (False, True):
+            assert smem(FORM_CODES[form], bn, M, int(grouped)) == \
+                p.smem_bytes(M, fmt, grouped), (p, grouped)
+
+
+def test_k4_forms_count_their_launches(dev):
+    for fmt, (_, kernel, _) in K4_FORMS.items():
+        x, qt = _k4_form_case(fmt, 128, 16, 512, 256)
+        before = kernel.launches
+        kernel(x.to(dev, torch.bfloat16), qt.q.to(dev), qt.scale.to(dev), qt.group)
+        assert kernel.launches == before + 1
 
 
 def _check_k5(dev, dtype, q, k, v, ids, kv_ids=None, q_pos=None, kv_pos=None):
@@ -981,3 +1096,19 @@ def test_moe_layer_graph_replay_equals_eager(dev):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(out, _mlp(new, lw, cfg))
+
+
+def test_debug_probe_raises_inside_a_graph_capture(dev, monkeypatch):
+    """utils/debug.py: a probe outside a capture keeps a CPU copy; one inside
+    a CUDA-graph capture raises instead of recording nothing."""
+    from hydrainfer_tpu_torch.utils import debug
+    monkeypatch.setattr(debug, "_ENABLED", True)
+    monkeypatch.setattr(debug, "_REGISTRY", {})
+    x = torch.arange(4, device=dev, dtype=torch.float32)
+    debug.probe("x", x * 2)
+    assert debug._REGISTRY["x"][0].tolist() == [0.0, 2.0, 4.0, 6.0]
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="CUDA-graph capture"):
+        with torch.cuda.graph(graph):
+            debug.probe("x", x * 3)
+    assert len(debug._REGISTRY["x"]) == 1

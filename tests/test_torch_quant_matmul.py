@@ -131,3 +131,115 @@ def test_wrapper_launches_the_plan_from_shapes(monkeypatch, M, K, N):
     assert name == "quant_matmul"
     assert args[4:] == (M, K, N, 1, 0, qmm.FORM_CODES[p.form], p.bn, p.splits)
     assert out.shape == (M, N) and out.dtype == torch.float32
+
+
+# ---------------------------------------------- the int4 and fp8 forms
+
+from hydrainfer_tpu_torch.ops.quant import quantize_fp8, quantize_int4  # noqa: E402
+
+FORM_QUANT = {"int4": quantize_int4, "fp8": quantize_fp8}
+FORM_KERNEL = {"int4": qmm.quant_matmul_int4, "fp8": qmm.quant_matmul_fp8}
+FORM_PLAIN = {"int4": qmm.quant_matmul_int4_plain, "fp8": qmm.quant_matmul_fp8_plain}
+
+
+@pytest.mark.parametrize("grouped", [False, True])
+@pytest.mark.parametrize("fmt", ["int8", "int4", "fp8"])
+@pytest.mark.parametrize("M", M_SWEEP)
+def test_every_forms_shared_memory_fits_a_block(M, fmt, grouped):
+    """Every strip width of the form at M: the ring (half-height packed
+    tiles for int4, 4 scale rows a stage with groups) within 227 KB, and the
+    merge tile within the ring."""
+    form = qmm.plan(M, 4096, 4096).form
+    for bn in ((64, 128, 256) if form == "skinny" else (128,)):
+        p = qmm.Plan(form, bn, 1)
+        smem = p.smem_bytes(M, fmt, grouped)
+        assert smem <= qmm.MAX_SMEM
+        rows = (8 * (1 if M <= 8 else 2 if M <= 16 else 4 if M <= 32 else 8)
+                if form == "skinny" else qmm.WIDE_ROWS)
+        assert rows * (bn + 4) * 4 <= smem
+    if fmt == "int8" and not grouped:
+        assert qmm.Plan(form, bn, 1).smem_bytes(M) == smem      # int8's default
+
+
+def _form_case(fmt, M, K, N, group, seed=0):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((K, N)) / K ** 0.5).astype(np.float32))
+    return x, FORM_QUANT[fmt](w, group=group)
+
+
+# (M, K, N, group): a skinny split with g = 128, a ragged K and N per column,
+# a wide split with g = 64, a K with no whole K tile at g = 32
+FORM_SPLIT_CASES = [(16, 2048, 256, 128), (3, 200, 72, 0), (100, 2048, 256, 64),
+                    (65, 1000, 136, 32)]
+
+
+@pytest.mark.parametrize("fmt", ["int4", "fp8"])
+@pytest.mark.parametrize("M,K,N,group", FORM_SPLIT_CASES)
+def test_forms_split_plain_matches_the_plain_version(fmt, M, K, N, group):
+    x, qt = _form_case(fmt, M, K, N, group)
+    for x_dtype in (torch.float32, torch.bfloat16):
+        xd = x.to(x_dtype)
+        got = qmm.quant_matmul_split_plain(xd, qt.q, qt.scale, fmt, qt.group, torch.float32)
+        ref = FORM_PLAIN[fmt](xd, qt.q, qt.scale, qt.group, torch.float32)
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-5 * ref.abs().max().item())
+
+
+@pytest.mark.parametrize("fmt", ["int4", "fp8"])
+@pytest.mark.parametrize("M,K,N,group", [(16, 2048, 256, 128), (100, 2048, 256, 0),
+                                         (32, 5504, 128, 64)])
+def test_forms_bf16_bound_catches_a_missing_split(fmt, M, K, N, group):
+    """The card tests' 2e-2 bound on the new forms holds the kernels'
+    arithmetic rounded to bf16 and rejects it without any one K slice."""
+    x, qt = _form_case(fmt, M, K, N, group, seed=2)
+    x = x.to(torch.bfloat16)
+    ref = FORM_PLAIN[fmt](x, qt.q, qt.scale, qt.group, torch.float32)
+    got = qmm.quant_matmul_split_plain(x, qt.q, qt.scale, fmt, qt.group, torch.bfloat16)
+    torch.testing.assert_close(got.float(), ref, rtol=2e-2, atol=2e-2)
+    splits = qmm.plan(M, K, N).splits
+    assert splits > 1
+    w_eff = (qmm.dequantize_weight(qt.q, qt.scale, fmt, qt.group, x.dtype) if qt.group
+             else qmm.weight_values(qt.q, fmt))
+    parts = qmm.split_partials(x, w_eff)
+    for drop in range(splits):
+        kept = [parts[i] for i in range(splits) if i != drop]
+        miss = sum(kept[1:], kept[0])
+        miss = (miss if qt.group else miss * qt.scale[None, :]).to(torch.bfloat16)
+        with pytest.raises(AssertionError):
+            torch.testing.assert_close(miss.float(), ref, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("fmt,group", [("int4", 128), ("int4", 0), ("fp8", 0), ("fp8", 64)])
+@pytest.mark.parametrize("M,K,N", [(16, 11008, 4096), (32, 4096, 32000), (256, 4096, 4096),
+                                   (2048, 4096, 22016)])
+def test_forms_launch_the_plan_from_shapes(monkeypatch, fmt, group, M, K, N):
+    """On "meta" tensors (no data: a host read would raise), as a CUDA
+    graph's capture needs: the wrapper passes `plan`'s launch and the
+    group."""
+    calls = []
+    monkeypatch.setattr(build, "launch", lambda name, *args: calls.append((name, args)))
+    meta = dict(device="meta")
+    w = (torch.empty((K // 2, N), dtype=torch.int8, **meta) if fmt == "int4"
+         else torch.empty((K, N), dtype=torch.float8_e4m3fn, **meta))
+    scale = torch.empty((K // group, N) if group else (N,), dtype=torch.float32, **meta)
+    out = FORM_KERNEL[fmt](torch.empty((M, K), dtype=torch.bfloat16, **meta), w, scale, group,
+                           torch.bfloat16)
+    (name, args), = calls
+    p = qmm.plan(M, K, N)
+    # (x, w, scale, out, M, K, N, group, x dtype, out dtype, form, bn, splits)
+    assert name == f"quant_matmul_{fmt}"
+    assert args[4:] == (M, K, N, group, 1, 1, qmm.FORM_CODES[p.form], p.bn, p.splits)
+    assert out.shape == (M, N) and out.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("fmt", ["int4", "fp8"])
+def test_forms_refuse_what_the_kernel_does_not_take(fmt):
+    meta = dict(device="meta")
+    x = torch.empty((16, 96), dtype=torch.bfloat16, **meta)
+    w = (torch.empty((48, 64), dtype=torch.int8, **meta) if fmt == "int4"
+         else torch.empty((96, 64), dtype=torch.float8_e4m3fn, **meta))
+    with pytest.raises(ValueError, match="group 24"):          # not a 16-multiple
+        FORM_KERNEL[fmt](x, w, torch.empty((4, 64), dtype=torch.float32, **meta), 24)
+    with pytest.raises(ValueError, match="scale"):
+        FORM_KERNEL[fmt](x, w, torch.empty((2, 64), dtype=torch.float32, **meta), 32)
+    assert not qmm.group_ok(48) and qmm.group_ok(192) and qmm.group_ok(16)
