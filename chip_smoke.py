@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases build,kernels,deepseek,vl2   # DeepSeek MoE and VL2
     python3 chip_smoke.py --phases build,kernels,mixtral,gpt2   # Mixtral and GPT-2
     python3 chip_smoke.py --phases build,quant      # llava-7b-lm at int4 and fp8
+    python3 chip_smoke.py --phases build,quality    # the quality scripts on the card
 
 Phases, each printing one JSON line:
   build    compile the Hopper kernels of hydrainfer_tpu_torch/csrc (nvcc,
@@ -79,6 +80,32 @@ Phases, each printing one JSON line:
            it reports tokens/s, p50 TTFT, the decode step's device ms
            beside its byte bound (1.07 ms at int4, 1.97 at fp8), peak
            memory and weight bytes;
+  quality  the port's quality scripts (hydrainfer_tpu_torch/evaluation) on the
+           card: quant_quality's tiny Llama (vocab 2048, hidden 256, 4 layers,
+           GQA 8:4) and DeepSeek-V3 MLA (q-LoRA, 8 experts top-2)
+           checkpoints, each trained 400 steps on the card (HF
+           transformers) and evaluated in the script's six configs (bf16,
+           int8, int4, fp8, int8 KV, int8 + int8 KV) on 8 held-out
+           sequences twice, through the kernels and through the plain
+           versions: per config the NLLs within 0.01 nats, top-1 agreement
+           of the two runs >= 0.99, K4's form for the config launched (the
+           int8 form only for int4's lm_head) and K2 or K6 with K3; both
+           tables printed. The trained Llama's correctness dumps (a
+           word-level tokenizer saved beside it; 8 prompts x 32 tokens) at
+           bf16, int8, int4 and fp8 on the card, compared with the card's
+           bf16 dump, and the CPU's bf16 dump equal to it or first
+           differing at a near tie; model_params for every ARCH_CONFIGS
+           entry from shapes alone. llava-7b-lm at full width from one
+           seeded bf16 tree quantized in turn: the six configs'
+           all-position logits over 4 x 512 tokens (KL and top-1 against
+           bf16 printed, no ordering checked: random weights), one
+           all-position prefill's span and device time, the int4 config's
+           logits against the plain versions (_logits_check), and
+           getModelParamsCount() of the bf16 tree equal to param_count().
+           Then K4 for the lm_head at every position (M 512, N 32064, f32
+           out) in its int8, int4 and fp8 forms and K2 on a lone 512-row
+           prefill (and through the all-position batch's 512 padded
+           sequences: the same rows) as kernel rows of path "quality";
   spec     n-gram speculative decoding on llava-7b-lm (full width, int8
            weights, int8 KV): four lookup-friendly requests (a seeded 32-token
            sequence repeated four times, 128 tokens each) on an engine of 8
@@ -343,6 +370,14 @@ KERNEL_SOURCES = {
 QUANT_MODES = ("int4", "fp8")
 QUANT_ARCH = "llava-7b-lm"
 QUANT_EAGER_REQUESTS, QUANT_EAGER_TOKENS = 2, 8
+# the quality phase: the quant_quality script's two checkpoints trained on
+# the card (its 400 steps, 8 held-out sequences), its six configs on
+# llava-7b-lm at full width (4 x 512 tokens), and the correctness dumps of
+# the trained tiny Llama
+QUALITY_TRAIN_STEPS, QUALITY_SEQS = 400, 8
+QUALITY_ARCH, QUALITY_FULL_SEQS, QUALITY_FULL_T = "llava-7b-lm", 4, 512
+QUALITY_DUMP_PROMPTS, QUALITY_DUMP_TOKENS = 8, 32
+QUALITY_NLL_NATS, QUALITY_TOP1 = 0.01, 0.99
 SERVE_KERNELS = ("mha_decode", "paged_attention", "kv_writer", "quant_matmul")
 VLM_KERNELS = SERVE_KERNELS + ("mha_varlen",)
 # the MLA path's kernels; K1 and K2 must not run on it
@@ -667,10 +702,19 @@ PATH_SHAPES["gpt2"] = dict(PATH_SHAPES["mixtral"], arch="gpt2-xl", kv="bf16")
 # and every int8 projection, lm_head included, at M = T through K4
 VERIFY_SHAPES = dict(arch="llava-7b-lm", K1=13,
                      mixed=[(13, 181 + 7 * s) for s in range(8)], T=128)
+# the quality phase's all-position prefill (llava-7b-lm, one 512-token
+# sequence over the bf16 cache of the bf16 baseline) through K2, and the
+# lm_head at every position (M = 512, f32 out) through K4's three forms
+QUALITY_SHAPES = dict(arch=QUALITY_ARCH, kv="bf16", mixed=[(QUALITY_FULL_T, QUALITY_FULL_T)],
+                      T=QUALITY_FULL_T)
+
+
+def _shapes(path: str) -> dict:
+    return {"spec": VERIFY_SHAPES, "quality": QUALITY_SHAPES}.get(path) or PATH_SHAPES[path]
 
 
 def _arch_name(path: str) -> str:
-    return (VERIFY_SHAPES if path == "spec" else PATH_SHAPES[path])["arch"]
+    return _shapes(path)["arch"]
 
 
 def _arch_cfg(path: str):
@@ -712,8 +756,7 @@ def _int8_shapes(path: str) -> dict:
 def _kv_scale(path: str):
     """The KV scale of a path's cache: 0.05 over int8, None over the bf16
     cache of a path whose PATH_SHAPES entry says kv="bf16"."""
-    shp = VERIFY_SHAPES if path == "spec" else PATH_SHAPES[path]
-    return None if shp.get("kv") == "bf16" else 0.05
+    return None if _shapes(path).get("kv") == "bf16" else 0.05
 
 
 def _kv_what(kv_scale) -> str:
@@ -1910,18 +1953,12 @@ def _prefill_logits(lm, tokens, device, **batch_kw):
     """One prefill of `lm` (_prefill_batches) on a scratch cache; returns the
     sampled rows' f32 logits, (rows, vocab)."""
     import torch
-    from hydrainfer_tpu_torch.models.decoder import decoder_forward
     batches, shape = _prefill_batches(lm.cfg, tokens, device, **batch_kw)
     int8_kv = getattr(lm.cfg, "kv_scale", None) is not None      # GPT-2: none
     cache = torch.zeros(shape, dtype=torch.int8 if int8_kv else lm.dtype, device=device)
-    table = torch.zeros(2, dtype=torch.int32, device=device)
     out = []
     for batch, n in batches:
-        if hasattr(lm, "forward_with_logits"):          # GPT-2
-            _, logits = lm.forward_with_logits(cache, batch, n)
-        else:
-            _, logits = decoder_forward(lm.weights, cache, batch, lm.cos_tab, lm.sin_tab,
-                                        lm.cfg, n, table, return_logits=True)
+        _, _, logits = lm.forward_with_logits(cache, batch, n)
         out.append(logits.float())
     return torch.cat(out)
 
@@ -2544,6 +2581,341 @@ def phase_quant(dev="cuda") -> tuple:
     result["ok"] = bool(ok)
     save("quant.json", result)
     return result, counts
+
+
+# ------------------------------------------------------------ phase: quality
+
+def check_quality_k4(gen, dev) -> list:
+    """K4 for the lm_head at every position of a 512-token sequence (M 512,
+    K 4096, N 32064, f32 out), llava-7b-lm's, in its int8, int4 (group 128)
+    and fp8 forms: the weight N(0, 1/K) quantized on the card by the port's
+    quantize functions, each form held to its plain version, timed eager and
+    from a CUDA graph (one weight, 66-131 MB, is past the 50 MB L2) beside
+    its operation bound and torch.mm on the weight dequantized to bf16
+    outside the timed call. One row a form, path "quality"."""
+    import torch
+    from hydrainfer_tpu_torch.models.random_init import ARCH_CONFIGS, quant_weight_bytes
+    from hydrainfer_tpu_torch.ops.cuda import quant_matmul as qmm
+    from hydrainfer_tpu_torch.ops.quant import (dequantize, quantize_fp8, quantize_int4,
+                                                quantize_int8)
+    cfg = ARCH_CONFIGS[QUALITY_ARCH]
+    M, K, N = QUALITY_FULL_T, cfg.hidden_size, cfg.vocab_size
+    forms = {"int8": (quantize_int8, "quant_matmul", qmm.quant_matmul_int8,
+                      qmm.quant_matmul_int8_plain),
+             "int4": (quantize_int4, "quant_matmul_int4", qmm.quant_matmul_int4,
+                      qmm.quant_matmul_int4_plain),
+             "fp8": (quantize_fp8, "quant_matmul_fp8", qmm.quant_matmul_fp8,
+                     qmm.quant_matmul_fp8_plain)}
+    x = torch.randn((M, K), generator=gen).to(dev, torch.bfloat16)
+    w = (torch.randn((K, N), generator=gen) / math.sqrt(K)).to(dev)
+    rows = []
+    for fmt, (quant, name, kernel, plain) in forms.items():
+        qt = quant(w)
+        args = (qt.q, qt.scale) if fmt == "int8" else (qt.q, qt.scale, qt.group)
+        got = kernel(x, *args, out_dtype=torch.float32)
+        ref = plain(x, *args, out_dtype=torch.float32)
+        err = (got - ref).abs().max().item()
+        scale_ref = max(1.0, ref.abs().max().item())
+        call = lambda: kernel(x, *args, out_dtype=torch.float32)  # noqa: E731
+        w_bf = dequantize(qt, torch.bfloat16)
+        library, lib = _fastest({
+            "torch.mm, weight dequantized to bf16 outside the timed call": (
+                lambda: lambda: torch.mm(x, w_bf), lambda o: o)}, ref, 1e-2 * scale_ref)
+        w_bytes = quant_weight_bytes(K, N, fmt, qt.group)
+        b_ms, b_by = bound_ms(M * K * 2 + w_bytes + M * N * 4, 2.0 * M * K * N)
+        p = qmm.plan(M, K, N)
+        rows.append({"name": name, "path": "quality", "ok": err <= 1e-4 * scale_ref,
+                     "max_abs_err": err, "tolerance": "1e-4 x max|plain| (f32 logits)",
+                     "shape": f"{QUALITY_ARCH} lm_head at every position: M={M} x K={K} x "
+                              f"N={N}, {fmt}" + (f" g{qt.group}" if qt.group else
+                                                 ", per column") + f", f32 out ({p.form}, "
+                              f"{p.splits} slices)",
+                     "ms": time_ms(call), "graph_ms": graph_ms(call),
+                     "plain_ms": time_ms(lambda: plain(x, *args, out_dtype=torch.float32),
+                                         iters=5),
+                     "library_ms": library[lib]["ms"] if lib else None,
+                     "library_graph_ms": library[lib].get("graph_ms") if lib else None,
+                     "library": lib, "bound_ms": b_ms, "bound_by": b_by,
+                     "weight_bytes": w_bytes})
+        del qt, w_bf
+    return rows
+
+
+def check_quality_k2(gen, dev) -> dict:
+    """K2 on a lone 512-row prefill at llava-7b-lm's heads over a bf16 cache
+    (check_paged_mixed at path "quality"), and the same pages read through
+    the all-position batch's geometry (perplexity.make_full_logit_batch: 512
+    sequences of which one is real, each with kv_len 512): its rows must
+    equal the lone sequence's."""
+    import torch
+    from hydrainfer_tpu_torch.ops.cuda.paged_attention import paged_attention_varlen
+    row = check_paged_mixed(gen, dev, "quality", QUALITY_SHAPES["mixed"], QUALITY_FULL_T,
+                            f"one {QUALITY_FULL_T}-token prefill (the quality phase's "
+                            "all-position batch)")
+    cfg = _arch_cfg("quality")
+    T, H, kvh, D = QUALITY_FULL_T, cfg.n_qo_heads, cfg.n_kv_heads, cfg.head_dim
+    pages, tables, kv_lens, cu, ns = _paged_case(gen, QUALITY_SHAPES["mixed"],
+                                                 _pool_blocks(QUALITY_SHAPES["mixed"], 16),
+                                                 16, kvh, D, None, dev)
+    q = torch.randn((T, H, D), generator=gen).to(dev, torch.bfloat16)
+    lone = paged_attention_varlen(q, pages, kv_lens, tables, cu, ns, 1 / math.sqrt(D))
+    i32 = dict(dtype=torch.int32, device=dev)
+    padded = paged_attention_varlen(
+        q, pages, torch.full((T,), T, **i32), tables.expand(T, -1).contiguous(),
+        torch.cat([torch.zeros(1, **i32), torch.full((T,), T, **i32)]), ns, 1 / math.sqrt(D))
+    diff = (padded.float() - lone.float()).abs().max().item()
+    row.update({"padded_geometry_max_diff": diff,
+                "padded_geometry_ms": time_ms(lambda: paged_attention_varlen(
+                    q, pages, torch.full((T,), T, **i32), tables.expand(T, -1).contiguous(),
+                    torch.cat([torch.zeros(1, **i32), torch.full((T,), T, **i32)]), ns,
+                    1 / math.sqrt(D)))})
+    row["ok"] = bool(row["ok"] and diff == 0.0)
+    return row
+
+
+def _quality_family(family: str, root: str, dev) -> dict:
+    """One of the quant_quality script's checkpoints built, trained on the
+    card for QUALITY_TRAIN_STEPS steps and evaluated in its six CONFIGS on
+    its held-out sequences twice: through the kernels, then through the
+    plain versions on the same card. Checks per config: the kernel run's NLL
+    within QUALITY_NLL_NATS of the plain run's, top-1 agreement between the
+    two runs' logits at least QUALITY_TOP1, and the config's K4 form
+    launched (int8: the int8 form; int4: the int4 form; fp8: the fp8 form;
+    none other than int8 for the lm_head) and, for the MLA checkpoint, K6."""
+    import numpy as np
+    from hydrainfer_tpu_torch.evaluation import quant_quality as qq
+    from hydrainfer_tpu_torch.ops.cuda import launch_counts
+    llama = family == "llama"
+    t0 = time.perf_counter()
+    path = qq.make_llama_ckpt(root) if llama else qq.make_mla_ckpt(root)
+    vocab, seq_len, seed, T = (2048, 128, 0, 64) if llama else (256, 64, 1, 48)
+    sampler = qq.markov_sampler(vocab, seed=7 if llama else 9)
+    loss = qq.train_ckpt(path, sampler, QUALITY_TRAIN_STEPS, T=T, device=dev)
+    train_s = time.perf_counter() - t0
+    seqs = qq.eval_sequences(QUALITY_SEQS, seq_len, vocab, seed, sampler)
+    kern, plain, launches, checks = {}, {}, {}, {}
+    t0 = time.perf_counter()
+    for label, quant, kv_int8 in qq.CONFIGS:
+        before = launch_counts()
+        kern[label] = qq.all_position_logits(path, quant, kv_int8, seqs, device=dev)
+        after = launch_counts()
+        launches[label] = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+        with _Plain():
+            plain[label] = qq.all_position_logits(path, quant, kv_int8, seqs, device=dev)
+    eval_s = time.perf_counter() - t0
+    table_k, table_p = qq.table(kern, seqs), qq.table(plain, seqs)
+    attention = "paged_attention" if llama else "paged_attention_latent"
+    for label, quant, kv_int8 in qq.CONFIGS:
+        n = launches[label]
+        form = {"int8": "quant_matmul", "int4": "quant_matmul_int4",
+                "fp8": "quant_matmul_fp8"}.get(quant)
+        others = {"quant_matmul", "quant_matmul_int4", "quant_matmul_fp8"} - {form}
+        if quant == "int4":
+            others.discard("quant_matmul")        # the int4 mode's lm_head is int8
+        top1 = float((kern[label].argmax(-1) == plain[label].argmax(-1)).mean())
+        dnll = abs(table_k[label]["nll"] - table_p[label]["nll"])
+        checks[label] = {
+            "nll_within": dnll <= QUALITY_NLL_NATS, "kernel_vs_plain_nll": dnll,
+            "top1_kernel_vs_plain": top1, "top1_ok": top1 >= QUALITY_TOP1,
+            "form_launched": form is None or n.get(form, 0) > 0,
+            "no_other_form": all(n.get(k, 0) == 0 for k in others),
+            "attention_launched": n.get(attention, 0) > 0 and n.get("kv_writer", 0) > 0,
+            "launches": n}
+    ok = all(c[k] for c in checks.values()
+             for k in ("nll_within", "top1_ok", "form_launched", "no_other_form",
+                       "attention_launched"))
+    total = {}
+    for n in launches.values():
+        for k, v in n.items():
+            total[k] = total.get(k, 0) + v
+    print(f"## {family} (kernels)\n{qq.markdown(table_k)}\n## {family} (plain versions)\n"
+          f"{qq.markdown(table_p)}", flush=True)
+    return {"ok": bool(ok), "path": path, "final_loss": loss, "train_s": train_s,
+            "eval_s": eval_s, "eval": f"{QUALITY_SEQS} held-out sequences x {seq_len}",
+            "table_kernels": table_k, "table_plain": table_p, "checks": checks,
+            "launches": total, "logits_finite": bool(np.isfinite(
+                np.stack(list(kern.values()))).all())}
+
+
+def _quality_dumps(path: str, dev) -> dict:
+    """The correctness dumps of the trained tiny Llama (a word-level
+    tokenizer saved beside it): on the card at bf16, int8, int4 and fp8, each
+    compared with the card's bf16 dump, and the port's CPU dump at bf16,
+    which must equal the card's or first differ at a near tie (_near_tie)."""
+    import torch
+    from hydrainfer_tpu_torch.evaluation import test_correctness as tc
+    from hydrainfer_tpu_torch.models.factory import ModelFactoryConfig, getModelFactory
+    from hydrainfer_tpu_torch.request import Request, SamplingParameters
+    tc.save_word_tokenizer(path, 2048)
+    dumps, seconds = {}, {}
+    for label, quant, device in (("bf16", "none", dev), ("int8", "int8", dev),
+                                 ("int4", "int4", dev), ("fp8", "fp8", dev),
+                                 ("cpu_bf16", "none", "cpu")):
+        t0 = time.perf_counter()
+        dumps[label] = tc.run_generate(path, QUALITY_DUMP_PROMPTS, QUALITY_DUMP_TOKENS,
+                                       dtype="bf16", quantization=quant, device=device)
+        seconds[label] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    compare = {label: tc.compare_dumps(dumps["bf16"], d) for label, d in dumps.items()
+               if label != "bf16"}
+    factory = getModelFactory(ModelFactoryConfig(path=path, dtype="bf16"), device=dev)
+    reqs = [Request(request_id=i, prompt=d["prompt"],
+                    sampling_params=SamplingParameters(max_tokens=QUALITY_DUMP_TOKENS,
+                                                       ignore_eos=True))
+            for i, d in enumerate(dumps["bf16"])]
+    tie = _near_tie(factory.getLanguageModel(), factory.getTokenizer(), reqs,
+                    [d["output_token_ids"] for d in dumps["bf16"]],
+                    [d["output_token_ids"] for d in dumps["cpu_bf16"]], dev)
+    full = all(len(d["output_token_ids"]) == QUALITY_DUMP_TOKENS
+               for dump in dumps.values() for d in dump)
+    return {"ok": bool(tie["ok"] and full), "dumps": f"{QUALITY_DUMP_PROMPTS} prompts x "
+            f"{QUALITY_DUMP_TOKENS} tokens, greedy, ignore_eos", "seconds": seconds,
+            "compare_vs_card_bf16": compare, "card_vs_cpu_near_tie": tie,
+            "every_dump_full": full}
+
+
+def _span_and_busy_ms(fn) -> dict:
+    """One eager call of fn: its span on the card's clock (CUDA events: the
+    device's idle gaps while the host launches included) and the device time
+    of its kernels (torch.profiler; 0 where the profiler sees none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy = sum(getattr(e, "self_device_time_total", 0) or 0 for e in prof.key_averages())
+    return {"span_ms": start.elapsed_time(end), "device_busy_ms": busy / 1e3}
+
+
+def _quality_full_width(dev) -> tuple:
+    """llava-7b-lm at full width from one seeded bf16 tree, quantized in turn
+    to int8, int4 (group 128, the lm_head int8) and fp8, each copy freed
+    before the next: the six CONFIGS' all-position logits over
+    QUALITY_FULL_SEQS sequences of QUALITY_FULL_T tokens, each config's KL
+    and top-1 agreement against bf16 (random weights: near-zero margins, so
+    no ordering between formats is checked), the span and the kernels'
+    device time of one all-position prefill (_span_and_busy_ms), the int4 config's logits on one sequence against
+    the plain versions (_logits_check), and getModelParamsCount() of the
+    bf16 tree against param_count()."""
+    import numpy as np
+    import torch
+    from hydrainfer_tpu_torch.evaluation import quant_quality as qq
+    from hydrainfer_tpu_torch.evaluation.perplexity import all_logits
+    from hydrainfer_tpu_torch.models.llama import LlamaForCausalLM
+    from hydrainfer_tpu_torch.models.random_init import (ARCH_CONFIGS, RandomWeightFactory,
+                                                         init_decoder_weights)
+    from hydrainfer_tpu_torch.ops.cuda import launch_counts
+    cfg = ARCH_CONFIGS[QUALITY_ARCH]
+    t0 = time.perf_counter()
+    w = init_decoder_weights(cfg, SEED, torch.bfloat16, "none", dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    factory = RandomWeightFactory(QUALITY_ARCH, device=dev, weights=w)
+    counted = factory.getModelParamsCount().language_model_params
+    logical = factory.param_count()
+    lcfg = factory.getLanguageModelConfig()
+    rng = np.random.default_rng(SEED + 11)
+    seqs = rng.integers(10, cfg.vocab_size, size=(QUALITY_FULL_SEQS, QUALITY_FULL_T))
+    logits, prefill_ms, launches, res = {}, {}, {}, {}
+    for label, quant, kv_int8 in qq.CONFIGS:
+        lm = LlamaForCausalLM(w, cfg, quant, kv_scale=0.05 if kv_int8 else None)
+        cache_dtype = torch.int8 if kv_int8 else torch.bfloat16
+        before = launch_counts()
+        out = [all_logits(lm, lcfg, [int(t) for t in seq], 16, cache_dtype).cpu().numpy()
+               for seq in seqs]
+        after = launch_counts()
+        launches[label] = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+        logits[label] = np.stack(out)
+        prefill_ms[label] = _span_and_busy_ms(
+            lambda: all_logits(lm, lcfg, [int(t) for t in seqs[0]], 16, cache_dtype))
+        if label == "int4":
+            res["int4_logits_check"] = _logits_check(lm, [int(t) for t in seqs[0]], dev,
+                                                     "full_int4")
+        del lm
+        gc.collect()
+        torch.cuda.empty_cache()
+    del w, factory
+    gc.collect()
+    torch.cuda.empty_cache()
+    table = qq.table(logits, seqs)
+    print(f"## {QUALITY_ARCH} (random weights, {QUALITY_FULL_SEQS} x {QUALITY_FULL_T})\n"
+          f"{qq.markdown(table)}", flush=True)
+    check = res["int4_logits_check"]
+    ok = bool(check["ok"] and counted == logical
+              and np.isfinite(np.stack(list(logits.values()))).all())
+    total = {}
+    for n in launches.values():
+        for k, v in n.items():
+            total[k] = total.get(k, 0) + v
+    return {"ok": ok, "weight_init_s": init_s, "table": table,
+            "kl_and_top1_vs_bf16": {k: {"mean_kl_nats": v["mean_kl_nats"],
+                                        "top1_agreement": v["top1_agreement"]}
+                                    for k, v in table.items()},
+            "all_position_prefill_ms": prefill_ms, "launches": launches,
+            "params_counted_bf16_tree": counted, "param_count": logical,
+            "params_equal": counted == logical, **check}, total
+
+
+def phase_quality(dev="cuda") -> tuple:
+    """The quality scripts on the card: (a) quant_quality's tiny Llama and
+    DeepSeek-V3 MLA checkpoints, trained on the card, through the port in
+    its six configs with the kernels and with the plain versions
+    (_quality_family); (c) the correctness dumps of the trained Llama
+    (_quality_dumps) and model_params for every ARCH_CONFIGS entry from
+    shapes alone; (b) llava-7b-lm at full width in the six configs
+    (_quality_full_width). Returns the phase's result and the launch counts
+    of the kernel runs of (a) and (b), the phase's main path (the plain runs
+    count nothing, and the timed kernel rows run after)."""
+    import shutil
+    import tempfile
+    import torch
+    from hydrainfer_tpu_torch.evaluation import model_params
+    from hydrainfer_tpu_torch.models.random_init import ARCH_CONFIGS, RandomWeightFactory
+    from hydrainfer_tpu_torch.ops.cuda import reset_launch_counts
+    dev = torch.device(dev)
+    result, parts, counts = {"phase": "quality", "gpu": gpu_name_and_limit()}, {}, {}
+    root = tempfile.mkdtemp(prefix="quality_")
+    try:
+        reset_launch_counts()
+        for family in ("llama", "mla"):
+            t0 = time.perf_counter()
+            result[family] = _quality_family(family, root, dev)
+            parts[family] = time.perf_counter() - t0
+            for k, v in result[family]["launches"].items():
+                counts[k] = counts.get(k, 0) + v
+        t0 = time.perf_counter()
+        result["correctness"] = _quality_dumps(result["llama"]["path"], dev)
+        parts["correctness"] = time.perf_counter() - t0
+        result["model_params"] = {
+            name: model_params.table_for(RandomWeightFactory(name, device="meta"))
+            for name in ARCH_CONFIGS}
+        t0 = time.perf_counter()
+        result["full_width"], full_counts = _quality_full_width(dev)
+        parts["full_width"] = time.perf_counter() - t0
+        for k, v in full_counts.items():
+            counts[k] = counts.get(k, 0) + v
+        gen = torch.Generator().manual_seed(SEED)
+        t0 = time.perf_counter()
+        rows = check_quality_k4(gen, dev) + [check_quality_k2(gen, dev)]
+        parts["kernel_rows"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    result["parts_s"] = parts
+    result["launches"] = counts
+    result["kernel_rows"] = {f"{_launch_key(r)}@quality": {
+        "ok": r["ok"], "max_abs_err": r["max_abs_err"], "ms": r["ms"]} for r in rows}
+    save("quality_kernels.json", rows)
+    result["ok"] = bool(all(result[k]["ok"] for k in ("llama", "mla", "correctness",
+                                                      "full_width"))
+                        and all(r["ok"] for r in rows))
+    save("quality.json", result)
+    return result, counts, rows
 
 
 # ------------------------------------------------------- phases: spec, sample
@@ -5784,7 +6156,8 @@ def main() -> int:
     global OUT_DIR
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
-                    default="build,kernels,tiny,serve,quant,spec,sample,vlm,llava,disagg,process,"
+                    default="build,kernels,tiny,serve,quant,quality,spec,sample,vlm,llava,"
+                            "disagg,process,"
                             "llavanext,internvl,mla,deepseek,vl2,mixtral,gpt2,online")
     ap.add_argument("--out-dir", default=OUT_DIR,
                     help="where the detail files go")
@@ -5811,7 +6184,8 @@ def main() -> int:
     failed, kernel_rows, counts = [], [], {"serve": {}, "spec": {}, "vlm": {}, "llava": {},
                                            "next13b": {}, "internvl": {}, "mla": {},
                                            "deepseek": {}, "vl2": {}, "mixtral": {},
-                                           "gpt2": {}, "quant_int4": {}, "quant_fp8": {}}
+                                           "gpt2": {}, "quant_int4": {}, "quant_fp8": {},
+                                           "quality": {}}
     process_counts = None       # the process phase's, summed over its node processes
     why = {}                    # a failed phase: what failed in it
     for phase in phases:
@@ -5838,6 +6212,9 @@ def main() -> int:
             elif phase == "quant":
                 res, by_mode = phase_quant()
                 counts.update({f"quant_{m}": c for m, c in by_mode.items()})
+            elif phase == "quality":
+                res, counts["quality"], quality_rows = phase_quality()
+                kernel_rows = kernel_rows + quality_rows
             elif phase == "spec":
                 res, counts["spec"] = phase_spec()
             elif phase == "sample":

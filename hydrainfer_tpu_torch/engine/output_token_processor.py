@@ -28,6 +28,11 @@ class OutputTokenProcessor:
         """Abort the stream without emitting a token."""
 
 
+class PrintOutputTokenProcessor(OutputTokenProcessor):
+    def append_token_id(self, token_id, is_last_token=False):
+        logger.info(f"output token {token_id}, last={is_last_token}")
+
+
 class PrintTextOutputTokenProcessor(OutputTokenProcessor):
     def __init__(self, tokenizer):
         self.tokenizer = tokenizer

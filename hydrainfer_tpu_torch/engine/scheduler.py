@@ -10,7 +10,9 @@
     is skipped by chunking the prefill at the match point and stepping past
     the head chunk;
   - allocation failures become back-pressure (the request is deferred), not
-    crashes;
+    crashes; a round in which every resident request defers logs the
+    per-request reservation accounting every 20,000th time (the JAX
+    invariant dump);
   - a node without a KV cache (an encode-only node) reserves nothing;
   - image-cache allocation for encodes (ImageEmbed), deferred like KV;
   - batch packing under the image budget (at most encode_chunk_images per
@@ -175,6 +177,29 @@ class BatchScheduler:
         self._reserved_blocks += need
         rcb._kv_reservation = need
 
+    def _log_invariant_dump(self, deferred: List[RequestControlBlock]) -> None:
+        """Every resident request deferred: under the admission invariant (the
+        worst-case reservations, prefix-discounted, sum to at most the pool)
+        one of them should always be able to grow, so this is either a
+        passing pool-full moment or the KV-pool livelock the JAX package
+        documents (evaluation/results/slo_trace_open_issue.md). Log each
+        request's accounting (blocks held, worst case, reservation, OVER
+        where it holds more than its worst case), as the JAX scheduler does.
+        On a node without a KV cache (an E node, deferred on its image pool)
+        every row reads alloc=0 worst=0."""
+        kv = self.kv_cache_manager
+        rows = []
+        for rcb in deferred:
+            alloc = (len(rcb.virtual_kv_cache.block_table)
+                     if rcb.virtual_kv_cache else 0)
+            worst = self._demand_blocks(rcb)
+            resv = getattr(rcb, "_kv_reservation", -1)
+            flag = " OVER" if alloc > worst else ""
+            rows.append(f"{rcb.request_id}: alloc={alloc} worst={worst} resv={resv}{flag}")
+        logger.warning("back-pressure invariant dump (reserved=%s pool=%s):\n  %s",
+                       self._reserved_blocks, kv.n_blocks if kv is not None else 0,
+                       "\n  ".join(rows))
+
     # -------- the step --------
 
     def step(self) -> BatchRequest:
@@ -257,6 +282,8 @@ class BatchScheduler:
                          if m is not None]
                 logger.warning(f"cache back-pressure: {len(deferred)} request(s) "
                                f"deferred ({', '.join(pools)})")
+            if self._oom_deferrals % 20000 == 1 and not runnable:
+                self._log_invariant_dump(deferred)
         self.running = runnable
 
         # 2. classify

@@ -267,15 +267,21 @@ def decoder_forward(weights: dict, cache: torch.Tensor, batch: LanguageModelBatc
                     cos_tab: torch.Tensor, sin_tab: torch.Tensor,
                     cfg: DecoderConfig, max_q: int, token_table: torch.Tensor,
                     return_logits: bool = False, spec: int = 0,
-                    generator: Optional[torch.Generator] = None):
+                    generator: Optional[torch.Generator] = None,
+                    input_embeds: Optional[torch.Tensor] = None):
     """Full LM step. Returns the (S,) sampled tokens (and the (S, V) f32
     logits if asked), or with spec > 0 the verify step's
     [emitted (S * spec) | acc (S)]. token_table's last entry is a discard
-    slot. A batch with sampling controls draws from `generator`."""
-    src = batch.token_src_slots
-    token_ids = torch.where(src >= 0, token_table[src.clamp(min=0).long()],
-                            batch.token_ids)
-    x = _splice_images(weights["embed"][token_ids.long()], batch)
+    slot. A batch with sampling controls draws from `generator`.
+    input_embeds, (T, hidden), replaces the embedding lookup and the image
+    splice."""
+    if input_embeds is None:
+        src = batch.token_src_slots
+        token_ids = torch.where(src >= 0, token_table[src.clamp(min=0).long()],
+                                batch.token_ids)
+        x = _splice_images(weights["embed"][token_ids.long()], batch)
+    else:
+        x = input_embeds
     if cfg.mrope_section and batch.positions_hw is not None:
         cos, sin = mrope_gather(cos_tab, sin_tab, batch.positions,
                                 batch.positions_hw[0], batch.positions_hw[1],

@@ -120,6 +120,10 @@ class LanguageModelBatch:
 @dataclass
 class LanguageModelOutput:
     sample_token_ids: Optional[torch.Tensor] = None   # (n_steps * S,) int32
+    # `forward` returns the cache and the token table it updated in place,
+    # where the JAX model returns their donated successors
+    cache: Optional[torch.Tensor] = None
+    token_table: Optional[torch.Tensor] = None
 
 
 @dataclass(frozen=True)
@@ -257,6 +261,10 @@ class LanguageModel:
     # True when forward_flat accepts n_steps > 1 (the fused decode window)
     supports_multi_step: bool = False
 
+    def forward(self, cache: torch.Tensor, token_table: torch.Tensor,
+                batch: LanguageModelBatch, max_q: int) -> LanguageModelOutput:
+        raise NotImplementedError
+
     def forward_flat(self, cache: torch.Tensor, token_table: torch.Tensor,
                      flat: torch.Tensor, dims: FillDims, n_steps: int = 1,
                      fused_k=None, image_cache=None, graphs=None,
@@ -283,6 +291,27 @@ class ImageProcessor:
         raise NotImplementedError
 
 
+@dataclass
+class ModelParamsCount:
+    vision_model_params: int
+    language_model_params: int
+
+
+def count_elements(tree) -> int:
+    """Elements of a weight tree as stored: tensors, a QuantizedTensor's
+    values and scales (a packed int4 tensor counts its bytes, as JAX's
+    tree_leaves do), through dicts, lists and tuples; None counts nothing."""
+    if isinstance(tree, dict):
+        return sum(count_elements(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(count_elements(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.numel()
+    if hasattr(tree, "q") and hasattr(tree, "scale"):        # QuantizedTensor
+        return tree.q.numel() + tree.scale.numel()
+    return 0
+
+
 class ModelFactory:
     def getVisionModel(self) -> VisionModel:
         raise NotImplementedError
@@ -302,6 +331,14 @@ class ModelFactory:
 
     def getTokenizer(self) -> Tokenizer:
         raise NotImplementedError
+
+    def getModelParamsCount(self) -> ModelParamsCount:
+        """Elements of the vision and the language weight trees as stored
+        (count_elements): a quantized model counts its stored values and
+        scales. Builds the models if they are not built yet."""
+        vm = getattr(self.getVisionModel(), "weights", {})
+        lm = getattr(self.getLanguageModel(), "weights", {})
+        return ModelParamsCount(count_elements(vm), count_elements(lm))
 
 
 def getModelFactory(config: ModelFactoryConfig, device=None) -> ModelFactory:

@@ -148,13 +148,25 @@ class GPT2ForCausalLM(LanguageModel):
         return gpt2_forward(self.weights, self.head, cache, batch, self.cfg, dims.max_q,
                             token_table)
 
+    def forward(self, cache: torch.Tensor, token_table: torch.Tensor,
+                batch: LanguageModelBatch, max_q: int) -> LanguageModelOutput:
+        """One greedy step on a caller-built batch: the cache and the token
+        table are updated in place and returned with the (S,) tokens."""
+        tokens = gpt2_forward(self.weights, self.head, cache, batch, self.cfg, max_q,
+                              token_table)
+        return LanguageModelOutput(sample_token_ids=tokens, cache=cache,
+                                   token_table=token_table)
+
     def forward_with_logits(self, cache: torch.Tensor, batch: LanguageModelBatch,
-                            max_q: int):
-        """One step on a caller-built batch: (tokens, f32 logits). The token
-        table is a scratch one."""
-        table = torch.zeros(2, dtype=torch.int32, device=cache.device)
-        return gpt2_forward(self.weights, self.head, cache, batch, self.cfg, max_q, table,
-                            return_logits=True)
+                            max_q: int, input_embeds: Optional[torch.Tensor] = None):
+        """One step on a caller-built batch: (cache, tokens, f32 logits), as
+        the JAX model returns them. The token table is a scratch one.
+        input_embeds is taken for the interface's sake and ignored, as in
+        the JAX model."""
+        table = torch.zeros(1, dtype=torch.int32, device=cache.device)
+        tokens, logits = gpt2_forward(self.weights, self.head, cache, batch, self.cfg,
+                                      max_q, table, return_logits=True)
+        return cache, tokens, logits
 
 
 class GPT2ModelFactory(ModelFactory):

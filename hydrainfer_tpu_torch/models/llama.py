@@ -3,7 +3,10 @@ hydrainfer_tpu/models/llama.py: LlamaForCausalLM, decoder_config_from_hf and
 convert_llama_weights; Qwen2 text decoders are the same with a qkv bias).
 
 The weights stay a plain per-layer dict (no stacking: the layer loop is a
-Python loop), and `forward_flat` takes the engine's single flat int32 buffer;
+Python loop). `forward` and `forward_with_logits` take a caller-built
+LanguageModelBatch (the JAX model's interface, which the quality scripts of
+hydrainfer_tpu_torch/evaluation use), and `forward_flat` takes the engine's
+single flat int32 buffer;
 its all-decode steps and speculative-verify steps run from CUDA graphs when
 the node passes its StepGraphs (models/step_graphs.py, the counterpart of the
 jitted programs). A step whose dims carry `spec` > 0 is a verify step (the
@@ -18,7 +21,8 @@ import torch
 from ..ops.quant import quantize_tree
 from .decoder import (DecoderConfig, decoder_forward, decoder_forward_multi,
                       init_rope_tables)
-from .factory import FillDims, LanguageModel, LanguageModelOutput, unpack_fill_batch
+from .factory import (FillDims, LanguageModel, LanguageModelBatch, LanguageModelOutput,
+                      unpack_fill_batch)
 from .step_graphs import StepGraphs, graphed
 from .weight_loader import WeightStore
 
@@ -83,6 +87,28 @@ class LlamaForCausalLM(LanguageModel):
         self.device = self.weights["embed"].device
         self.dtype = self.weights["embed"].dtype
         self.cos_tab, self.sin_tab = init_rope_tables(cfg, self.device)
+
+    def forward(self, cache: torch.Tensor, token_table: torch.Tensor,
+                batch: LanguageModelBatch, max_q: int) -> LanguageModelOutput:
+        """One greedy step on a caller-built batch: the cache and the token
+        table are updated in place and returned with the (S,) tokens."""
+        tokens = decoder_forward(self.weights, cache, batch, self.cos_tab, self.sin_tab,
+                                 self.cfg, max_q, token_table)
+        return LanguageModelOutput(sample_token_ids=tokens, cache=cache,
+                                   token_table=token_table)
+
+    def forward_with_logits(self, cache: torch.Tensor, batch: LanguageModelBatch,
+                            max_q: int, input_embeds: Optional[torch.Tensor] = None):
+        """One greedy step on a caller-built batch: (cache, (S,) tokens, (S, V)
+        f32 logits at the sampled rows). The token table is a scratch one of
+        a single slot: rows with sample_dst_slots -1 (every row, where a
+        batch samples all its positions) all land in it, and it is never
+        read, since the batch's token_src_slots must be -1."""
+        table = torch.zeros(1, dtype=torch.int32, device=cache.device)
+        tokens, logits = decoder_forward(self.weights, cache, batch, self.cos_tab,
+                                         self.sin_tab, self.cfg, max_q, table,
+                                         return_logits=True, input_embeds=input_embeds)
+        return cache, tokens, logits
 
     def forward_flat(self, cache: torch.Tensor, token_table: torch.Tensor,
                      flat: torch.Tensor, dims: FillDims, n_steps: int = 1,

@@ -112,7 +112,10 @@ def quant_weight_bytes(K: int, N: int, fmt: str, group: int = 0) -> int:
 
 
 def _initializer(seed: int, dtype, device):
-    """init(*shape): N(0, 0.02^2) values from a generator seeded with `seed`."""
+    """init(*shape): N(0, 0.02^2) values from a generator seeded with `seed`;
+    on the "meta" device, shapes and dtypes only."""
+    if device.type == "meta":
+        return lambda *shape: torch.empty(shape, dtype=dtype, device=device)
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def init(*shape):
@@ -266,6 +269,15 @@ class RandomWeightFactory(ModelFactory):
     def getTokenizer(self):
         from .tokenizer import SimpleTokenizer
         return SimpleTokenizer()
+
+    def param_count(self) -> int:
+        """The logical, unquantized parameter count of the language model:
+        the elements of its bf16 tree, built on the "meta" device (shapes
+        only, no weights; JAX's eval_shape), so int4 packing and quantization
+        scales do not change it."""
+        from .factory import count_elements
+        return count_elements(init_decoder_weights(self.cfg, self.seed, torch.bfloat16,
+                                                   "none", torch.device("meta")))
 
     def param_bytes(self) -> int:
         """Bytes of the language model's weights as stored."""

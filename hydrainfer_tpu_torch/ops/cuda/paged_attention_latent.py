@@ -35,7 +35,8 @@ def paged_attention_latent(q: torch.Tensor, pages: torch.Tensor, kv_lens: torch.
     """Mixed prefill/decode attention over a single-plane latent cache.
 
     q: (T, Hq, D) f32/bf16; pages: (NB, BS, 1, D) f32/bf16/int8 (a bf16 q
-    takes bf16 or int8 pages and D = BF16_HEAD_DIM); kv_lens: (S,) i32;
+    takes bf16 or int8 pages; at D other than BF16_HEAD_DIM it runs the f32
+    form); kv_lens: (S,) i32;
     page_indices: (S, MB) i32 (>= 0); cu_q_lens: (S+1,) i32; num_seqs: (1,)
     i32 -> (T, Hq, D), zeros past cu_q_lens[num_seqs]. Hq divides 16. max_q
     bounds every sequence's query tokens (the plain version's padding); the
@@ -44,6 +45,13 @@ def paged_attention_latent(q: torch.Tensor, pages: torch.Tensor, kv_lens: torch.
     if q.device.type == "cpu":
         return paged_attention_varlen_plain(q, pages, kv_lens, page_indices, cu_q_lens,
                                             num_seqs, sm_scale, kv_scale, max_q)
+    if q.dtype == torch.bfloat16 and q.shape[-1] != BF16_HEAD_DIM:
+        # the tensor-core forms are built for D = 576; another latent width
+        # (a tiny checkpoint's) takes the f32 form over the same bf16 or int8
+        # plane, one launch, its output rounded back to bf16
+        return paged_attention_latent(q.float(), pages, kv_lens, page_indices, cu_q_lens,
+                                      num_seqs, sm_scale, kv_scale,
+                                      max_q).to(torch.bfloat16)
     T, H, D = q.shape
     nb, bs, planes, d2 = pages.shape
     S, mb = page_indices.shape
@@ -62,9 +70,8 @@ def paged_attention_latent(q: torch.Tensor, pages: torch.Tensor, kv_lens: torch.
     q_code = build.dtype_code(q, (torch.float32, torch.bfloat16))
     if q.dtype == torch.bfloat16:
         kv_code = build.dtype_code(pages, (torch.bfloat16, torch.int8))
-        if D != BF16_HEAD_DIM or pages.data_ptr() % 16:
-            raise ValueError(f"bf16 path: head_dim {D} is not {BF16_HEAD_DIM} or "
-                             "pages not 16-byte aligned")
+        if pages.data_ptr() % 16:
+            raise ValueError("bf16 path: pages not 16-byte aligned")
     else:
         kv_code = build.dtype_code(pages, (torch.float32, torch.bfloat16, torch.int8))
     # one block a sequence before the split: the form and the split count

@@ -151,8 +151,8 @@ def _generate(step, prompt, n_new):
 def _port_stepper(lm, cache):
     def step(chunk, n_past):
         with torch.no_grad():
-            tok, logits = lm.forward_with_logits(cache, _port_batch(chunk, n_past),
-                                                 len(chunk))
+            _, tok, logits = lm.forward_with_logits(cache, _port_batch(chunk, n_past),
+                                                    len(chunk))
         return int(tok[0]), logits[0].numpy()
     return step
 

@@ -1,8 +1,9 @@
 """Import hygiene and device defaults of the port.
 
-In a fresh interpreter, importing every module of hydrainfer_tpu_torch and
-everything chip_smoke.py imports must load no `jax*` module and nothing of
-the JAX package. The entry points default to the card: without one they
+In a fresh interpreter, importing every module of hydrainfer_tpu_torch (its
+quality scripts under hydrainfer_tpu_torch/evaluation included) and
+everything chip_smoke.py imports must load no `jax*` module, nothing of the
+JAX package and nothing of the JAX package's `evaluation` scripts. The entry points default to the card: without one they
 raise, unless the caller passes device="cpu".
 """
 import json
@@ -35,7 +36,8 @@ for name in names:
 import chip_smoke   # its phases import only modules of the walk above
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
-             or m == "hydrainfer_tpu" or m.startswith("hydrainfer_tpu."))
+             or m == "hydrainfer_tpu" or m.startswith("hydrainfer_tpu.")
+             or m == "evaluation" or m.startswith("evaluation."))
 print(json.dumps({"imported": names, "bad": bad}))
 """
 
@@ -53,7 +55,9 @@ def test_port_and_chip_smoke_import_no_jax():
                  "cluster.rpc", "cluster.process_node", "utils.socket_utils",
                  "utils.zmq_utils", "ops.moe", "models.deepseek_v3",
                  "models.deepseek_vl2", "models.mixtral", "models.gpt2", "utils.debug",
-                 "utils.profiler", "utils.statistic", "utils.image_utils"):
+                 "utils.profiler", "utils.statistic", "utils.image_utils",
+                 "evaluation", "evaluation.perplexity", "evaluation.quant_quality",
+                 "evaluation.test_correctness", "evaluation.model_params"):
         assert "hydrainfer_tpu_torch." + name in res["imported"]
     assert res["bad"] == []
 

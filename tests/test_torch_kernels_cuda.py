@@ -53,7 +53,13 @@ library call) is held to the dense plain version in bf16 within 2e-2, and a
 MoE layer captured in a CUDA graph replays its eager result bit for bit.
 K1 and K2's tensor-core forms also run at GPT-2 XL's 25 heads x d64 over a
 bf16 cache and at Mixtral-8x7B's GQA 4:1 x d128 over an int8 cache, and K3
-writes GPT-2 XL's bf16 rows into a bf16 cache bit for bit.
+writes GPT-2 XL's bf16 rows into a bf16 cache bit for bit. The logits
+interface (forward_with_logits over the quality scripts' all-position
+batch) on tiny-lm and mla-tiny-lm at int8, int4 and fp8 weights over the
+int8 KV cache, bf16 and f32, agrees with the plain versions (1e-2 x
+max|logit| in f32: an int8 KV entry may round one step apart; 3e-2 in bf16),
+and K4 runs the lm_head at every position of a 512-token sequence (M 512, N
+32064, f32 out) in its three forms within 1e-4.
 """
 import numpy as np
 import pytest
@@ -1112,3 +1118,76 @@ def test_debug_probe_raises_inside_a_graph_capture(dev, monkeypatch):
         with torch.cuda.graph(graph):
             debug.probe("x", x * 3)
     assert len(debug._REGISTRY["x"]) == 1
+
+
+# ------------------------------------------- the logits interface on the card
+
+def _swap_in_plain_versions(monkeypatch):
+    """Every kernel wrapper the model code looks up by name, swapped for its
+    plain PyTorch version."""
+    from hydrainfer_tpu_torch.ops import attention, cache_ops, quant
+    from hydrainfer_tpu_torch.ops.cuda import mha_decode
+    from hydrainfer_tpu_torch.ops.cuda import paged_attention as pa
+    from hydrainfer_tpu_torch.ops.cuda import quant_matmul as qmm
+    for mod, name, fn in ((quant, "quant_matmul_int8", qmm.quant_matmul_int8_plain),
+                          (quant, "quant_matmul_int4", qmm.quant_matmul_int4_plain),
+                          (quant, "quant_matmul_fp8", qmm.quant_matmul_fp8_plain),
+                          (cache_ops, "write_kv_pages", write_kv_pages_plain),
+                          (attention, "mha_decode_attention",
+                           mha_decode.mha_decode_attention_plain),
+                          (attention, "paged_attention_varlen", pa.paged_attention_varlen_plain),
+                          (attention, "paged_attention_latent",
+                           pa.paged_attention_varlen_plain)):
+        monkeypatch.setattr(mod, name, fn)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("quant", ["int8", "int4", "fp8"])
+@pytest.mark.parametrize("arch", ["tiny-lm", "mla-tiny-lm"])
+def test_forward_with_logits_against_plain_versions(dev, arch, quant, dtype, monkeypatch):
+    """forward_with_logits over every position of a 48-token sequence
+    (evaluation/perplexity.py's all-position batch) with int8 weights, int4
+    (the lm_head int8) or fp8, over the int8 KV cache: through the kernels
+    (K2 or K6, K3, K4's form for the mode) and through the plain versions,
+    within 1e-2 x max|logit| in f32 (an int8 KV entry may round one step
+    apart) and 3e-2 in bf16."""
+    from hydrainfer_tpu_torch.evaluation.perplexity import all_logits
+    from hydrainfer_tpu_torch.models.random_init import RandomWeightFactory
+    from hydrainfer_tpu_torch.ops.cuda import launch_counts
+    factory = RandomWeightFactory(arch, dtype=dtype, quantization=quant, kv_scale=SCALE,
+                                  device=dev, seed=3)
+    lm, lcfg = factory.getLanguageModel(), factory.getLanguageModelConfig()
+    ids = [int(t) for t in np.random.default_rng(5).integers(3, lcfg.vocab_size, size=48)]
+    before = launch_counts()
+    got = all_logits(lm, lcfg, ids, 16, torch.int8)
+    after = launch_counts()
+    ran = {k for k in after if after[k] > before[k]}
+    attention = "paged_attention_latent" if lcfg.kv_single_plane else "paged_attention"
+    form = {"int8": "quant_matmul", "int4": "quant_matmul_int4",
+            "fp8": "quant_matmul_fp8"}[quant]
+    assert {attention, "kv_writer", form} <= ran
+    _swap_in_plain_versions(monkeypatch)
+    ref = all_logits(lm, lcfg, ids, 16, torch.int8)
+    assert got.shape == ref.shape == (48, lcfg.vocab_size)
+    tol = (1e-2 if dtype == torch.float32 else 3e-2) * ref.abs().max().item()
+    assert (got - ref).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("fmt", ["int8", "int4", "fp8"])
+def test_k4_lm_head_at_every_position(dev, fmt):
+    """llava-7b-lm's lm_head over every row of a 512-token sequence (M 512, K
+    4096, N 32064, f32 out: the quality scripts' all-position logits), in
+    each form (int4 at group 128), within 1e-4 of the f32 plain version."""
+    M, K, N = 512, 4096, 32064
+    if fmt != "int8":
+        _check_k4_form(dev, fmt, 128 if fmt == "int4" else 0, M, K, N, torch.bfloat16,
+                       torch.float32, seed=21)
+        return
+    from hydrainfer_tpu_torch.ops.quant import quantize_int8
+    rng = np.random.default_rng(21)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(dev, torch.bfloat16)
+    qt = quantize_int8(torch.from_numpy((rng.standard_normal((K, N)) / K ** 0.5)
+                                        .astype(np.float32)).to(dev))
+    got = quant_matmul_int8(x, qt.q, qt.scale, torch.float32)
+    ref = quant_matmul_int8_plain(x, qt.q, qt.scale, torch.float32)
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
