@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases build,kernels,mixtral,gpt2   # Mixtral and GPT-2
     python3 chip_smoke.py --phases build,quant      # llava-7b-lm at int4 and fp8
     python3 chip_smoke.py --phases build,quality    # the quality scripts on the card
+    python3 chip_smoke.py --phases build,kernels,tp  # tensor and expert parallelism
 
 Phases, each printing one JSON line:
   build    compile the Hopper kernels of hydrainfer_tpu_torch/csrc (nvcc,
@@ -253,7 +254,7 @@ Phases, each printing one JSON line:
            seed: 27 layers, MLA over the int8 latent cache, YaRN x40, one
            dense layer, 26 layers of 64 routed experts, 6 a token, and 2
            shared; int8 as quantize_tree picks, the experts bf16) as the mla
-           phase serves mla-2b-lm, 64 tokens a request: every request must finish, K6, K3 and K4
+           phase serves mla-2b-lm, 32 tokens a request: every request must finish, K6, K3 and K4
            launch and K1 and K2 never, a K = 16 window replays its graph (the
            MoE dispatch captured), a graphs-off round gives identical tokens,
            and a 512-token prefill in chunks of 256 through the kernels gives
@@ -279,18 +280,39 @@ Phases, each printing one JSON line:
            from the seed: GQA 4:1 x d128 over the int8 KV cache, every layer
            8 experts of 14336, 2 a token, bf16; int8 qkv, o_proj and lm_head;
            56.4 GB of experts: 32 layers would not fit) as the deepseek phase
-           serves V2-Lite, with 64 tokens a request: K1-K4 and the grouped
+           serves V2-Lite, with 32 tokens a request: K1-K4 and the grouped
            product launch, graphs-off tokens identical, the logits check at
            all 20 layers, the routing flips, the decode step's device ms
            beside its byte bound, and the tiny-checkpoint check (f32, graphs
            off on the card);
   gpt2     serve GPT-2 XL at full width and depth (openai-community/gpt2-xl's
            config.json, random weights from the seed, bf16 weights and KV):
-           32 requests x 128-token prompts x 64 tokens, budget 2048, single
+           32 requests x 128-token prompts x 32 tokens, budget 2048, single
            graphed steps (GPT-2 takes no fused window): K1, K2 and K3 launch
            and K4 never, graphs-off tokens identical, a 512-token prefill's
            logits through the kernels against the plain versions, and the
            tiny-checkpoint check (f32, graphs on);
+  tp       tensor and expert parallelism at tp_size 2, both ranks on the
+           card (parallel/mesh.py), decode from CUDA graphs: llava-7b-lm
+           (int8 weights, int8 KV) on one PD node at tp 1 and then at tp 2
+           over the same seeded tensors, 8 x 128 x 64: K1-K4 launch at the
+           shard shapes (16 q / 16 kv heads x d128; K4 at 4096 x 6144, 2048
+           x 4096, 4096 x 11008, 5504 x 4096 and the lm_head's 4096 x 16032,
+           as each wrapper records them), the tokens equal tp 1's or first
+           differ at a near tie (_near_tie; the count and the first gap
+           reported); DeepSeek-V2-Lite at full width and depth the same way,
+           8 x 128 x 32: MLA over the latent plane every rank holds a copy
+           of (K6 at 8 heads), 32 of the 64 experts a rank (the grouped
+           product at 32 experts), K4 at its shard shapes, K1 and K2 never,
+           and the routing choices of a 256-token prefill at tp 2 against
+           tp 1 (routing_first_layer_*); then a P node at tp 2 hands off to
+           a D node at tp 1 (the KV blocks gathered from the two shards) and
+           its tokens follow the same rule against tp 1's. Each part reports
+           tokens/s and a K = 16 decode step's device ms at tp 1 and tp 2,
+           and one prefill's logits at both against the f32 reference. The
+           kernels phase holds K1-K4 and K6 at these shapes (paths tp and
+           tp_mla) and the grouped product at one rank's 32 experts
+           (`grouped_mm_tp`);
   online   serve llava-7b-lm (full width, int8 weights, int8 KV) online
            through the real entry point, run as a child process: `python -m
            hydrainfer_tpu_torch.entrypoint.entrypoint --config
@@ -430,8 +452,9 @@ MM_TEXT, MM_TOKENS, MM_BUDGET = 32, 32, 2048
 # q-LoRA), the first layer dense (10944), then 64 routed experts of 1408, 6 a
 # token (greedy softmax, norm_topk_prob false, scaling 1.0) and 2 shared;
 # vocab 102400; YaRN factor 40 over 4096 positions, mscale = mscale_all_dim =
-# 0.707, 163840 positions. 32 requests x 128-token prompts x 64 tokens (the
-# mla phase's requests, decoded half as far to keep the script in its limit)
+# 0.707, 163840 positions. 32 requests x 128-token prompts x 32 tokens (the
+# mla phase's requests, decoded a quarter as far to keep the script in its
+# limit)
 DEEPSEEK_V2_LITE = {
     "model_type": "deepseek_v2", "vocab_size": 102400, "hidden_size": 2048,
     "intermediate_size": 10944, "moe_intermediate_size": 1408, "num_hidden_layers": 27,
@@ -445,14 +468,14 @@ DEEPSEEK_V2_LITE = {
                      "beta_fast": 32, "beta_slow": 1, "mscale": 0.707,
                      "mscale_all_dim": 0.707},
     "tie_word_embeddings": False}
-DEEPSEEK_REQUESTS, DEEPSEEK_PROMPT, DEEPSEEK_TOKENS = 32, 128, 64
+DEEPSEEK_REQUESTS, DEEPSEEK_PROMPT, DEEPSEEK_TOKENS = 32, 128, 32
 # the mixtral phase: Mixtral-8x7B, the widths of mistralai/Mixtral-8x7B-v0.1's
 # config.json: 4096 wide, 32 q / 8 kv heads of 128 (GQA 4:1), 8 experts of
 # 14336, 2 a token (softmax, renormalised), vocab 32000, rope_theta 1e6,
 # rms_norm_eps 1e-5, no sliding window. Its depth is cut to MIXTRAL_LAYERS of
 # 32: bf16 experts take 2.82 GB a layer (90 GB at 32 layers); 20 layers hold
 # 56.4 GB, leaving room for the pools and a one-layer f32 reference (5.6 GB
-# of f32 experts). 32 requests x 128-token prompts x 64 tokens
+# of f32 experts). 32 requests x 128-token prompts x 32 tokens
 MIXTRAL_8X7B = {
     "architectures": ["MixtralForCausalLM"], "model_type": "mixtral", "vocab_size": 32000,
     "hidden_size": 4096, "intermediate_size": 14336, "num_hidden_layers": 32,
@@ -460,15 +483,15 @@ MIXTRAL_8X7B = {
     "num_experts_per_tok": 2, "max_position_embeddings": 32768, "rope_theta": 1e6,
     "rms_norm_eps": 1e-5, "sliding_window": None, "tie_word_embeddings": False}
 MIXTRAL_LAYERS = 20
-MIXTRAL_REQUESTS, MIXTRAL_PROMPT, MIXTRAL_TOKENS = 32, 128, 64
+MIXTRAL_REQUESTS, MIXTRAL_PROMPT, MIXTRAL_TOKENS = 32, 128, 32
 # the gpt2 phase: GPT-2 XL, openai-community/gpt2-xl's config.json: 48 layers x
 # 1600, 25 heads of 64, inner 6400 (4 x), vocab 50257, 1024 positions,
 # gelu_new; bf16 weights (3.1 GB) and a bf16 KV cache; single-step windows.
-# 32 requests x 128-token prompts x 64 tokens (positions end at 192 < 1024)
+# 32 requests x 128-token prompts x 32 tokens (positions end at 160 < 1024)
 GPT2_XL = {"architectures": ["GPT2LMHeadModel"], "model_type": "gpt2", "vocab_size": 50257,
            "n_embd": 1600, "n_layer": 48, "n_head": 25, "n_positions": 1024,
            "activation_function": "gelu_new", "layer_norm_epsilon": 1e-5}
-GPT2_REQUESTS, GPT2_PROMPT, GPT2_TOKENS = 32, 128, 64
+GPT2_REQUESTS, GPT2_PROMPT, GPT2_TOKENS = 32, 128, 32
 # the vl2 phase: DeepSeek-VL2-Tiny, deepseek-ai/deepseek-vl2-tiny's
 # config.json: SigLIP-so400m at 384 (27 layers x 1152, 16 heads of 72, MLP
 # 4304, 28 x 28 patches), the 2x2 downsample projector (depth 2, 4608 ->
@@ -494,20 +517,50 @@ VL2_TINY_LM = {
 # image tokens (28 tiles, 5776 image tokens a round)
 VL2_IMAGES = [(384, 384), (768, 768), (384, 1152), (768, 384)] * 2
 VL2_KV_BLOCKS, VL2_IMAGE_BLOCKS = 1024, 32
+# the tp phase: tensor and expert parallelism at TP_SIZE ranks, both on the
+# one card. llava-7b-lm (int8 weights, int8 KV) at 8 x 128 x 64 with budget
+# 256, and DeepSeek-V2-Lite at full width and depth at 8 x 128 x 32 with
+# budget 1024 (one prefill step), each served at tp 1 and then at tp 2 on
+# the same seeded weights; then a P node at tp 2 hands off to a D node at tp
+# 1 on llava-7b-lm
+TP_SIZE = 2
+TP_REQUESTS, TP_PROMPT, TP_TOKENS, TP_MLA_TOKENS = 8, 128, 64, 32
+TP_BUDGET, TP_MLA_BUDGET = 256, 1024
 # architectures the script defines itself, by the names PATH_SHAPES uses
+# (the "-tp2" ones: what one of two ranks runs, its widths split)
 LOCAL_ARCHS = {"internlm2-7b": lambda: _decoder_cfg(**INTERNLM2_7B),
                "deepseek-v2-lite": lambda: _deepseek_cfg(DEEPSEEK_V2_LITE),
                "deepseek-vl2-tiny-lm": lambda: _deepseek_cfg(VL2_TINY_LM),
                "mixtral-8x7b": lambda: _mixtral_cfg(MIXTRAL_LAYERS),
-               "gpt2-xl": lambda: _gpt2_cfg()}
+               "gpt2-xl": lambda: _gpt2_cfg(),
+               "llava-7b-lm-tp2": lambda: _tp_rank_cfg(_random_arch("llava-7b-lm")),
+               "deepseek-v2-lite-tp2": lambda: _tp_rank_cfg(_deepseek_cfg(DEEPSEEK_V2_LITE))}
 # the MoE architectures' shared experts (the moe_intermediate_size of all
 # n_shared_experts in one MLP): K4's shapes beside the dense layer's
-MOE_TEXT = {"deepseek-v2-lite": DEEPSEEK_V2_LITE, "deepseek-vl2-tiny-lm": VL2_TINY_LM}
+MOE_TEXT = {"deepseek-v2-lite": DEEPSEEK_V2_LITE, "deepseek-vl2-tiny-lm": VL2_TINY_LM,
+            "deepseek-v2-lite-tp2": dict(DEEPSEEK_V2_LITE, moe_intermediate_size=(
+                DEEPSEEK_V2_LITE["moe_intermediate_size"] // TP_SIZE))}
 
 
 def _decoder_cfg(**kw):
     from hydrainfer_tpu_torch.models.decoder import DecoderConfig
     return DecoderConfig(**kw)
+
+
+def _random_arch(name: str):
+    from hydrainfer_tpu_torch.models.random_init import ARCH_CONFIGS
+    return ARCH_CONFIGS[name]
+
+
+def _tp_rank_cfg(cfg, tp: int = TP_SIZE):
+    """The DecoderConfig one of tp ranks runs (parallel/mesh.py:rank_config:
+    its heads), with its MLP width, vocabulary and experts split too: the
+    shapes its kernels see."""
+    from dataclasses import replace
+    from hydrainfer_tpu_torch.parallel.mesh import rank_config, tp_layout
+    return replace(rank_config(cfg, tp_layout(cfg, tp)),
+                   intermediate_size=cfg.intermediate_size // tp,
+                   vocab_size=cfg.vocab_size // tp, n_experts=cfg.n_experts // tp)
 
 
 def _deepseek_cfg(text_cfg: dict):
@@ -697,6 +750,20 @@ PATH_SHAPES["mixtral"] = dict(
     mixed=[(128, 128)] * 16, T=2048, kv_decode=(32, 32), kv_prefill=(2048, 2048), gemm_m=32,
     budget=2048, gemm_sweep=(32, 2048))
 PATH_SHAPES["gpt2"] = dict(PATH_SHAPES["mixtral"], arch="gpt2-xl", kv="bf16")
+# the tp phase's shard shapes: llava-7b-lm at tp 2 (16 q / 16 kv heads x d128,
+# K4 at qkv 4096 x 6144, o 2048 x 4096, gate_up 4096 x 11008, down 5504 x
+# 4096, lm_head 4096 x 16000) over the serve phase's batches, its decode step
+# at M 8; V2-Lite at tp 2 (8 heads over the 576-wide plane; K4 at o 1024 x
+# 2048, the dense layer 2048 x 10944 and 5472 x 2048, the shared experts
+# 2048 x 2816 and 1408 x 2048, lm_head 2048 x 51200): 8 decoding sequences
+# and one 1024-token budget of the 8 prompts
+PATH_SHAPES["tp"] = dict(PATH_SHAPES["serve"], arch="llava-7b-lm-tp2", gemm_m=8,
+                         gemm_sweep=(8, TP_BUDGET))
+PATH_SHAPES["tp_mla"] = dict(
+    arch="deepseek-v2-lite-tp2", decode=[(1, 129 + 4 * s) for s in range(TP_REQUESTS)],
+    mixed=[(TP_PROMPT, TP_PROMPT)] * TP_REQUESTS, T=TP_MLA_BUDGET,
+    kv_decode=(TP_REQUESTS, TP_REQUESTS), kv_prefill=(TP_MLA_BUDGET, TP_MLA_BUDGET),
+    gemm_m=TP_REQUESTS, budget=TP_MLA_BUDGET, gemm_sweep=(TP_REQUESTS, TP_MLA_BUDGET))
 # the speculative verify step of the spec phase (llava-7b-lm, S floor 8,
 # K1 = 13): 8 segments of 13 rows padded to T = 128 (max_q 16) through K2,
 # and every int8 projection, lm_head included, at M = T through K4
@@ -1635,8 +1702,11 @@ def check_grouped_mm(gen, dev, model="deepseek") -> dict:
     ragged_dot; no TPU kernel) at a model's experts: DeepSeek-V2-Lite's, 64 x
     (2048 -> 2 x 1408) and (1408 -> 2048), top-6 softmax routing; or
     Mixtral-8x7B's, 8 x (4096 -> 2 x 14336) and (14336 -> 4096), top-2
-    renormalised (its weights drawn on the card: 2.8 GB); bf16, at a decode
-    step (T = 32) and a prefill budget (T = 2048), rows routed by random
+    renormalised (its weights drawn on the card: 2.8 GB); or ("deepseek_tp2")
+    rank 0's of V2-Lite's at tp 2: its 32 experts, the routing over all 64
+    masked to them as the rank masks it (another rank's pair to local
+    expert 0 at weight 0: the dispatch keeps its T * 6 rows); bf16, at a
+    decode step (T = 32) and a prefill budget (T = 2048), rows routed by random
     logits: each product held to the per-group f32 matmul, timed eager and
     from a CUDA graph beside its bound (the experts the routing touched read
     once, the rows read and written once; 2 n K N operations); and the whole
@@ -1657,12 +1727,16 @@ def check_grouped_mm(gen, dev, model="deepseek") -> dict:
         draw = lambda *shape: (torch.randn(shape, generator=gen)  # noqa: E731
                                * 0.02).to(dev, torch.bfloat16)
         norm_topk = False
-    k = text["num_experts_per_tok"]
+    k, n_route = text["num_experts_per_tok"], E
+    if model == "deepseek_tp2":
+        E //= TP_SIZE
     w_gu, w_dn = draw(E, d, 2 * I), draw(E, I, d)
     out, ok = {}, True
     for T in (32, 2048):
-        logits = torch.randn((T, E), generator=gen).to(dev)
+        logits = torch.randn((T, n_route), generator=gen).to(dev)
         weights, ids = moe.route(logits, k, norm_topk=norm_topk)
+        local = ids < E
+        weights, ids = torch.where(local, weights, 0.0), torch.where(local, ids, 0)
         _, offs = moe.dispatch_offsets(ids, E)
         ends = offs.tolist()
         n = ids.numel()
@@ -1695,7 +1769,8 @@ def check_grouped_mm(gen, dev, model="deepseek") -> dict:
                               "graph_ms": graph_ms(fn)}
         out[f"T={T}"] = row
     save("grouped_mm.json" if model == "deepseek" else f"grouped_mm_{model}.json", out)
-    name = {"deepseek": "DeepSeek-V2-Lite", "mixtral": "Mixtral-8x7B"}[model]
+    name = {"deepseek": "DeepSeek-V2-Lite", "mixtral": "Mixtral-8x7B",
+            "deepseek_tp2": f"DeepSeek-V2-Lite rank 0 of {TP_SIZE}"}[model]
     return {"ok": bool(ok), "what": f"torch._grouped_mm at {name}'s experts, bf16 "
                                     "(library; the port's MoE dispatch)",
             "tolerance": "1e-2 x max(1, max|f32 per-group matmul|); moe_ffn 2e-2 x "
@@ -1796,7 +1871,7 @@ def phase_kernels() -> tuple:
     for path in ("next13b", "internvl", "vl2"):
         run(f"mha_varlen@{path}", check_mha_varlen_tiles, path)
     grouped = {}
-    for model in ("deepseek", "mixtral"):
+    for model in ("deepseek", "mixtral", "deepseek_tp2"):
         t0 = time.perf_counter()
         grouped[model] = check_grouped_mm(gen, dev, model)
         seconds[f"grouped_mm@{model}"] = time.perf_counter() - t0
@@ -1807,6 +1882,7 @@ def phase_kernels() -> tuple:
     ok = all(r["ok"] for r in results) and all(g["ok"] for g in grouped.values())
     return {"phase": "kernels", "ok": ok, "check_s": seconds,
             "grouped_mm": grouped["deepseek"], "grouped_mm_mixtral": grouped["mixtral"],
+            "grouped_mm_tp": grouped["deepseek_tp2"],
             "checks": {f"{_launch_key(r)}@{r['path']}": {
                 "ok": r["ok"], "max_abs_err": r["max_abs_err"], "ms": r["ms"]}
                 for r in results}}, results
@@ -1821,13 +1897,22 @@ def _engine(factory, device, n_requests, block_size, n_blocks, token_budget,
     the serving envelope, the decode keys met and, with cuda_graphs on the
     card, captured), a fixed token budget (the budget search off),
     speculation at the JAX default (spec_ngram_k = 12) unless asked, and the
-    whole-tower encode unless encode_chunk_layers asks for segments."""
+    whole-tower encode unless encode_chunk_layers asks for segments. A list
+    of devices makes its node tensor-parallel."""
+    from hydrainfer_tpu_torch.entrypoint.offline import OfflineEngine
+    cfg = _node_config(n_requests, block_size, n_blocks, token_budget, n_image_blocks,
+                       cuda_graphs, spec_ngram_k, encode_chunk_layers)
+    return OfflineEngine(cfg, model_factory=factory, node_type=node_type, device=device)
+
+
+def _node_config(n_requests, block_size, n_blocks, token_budget, n_image_blocks=-1,
+                 cuda_graphs=True, spec_ngram_k=12, encode_chunk_layers=0):
+    """_engine's NodeConfig."""
     from hydrainfer_tpu_torch.cluster.node import NodeConfig
     from hydrainfer_tpu_torch.engine.profiler import BatchSchedulerProfilerConfig
     from hydrainfer_tpu_torch.engine.request_processor import RequestProcessorConfig
     from hydrainfer_tpu_torch.engine.scheduler import BatchSchedulerConfig
-    from hydrainfer_tpu_torch.entrypoint.offline import OfflineEngine
-    cfg = NodeConfig(
+    return NodeConfig(
         batch_scheduler=BatchSchedulerConfig(max_running_requests=n_requests),
         request_processor=RequestProcessorConfig(num_request_process_workers=1),
         profiler=BatchSchedulerProfilerConfig(enabled=False,
@@ -1835,7 +1920,6 @@ def _engine(factory, device, n_requests, block_size, n_blocks, token_budget,
         kv_block_size=block_size, n_kv_blocks=n_blocks, n_image_blocks=n_image_blocks,
         multi_step_decode=16, cuda_graphs=cuda_graphs, boot_warmup=True,
         spec_ngram_k=spec_ngram_k, encode_chunk_layers=encode_chunk_layers)
-    return OfflineEngine(cfg, model_factory=factory, node_type=node_type, device=device)
 
 
 def _requests(rng, n, prompt_len, max_tokens, tag):
@@ -1950,12 +2034,18 @@ def _prefill_batches(cfg, tokens, device, positions=None, positions_hw=None,
 
 
 def _prefill_logits(lm, tokens, device, **batch_kw):
-    """One prefill of `lm` (_prefill_batches) on a scratch cache; returns the
-    sampled rows' f32 logits, (rows, vocab)."""
+    """One prefill of `lm` (_prefill_batches) on a scratch cache (a
+    tensor-parallel model's: one shard a rank); returns the sampled rows'
+    f32 logits, (rows, vocab)."""
     import torch
     batches, shape = _prefill_batches(lm.cfg, tokens, device, **batch_kw)
     int8_kv = getattr(lm.cfg, "kv_scale", None) is not None      # GPT-2: none
-    cache = torch.zeros(shape, dtype=torch.int8 if int8_kv else lm.dtype, device=device)
+    dtype = torch.int8 if int8_kv else lm.dtype
+    if getattr(lm, "tp_size", 1) > 1:
+        cache = [torch.zeros(shape[:-2] + (n, shape[-1]), dtype=dtype, device=d)
+                 for d, _, n in lm.weights.cache_shards()]
+    else:
+        cache = torch.zeros(shape, dtype=dtype, device=device)
     out = []
     for batch, n in batches:
         _, _, logits = lm.forward_with_logits(cache, batch, n)
@@ -2088,9 +2178,9 @@ def _layered_f32_logits(lm, tokens, device, **batch_kw):
                             x[i] = decoder._layer_body(x[i], cache, layer_id, lw32, batch,
                                                        cos, sin, cfg, n)
                         else:
+                            rank = decoder.Rank(x[i].device, cache, batch, cos, sin)
                             _, lg = decoder._last_layer_and_head(
-                                {**head, "layers": [lw32]}, cache, x[i], batch, cos, sin,
-                                cfg, n, table, True)
+                                head, x[i], [rank], [lw32], cfg, n, table, True)
                             logits.append(lg.float())
             del lw32
     finally:
@@ -2197,9 +2287,9 @@ class KvWriteSplit:
     """K3's launches in a serving round, split by the step they ran in:
     decode (every query one token, max_q == 1) or prefill (chunks, alone or
     mixed with decodes), and by the rows (T) each launch wrote. It wraps the
-    decoder's attention block, which writes its layer's K/V through K3, and
-    GPT-2's step, which writes every layer's, and reads K3's own launch
-    count around each call made outside a graph capture. A replayed graph
+    decoder's layer attention, which writes its layer's K/V through K3 on
+    every rank, and GPT-2's step, which writes every layer's, and reads
+    K3's own launch count around each call made outside a graph capture. A replayed graph
     calls no Python: each replay since `reset` of a node's graphs (all
     decode steps) adds the K3 launches its capture recorded, at its key's
     T."""
@@ -2209,7 +2299,7 @@ class KvWriteSplit:
         from hydrainfer_tpu_torch.models import decoder, gpt2
         from hydrainfer_tpu_torch.ops.cuda import write_kv_pages
         # (module, function, its positional args -> (rows, max_q))
-        targets = [(decoder, "_attention_block", lambda a: (a[0].shape[0], a[8])),
+        targets = [(decoder, "_layer_attention", lambda a: (a[0].shape[0], a[5])),
                    (gpt2, "gpt2_forward", lambda a: (a[3].token_ids.shape[0], a[5]))]
         self.saved = [(mod, name, getattr(mod, name)) for mod, name, _ in targets]
         self.reset()
@@ -2964,14 +3054,15 @@ def _replay_ms(graph, replays: int = 20) -> float:
     return start.elapsed_time(end) / replays
 
 
-def _near_tie(lm, tokenizer, reqs, on, off, dev, vision=None) -> dict:
+def _near_tie(lm, tokenizer, reqs, on, off, dev, vision=None, layered=False) -> dict:
     """Where two runs' tokens of a request first differ (`on` against
     `off`): the `off` path's top-2 logit gap at that position (one prefill
     of the prompt and the `off` tokens before it, through the kernels; an
     image request's image token expanded and its features spliced in from
     the factory `vision`), against the bound of _logits_check (LOGITS_RATIO
-    times the bf16 plain path's distance from f32): a divergence is a near
-    tie only if its gap is within the bound."""
+    times the bf16 plain path's distance from f32; `layered` for a model
+    whose f32 copy would not fit beside it): a divergence is a near tie
+    only if its gap is within the bound."""
     import numpy as np
     import torch
     from hydrainfer_tpu_torch.models.factory import VisionModelParameters
@@ -3000,7 +3091,7 @@ def _near_tie(lm, tokenizer, reqs, on, off, dev, vision=None) -> dict:
     if not rows:
         return {"ok": True, "divergences": []}
     probe = [int(t) for t in np.random.default_rng(SEED).integers(10, 120, size=64)]
-    check = _logits_check(lm, probe, dev, "bound")
+    check = _logits_check(lm, probe, dev, "bound", layered=layered)
     bound = LOGITS_RATIO * max(check["bound_bf16_plain_vs_f32_err"],
                                1e-3 * check["bound_f32_max_abs"])
     return {"ok": all(r["top2_gap"] <= bound for r in rows), "divergences": rows,
@@ -5478,6 +5569,13 @@ def _routing_flips(lm, tokens, dev, spy) -> dict:
             fn(lm, tokens, dev)
             runs.append(spy.record)
     spy.record = None
+    return _flip_report(runs, len(tokens))
+
+
+def _flip_report(runs, n_tokens: int) -> dict:
+    """The routing choices of two runs of one prefill ([(expert ids, score
+    gap)] a MoE layer each) that differ, with the second run's gap between
+    its top-k-th and (k+1)-th score, and the first flipped layer's."""
     flips = []
     for layer, ((a, _), (b, gap)) in enumerate(zip(*runs)):
         differ = (a.sort(dim=-1).values != b.sort(dim=-1).values).any(dim=-1)
@@ -5488,7 +5586,7 @@ def _routing_flips(lm, tokens, dev, spy) -> dict:
     # inputs differ by rounding alone; after it a flipped token's state, and
     # through attention every later token's, differs, and flips at any gap
     first = [f for f in flips if f["layer"] == flips[0]["layer"]] if flips else []
-    return {"routing_choices": len(runs[1]) * len(tokens), "routing_flips": len(flips),
+    return {"routing_choices": len(runs[1]) * n_tokens, "routing_flips": len(flips),
             "routing_flip_gaps": sorted(gaps)[:20], "routing_flip_max_gap": max(gaps, default=None),
             "routing_flips_first": flips[:10],
             "routing_first_flipped_layer": first[0]["layer"] if first else None,
@@ -5549,7 +5647,7 @@ def phase_deepseek(dev="cuda") -> tuple:
     _moe_lm_factory: 27 layers, MLA on the int8 single-plane latent cache,
     64 routed experts through the grouped product, YaRN), served as the mla
     phase serves mla-2b-lm (phase_serve: 32 requests x 128-token prompts x
-    64 tokens, budget 2048, K = 16 windows from CUDA graphs; K6, K3 and K4
+    32 tokens, budget 2048, K = 16 windows from CUDA graphs; K6, K3 and K4
     launch, K1 and K2 never; a graphs-off round gives identical tokens; it
     is not profiled: the profiler's bookkeeping of an eager round's ~10^6
     events takes minutes).
@@ -5602,7 +5700,7 @@ def phase_mixtral(dev="cuda") -> tuple:
     over the int8 KV cache, every layer 8 routed experts of 14336 through the
     grouped product, 2 a token; int8 qkv, o_proj and lm_head, the experts
     and the router bf16), served as the deepseek phase serves V2-Lite
-    (phase_serve: 32 requests x 128-token prompts x 64 tokens, budget 2048,
+    (phase_serve: 32 requests x 128-token prompts x 32 tokens, budget 2048,
     K = 16 windows from CUDA graphs; K1-K4 and the grouped product launch; a
     graphs-off round gives identical tokens, not profiled). Logits at all 20
     layers, the f32 reference a layer at a time, and the routing flips
@@ -5704,7 +5802,7 @@ def phase_gpt2(dev="cuda") -> tuple:
     """GPT-2 XL at full width and depth (_GPT2Factory: 48 layers x 1600, 25
     heads of 64, bf16 weights and a bf16 KV cache), served through
     OfflineEngine as phase_serve serves a text model: 32 requests x
-    128-token prompts x 64 tokens, budget 2048, single-step windows (GPT-2
+    128-token prompts x 32 tokens, budget 2048, single-step windows (GPT-2
     takes no fused window) from CUDA graphs; K1, K2 and K3 launch, K4 never;
     a graphs-off round gives identical tokens (not profiled). Logits: a
     512-token prefill in chunks of 256 at full depth through the kernels and
@@ -6123,6 +6221,387 @@ def _online_offline_text(dev, overrides, kv_blocks: int, prompt: str) -> dict:
 
 # ------------------------------------------------------------------- main
 
+class _ShapeSpy:
+    """A wrapper's stand-in that records each call's shape; its `launches`
+    is the wrapper's own (grouped_mm counts through its module name)."""
+
+    def __init__(self, fn, shape, seen: set):
+        self.fn, self.shape, self.seen = fn, shape, seen
+
+    def __call__(self, *args, **kw):
+        self.seen.add(self.shape(args))
+        return self.fn(*args, **kw)
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.fn.launches = n
+
+
+class ShardShapes:
+    """Wraps the kernel wrappers the model code looks up by name at call
+    time and records the shapes each sees (a graphed step's at its
+    capture): K4 the weight's (K, N); K1, K2 and K6 (q heads, cache
+    planes); K3 the cache planes; the grouped product its experts."""
+
+    def __init__(self):
+        from hydrainfer_tpu_torch.ops import attention, cache_ops, moe, quant
+        heads = lambda a: (a[0].shape[1], a[1].shape[-2])  # noqa: E731
+        probes = [(quant, "quant_matmul_int8", lambda a: tuple(a[1].shape)),
+                  (attention, "mha_decode_attention", heads),
+                  (attention, "paged_attention_varlen", heads),
+                  (attention, "paged_attention_latent", heads),
+                  (cache_ops, "write_kv_pages", lambda a: a[0].shape[-2]),
+                  (moe, "grouped_mm", lambda a: a[1].shape[0])]
+        self.saved = [(mod, name, getattr(mod, name)) for mod, name, _ in probes]
+        self.seen = {}
+        for (mod, name, shape), (_, _, fn) in zip(probes, self.saved):
+            setattr(mod, name, _ShapeSpy(fn, shape, self.seen.setdefault(name, set())))
+
+    def restore(self) -> None:
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def _tp_round(engine, reqs, k3=None) -> dict:
+    """One measured round of an engine: tokens, tokens/s, launch counts
+    (K3 split by KvWriteSplit where given), graph replays and the widest
+    K = 16 key's device ms a decode step."""
+    import torch
+    from hydrainfer_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    graphs = engine.node.fill_executor.graphs
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    if k3 is not None:
+        k3.reset(graphs)
+    replays0 = graphs.replays
+    t0 = time.perf_counter()
+    outs = engine.generate(reqs, timeout_s=600)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = {**launch_counts(), **(k3.counts() if k3 is not None else {})}
+    keys = [(d, n, g) for (d, n), g in graphs.graphs.items() if n == 16 and g.graph]
+    d, n, g = max(keys, key=lambda x: x[0].S)
+    tokens = [o.output_token_ids for o in outs]
+    return {"tokens": tokens, "tokens_per_s": sum(map(len, tokens)) / elapsed,
+            "elapsed_s": elapsed, "launches": counts,
+            **({"kv_writer_launches": k3.report()} if k3 is not None else {}),
+            "graph_keys": len(graphs.graphs), "graph_replays": graphs.replays - replays0,
+            "decode_step_device_ms": _replay_ms(g.graph, replays=5) / n,
+            "decode_step_key": f"T={d.T} S={d.S}"}
+
+
+def _tokens_ok(tokens, n: int, vocab: int) -> bool:
+    return all(len(t) == n and all(0 <= x < vocab for x in t) for t in tokens)
+
+
+def _tp_compare(name, f1, f2, dev, reqs, budget, must_run, must_not_run, shapes_want,
+                layered=False, spy=None) -> tuple:
+    """One model at tp 1 (f1's, run first) and at tp TP_SIZE (f2's: a model
+    over f1's weights, sharded by its node): a round each on the same
+    requests, both with decode graphs. The tp-2 round must launch every
+    kernel of must_run and none of must_not_run, at the shard shapes
+    (ShardShapes, from the node's boot on: what each wrapper saw must equal
+    shapes_want), and its tokens must equal tp 1's or first differ at a near
+    tie (_near_tie on f1's model); one prefill's logits at tp 2 must be as
+    close to the f32 reference as tp 1's and the plain path's (_tp_logits). With a RouteSpy, the routing choices of
+    one 256-token prefill at tp 2 against tp 1. Returns (result, the tp-2
+    round's launch counts, the tp-1 round's tokens)."""
+    import gc
+    import numpy as np
+    import torch
+    from hydrainfer_tpu_torch.request import Request
+    lm1, n_tokens = f1.getLanguageModel(), reqs[0].sampling_params.max_tokens
+    n_blocks = max(256, 2 * len(reqs) * (TP_PROMPT + n_tokens) // 16)
+    rounds, parts, seen = {}, {}, {}
+    for tp in (1, TP_SIZE):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        shapes = ShardShapes() if tp > 1 else None
+        k3 = KvWriteSplit() if tp > 1 else None
+        try:
+            engine = _engine(f1 if tp == 1 else f2, dev if tp == 1 else [dev] * tp,
+                             len(reqs), 16, n_blocks, budget, spec_ngram_k=0)
+            boot_s = time.perf_counter() - t0
+            rounds[tp] = _tp_round(engine, [
+                Request(request_id=f"{name}{tp}_{i}", prompt=r.prompt,
+                        sampling_params=r.sampling_params) for i, r in enumerate(reqs)], k3)
+        finally:
+            for spy_ in (k3, shapes):
+                if spy_ is not None:
+                    spy_.restore()
+        rounds[tp].update(boot_s=boot_s, peak_memory_bytes=torch.cuda.max_memory_allocated())
+        if shapes is not None:
+            seen = shapes.seen
+            rounds[tp]["ranks"] = [str(d) for d in
+                                   engine.node.worker.language_model.weights.group.devices]
+        parts[f"tp{tp}"] = time.perf_counter() - t0
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    one, two = rounds[1], rounds[TP_SIZE]
+    tie = _near_tie(lm1, f1.getTokenizer(), reqs, two["tokens"], one["tokens"], dev,
+                    layered=layered)
+    parts["near_tie"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    logits = _tp_logits(lm1, f2.getLanguageModel(), dev, layered)
+    parts["logits"] = time.perf_counter() - t0
+    routing, runs = {}, [[], []]
+    if spy is not None:
+        t0 = time.perf_counter()
+        tokens = [int(t) for t in np.random.default_rng(SEED + 3).integers(10, 120, size=256)]
+        runs = []
+        with torch.no_grad():
+            for lm in (f2.getLanguageModel(), lm1):
+                spy.record = []
+                _prefill_logits(lm, tokens, dev)
+                runs.append(spy.record)         # a tp-2 layer routes once, on rank 0
+        spy.record = None
+        routing = _flip_report(runs, len(tokens))
+        parts["routing"] = time.perf_counter() - t0
+    counts, vocab = two["launches"], lm1.cfg.vocab_size
+    checks = {"tokens": _tokens_ok(one["tokens"], n_tokens, vocab)
+              and _tokens_ok(two["tokens"], n_tokens, vocab),
+              "near_tie": tie["ok"], "logits": logits.pop("logits_ok"),
+              "launched": all(counts[k] > 0 for k in must_run),
+              "not_launched": all(counts[k] == 0 for k in must_not_run),
+              "shard_shapes": all(seen.get(k) == set(v) for k, v in shapes_want.items()),
+              "graphs_replayed": two["graph_replays"] > 0 and one["graph_replays"] > 0,
+              "routing_layers_paired": len(runs[0]) == len(runs[1])}
+    differ = tie["divergences"]
+    as_json = lambda d: {k: sorted(list(x) if isinstance(x, tuple) else x  # noqa: E731
+                                   for x in v) for k, v in d.items()}
+    return ({"ok": all(checks.values()), "checks": checks,
+             "requests": f"{len(reqs)} x {TP_PROMPT} x {n_tokens}",
+             "tp1": {k: v for k, v in one.items() if k != "tokens"},
+             f"tp{TP_SIZE}": {k: v for k, v in two.items() if k != "tokens"},
+             "shard_shapes": as_json(seen), "shard_shapes_expected": as_json(shapes_want),
+             "tokens_identical": one["tokens"] == two["tokens"],
+             "near_tie_requests": len(differ),
+             "first_flip_top2_gap": differ[0]["top2_gap"] if differ else None,
+             "near_tie": tie, **logits, **routing, "parts_s": parts},
+            counts, one["tokens"])
+
+
+def _tp_logits(lm1, lm2, dev, layered=False) -> dict:
+    """One 64-token prefill's logits at tp 1 (lm1) and at tp 2 (lm2, over
+    the same weights), both bf16 through the kernels, and the plain bf16
+    path's, each against the f32 plain reference (built a layer at a time
+    where `layered`): how far the ranks' extra roundings (each partial
+    rounded before the sum) move the logits, beside the plain path's own
+    bf16 distance. Checked: tp 2's distance is at most LOGITS_RATIO times
+    the larger of tp 1's and the plain path's. A wrong shard (a partial
+    dropped, columns out of order) moves the logits by their own size,
+    which the tokens' near-tie rule cannot tell from a tie on random
+    weights."""
+    import numpy as np
+    import torch
+    probe = [int(t) for t in np.random.default_rng(SEED + 4).integers(10, 120, size=64)]
+    with torch.no_grad():
+        if layered:
+            _, ref32, _ = _layered_f32_logits(lm1, probe, dev)
+        else:
+            lm32 = _f32_lm(lm1)
+            ref32 = _plain_logits(lm32, probe, dev)
+            del lm32
+        tp1, tp2 = _prefill_logits(lm1, probe, dev), _prefill_logits(lm2, probe, dev)
+        plain = _plain_logits(lm1, probe, dev)
+    err = lambda x: (x - ref32).abs().max().item()  # noqa: E731
+    bound = LOGITS_RATIO * max(err(tp1), err(plain))
+    return {"logits_f32_max_abs": ref32.abs().max().item(),
+            "logits_tp1_vs_f32_err": err(tp1), f"logits_tp{TP_SIZE}_vs_f32_err": err(tp2),
+            "logits_plain_bf16_vs_f32_err": err(plain),
+            f"logits_tp{TP_SIZE}_vs_tp1_err": (tp2 - tp1).abs().max().item(),
+            f"logits_tp{TP_SIZE}_bound": bound, "logits_ok": err(tp2) <= bound}
+
+
+def _tp_migration(f_p, f_d, dev, reqs, ref_tokens) -> dict:
+    """A P node at tp TP_SIZE (f_p's model, sharded in part 1) hands each
+    request to a D node at tp 1 (f_d's), which pulls its KV blocks (gathered
+    from the P node's rank shards into the single-device layout); every
+    payload must hold all the KV heads and land in the D node's blocks
+    exactly, and the tokens must equal the tp-1 node's (ref_tokens) or
+    first differ at a near tie."""
+    import asyncio
+    import torch
+    from hydrainfer_tpu_torch.cluster.migrate import MigrateGraphBuilder, NodeType
+    from hydrainfer_tpu_torch.cluster.node import AsyncEPDNode, NodeContext
+    from hydrainfer_tpu_torch.engine.output_token_processor import LogOutputTokenProcessor
+    from hydrainfer_tpu_torch.engine.request_processor import RequestProcessParameters
+    from hydrainfer_tpu_torch.request import Request
+    n_blocks = max(256, 2 * len(reqs) * (TP_PROMPT + TP_TOKENS) // 16)
+    t0 = time.perf_counter()
+    nodes = []
+    for name, node_type, device, factory in (("p0", "P", [dev] * TP_SIZE, f_p),
+                                             ("d0", "D", dev, f_d)):
+        node = AsyncEPDNode(_node_config(len(reqs), 16, n_blocks, TP_BUDGET, spec_ngram_k=0),
+                            NodeContext(name=name, node_type=NodeType(node_type),
+                                        device=device))
+        node.init(factory)
+        nodes.append(node)
+    builder = MigrateGraphBuilder()
+    for node in nodes:
+        builder.add_node(node.name, node.context.node_type, node, tpot_slo=0.4)
+    graph = builder.build_graph()
+    for node in nodes:
+        node.update_migrate_graph(graph)
+    boot_s = time.perf_counter() - t0
+    d_mgr, landed = nodes[1].kv_cache_manager, []
+    scatter = d_mgr.scatter_blocks
+
+    def scatter_checked(block_ids, blocks):
+        scatter(block_ids, blocks)
+        landed.append(blocks.shape[-2] == d_mgr.cache_array.shape[-2] and torch.equal(
+            d_mgr.gather_blocks(block_ids), blocks.to(d_mgr.dtype)))
+
+    d_mgr.scatter_blocks = scatter_checked
+
+    async def run():
+        procs = [LogOutputTokenProcessor() for _ in reqs]
+        for i, (r, proc) in enumerate(zip(reqs, procs)):
+            await nodes[0].add_request(
+                Request(request_id=f"mig{i}", prompt=r.prompt,
+                        sampling_params=r.sampling_params),
+                RequestProcessParameters(output_token_processors=[proc]))
+        deadline = time.perf_counter() + 300
+        while not all(p.finished for p in procs):
+            for node in nodes:
+                await node.step()
+            await asyncio.sleep(0)
+            if time.perf_counter() > deadline:
+                raise TimeoutError(f"stalled: {[len(p.token_ids) for p in procs]}")
+        return [p.token_ids for p in procs]
+
+    t0 = time.perf_counter()
+    tokens = asyncio.run(run())
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    d_metrics = nodes[1].metrics()
+    p_cache = nodes[0].kv_cache_manager.cache_array
+    lm_d = f_d.getLanguageModel()
+    tie = _near_tie(lm_d, f_d.getTokenizer(), reqs, tokens, ref_tokens, dev)
+    differ = tie["divergences"]
+    checks = {"tokens": _tokens_ok(tokens, TP_TOKENS, lm_d.cfg.vocab_size),
+              "near_tie": tie["ok"],
+              "pulled": d_metrics.get("migration_pulls") == len(reqs),
+              "payloads_landed": len(landed) == len(reqs) and all(landed),
+              "p_sharded": isinstance(p_cache, list) and len(p_cache) == TP_SIZE}
+    return {"ok": all(checks.values()), "checks": checks, "boot_s": boot_s,
+            "elapsed_s": elapsed, "tokens_per_s": sum(map(len, tokens)) / elapsed,
+            "tokens_identical_to_tp1": tokens == ref_tokens,
+            "near_tie_requests": len(differ),
+            "first_flip_top2_gap": differ[0]["top2_gap"] if differ else None,
+            "near_tie": tie, "d_migration": {k: v for k, v in d_metrics.items()
+                                             if k.startswith("migration_")}}
+
+
+def phase_tp(dev="cuda") -> tuple:
+    """Tensor and expert parallelism (parallel/mesh.py) at tp_size TP_SIZE,
+    both ranks on the one card (the cluster's wrap-around rule), decode
+    from CUDA graphs:
+    1. llava-7b-lm (32 layers x 4096, 32 heads; int8 weights, int8 KV at
+       0.05) on one PD node at tp 1 and then at tp 2 over the same seeded
+       weights (the tp-2 model's row and expert slices are views of the
+       tp-1 tensors, its permuted columns copies): 8 requests x 128-token
+       prompts x 64 tokens. K1-K4 launch at the shard shapes (16 q / 16 kv
+       heads x d128; K4 at qkv 4096 x 6144, o 2048 x 4096, gate_up 4096 x
+       11008, down 5504 x 4096, lm_head 4096 x 16000), and the tokens equal
+       tp 1's or first differ at a near tie;
+    2. DeepSeek-V2-Lite at full width and depth (27 layers; MLA over the
+       latent cache every rank holds a copy of; 32 of the 64 experts a rank)
+       at tp 1 and tp 2, 8 x 128 x 32: K6, K3, K4 and the grouped product
+       launch (8 heads a rank over the 576-wide plane, 32 experts), K1 and
+       K2 never; the tokens under the same rule, and the routing choices of
+       one 256-token prefill at tp 2 against tp 1 (routing_first_layer_*);
+    3. a P node at tp 2 hands off to a D node at tp 1 on llava-7b-lm (the
+       KV blocks gathered from the two rank shards): part 1's requests, whose
+       tokens equal part 1's tp-1 tokens or first differ at a near tie.
+    Returns (result, {"tp": part 1's tp-2 launch counts, "tp_mla": part
+    2's})."""
+    import gc
+    import numpy as np
+    import torch
+    from hydrainfer_tpu_torch.models.random_init import RandomWeightFactory
+    from hydrainfer_tpu_torch.request import Request, SamplingParameters
+    dev = torch.device(dev)
+    result, counts, parts = {"phase": "tp", "gpu": gpu_name_and_limit(),
+                             "tp_size": TP_SIZE}, {}, {}
+    reqs = _requests(np.random.default_rng(SEED + 9), TP_REQUESTS, TP_PROMPT, TP_TOKENS, "tp")
+
+    # 1. llava-7b-lm at tp 1, then tp 2 over the same tensors
+    t0 = time.perf_counter()
+    llava = dict(dtype=torch.bfloat16, quantization="int8", kv_scale=0.05, device=dev,
+                 seed=SEED)
+    f1 = RandomWeightFactory("llava-7b-lm", **llava)
+    f2 = RandomWeightFactory("llava-7b-lm", weights=f1.getLanguageModel().weights, **llava)
+    torch.cuda.synchronize()
+    parts["llava_init"] = time.perf_counter() - t0
+    want = {"quant_matmul_int8": {(4096, 6144), (2048, 4096), (4096, 11008), (5504, 4096),
+                                  (4096, 16032)},
+            "mha_decode_attention": {(16, 32)}, "paged_attention_varlen": {(16, 32)},
+            "write_kv_pages": {32}}
+    t0 = time.perf_counter()
+    try:
+        result["llava"], counts["tp"], tp1_tokens = _tp_compare(
+            "llava", f1, f2, dev, reqs, TP_BUDGET, SERVE_KERNELS, (), want)
+        parts["llava"] = time.perf_counter() - t0
+
+        # 3. P at tp 2 -> D at tp 1, on the same two models
+        t0 = time.perf_counter()
+        result["migration"] = _tp_migration(f2, f1, dev, reqs, tp1_tokens)
+        parts["migration"] = time.perf_counter() - t0
+    except Exception as e:      # a failed part fails the phase; the next still runs
+        traceback.print_exc()
+        result.setdefault("llava", {"ok": False, "error": repr(e)})
+        result.setdefault("migration", {"ok": False, "error": repr(e)})
+    del f1, f2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. DeepSeek-V2-Lite at tp 1, then tp 2 over the same tensors
+    t0 = time.perf_counter()
+    g1 = _moe_lm_factory(dev, DEEPSEEK_V2_LITE)
+    g2 = RandomWeightFactory("tiny-lm", dtype=torch.bfloat16, quantization="int8",
+                             kv_scale=0.05, device=dev, seed=SEED,
+                             weights=g1.getLanguageModel().weights)
+    g2.cfg = g1.cfg
+    torch.cuda.synchronize()
+    parts["deepseek_init"] = time.perf_counter() - t0
+    spy = RouteSpy(1, -1)
+    want = {"paged_attention_latent": {(8, 1)}, "write_kv_pages": {1},
+            "grouped_mm": {DEEPSEEK_V2_LITE["n_routed_experts"] // TP_SIZE},
+            "quant_matmul_int8": {(1024, 2048), (2048, 10944), (5472, 2048), (2048, 2816),
+                                  (1408, 2048), (2048, 51200)}}
+    mla_reqs = [Request(request_id=r.request_id, prompt=r.prompt,
+                        sampling_params=SamplingParameters(max_tokens=TP_MLA_TOKENS,
+                                                           ignore_eos=True)) for r in reqs]
+    t0 = time.perf_counter()
+    try:
+        result["deepseek"], counts["tp_mla"], _ = _tp_compare(
+            "v2", g1, g2, dev, mla_reqs, TP_MLA_BUDGET, MLA_KERNELS + ("grouped_mm",),
+            ("mha_decode", "paged_attention"), want, layered=True, spy=spy)
+    except Exception as e:
+        traceback.print_exc()
+        result["deepseek"] = {"ok": False, "error": repr(e)}
+    finally:
+        spy.restore()
+    parts["deepseek"] = time.perf_counter() - t0
+    result["deepseek"]["model"] = ("DeepSeek-V2-Lite (the widths and depth of its "
+                                   f"config.json) over {TP_SIZE} ranks: 8 heads and 32 "
+                                   "experts a rank")
+    del g1, g2
+    gc.collect()
+    torch.cuda.empty_cache()
+    result["parts_s"] = parts
+    result["ok"] = bool(all(result[k]["ok"] for k in ("llava", "migration", "deepseek")))
+    save("tp.json", result)
+    return result, counts
+
+
 def gpu_name_and_limit() -> str:
     try:
         out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6158,7 +6637,7 @@ def main() -> int:
     ap.add_argument("--phases",
                     default="build,kernels,tiny,serve,quant,quality,spec,sample,vlm,llava,"
                             "disagg,process,"
-                            "llavanext,internvl,mla,deepseek,vl2,mixtral,gpt2,online")
+                            "llavanext,internvl,mla,deepseek,vl2,mixtral,gpt2,tp,online")
     ap.add_argument("--out-dir", default=OUT_DIR,
                     help="where the detail files go")
     args = ap.parse_args()
@@ -6185,7 +6664,7 @@ def main() -> int:
                                            "next13b": {}, "internvl": {}, "mla": {},
                                            "deepseek": {}, "vl2": {}, "mixtral": {},
                                            "gpt2": {}, "quant_int4": {}, "quant_fp8": {},
-                                           "quality": {}}
+                                           "quality": {}, "tp": {}, "tp_mla": {}}
     process_counts = None       # the process phase's, summed over its node processes
     why = {}                    # a failed phase: what failed in it
     for phase in phases:
@@ -6242,6 +6721,9 @@ def main() -> int:
                 res, counts["mixtral"] = phase_mixtral()
             elif phase == "gpt2":
                 res, counts["gpt2"] = phase_gpt2()
+            elif phase == "tp":
+                res, tp_counts = phase_tp()
+                counts.update(tp_counts)
             elif phase == "online":
                 res = phase_online()
             else:

@@ -20,10 +20,18 @@ else build each from a `model_factory_provider`, else each its own from
 `config.node.model`. Nodes with auto-sized caches size them in turn from
 the free memory of their card, so on a shared card set the block counts.
 
-Tensor and pipeline parallelism (`tp_size`, `pp_size` > 1) wait for queue 1,
-item 9. The `process` deployment (one OS process per node) and `attach_addr`
-belong to cluster/process_node.py:ProcessCluster, which EntryPoint builds
-for `deployment: process`; this class refuses both, where the JAX `Cluster`
+Tensor parallelism (`tp_size` > 1): each node owns a group of tp_size
+devices, taken by the JAX cluster's wrap-around rule (group g's rank i is
+devices[(g * tp_size + i) % len(devices)]), and shards its language model
+and KV cache over them (cluster/node.py); the preset topologies are resolved
+over len(devices) // tp_size groups. On one card or on the CPU every rank of
+every node shares the one device. Nodes that share a factory share its
+model, sharded once, so a shared factory needs every node on the same
+devices: elsewhere pass a `model_factory_provider`. Pipeline parallelism
+(`pp_size` > 1) waits for queue 1, item 9b. The `process` deployment (one
+OS process per node) and `attach_addr` belong to
+cluster/process_node.py:ProcessCluster, which EntryPoint builds for
+`deployment: process`; this class refuses both, where the JAX `Cluster`
 ignores them and builds the nodes in process.
 """
 import dataclasses
@@ -75,8 +83,10 @@ class ClusterConfig:
     cluster_type: str = "auto"          # auto | general | hybrid | single
     nodes: List[NodeSpec] = field(default_factory=list)
     node: NodeConfig = field(default_factory=NodeConfig)
-    tp_size: int = 1                    # > 1: not ported yet (queue 1, item 9)
-    pp_size: int = 1                    # > 1: not ported yet (queue 1, item 9)
+    # tensor-parallel ranks a node: its LM weights and KV cache sharded over
+    # tp_size devices (the wrap-around rule; one card: all on it)
+    tp_size: int = 1
+    pp_size: int = 1                    # > 1: not ported yet (queue 1, item 9b)
     # "inprocess" = asyncio actors in this process; "process" = one OS
     # process per node (cluster/process_node.py:ProcessCluster, which
     # EntryPoint builds)
@@ -135,16 +145,17 @@ class Cluster(RequestObserver):
                                       "the nodes in this process; one process a node is "
                                       "ProcessCluster's (cluster/process_node.py), which "
                                       "EntryPoint builds for deployment=process")
-        if config.tp_size > 1 or config.pp_size > 1:
-            raise NotImplementedError("tensor and pipeline parallelism (tp_size, "
-                                      "pp_size > 1) are not ported yet (ROADMAP.md "
-                                      "queue 1, item 9)")
+        if config.pp_size > 1:
+            raise NotImplementedError("pipeline parallelism (pp_size > 1) is not ported "
+                                      "yet (ROADMAP.md queue 1, item 9b)")
         if config.xla_flags:
             logger.warning(f"cluster.xla_flags is TPU-only and has no effect here: "
                            f"{config.xla_flags!r}")
         self.config = config
         devices = devices if devices is not None else cluster_devices(config)
-        specs = config.nodes or resolve_cluster_topology(config.cluster_type, len(devices))
+        tp = max(1, config.tp_size)
+        specs = config.nodes or resolve_cluster_topology(config.cluster_type,
+                                                         max(1, len(devices) // tp))
         if any(spec.attach_addr for spec in specs):
             raise NotImplementedError("attach_addr: Cluster builds the nodes in this "
                                       "process; attaching to a running node is "
@@ -156,7 +167,9 @@ class Cluster(RequestObserver):
             for _ in range(spec.n_replicas):
                 idx = name_counts.get(spec.node_type, 0)
                 name_counts[spec.node_type] = idx + 1
-                device = devices[len(self.nodes) % len(devices)]
+                g = len(self.nodes)
+                group = [devices[(g * tp + i) % len(devices)] for i in range(tp)]
+                device = group if tp > 1 else group[0]
                 node = AsyncEPDNode(spec_node_config(config.node, spec), NodeContext(
                     name=f"{spec.node_type.lower()}{idx}",
                     node_type=NodeType(spec.node_type), device=device))

@@ -2,21 +2,26 @@
 node type: E, P, D and their unions EP, ED, PD, EPD).
 
 One node runs on one device, which other nodes of the same process may
-share. It holds the models its type runs (the vision tower to encode, the
-language model to prefill or decode) and the caches they need: the KV pool
-when it prefills or decodes, the image-feature cache when it encodes or
-prefills. An encode-only node has no KV pool, no fill executor and no
-decode warm-up, and its image cache takes the whole cache share. It runs
-the scheduler -> batch builder -> model step loop, and keeps a bounded
+share, or, given a list of devices, on one tensor-parallel rank a device
+(ranks may share one): its language model shards its weights over them
+(models/llama.py:shard_to, parallel/mesh.py) and its KV cache holds one
+shard a rank, while the token table, the image cache and the vision tower
+stay on rank 0's device. Decode graphs need all ranks on one card
+(`check_graph_devices`). It holds the models its type runs (the vision tower
+to encode, the language model to prefill or decode) and the caches they
+need: the KV pool when it prefills or decodes, the image-feature cache when
+it encodes or prefills. An encode-only node has no KV pool, no fill executor
+and no decode warm-up, and its image cache takes the whole cache share. It
+runs the scheduler -> batch builder -> model step loop, and keeps a bounded
 pipeline of dispatched fill steps whose sampled tokens are read back
 asynchronously (CUDA events; see engine/executor.py:FillFuture). The
 pipeline is the JAX package's "incremental" mode: completed windows are
 drained first, then at most the backlog overflow, oldest first, so at least
-one later window stays queued on the card through every read. A read that must wait yields to the event loop
-until its event has fired, so the API server that shares the loop keeps
-answering. Each step dispatches its fills before its encode, so resident
-decodes never queue behind a ViT forward they do not depend on (an image's
-own prefill runs in a later step).
+one later window stays queued on the card through every read. A read that
+must wait yields to the event loop until its event has fired, so the API
+server that shares the loop keeps answering. Each step dispatches its fills
+before its encode, so resident decodes never queue behind a ViT forward they
+do not depend on (an image's own prefill runs in a later step).
 
 At boot (`init`), in the JAX order: the executor's shape-key floors are
 raised to the serving envelope, the SLO budget search runs
@@ -191,8 +196,21 @@ def tpu_only_settings(config: NodeConfig) -> dict:
 class NodeContext:
     name: str = "node0"
     node_type: NodeType = field(default_factory=lambda: NodeType("PD"))
-    device: Optional[object] = None      # None = the card
+    # None = the card; a list of devices = one tensor-parallel rank a device
+    # (ranks may share one), as the JAX node's device list forms its mesh
+    device: Optional[object] = None
     migrate_graph: Optional[MigrateGraph] = None
+
+
+def check_graph_devices(devices, cuda_graphs: bool) -> None:
+    """A decode graph captures one device's stream: ranks on different cards
+    cannot run from one graph, so such a node must turn cuda_graphs off
+    rather than run eagerly unasked."""
+    if cuda_graphs and len(set(devices)) > 1 and any(d.type == "cuda" for d in devices):
+        raise NotImplementedError(
+            f"cuda_graphs with tensor-parallel ranks on different devices "
+            f"{[str(d) for d in devices]}: a decode graph captures one card's stream "
+            "(cross-card graphs are ROADMAP.md queue 1, item 11); set cuda_graphs=false")
 
 
 class BatchSchedulerObserver(RequestProcessorObserver):
@@ -217,12 +235,26 @@ def adaptive_postprocess_k(n_running: int, n_waiting: int, max_running: int,
 
 
 
+def _heads_per_device(shards) -> dict:
+    """{device: the cache heads its ranks hold} of [(device, first, n)]."""
+    out = {}
+    for dev, _, n in shards:
+        out[dev] = out.get(dev, 0) + n
+    return out
+
+
 class AsyncEPDNode:
     def __init__(self, config: NodeConfig, context: NodeContext):
         self.config = config
         self.context = context
         self.name = f"{context.node_type}Node:{context.name}"
-        self.device = resolve_device(context.device)
+        devices = (context.device if isinstance(context.device, (list, tuple))
+                   else [context.device])
+        # one a tensor-parallel rank; rank 0's holds the token table, the
+        # image cache and the vision tower
+        self.devices = [resolve_device(d) for d in devices]
+        self.device = self.devices[0]
+        check_graph_devices(self.devices, config.cuda_graphs)
         tpu_only = tpu_only_settings(config)
         if tpu_only:
             logger.warning(f"{self.name}: TPU-only settings have no effect here: "
@@ -255,6 +287,8 @@ class AsyncEPDNode:
         self.worker = VanillaWorker(WorkerConfig(enable_vision=nt.has_vision_model,
                                                  enable_language=nt.has_language_model),
                                     self.model_factory)
+        if len(self.devices) > 1:
+            self._shard_language_model()
         self._init_caches()
         self.fill_executor = (
             FillExecutor(self.kv_cache_manager, self.worker, cfg.token_table_size,
@@ -316,6 +350,23 @@ class AsyncEPDNode:
         logger.info(f"{self.name} initialized on {self.device} (blocks: {caches}; "
                     f"budgets: {image_budget} images, {token_budget} tokens)")
 
+    def _shard_language_model(self) -> None:
+        """Tensor parallelism over the node's devices: the language model
+        shards its weights (its shard_to), and the KV cache follows in
+        _init_caches. A node without a language model (E) runs its tower on
+        rank 0's device."""
+        lm = self.worker.language_model
+        if lm is None:
+            return
+        if not hasattr(lm, "shard_to"):
+            # the JAX node quietly runs such a model on its first device
+            raise NotImplementedError(
+                f"{type(lm).__name__} has no tensor-parallel form (GPT-2's layer loop "
+                f"is its own): serve it with tp_size 1, not on {len(self.devices)} ranks")
+        lm.shard_to(self.devices)
+        logger.info(f"{self.name} tensor-parallel over {len(self.devices)} ranks on "
+                    f"{[str(d) for d in self.devices]}")
+
     def _init_caches(self) -> None:
         """The caches of the node's type: the KV pool where it prefills or
         decodes, the image cache where it encodes or prefills (and the
@@ -356,6 +407,9 @@ class AsyncEPDNode:
                 block_size=block,
                 n_heads=1, head_dim=lc.hidden_size,
                 dtype=model_dtype)
+        # a tensor-parallel model's KV cache: one shard a rank
+        shards = (lm.weights.cache_shards()
+                  if kv_cfg is not None and getattr(lm, "tp_size", 1) > 1 else None)
         auto_kv = kv_cfg is not None and self.config.n_kv_blocks == -1
         auto_img = with_images and self.config.n_image_blocks == -1
         if auto_kv or auto_img:
@@ -365,16 +419,20 @@ class AsyncEPDNode:
                 # with one cache gives it the whole share). Nodes sharing a
                 # card size in turn: the first takes its share of nearly all
                 # the free memory, as the JAX node does
-                free, _ = torch.cuda.mem_get_info(self.device)
-                free = free * self.config.hbm_utilization
                 frac = 1.0 - 0.1 * nt.has_vision_model - 0.1 * nt.has_language_model
                 if with_images and kv_cfg is not None:
                     img_frac, kv_frac = 0.1 * frac, 0.8 * frac
                 else:
                     img_frac, kv_frac = (frac, 0.0) if with_images else (0.0, frac)
+                free = torch.cuda.mem_get_info(self.device)[0] * self.config.hbm_utilization
                 if auto_kv:
-                    kv_cfg.n_blocks = max(1, TokenCacheBlockManager.compute_n_blocks(
-                        kv_cfg, int(free * kv_frac)))
+                    # the ranks that share a card divide its share: a block
+                    # costs each card its ranks' heads
+                    kv_cfg.n_blocks = max(1, min(
+                        int(torch.cuda.mem_get_info(dev)[0] * self.config.hbm_utilization
+                            * kv_frac) * kv_cfg.n_heads // (kv_cfg.block_nbytes * heads)
+                        for dev, heads in _heads_per_device(
+                            shards or [(self.device, 0, kv_cfg.n_heads)]).items()))
                 if auto_img:
                     img_cfg.n_blocks = max(1, TokenCacheBlockManager.compute_n_blocks(
                         img_cfg, int(free * img_frac)))
@@ -385,7 +443,8 @@ class AsyncEPDNode:
                     img_cfg.n_blocks = 64
             logger.info(f"{self.name} cache sizing: {kv_cfg.n_blocks if kv_cfg else 0} "
                         f"kv blocks, {img_cfg.n_blocks if img_cfg else 0} image blocks")
-        self.kv_cache_manager = (TokenCacheBlockManager(kv_cfg, self.device, self.name)
+        self.kv_cache_manager = (TokenCacheBlockManager(kv_cfg, self.device, self.name,
+                                                        shards=shards)
                                  if kv_cfg is not None else None)
         self.image_cache_manager = (TokenCacheBlockManager(img_cfg, self.device, self.name)
                                     if img_cfg is not None else None)

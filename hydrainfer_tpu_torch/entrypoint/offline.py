@@ -2,7 +2,10 @@
 hydrainfer_tpu/entrypoint/offline.py:OfflineEngine).
 
 One node with a self-pointing migrate graph, driven to completion. It runs
-on the card unless the caller passes device="cpu".
+on the card unless the caller passes device="cpu". A list of devices
+(`device=["cuda:0", "cuda:0"]`, or `["cpu"] * 4`), as the JAX
+`OfflineEngine(devices=...)` takes it, makes the node tensor-parallel: one
+rank a device.
 """
 import asyncio
 import time

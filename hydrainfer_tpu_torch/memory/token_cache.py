@@ -13,6 +13,14 @@ destination's `scatter_blocks` writes it into its own blocks, cast to its
 cache's dtype. Both are queued on the current stream, so on one card a copy
 is ordered after the source's earlier writes and before the destination's
 later reads, with no event.
+
+A tensor-parallel node's cache (`shards` = [(device, first head, count)], one
+a rank) is a list of per-rank tensors over the same blocks, each holding its
+rank's run of the head axis (whole K/V pairs; a latent plane is copied on
+every rank). The payload keeps the single-device layout either way: a
+gather concatenates the ranks' heads on rank 0's device (each head from the
+first rank that holds it), a scatter gives every rank its run. So blocks
+move between nodes of any two TP degrees.
 """
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence
@@ -20,6 +28,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..parallel.mesh import merge_kv_shards, shard_kv_cache
 from ..utils.counter import IncreasingAllocator
 from ..utils.device import resolve_device
 from .block_allocator import BlockAllocator, BlockAllocatorMetrics
@@ -67,16 +76,23 @@ class TokenCacheBlockManagerMetrics:
 
 class TokenCacheBlockManager:
     def __init__(self, config: TokenCacheBlockManagerConfig, device=None,
-                 node_name: str = ""):
+                 node_name: str = "", shards=None):
         self.config = config
         self.block_size = config.block_size
         self.n_blocks = config.n_blocks
         self.node_name = node_name
         self.dtype = str2dtype(config.dtype)
-        self.device = resolve_device(device)
+        self.shards = shards
+        self.device = resolve_device(shards[0][0] if shards else device)
         shape = (config.n_layers, config.n_tensors, config.n_blocks,
                  config.block_size, config.n_heads, config.head_dim)
-        self.cache_array = torch.zeros(shape, dtype=self.dtype, device=self.device)
+        if shards:
+            # one tensor a rank, its run of the head axis
+            self.cache_array = [torch.zeros(shape[:-2] + (n, shape[-1]), dtype=self.dtype,
+                                            device=resolve_device(dev))
+                                for dev, _, n in shards]
+        else:
+            self.cache_array = torch.zeros(shape, dtype=self.dtype, device=self.device)
         self.block_allocator = BlockAllocator(config.n_blocks)
         self.shared_cache = SharedCache(SharedCacheConfig(n_blocks=config.n_blocks))
         self._vid_allocator = IncreasingAllocator(start=1)
@@ -146,12 +162,12 @@ class TokenCacheBlockManager:
 
     # ---------------- migration data plane ----------------
 
-    def _block_index(self, block_ids: Sequence[int]) -> torch.Tensor:
+    def _block_index(self, block_ids: Sequence[int], device=None) -> torch.Tensor:
         # from pageable host memory a non-blocking copy stages its source
         # before it returns, and waits for nothing queued on the card (a
         # blocking one would drain the stream: every decode window in flight)
         ids = torch.from_numpy(np.asarray(block_ids, dtype=np.int64))
-        return ids.to(self.device, non_blocking=True)
+        return ids.to(device or self.device, non_blocking=True)
 
     def _words(self, t: torch.Tensor) -> torch.Tensor:
         """A (layers, tensors, n, ...) tensor of this cache's dtype as
@@ -161,19 +177,33 @@ class TokenCacheBlockManager:
         rows = t.reshape(t.shape[0] * t.shape[1], t.shape[2], -1)
         return rows.view(torch.int64) if rows.shape[-1] * t.element_size() % 8 == 0 else rows
 
+    def _gather(self, a: torch.Tensor, block_ids: Sequence[int]) -> torch.Tensor:
+        out = self._words(a).index_select(1, self._block_index(block_ids, a.device))
+        return out.view(a.dtype).view(a.shape[:2] + (len(block_ids),) + a.shape[3:]).movedim(2, 0)
+
     def gather_blocks(self, block_ids: Sequence[int]) -> torch.Tensor:
         """The blocks as one (n, layers, tensors, block, heads, dim) payload,
-        a copy on this cache's device."""
-        a = self.cache_array
-        out = self._words(a).index_select(1, self._block_index(block_ids))
-        return out.view(a.dtype).view(a.shape[:2] + (len(block_ids),) + a.shape[3:]).movedim(2, 0)
+        a copy on this cache's (rank 0's) device, in the single-device
+        layout."""
+        if self.shards is None:
+            return self._gather(self.cache_array, block_ids)
+        return merge_kv_shards([self._gather(a, block_ids) for a in self.cache_array],
+                               self.shards)
 
     def scatter_blocks(self, block_ids: Sequence[int], blocks) -> None:
         """Write a gather_blocks payload (a tensor on any device, or an
         array) into these blocks, in this cache's dtype."""
-        blocks = torch.as_tensor(blocks).to(self.device, self.dtype).movedim(0, 2)
-        self._words(self.cache_array).index_copy_(
-            1, self._block_index(block_ids), self._words(blocks.contiguous()))
+        blocks = torch.as_tensor(blocks)
+        if self.shards is None:
+            self._scatter(self.cache_array, block_ids, blocks)
+            return
+        for a, part in zip(self.cache_array, shard_kv_cache(blocks, self.shards)):
+            self._scatter(a, block_ids, part)
+
+    def _scatter(self, a: torch.Tensor, block_ids: Sequence[int], blocks: torch.Tensor):
+        blocks = blocks.to(a.device, self.dtype).movedim(0, 2)
+        self._words(a).index_copy_(1, self._block_index(block_ids, a.device),
+                                   self._words(blocks.contiguous()))
 
     # ---------------- sizing / metrics ----------------
 

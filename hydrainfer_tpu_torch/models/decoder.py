@@ -30,6 +30,20 @@ compressed relative to cache positions after an image: the write slots and
 the attention masks therefore come from cache positions (kv_len - q_len +
 local id), never from `positions`.
 
+Tensor (and expert) parallelism: with ShardedWeights (parallel/mesh.py) in
+place of the weight dict and one KV-cache shard a rank in place of the
+cache, the same layer body runs on every rank in turn: each rank's q and
+K/V write (`_attention_q`), the paged attention on every rank's heads
+(ops/attention.py:paged_attention_tp), each rank's o_proj partial
+(`_attention_out`); then each rank's MLP partial, the routed experts by
+ops/moe.py:moe_ffn_ep. The ranks' partials are summed in rank order on rank
+0's device and added to the residual there (`_rank_layer`), and every rank
+reads the residual back. The embedding
+is vocabulary-parallel (`_embed`) and the lm_head's logits are gathered on
+rank 0 (`_head_logits`), where the token choice, the speculative acceptance
+and the token-table write run as on one device. A single-device step is one
+rank with no sum.
+
 Weights: {"embed": (V, H), "layers": [per-layer dict], "norm": (H,),
 "lm_head": (H, V) tensor or QuantizedTensor}; each layer holds qkv_proj,
 o_proj, gate_up, down (tensors or QuantizedTensors), input_norm, post_norm
@@ -54,12 +68,13 @@ import torch
 
 from ..ops import moe
 from ..ops.activation import silu_and_mul
-from ..ops.attention import paged_attention
+from ..ops.attention import paged_attention_tp, params_to
 from ..ops.cache_ops import write_kv_cache, write_latent_cache
 from ..ops.norm import rms_norm
 from ..ops.quant import qmatmul, qmatmul_f32
 from ..ops.rope import apply_rotary_emb, mrope_gather
 from ..ops.sampling import process_logits, spec_verify_tokens
+from ..parallel.mesh import ShardedWeights
 from .factory import LanguageModelBatch
 
 
@@ -150,12 +165,13 @@ def init_rope_tables(cfg: DecoderConfig, device=None):
     return (torch.cos(freqs) * att).to(device), (torch.sin(freqs) * att).to(device)
 
 
-def _attention_block(x, cache, layer_id, lw, batch: LanguageModelBatch, cos, sin,
-                     cfg: DecoderConfig, max_q: int):
-    """Pre-norm attention of one layer: returns x + o_proj(attention)."""
+def _attention_q(x, cache, layer_id, lw, batch: LanguageModelBatch, cos, sin,
+                 cfg: DecoderConfig) -> torch.Tensor:
+    """Pre-norm attention of one layer up to the paged attention: writes this
+    step's K/V into the cache (kernel K3) and returns q, (T, H, D). Under TP,
+    one rank's: its heads, into its cache shard."""
     if cfg.mla_kv_lora > 0:
-        return _mla_attention_block(x, cache, layer_id, lw, batch, cos, sin, cfg,
-                                    max_q)
+        return _mla_q(x, cache, layer_id, lw, batch, cos, sin, cfg)
     T = x.shape[0]
     Hq, Hkv, D = cfg.n_qo_heads, cfg.n_kv_heads, cfg.head_dim
     h = rms_norm(x, lw["input_norm"], cfg.rms_norm_eps)
@@ -168,9 +184,7 @@ def _attention_block(x, cache, layer_id, lw, batch: LanguageModelBatch, cos, sin
     # in place: the cache tensor itself receives this step's K/V (kernel K3)
     write_kv_cache(cache, layer_id, batch.attention.new_kv_slot_ids, k,
                    v.reshape(T, Hkv, D), cfg.kv_scale)
-    attn = paged_attention(q, cache, layer_id, batch.attention, 1.0 / (D ** 0.5),
-                           max_q, kv_scale=cfg.kv_scale)
-    return x + qmatmul(attn.reshape(T, Hq * D), lw["o_proj"])
+    return q
 
 
 def _deinterleave(x: torch.Tensor) -> torch.Tensor:
@@ -179,20 +193,22 @@ def _deinterleave(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([x[..., 0::2], x[..., 1::2]], dim=-1)
 
 
-def _mla_attention_block(x, cache, layer_id, lw, batch: LanguageModelBatch, cos,
-                         sin, cfg: DecoderConfig, max_q: int):
-    """The attention half of hydrainfer_tpu/models/decoder.py:_mla_layer, in
-    the absorbed form: q_nope is projected into the latent space with W_UK,
-    scores are taken against the cached [c_kv | k_pe] vectors directly (one
-    plane serving as K and V, kernel K6), and the first kv_lora columns of the
-    output, the latent context, are expanded per head with W_UV. q comes
-    from q_proj or from the q-LoRA stack (q_a -> q_a_norm -> q_b). The JAX
-    layer pads q and the cached vector to a 128-lane cache width; the port's
-    cache is exactly kv_lora + rope wide, so nothing is padded."""
+def _mla_q(x, cache, layer_id, lw, batch: LanguageModelBatch, cos, sin,
+           cfg: DecoderConfig) -> torch.Tensor:
+    """The attention half of hydrainfer_tpu/models/decoder.py:_mla_layer up
+    to the paged attention, in the absorbed form: q_nope is projected into
+    the latent space with W_UK, and scores are taken against the cached
+    [c_kv | k_pe] vectors directly (one plane serving as K and V, kernel
+    K6). q comes from q_proj or from the q-LoRA stack (q_a -> q_a_norm ->
+    q_b). The JAX layer pads q and the cached vector to a 128-lane cache
+    width; the port's cache is exactly kv_lora + rope wide, so nothing is
+    padded. Writes the step's latent vectors and returns the (T, H, r + dr)
+    latent query (under TP: the rank's heads, over its own copy of the
+    latent cache)."""
     T = x.shape[0]
     H = cfg.n_qo_heads
     r, dr = cfg.mla_kv_lora, cfg.mla_rope_dim
-    dn, dv = cfg.mla_nope_dim, cfg.mla_v_dim
+    dn = cfg.mla_nope_dim
     eps = cfg.rms_norm_eps
     h = rms_norm(x, lw["input_norm"], eps)
     if "q_a" in lw:
@@ -210,16 +226,28 @@ def _mla_attention_block(x, cache, layer_id, lw, batch: LanguageModelBatch, cos,
     k_pe = apply_rotary_emb(k_pe, cos, sin, False)
     # absorbed latent query: W_UK is (r, H, dn)
     q_lat = torch.einsum("thn,rhn->thr", q_nope, lw["w_uk"])
-    q_full = torch.cat([q_lat, q_pe], dim=-1)                # (T, H, r + dr)
     kv_vec = torch.cat([c_kv[:, None, :], k_pe], dim=-1)     # (T, 1, r + dr)
     # in place, with the int8 quantize fused in (kernel K3's single-plane form)
     write_latent_cache(cache, layer_id, batch.attention.new_kv_slot_ids, kv_vec,
                        cfg.kv_scale)
-    scale = cfg.mla_softmax_scale or 1.0 / ((dn + dr) ** 0.5)
-    attn = paged_attention(q_full, cache, layer_id, batch.attention, scale, max_q,
-                           kv_scale=cfg.kv_scale)
-    out = torch.einsum("thr,rhv->thv", attn[..., :r], lw["w_uv"])
-    return x + qmatmul(out.reshape(T, H * dv), lw["o_proj"])
+    return torch.cat([q_lat, q_pe], dim=-1)                  # (T, H, r + dr)
+
+
+def _sm_scale(cfg: DecoderConfig) -> float:
+    if cfg.mla_kv_lora > 0:
+        return cfg.mla_softmax_scale or 1.0 / ((cfg.mla_nope_dim + cfg.mla_rope_dim) ** 0.5)
+    return 1.0 / (cfg.head_dim ** 0.5)
+
+
+def _attention_out(attn: torch.Tensor, lw: dict, cfg: DecoderConfig) -> torch.Tensor:
+    """o_proj of the paged attention's output (MLA: the first kv_lora
+    columns, the latent context, expanded per head with W_UV first): the
+    attention block's output before the residual add, under TP one rank's
+    partial (its heads, its o_proj rows)."""
+    T, H = attn.shape[:2]
+    if cfg.mla_kv_lora > 0:
+        attn = torch.einsum("thr,rhv->thv", attn[..., :cfg.mla_kv_lora], lw["w_uv"])
+    return qmatmul(attn.reshape(T, -1), lw["o_proj"])
 
 
 def router_logits(h: torch.Tensor, lw: dict) -> torch.Tensor:
@@ -244,23 +272,131 @@ def _route(h: torch.Tensor, lw: dict, cfg: DecoderConfig):
                      norm_topk=cfg.moe_norm_topk, routed_scaling=cfg.moe_routed_scaling)
 
 
+def _is_moe(lw: dict, cfg: DecoderConfig) -> bool:
+    return cfg.moe_top_k > 0 and "moe_router" in lw
+
+
+def _dense_mlp(h: torch.Tensor, lw: dict) -> torch.Tensor:
+    """gate_up -> SiLU-and-mul -> down: a dense layer's MLP or a MoE layer's
+    shared experts (under TP one rank's partial: its gate_up columns and
+    down rows)."""
+    return qmatmul(silu_and_mul(qmatmul(h, lw["gate_up"])), lw["down"])
+
+
 def _mlp(h: torch.Tensor, lw: dict, cfg: DecoderConfig) -> torch.Tensor:
     """The dense MLP, or in a MoE layer the routed experts (ops/moe.py) plus
-    the shared experts, if the layer has them."""
-    if cfg.moe_top_k > 0 and "moe_router" in lw:
+    the shared experts, if the layer has them, on one device."""
+    if _is_moe(lw, cfg):
         weights, idx = _route(h, lw, cfg)
         out = moe.moe_ffn(h, lw["moe_gate_up"], lw["moe_down"], weights, idx)
         if "gate_up" in lw:
-            out = out + qmatmul(silu_and_mul(qmatmul(h, lw["gate_up"])), lw["down"])
+            out = out + _dense_mlp(h, lw)
         return out
-    return qmatmul(silu_and_mul(qmatmul(h, lw["gate_up"])), lw["down"])
+    return _dense_mlp(h, lw)
+
+
+@dataclass(frozen=True)
+class Rank:
+    """One rank's view of a step: its device, its KV-cache shard, and the
+    step's batch and rope rows on its device. A single-device step is one
+    rank with no group."""
+    device: torch.device
+    cache: torch.Tensor
+    batch: LanguageModelBatch
+    cos: torch.Tensor
+    sin: torch.Tensor
+
+
+def _sum(group, parts):
+    """The ranks' partials summed in rank order (RankGroup.all_reduce); one
+    rank's partial itself."""
+    return parts[0] if group is None else group.all_reduce(parts)
+
+
+def _layer_attention(x, ranks, lws, layer_id: int, cfg: DecoderConfig, max_q: int,
+                     group=None):
+    """x plus the layer's attention (lws[r], rank r's layer weights): each
+    rank's q and K/V write, the paged attention on every rank's heads
+    (ops/attention.py:paged_attention_tp), each rank's o_proj partial, and
+    their sum."""
+    qs = [_attention_q(x.to(r.device), r.cache, layer_id, lw, r.batch, r.cos, r.sin, cfg)
+          for r, lw in zip(ranks, lws)]
+    attns = paged_attention_tp(qs, [r.cache for r in ranks], layer_id,
+                               [r.batch.attention for r in ranks], _sm_scale(cfg), max_q,
+                               kv_scale=cfg.kv_scale)
+    return x + _sum(group, [_attention_out(a, lw, cfg) for a, lw in zip(attns, lws)])
+
+
+def _layer_mlp(x, ranks, lws, cfg: DecoderConfig, group=None):
+    """x plus the layer's MLP over its post-norm. Under TP each rank's
+    partial, summed: its gate_up columns and down rows, and in a MoE layer
+    its run of the experts (ops/moe.py:moe_ffn_ep, over the routing taken
+    once on rank 0) with its share of the shared experts joining the same
+    sum."""
+    lw0 = lws[0]
+    h = rms_norm(x, lw0["post_norm"], cfg.rms_norm_eps)
+    if group is None:
+        return x + _mlp(h, lw0, cfg)
+    dense = ([_dense_mlp(h.to(r.device), lw) for r, lw in zip(ranks, lws)]
+             if "gate_up" in lw0 else None)
+    if _is_moe(lw0, cfg):
+        weights, idx = _route(h, lw0, cfg)
+        return x + moe.moe_ffn_ep(h, [lw["moe_gate_up"] for lw in lws],
+                                  [lw["moe_down"] for lw in lws], weights, idx, group,
+                                  extra=dense)
+    return x + group.all_reduce(dense)
+
+
+def _rank_layer(x, ranks, lws, layer_id: int, cfg: DecoderConfig, max_q: int,
+                group=None):
+    """One decoder layer over the ranks: attention block + MLP block, each
+    summed over the ranks before its residual add."""
+    x = _layer_attention(x, ranks, lws, layer_id, cfg, max_q, group)
+    return _layer_mlp(x, ranks, lws, cfg, group)
 
 
 def _layer_body(x, cache, layer_id, lw, batch: LanguageModelBatch, cos, sin,
                 cfg: DecoderConfig, max_q: int):
-    """One decoder layer: attention block + MLP block."""
-    x = _attention_block(x, cache, layer_id, lw, batch, cos, sin, cfg, max_q)
-    return x + _mlp(rms_norm(x, lw["post_norm"], cfg.rms_norm_eps), lw, cfg)
+    """One decoder layer on one device: _rank_layer over a single rank."""
+    return _rank_layer(x, [Rank(x.device, cache, batch, cos, sin)], [lw], layer_id,
+                       cfg, max_q)
+
+
+def _ranks(weights, cache, batch: LanguageModelBatch, cos, sin):
+    """(the ranks of a step, their RankGroup or None, their weight dicts):
+    one rank for a single-device weight dict; under TP (ShardedWeights)
+    each rank with its cache shard and the batch and rope rows on its
+    device."""
+    if not isinstance(weights, ShardedWeights):
+        return [Rank(cos.device, cache, batch, cos, sin)], None, [weights]
+    ranks = [Rank(dev, cache[r], params_to(batch, dev), cos.to(dev), sin.to(dev))
+             for r, dev in enumerate(weights.group.devices)]
+    return ranks, weights.group, weights.ranks
+
+
+def _embed(weights, token_ids: torch.Tensor) -> torch.Tensor:
+    """The embedding rows of token_ids. Under TP each rank looks up the ids
+    of its vocabulary range, zeros elsewhere, and the ranks are summed."""
+    if not isinstance(weights, ShardedWeights):
+        return weights["embed"][token_ids.long()]
+    parts = []
+    for r, (w, dev) in enumerate(zip(weights.ranks, weights.group.devices)):
+        e = w["embed"]
+        local = token_ids.to(dev).long() - r * e.shape[0]
+        inside = (local >= 0) & (local < e.shape[0])
+        parts.append(torch.where(inside[:, None], e[local.clamp(0, e.shape[0] - 1)], 0))
+    return weights.group.all_reduce(parts)
+
+
+def _head_logits(weights, x: torch.Tensor, cfg: DecoderConfig) -> torch.Tensor:
+    """Final norm -> lm_head: (rows, V) f32 logits. Under TP each rank's
+    vocabulary columns are gathered on rank 0's device."""
+    if not isinstance(weights, ShardedWeights):
+        return qmatmul_f32(rms_norm(x, weights["norm"], cfg.rms_norm_eps),
+                           weights["lm_head"])
+    h = rms_norm(x, weights.ranks[0]["norm"], cfg.rms_norm_eps)
+    return weights.group.gather([qmatmul_f32(h.to(dev), w["lm_head"])
+                                 for w, dev in zip(weights.ranks, weights.group.devices)])
 
 
 def decoder_forward(weights: dict, cache: torch.Tensor, batch: LanguageModelBatch,
@@ -274,12 +410,13 @@ def decoder_forward(weights: dict, cache: torch.Tensor, batch: LanguageModelBatc
     [emitted (S * spec) | acc (S)]. token_table's last entry is a discard
     slot. A batch with sampling controls draws from `generator`.
     input_embeds, (T, hidden), replaces the embedding lookup and the image
-    splice."""
+    splice. Under TP `weights` is ShardedWeights and `cache` the list of its
+    ranks' shards; the batch and the tables live on rank 0's device."""
     if input_embeds is None:
         src = batch.token_src_slots
         token_ids = torch.where(src >= 0, token_table[src.clamp(min=0).long()],
                                 batch.token_ids)
-        x = _splice_images(weights["embed"][token_ids.long()], batch)
+        x = _splice_images(_embed(weights, token_ids), batch)
     else:
         x = input_embeds
     if cfg.mrope_section and batch.positions_hw is not None:
@@ -289,11 +426,15 @@ def decoder_forward(weights: dict, cache: torch.Tensor, batch: LanguageModelBatc
     else:
         cos = cos_tab[batch.positions.long()]
         sin = sin_tab[batch.positions.long()]
-    layers = weights["layers"]
-    for layer_id, lw in enumerate(layers[:-1]):
-        x = _layer_body(x, cache, layer_id, lw, batch, cos, sin, cfg, max_q)
-    return _last_layer_and_head(weights, cache, x, batch, cos, sin, cfg, max_q,
-                                token_table, return_logits, spec, generator)
+    ranks, group, rank_weights = _ranks(weights, cache, batch, cos, sin)
+    if group is not None:
+        cfg = weights.cfg
+    for layer_id in range(cfg.n_layers - 1):
+        x = _rank_layer(x, ranks, [w["layers"][layer_id] for w in rank_weights],
+                        layer_id, cfg, max_q, group)
+    return _last_layer_and_head(weights, x, ranks, [w["layers"][-1] for w in rank_weights],
+                                cfg, max_q, token_table, return_logits, spec, generator,
+                                group)
 
 
 def _splice_images(x: torch.Tensor, batch: LanguageModelBatch) -> torch.Tensor:
@@ -310,23 +451,22 @@ def _splice_images(x: torch.Tensor, batch: LanguageModelBatch) -> torch.Tensor:
     return x[:T]
 
 
-def _last_layer_and_head(weights, cache, x, batch: LanguageModelBatch, cos, sin,
-                         cfg: DecoderConfig, max_q: int, token_table,
-                         return_logits: bool, spec: int = 0, generator=None):
+def _last_layer_and_head(weights, x, ranks, lws, cfg: DecoderConfig, max_q: int,
+                         token_table, return_logits: bool, spec: int = 0,
+                         generator=None, group=None):
     # the last layer's attention sees all T tokens (their KV must be written);
     # then only the sampled rows continue through the MLP and the head. (The
     # JAX MLA last layer runs its MLP over all T rows and discards after it;
     # the MLP is row-wise, and so is a MoE layer's routing, so discarding
     # first gives the same numbers.)
-    lw = weights["layers"][-1]
-    x = _attention_block(x, cache, cfg.n_layers - 1, lw, batch, cos, sin, cfg,
-                         max_q)
+    batch = ranks[0].batch
+    x = _layer_attention(x, ranks, lws, cfg.n_layers - 1, cfg, max_q, group)
     if spec > 0:
         # speculative verify: every row's next token matters, so no discard
-        x = x + _mlp(rms_norm(x, lw["post_norm"], cfg.rms_norm_eps), lw, cfg)
+        x = _layer_mlp(x, ranks, lws, cfg, group)
         return _spec_verify_head(weights, x, batch, cfg, token_table, spec, generator)
     x = x[batch.sample_token_idx.clamp(min=0).long()]          # token discard
-    x = x + _mlp(rms_norm(x, lw["post_norm"], cfg.rms_norm_eps), lw, cfg)
+    x = _layer_mlp(x, ranks, lws, cfg, group)
     tokens, logits = _final_head(weights, x, batch, cfg, token_table, generator)
     return (tokens, logits) if return_logits else tokens
 
@@ -349,8 +489,7 @@ def _spec_verify_head(weights, x, batch: LanguageModelBatch, cfg: DecoderConfig,
     Acceptance runs on the device (exact argmax match for greedy sequences,
     rejection sampling for sampled ones); the final token goes into the
     token table. Returns [emitted (S * K1) | acc (S)]."""
-    h = rms_norm(x, weights["norm"], cfg.rms_norm_eps)
-    logits = qmatmul_f32(h, weights["lm_head"])
+    logits = _head_logits(weights, x, cfg)
     S = batch.sample_dst_slots.shape[0]
     lg = logits[:S * K1].reshape(S, K1, -1)     # T is bucket-padded past S * K1
     ids = batch.token_ids[:S * K1].reshape(S, K1)      # drafts in columns 1..K1-1
@@ -371,8 +510,7 @@ def _final_head(weights, x, batch: LanguageModelBatch, cfg: DecoderConfig,
     token table (dst < 0 lands in the trailing discard slot). A sequence with
     temperature > 0 takes a draw from its filtered distribution, every other
     the argmax."""
-    h = rms_norm(x, weights["norm"], cfg.rms_norm_eps)
-    logits = qmatmul_f32(h, weights["lm_head"])
+    logits = _head_logits(weights, x, cfg)
     tokens = torch.argmax(logits, dim=-1).to(torch.int32)
     controls = _sampling_controls(batch, generator)
     if controls:
@@ -404,7 +542,7 @@ def decoder_forward_multi(weights: dict, cache: torch.Tensor,
     ahead). Rows s >= fused_k[r] of column r are garbage the host drops.
     """
     a = batch.attention
-    bs = cache.shape[3]
+    bs = (cache[0] if isinstance(cache, list) else cache).shape[3]
     valid_tok = a.q_seq_ids >= 0
     seq_of_tok = a.q_seq_ids.clamp(min=0).long()
     valid_seq = a.kv_lens > 0

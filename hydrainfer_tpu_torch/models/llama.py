@@ -12,6 +12,12 @@ the node passes its StepGraphs (models/step_graphs.py, the counterpart of the
 jitted programs). A step whose dims carry `spec` > 0 is a verify step (the
 counterpart of the JAX model's `_flat_spec`); the sampling draws come from
 the caller's generator. The caller's weight dict is not consumed.
+
+`shard_to(devices)` makes the model tensor-parallel (every family served
+through this class: Llama, Qwen2, Mixtral, DeepSeek and the language towers
+of LLaVA, LLaVA-NeXT, InternVL, Qwen2-VL and DeepSeek-VL2; their vision
+towers stay whole on rank 0's device). Its cache is then a list of per-rank
+shards.
 """
 from dataclasses import replace
 from typing import Optional
@@ -19,6 +25,7 @@ from typing import Optional
 import torch
 
 from ..ops.quant import quantize_tree
+from ..parallel.mesh import RankGroup, ShardedWeights, shard_decoder_weights
 from .decoder import (DecoderConfig, decoder_forward, decoder_forward_multi,
                       init_rope_tables)
 from .factory import (FillDims, LanguageModel, LanguageModelBatch, LanguageModelOutput,
@@ -88,6 +95,26 @@ class LlamaForCausalLM(LanguageModel):
         self.dtype = self.weights["embed"].dtype
         self.cos_tab, self.sin_tab = init_rope_tables(cfg, self.device)
 
+    @property
+    def tp_size(self) -> int:
+        return self.weights.group.size if isinstance(self.weights, ShardedWeights) else 1
+
+    def shard_to(self, devices) -> None:
+        """Tensor- and expert-parallel placement over `devices`, one rank
+        each (port of the JAX shard_to; parallel/mesh.py): the weights become
+        one dict a rank, and the node gives forward_flat one KV-cache shard a
+        rank (`weights.cache_shards()`). The rope tables stay on rank 0's
+        device, where the batch arrives. Call before the first forward; the
+        same devices again is a no-op. The unsharded weights are let go: row
+        and expert slices are views of them, the permuted columns copies."""
+        group = RankGroup(tuple(torch.device(d) for d in devices))
+        if isinstance(self.weights, ShardedWeights):
+            if self.weights.group == group:
+                return
+            raise ValueError(f"the model is already sharded over {self.weights.group.devices}; "
+                             f"a node on {group.devices} needs a model of its own")
+        self.weights = shard_decoder_weights(self.weights, self.cfg, group)
+
     def forward(self, cache: torch.Tensor, token_table: torch.Tensor,
                 batch: LanguageModelBatch, max_q: int) -> LanguageModelOutput:
         """One greedy step on a caller-built batch: the cache and the token
@@ -104,7 +131,7 @@ class LlamaForCausalLM(LanguageModel):
         a single slot: rows with sample_dst_slots -1 (every row, where a
         batch samples all its positions) all land in it, and it is never
         read, since the batch's token_src_slots must be -1."""
-        table = torch.zeros(1, dtype=torch.int32, device=cache.device)
+        table = torch.zeros(1, dtype=torch.int32, device=self.device)
         tokens, logits = decoder_forward(self.weights, cache, batch, self.cos_tab,
                                          self.sin_tab, self.cfg, max_q, table,
                                          return_logits=True, input_embeds=input_embeds)

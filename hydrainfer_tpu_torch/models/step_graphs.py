@@ -141,7 +141,7 @@ class StepGraphs:
         """The key's device input buffers (flat, fused_k or None)."""
         g = self.graphs.get((dims, n_steps))
         if g is None:
-            dev = self.cache.device
+            dev = self.token_table.device
             g = StepGraph(
                 flat=torch.zeros(sum(fill_sizes(dims)), dtype=torch.int32, device=dev),
                 fused_k=(torch.zeros(dims.S, dtype=torch.int32, device=dev)

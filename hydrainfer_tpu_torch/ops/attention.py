@@ -15,7 +15,9 @@ included, as the JAX chain does; over a combined-head cache, all-decode
 batches (max_q == 1) go to kernel K1 (ops/cuda/mha_decode.py) and mixed or
 prefill batches to kernel K2 (ops/cuda/paged_attention.py). Each takes its
 plain PyTorch version for CPU tensors. `paged_attention_plain` is the port of
-`paged_attention_jnp`, single-plane gather included.
+`paged_attention_jnp`, single-plane gather included. `paged_attention_tp`
+runs the dispatcher on each tensor-parallel rank's heads and cache shard
+(the decoder's attention, one rank or many).
 
 `mha_varlen` is the ViT towers' segment-masked attention over the patches of
 all images in a batch: kernel K5 (ops/cuda/mha_varlen.py) for CUDA tensors,
@@ -23,8 +25,8 @@ its plain version `mha_varlen_plain` for CPU tensors or when the scores are
 asked for (the focal token-pruning form), as the JAX dispatcher does.
 """
 import math
-from dataclasses import dataclass, replace
-from typing import Optional, Tuple
+from dataclasses import dataclass, fields, is_dataclass, replace
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -97,6 +99,37 @@ def paged_attention(q: torch.Tensor, cache: torch.Tensor, layer_id: int,
     return paged_attention_varlen(q, pages, params.kv_lens, tables,
                                   params.cu_q_lens, params.num_seqs, sm_scale,
                                   kv_scale, max_q=max_q)
+
+
+def paged_attention_tp(qs: Sequence[torch.Tensor], caches: Sequence[torch.Tensor],
+                       layer_id: int, params: Sequence[PagedAttentionParams],
+                       sm_scale: float, max_q: int, kv_scale: Optional[float] = None
+                       ) -> List[torch.Tensor]:
+    """Tensor-parallel paged attention (port of the JAX paged_attention_tp):
+    rank r runs `paged_attention` on its contiguous run of q heads, qs[r],
+    against its own cache shard caches[r] (its K/V pairs whole, or a full
+    copy of a latent plane), with the batch's params[r] on its device.
+    Attention is independent per head, so nothing is summed: each output
+    stays on its rank as the input of that rank's o_proj
+    (models/decoder.py:_layer_attention), and their concatenation along the
+    head axis is the JAX function's output."""
+    return [paged_attention(q, cache, layer_id, p, sm_scale, max_q, kv_scale=kv_scale)
+            for q, cache, p in zip(qs, caches, params)]
+
+
+def params_to(params, device: torch.device):
+    """A dataclass of tensors (PagedAttentionParams, a LanguageModelBatch)
+    with every tensor on `device`; itself where they already are there."""
+    moved = {}
+    for f in fields(params):
+        v = getattr(params, f.name)
+        if isinstance(v, torch.Tensor) and v.device != device:
+            moved[f.name] = v.to(device)
+        elif is_dataclass(v):
+            w = params_to(v, device)
+            if w is not v:
+                moved[f.name] = w
+    return replace(params, **moved) if moved else params
 
 
 def mha_varlen(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

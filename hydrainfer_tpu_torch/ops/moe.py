@@ -23,10 +23,14 @@ model on the card runs without CUDA graphs, and a capture of it raises
 (`grouped_mm`). torch._grouped_mm wants every row stride a multiple of 16
 bytes (d and the expert width a multiple of 8 in bf16). `grouped_mm` counts
 its calls on the card in `launches`, as the kernel wrappers do (it is in
-ops/cuda's WRAPPERS, so graph replays add theirs). `moe_ffn_ep`
-(expert parallelism) comes with tensor parallelism.
+ops/cuda's WRAPPERS, so graph replays add theirs).
+
+Expert parallelism (`moe_ffn_ep`, the JAX `moe_ffn_ep`): each rank holds a
+contiguous run of E/tp experts and runs `moe_ffn` on the routing masked to
+them; the ranks' partial outputs are summed in rank
+order (parallel/mesh.py:RankGroup.all_reduce), never by atomics.
 """
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -142,6 +146,29 @@ def moe_ffn(x: torch.Tensor, gate_up: torch.Tensor, down: torch.Tensor,
     # back to (token, choice) order, then each token's k rows summed
     unsorted = torch.empty_like(out).index_copy_(0, order, out)
     return unsorted.view(T, k, d).sum(dim=1).to(x.dtype)
+
+
+def moe_ffn_ep(x: torch.Tensor, gate_ups: Sequence[torch.Tensor],
+               downs: Sequence[torch.Tensor], weights: torch.Tensor,
+               expert_ids: torch.Tensor, group,
+               extra: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+    """Expert-parallel FFN: rank r holds gate_ups[r] / downs[r], its
+    contiguous run of the experts, on group.devices[r]; the tokens and the
+    routing are replicated (copied to each rank's device). A (token, expert)
+    pair of another rank goes to local expert 0 with weight 0, so every
+    rank's dispatch keeps the unsharded shapes. extra[r], if given, joins
+    rank r's partial before the one sum (a MoE layer's shared experts,
+    models/decoder.py:_layer_mlp). Returns the ranks' partials summed in
+    rank order on rank 0's device."""
+    parts, first = [], 0
+    for r, (gu, dn, dev) in enumerate(zip(gate_ups, downs, group.devices)):
+        ids = expert_ids.to(dev)
+        local = (ids >= first) & (ids < first + gu.shape[0])
+        part = moe_ffn(x.to(dev), gu, dn, torch.where(local, weights.to(dev), 0.0),
+                       torch.where(local, ids - first, 0))
+        parts.append(part if extra is None else part + extra[r])
+        first += gu.shape[0]
+    return group.all_reduce(parts)
 
 
 def moe_ffn_dense(x: torch.Tensor, gate_up: torch.Tensor, down: torch.Tensor,

@@ -222,19 +222,28 @@ def test_spec_ngram_k_builds_a_node(override):
 
 
 @pytest.mark.parametrize("override,refusal", [
-    ("cluster.tp_size=2", "queue 1, item 9"), ("cluster.pp_size=2", "queue 1, item 9"),
+    (("cluster.deployment=process", "cluster.tp_size=2"),
+     "tp_size > 1 with deployment=process"),
+    ("cluster.pp_size=2", "queue 1, item 9b"),
     ("cluster.deployment=process", "ProcessCluster"),
     ("cluster.nodes=[{node_type: P, attach_addr: 'tcp://127.0.0.1:5555'}, "
      "{node_type: D}]", "ProcessCluster")])
 def test_cluster_refuses_what_is_not_ported(override, refusal):
-    """The in-process Cluster refuses tensor and pipeline parallelism (not
-    ported yet) and the process deployment's settings, which belong to
-    ProcessCluster (the JAX Cluster ignores them and builds the nodes in
-    process). With deployment=process, EntryPoint builds a ProcessCluster
+    """The in-process Cluster refuses pipeline parallelism (not ported yet)
+    and the process deployment's settings, which belong to ProcessCluster
+    (the JAX Cluster ignores them and builds the nodes in process); the
+    entry point refuses tp_size > 1 with deployment=process, whose node
+    processes run on one device each (the JAX ProcessCluster ignores
+    tp_size). With deployment=process, EntryPoint builds a ProcessCluster
     whose nodes have the JAX ProcessCluster's names and types (one EPD node
     for a cluster_type preset, as the JAX one resolves it); an attach spec
     spawns nothing and takes its name from the node's first ping."""
-    cfg = load_config(EntryPointConfig, None, FAKE + [override])
+    overrides = list(override) if isinstance(override, tuple) else [override]
+    cfg = load_config(EntryPointConfig, None, FAKE + overrides)
+    if cfg.cluster.tp_size > 1:
+        with pytest.raises(NotImplementedError, match=refusal):
+            EntryPoint(cfg)
+        return
     with pytest.raises(NotImplementedError, match=refusal):
         Cluster(cfg.cluster)
     if refusal != "ProcessCluster":
@@ -261,6 +270,20 @@ def test_cluster_refuses_what_is_not_ported(override, refusal):
                     h.proc.join(timeout=30)
                     assert not h.proc.is_alive()
             cl.token_sock.close(linger=0)
+
+
+def test_tp_size_2_builds_a_cluster_on_the_cpu():
+    """cluster.tp_size=2 with cluster.platform=cpu: the one CPU device wraps
+    round into one node of two ranks, which shards tiny-lm over them."""
+    cfg = load_config(EntryPointConfig, None, [
+        "cluster.node.model.name=random:tiny-lm", "cluster.node.model.dtype=float32",
+        "cluster.node.n_kv_blocks=32", "cluster.node.profiler.enabled=false",
+        "cluster.platform=cpu", "cluster.tp_size=2"])
+    cluster = Cluster(cfg.cluster)
+    assert [(n.name, [str(d) for d in n.devices]) for n in cluster.nodes] == \
+        [("EPDNode:epd0", ["cpu", "cpu"])]
+    assert cluster.nodes[0].worker.language_model.tp_size == 2
+    assert len(cluster.nodes[0].kv_cache_manager.cache_array) == 2
 
 
 def topology(cluster):

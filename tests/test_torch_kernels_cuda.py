@@ -1191,3 +1191,64 @@ def test_k4_lm_head_at_every_position(dev, fmt):
     got = quant_matmul_int8(x, qt.q, qt.scale, torch.float32)
     ref = quant_matmul_int8_plain(x, qt.q, qt.scale, torch.float32)
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+
+# The shapes one of two tensor-parallel ranks gives the kernels
+# (parallel/mesh.py): llava-7b-lm's int8 projections and lm_head (vocabulary
+# 32064 / 2), and DeepSeek-V2-Lite's (MLA o_proj, its dense layer, its two
+# shared experts, lm_head 102400 / 2); K1 and K2 at llava-7b-lm's 16 heads a
+# rank, K6 at V2-Lite's 8 heads a rank over the int8 576-wide plane
+TP_K4 = {"llava_qkv": (4096, 6144), "llava_o": (2048, 4096),
+         "llava_gate_up": (4096, 11008), "llava_down": (5504, 4096),
+         "v2lite_o": (1024, 2048), "v2lite_dense_gate_up": (2048, 10944),
+         "v2lite_dense_down": (5472, 2048), "v2lite_shared_gate_up": (2048, 2816),
+         "v2lite_shared_down": (1408, 2048)}
+TP_LM_HEADS = {"llava": (4096, 16032), "v2lite": (2048, 51200)}
+
+
+@pytest.mark.parametrize("M", [1, 8, 16, 256, 1024])
+@pytest.mark.parametrize("proj", list(TP_K4))
+def test_k4_at_tp_shard_shapes(dev, proj, M):
+    _check_k4_bf16(dev, M, *TP_K4[proj], torch.bfloat16)
+
+
+@pytest.mark.parametrize("M", [1, 8, 16])
+@pytest.mark.parametrize("head", list(TP_LM_HEADS))
+def test_k4_tp_lm_heads(dev, head, M):
+    _check_k4_bf16(dev, M, *TP_LM_HEADS[head], torch.float32)
+
+
+def test_k1_k2_at_tp_shard_heads(dev):
+    """llava-7b-lm's 16 q / 16 kv heads a rank over int8 pages poisoned as
+    test_k1_tensor_cores' and test_k2_tensor_cores' are, held to the plain
+    version in f32."""
+    for specs, fn, plain, seed in ((K1_SPECS, mha_decode_attention,
+                                    mha_decode_attention_plain, 13),
+                                   (K2_SPECS, paged_attention_varlen,
+                                    paged_attention_varlen_plain, 9)):
+        q, pages, clean, kv_lens, tables, cu, ns = poisoned_case(
+            specs, 16, 128, 16, torch.int8, seed=seed, planes=32, nan_q=True)
+        geo = ([kv_lens.to(dev), tables.to(dev), ns.to(dev)] if fn is mha_decode_attention
+               else [kv_lens.to(dev), tables.to(dev), cu.to(dev), ns.to(dev)])
+        qd = q.to(dev, torch.bfloat16)
+        got = fn(qd, pages.to(dev), *geo, 128 ** -0.5, SCALE)
+        ref = plain(torch.nan_to_num(qd.float()), clean.to(dev), *geo, 128 ** -0.5, SCALE)
+        torch.cuda.synchronize()
+        hold_bf16(got, ref, len(specs) if fn is mha_decode_attention else int(cu[-1]))
+
+
+@pytest.mark.parametrize("form", ["mixed", "decode"])
+def test_k6_at_tp_shard_heads(dev, form):
+    """V2-Lite's 8 heads a rank over an int8 576-wide plane (the copy every
+    rank holds), bf16 q, in both forms."""
+    specs = K6_MIXED if form == "mixed" else K6_DECODE
+    q, pages, clean, kv_lens, tables, cu, ns = poisoned_case(specs, 8, 576, 16, torch.int8,
+                                                           seed=14, nan_q=True)
+    geo = [kv_lens.to(dev), tables.to(dev), cu.to(dev), ns.to(dev)]
+    qd = q.to(dev, torch.bfloat16)
+    got = paged_attention_latent(qd, pages.to(dev), *geo, 192 ** -0.5, SCALE,
+                                 max_q=1 if form == "decode" else None)
+    ref = paged_attention_varlen_plain(torch.nan_to_num(qd.float()), clean.to(dev), *geo,
+                                       192 ** -0.5, SCALE)
+    torch.cuda.synchronize()
+    hold_bf16(got, ref, int(cu[-1]))
