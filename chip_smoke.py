@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases build,quant      # llava-7b-lm at int4 and fp8
     python3 chip_smoke.py --phases build,quality    # the quality scripts on the card
     python3 chip_smoke.py --phases build,kernels,tp  # tensor and expert parallelism
+    python3 chip_smoke.py --phases build,kernels,pp  # pipeline parallelism
 
 Phases, each printing one JSON line:
   build    compile the Hopper kernels of hydrainfer_tpu_torch/csrc (nvcc,
@@ -313,6 +314,23 @@ Phases, each printing one JSON line:
            kernels phase holds K1-K4 and K6 at these shapes (paths tp and
            tp_mla) and the grouped product at one rank's 32 experts
            (`grouped_mm_tp`);
+  pp       pipeline parallelism at pp_size 2, both stages on the card
+           (parallel/pipeline.py), decode from CUDA graphs: llava-7b-lm
+           (int8 weights, int8 KV) on one PD node at pp 1 (K = 1 windows)
+           and then at pp 2 over the same seeded tensors (layers 0-15 and
+           16-31), 8 x 128 x 64: both step forms run (the relay for prefill
+           and mixed steps, the microbatched decode for pure decode steps),
+           K1-K4 launch (counted by form; inside the microbatched form K1
+           over 4 sequences and K4 at M 4, as each wrapper records them),
+           the tokens equal pp 1's or first differ at a near tie, and one
+           decode step of S 8 is timed from CUDA graphs at pp 1 and in both
+           forms at pp 2; Qwen2-VL-2B's EPD node (K5 in its tower, the
+           image splice and M-RoPE before the relay, 14 layers a stage) on
+           the vlm phase's 8 images x 32 tokens the same way; then a P node
+           at pp 2 hands off to a D node at pp 1 (the KV blocks gathered from
+           the two stages' layer runs) under the same token rule. The
+           kernels phase holds K1-K4 at the microbatch shapes (path pp: K1
+           over 4 sequences, K3 4 rows, K4 at M 4);
   online   serve llava-7b-lm (full width, int8 weights, int8 KV) online
            through the real entry point, run as a child process: `python -m
            hydrainfer_tpu_torch.entrypoint.entrypoint --config
@@ -335,7 +353,9 @@ the serving envelope, the decode keys captured as CUDA graphs) and serves a
 warm-up round before the measured one; the measured round's decode steps are
 graph replays (their kernel launches counted), it may capture no key, and
 the graph pool must fit in the headroom an auto-sized KV pool leaves: each
-serving phase reports `graphs`.
+serving phase reports `graphs`. The tp and pp phases serve one round a
+setting instead (a pipeline-parallel node has no boot warm-up, so its
+decode key is captured in that round).
 Then the card's name and power limit, a "kernels" JSON line (one row per
 kernel and serving path, K3 one per path and form, K5 one at each image
 path's encode: that path's shapes and its measured round's launches),
@@ -404,7 +424,9 @@ SERVE_KERNELS = ("mha_decode", "paged_attention", "kv_writer", "quant_matmul")
 VLM_KERNELS = SERVE_KERNELS + ("mha_varlen",)
 # the MLA path's kernels; K1 and K2 must not run on it
 MLA_KERNELS = ("paged_attention_latent", "kv_writer", "quant_matmul")
-MLA_ARCH, MLA_REQUESTS, MLA_PROMPT, MLA_TOKENS = "mla-2b-lm", 32, 128, 128
+# 32 tokens a request (128 before the pp phase joined the script: the
+# script keeps inside its time limit)
+MLA_ARCH, MLA_REQUESTS, MLA_PROMPT, MLA_TOKENS = "mla-2b-lm", 32, 128, 32
 # the vlm phase's images (height, width), two of each size: 64, 144, 256
 # and 384 image tokens, 6784 patches in all
 VLM_IMAGES = [(224, 224), (336, 336), (448, 448), (448, 672)] * 2
@@ -453,8 +475,7 @@ MM_TEXT, MM_TOKENS, MM_BUDGET = 32, 32, 2048
 # token (greedy softmax, norm_topk_prob false, scaling 1.0) and 2 shared;
 # vocab 102400; YaRN factor 40 over 4096 positions, mscale = mscale_all_dim =
 # 0.707, 163840 positions. 32 requests x 128-token prompts x 32 tokens (the
-# mla phase's requests, decoded a quarter as far to keep the script in its
-# limit)
+# mla phase's requests)
 DEEPSEEK_V2_LITE = {
     "model_type": "deepseek_v2", "vocab_size": 102400, "hidden_size": 2048,
     "intermediate_size": 10944, "moe_intermediate_size": 1408, "num_hidden_layers": 27,
@@ -526,6 +547,14 @@ VL2_KV_BLOCKS, VL2_IMAGE_BLOCKS = 1024, 32
 TP_SIZE = 2
 TP_REQUESTS, TP_PROMPT, TP_TOKENS, TP_MLA_TOKENS = 8, 128, 64, 32
 TP_BUDGET, TP_MLA_BUDGET = 256, 1024
+# the pp phase: pipeline parallelism at PP_SIZE stages, both on the one
+# card. llava-7b-lm (int8 weights, int8 KV) on the tp phase's traffic at pp
+# 1 (K = 1 windows) and then at pp 2 on the same tensors (layers 0-15 and
+# 16-31); Qwen2-VL-2B's EPD node (28 layers, 14 a stage) on the vlm phase's
+# 8 images at PP_VLM_TOKENS tokens, the same way; then a P node at pp 2
+# hands off to a D node at pp 1 on llava-7b-lm
+PP_SIZE = 2
+PP_VLM_TOKENS = 32
 # architectures the script defines itself, by the names PATH_SHAPES uses
 # (the "-tp2" ones: what one of two ranks runs, its widths split)
 LOCAL_ARCHS = {"internlm2-7b": lambda: _decoder_cfg(**INTERNLM2_7B),
@@ -764,6 +793,14 @@ PATH_SHAPES["tp_mla"] = dict(
     mixed=[(TP_PROMPT, TP_PROMPT)] * TP_REQUESTS, T=TP_MLA_BUDGET,
     kv_decode=(TP_REQUESTS, TP_REQUESTS), kv_prefill=(TP_MLA_BUDGET, TP_MLA_BUDGET),
     gemm_m=TP_REQUESTS, budget=TP_MLA_BUDGET, gemm_sweep=(TP_REQUESTS, TP_MLA_BUDGET))
+# the pp phase's microbatch shapes: llava-7b-lm's decode step at pp 2 runs 2
+# microbatches of 4 sequences (K1 over 4 sequences, K3 4 rows, K4 at M 4;
+# the head's lm_head at M 8), its relay steps the serve phase's batches
+PATH_SHAPES["pp"] = dict(PATH_SHAPES["serve"],
+                         decode=[(1, 130 + 7 * s) for s in range(TP_REQUESTS // PP_SIZE)],
+                         kv_decode=(TP_REQUESTS // PP_SIZE,) * 2,
+                         gemm_m=TP_REQUESTS // PP_SIZE, gemm_sweep=(TP_REQUESTS // PP_SIZE,
+                                                                    TP_BUDGET))
 # the speculative verify step of the spec phase (llava-7b-lm, S floor 8,
 # K1 = 13): 8 segments of 13 rows padded to T = 128 (max_q 16) through K2,
 # and every int8 projection, lm_head included, at M = T through K4
@@ -1892,21 +1929,25 @@ def phase_kernels() -> tuple:
 
 def _engine(factory, device, n_requests, block_size, n_blocks, token_budget,
             node_type="PD", n_image_blocks=-1, cuda_graphs=True, spec_ngram_k=12,
-            encode_chunk_layers=0):
+            encode_chunk_layers=0, multi_step_decode=16, parallel="tp"):
     """An OfflineEngine with the boot warm-up on (the key floors raised to
     the serving envelope, the decode keys met and, with cuda_graphs on the
-    card, captured), a fixed token budget (the budget search off),
+    card, captured; a model without fused windows skips it), a fixed token
+    budget (the budget search off), K = multi_step_decode windows,
     speculation at the JAX default (spec_ngram_k = 12) unless asked, and the
     whole-tower encode unless encode_chunk_layers asks for segments. A list
-    of devices makes its node tensor-parallel."""
+    of devices makes its node tensor-parallel, or with parallel "pp"
+    pipeline-parallel."""
     from hydrainfer_tpu_torch.entrypoint.offline import OfflineEngine
     cfg = _node_config(n_requests, block_size, n_blocks, token_budget, n_image_blocks,
-                       cuda_graphs, spec_ngram_k, encode_chunk_layers)
-    return OfflineEngine(cfg, model_factory=factory, node_type=node_type, device=device)
+                       cuda_graphs, spec_ngram_k, encode_chunk_layers, multi_step_decode)
+    return OfflineEngine(cfg, model_factory=factory, node_type=node_type, device=device,
+                         parallel=parallel)
 
 
 def _node_config(n_requests, block_size, n_blocks, token_budget, n_image_blocks=-1,
-                 cuda_graphs=True, spec_ngram_k=12, encode_chunk_layers=0):
+                 cuda_graphs=True, spec_ngram_k=12, encode_chunk_layers=0,
+                 multi_step_decode=16):
     """_engine's NodeConfig."""
     from hydrainfer_tpu_torch.cluster.node import NodeConfig
     from hydrainfer_tpu_torch.engine.profiler import BatchSchedulerProfilerConfig
@@ -1918,7 +1959,7 @@ def _node_config(n_requests, block_size, n_blocks, token_budget, n_image_blocks=
         profiler=BatchSchedulerProfilerConfig(enabled=False,
                                               default_token_budget=token_budget),
         kv_block_size=block_size, n_kv_blocks=n_blocks, n_image_blocks=n_image_blocks,
-        multi_step_decode=16, cuda_graphs=cuda_graphs, boot_warmup=True,
+        multi_step_decode=multi_step_decode, cuda_graphs=cuda_graphs, boot_warmup=True,
         spec_ngram_k=spec_ngram_k, encode_chunk_layers=encode_chunk_layers)
 
 
@@ -2042,8 +2083,8 @@ def _prefill_logits(lm, tokens, device, **batch_kw):
     int8_kv = getattr(lm.cfg, "kv_scale", None) is not None      # GPT-2: none
     dtype = torch.int8 if int8_kv else lm.dtype
     if getattr(lm, "tp_size", 1) > 1:
-        cache = [torch.zeros(shape[:-2] + (n, shape[-1]), dtype=dtype, device=d)
-                 for d, _, n in lm.weights.cache_shards()]
+        cache = [torch.zeros(shape[:-2] + (s.count, shape[-1]), dtype=dtype, device=s.device)
+                 for s in lm.weights.cache_shards()]
     else:
         cache = torch.zeros(shape, dtype=dtype, device=device)
     out = []
@@ -2179,8 +2220,9 @@ def _layered_f32_logits(lm, tokens, device, **batch_kw):
                                                        cos, sin, cfg, n)
                         else:
                             rank = decoder.Rank(x[i].device, cache, batch, cos, sin)
-                            _, lg = decoder._last_layer_and_head(
-                                head, x[i], [rank], [lw32], cfg, n, table, True)
+                            _, lg = decoder._head(head, decoder._last_layer(
+                                x[i], [rank], [lw32], layer_id, cfg, n), batch, cfg, table,
+                                True)
                             logits.append(lg.float())
             del lw32
     finally:
@@ -2558,8 +2600,8 @@ def phase_serve(arch="llava-7b-lm", dev="cuda", n_requests=8, prompt_len=128,
 def phase_mla(dev="cuda") -> tuple:
     """mla-2b-lm at full width (27 layers, depth not cut), seeded random
     weights: bf16 with int8 o_proj/gate_up/down/lm_head, int8 latent KV at
-    scale 0.05; 32 requests x 128-token prompts x 128 greedy tokens, token
-    budget 2048, block size 16, K=16 windows."""
+    scale 0.05; 32 requests x 128-token prompts x MLA_TOKENS greedy tokens,
+    token budget 2048, block size 16, K=16 windows."""
     return phase_serve(MLA_ARCH, dev, MLA_REQUESTS, MLA_PROMPT, MLA_TOKENS, 2048,
                        phase="mla", must_run=MLA_KERNELS,
                        must_not_run=("mha_decode", "paged_attention"), eager_round=False)
@@ -6266,10 +6308,10 @@ class ShardShapes:
             setattr(mod, name, fn)
 
 
-def _tp_round(engine, reqs, k3=None) -> dict:
+def _tp_round(engine, reqs, k3=None, n_steps=16) -> dict:
     """One measured round of an engine: tokens, tokens/s, launch counts
     (K3 split by KvWriteSplit where given), graph replays and the widest
-    K = 16 key's device ms a decode step."""
+    K = n_steps key's device ms a decode step."""
     import torch
     from hydrainfer_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
     graphs = engine.node.fill_executor.graphs
@@ -6283,7 +6325,7 @@ def _tp_round(engine, reqs, k3=None) -> dict:
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     counts = {**launch_counts(), **(k3.counts() if k3 is not None else {})}
-    keys = [(d, n, g) for (d, n), g in graphs.graphs.items() if n == 16 and g.graph]
+    keys = [(d, n, g) for (d, n), g in graphs.graphs.items() if n == n_steps and g.graph]
     d, n, g = max(keys, key=lambda x: x[0].S)
     tokens = [o.output_token_ids for o in outs]
     return {"tokens": tokens, "tokens_per_s": sum(map(len, tokens)) / elapsed,
@@ -6419,13 +6461,14 @@ def _tp_logits(lm1, lm2, dev, layered=False) -> dict:
             f"logits_tp{TP_SIZE}_bound": bound, "logits_ok": err(tp2) <= bound}
 
 
-def _tp_migration(f_p, f_d, dev, reqs, ref_tokens) -> dict:
+def _tp_migration(f_p, f_d, dev, reqs, ref_tokens, parallel="tp", size=TP_SIZE) -> dict:
     """A P node at tp TP_SIZE (f_p's model, sharded in part 1) hands each
     request to a D node at tp 1 (f_d's), which pulls its KV blocks (gathered
     from the P node's rank shards into the single-device layout); every
     payload must hold all the KV heads and land in the D node's blocks
     exactly, and the tokens must equal the tp-1 node's (ref_tokens) or
-    first differ at a near tie."""
+    first differ at a near tie. With parallel "pp", the P node is at pp
+    `size` and its blocks are gathered from its stages' layer runs."""
     import asyncio
     import torch
     from hydrainfer_tpu_torch.cluster.migrate import MigrateGraphBuilder, NodeType
@@ -6436,11 +6479,11 @@ def _tp_migration(f_p, f_d, dev, reqs, ref_tokens) -> dict:
     n_blocks = max(256, 2 * len(reqs) * (TP_PROMPT + TP_TOKENS) // 16)
     t0 = time.perf_counter()
     nodes = []
-    for name, node_type, device, factory in (("p0", "P", [dev] * TP_SIZE, f_p),
+    for name, node_type, device, factory in (("p0", "P", [dev] * size, f_p),
                                              ("d0", "D", dev, f_d)):
         node = AsyncEPDNode(_node_config(len(reqs), 16, n_blocks, TP_BUDGET, spec_ngram_k=0),
                             NodeContext(name=name, node_type=NodeType(node_type),
-                                        device=device))
+                                        device=device, parallel=parallel))
         node.init(factory)
         nodes.append(node)
     builder = MigrateGraphBuilder()
@@ -6455,7 +6498,7 @@ def _tp_migration(f_p, f_d, dev, reqs, ref_tokens) -> dict:
 
     def scatter_checked(block_ids, blocks):
         scatter(block_ids, blocks)
-        landed.append(blocks.shape[-2] == d_mgr.cache_array.shape[-2] and torch.equal(
+        landed.append(blocks.shape[1:] == d_mgr.cache_array[:, :, 0].shape and torch.equal(
             d_mgr.gather_blocks(block_ids), blocks.to(d_mgr.dtype)))
 
     d_mgr.scatter_blocks = scatter_checked
@@ -6489,7 +6532,7 @@ def _tp_migration(f_p, f_d, dev, reqs, ref_tokens) -> dict:
               "near_tie": tie["ok"],
               "pulled": d_metrics.get("migration_pulls") == len(reqs),
               "payloads_landed": len(landed) == len(reqs) and all(landed),
-              "p_sharded": isinstance(p_cache, list) and len(p_cache) == TP_SIZE}
+              "p_sharded": isinstance(p_cache, list) and len(p_cache) == size}
     return {"ok": all(checks.values()), "checks": checks, "boot_s": boot_s,
             "elapsed_s": elapsed, "tokens_per_s": sum(map(len, tokens)) / elapsed,
             "tokens_identical_to_tp1": tokens == ref_tokens,
@@ -6602,6 +6645,302 @@ def phase_tp(dev="cuda") -> tuple:
     return result, counts
 
 
+class PPFormSplit:
+    """The launch counts of a pipeline-parallel round by step form
+    (parallel/pipeline.py:step_form): the microbatched decode's and the
+    relay's. It wraps the two schedules, which pp_step looks up by name,
+    and reads the wrappers' counts around each call made outside a graph
+    capture; each replay since `reset` of a node's graphs adds what its
+    capture recorded, by its key's form. It also records the shapes K1 (q
+    rows), K3 (rows) and K4 (M) see inside the microbatched form, at a
+    graphed key's capture."""
+
+    def __init__(self):
+        import torch
+        from hydrainfer_tpu_torch.ops import attention, cache_ops, quant
+        from hydrainfer_tpu_torch.ops.cuda import launch_counts
+        from hydrainfer_tpu_torch.parallel import pipeline
+        self.form = None
+        self.shapes = {"mha_decode": set(), "kv_writer": set(), "quant_matmul": set()}
+        forms = {"decoder_forward_pp": "relay", "decoder_forward_pp_decode": "micro"}
+        probes = [(attention, "mha_decode_attention", "mha_decode", lambda a: a[0].shape[0]),
+                  (cache_ops, "write_kv_pages", "kv_writer", lambda a: a[1].shape[0]),
+                  (quant, "quant_matmul_int8", "quant_matmul", lambda a: a[0].shape[0])]
+        self.saved = [(pipeline, name, getattr(pipeline, name)) for name in forms]
+        self.saved += [(mod, name, getattr(mod, name)) for mod, name, _, _ in probes]
+        self.reset()
+
+        def schedule(fn, form):
+            def spy(*args, **kw):
+                before, self.form = launch_counts(), form
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    self.form = None
+                    if not torch.cuda.is_current_stream_capturing():
+                        for k, n in launch_counts().items():
+                            self.eager[form][k] = self.eager[form].get(k, 0) + n - before[k]
+            return spy
+
+        def probe(fn, key, rows):
+            def spy(*args, **kw):
+                if self.form == "micro":
+                    self.shapes[key].add(rows(args))
+                return fn(*args, **kw)
+            return spy
+
+        for name, form in forms.items():
+            setattr(pipeline, name, schedule(getattr(pipeline, name), form))
+        for mod, name, key, rows in probes:
+            setattr(mod, name, probe(getattr(mod, name), key, rows))
+
+    def reset(self, graphs=None) -> None:
+        self.eager = {"relay": {}, "micro": {}}
+        self.graphs = graphs
+        self.replays0 = ({key: g.replays for key, g in graphs.graphs.items()}
+                         if graphs is not None else {})
+
+    def restore(self) -> None:
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+    def counts(self) -> dict:
+        """{form: {kernel: launches}} of the round since `reset`."""
+        from hydrainfer_tpu_torch.parallel.pipeline import step_form
+        out = {form: dict(c) for form, c in self.eager.items()}
+        for (dims, n_steps), g in (self.graphs.graphs.items() if self.graphs else ()):
+            form = step_form(dims, PP_SIZE)
+            for k, n in g.launches.items():
+                out[form][k] = out[form].get(k, 0) + n * (
+                    g.replays - self.replays0.get((dims, n_steps), 0))
+        return out
+
+
+def _pp_round(engine, reqs, k3=None, split=None) -> dict:
+    """One round of an engine (_tp_round's record), with a pipeline-parallel
+    node's steps by form and, with a PPFormSplit, its launches by form."""
+    import torch
+    lm = engine.node.worker.language_model
+    steps0 = dict(lm.stages.steps) if lm.stages is not None else None
+    if split is not None:
+        torch.cuda.synchronize()
+        split.reset(engine.node.fill_executor.graphs)
+    graphs = engine.node.fill_executor.graphs
+    replays0, captures0 = graphs.replays, graphs.captures
+    rec = _tp_round(engine, reqs, k3, n_steps=1)
+    rec["graph_keys_captured_in_round"] = graphs.captures - captures0
+    if steps0 is not None:
+        rec["steps"] = {k: lm.stages.steps[k] - steps0[k] for k in steps0}
+    if split is not None:
+        rec["launches_by_form"] = split.counts()
+    rec["graph_replays"] = graphs.replays - replays0
+    return rec
+
+
+def _pp_step_ms(lm1, cache1, lm2, engine2) -> dict:
+    """A pure decode step of pp 2's round (its widest captured decode key's
+    inputs, S rows) timed from CUDA graphs three ways on the same batch:
+    pp 1's one-device step, and pp 2's relay and microbatched forms (each
+    into a scratch token table; the cache slots are the step's own); beside
+    the replays of the captured keys of that S (pp 2's microbatched, pp 1's
+    K = 1)."""
+    import torch
+    from hydrainfer_tpu_torch.models.decoder import decoder_forward
+    from hydrainfer_tpu_torch.models.factory import unpack_fill_batch
+    from hydrainfer_tpu_torch.parallel import pipeline
+    graphs2 = engine2.node.fill_executor.graphs
+    dims, g2 = max(((d, g) for (d, n), g in graphs2.graphs.items()
+                    if g.graph is not None and pipeline.step_form(d, PP_SIZE) == "micro"),
+                   key=lambda x: x[0].S)
+    batch = unpack_fill_batch(g2.flat, dims, None, lm2.cfg.hidden_size)
+    caches2 = engine2.node.kv_cache_manager.cache_array
+    table = torch.zeros_like(engine2.node.fill_executor.token_table)
+    forms = {
+        "pp1_step_ms": lambda: decoder_forward(lm1.weights, cache1, batch, lm1.cos_tab,
+                                               lm1.sin_tab, lm1.cfg, 1, table),
+        "relay_step_ms": lambda: pipeline.decoder_forward_pp(
+            lm2.stages, caches2, batch, lm2.cos_tab, lm2.sin_tab, 1, table),
+        "micro_step_ms": lambda: pipeline.decoder_forward_pp_decode(
+            lm2.stages, caches2, batch, lm2.cos_tab, lm2.sin_tab, table, PP_SIZE)}
+    out = {"step_key": f"T={dims.T} S={dims.S} MB={dims.MB}"}
+    for name, fn in forms.items():
+        out[name] = graph_ms(fn, calls=10, replays=3)
+    out["micro_key_replay_ms"] = _replay_ms(g2.graph, replays=10)
+    return out
+
+
+def _pp_compare(name, f1, f2, dev, reqs, budget, must_run, node_type="PD",
+                n_blocks=None, n_image_blocks=-1, vision=None, step_ms=False) -> tuple:
+    """One model at pp 1 (f1's, K = 1 windows, first) and at pp PP_SIZE
+    (f2's: a model over f1's tensors, staged by its node), a round each on
+    the same requests, decode from CUDA graphs (pp 2's keys captured at
+    their first meeting: a pipeline-parallel node runs no boot warm-up).
+    The pp-2 round must run both step forms and launch every kernel of
+    must_run, and its tokens must equal pp 1's or first differ at a near
+    tie (_near_tie on f1's model; `vision`, the factory of image
+    requests). With step_ms, _pp_step_ms. Returns (result, the pp-2
+    round's launch counts, the pp-1 round's tokens)."""
+    import gc
+    import torch
+    from hydrainfer_tpu_torch.request import Request
+    lm1, n_tokens = f1.getLanguageModel(), reqs[0].sampling_params.max_tokens
+    n_blocks = n_blocks or max(256, 2 * len(reqs) * (TP_PROMPT + n_tokens) // 16)
+    rounds, parts, engines = {}, {}, {}
+    for pp in (1, PP_SIZE):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        k3 = KvWriteSplit() if pp > 1 else None
+        split = PPFormSplit() if pp > 1 else None
+        try:
+            engine = _engine(f1 if pp == 1 else f2, dev if pp == 1 else [dev] * pp,
+                             len(reqs), 16, n_blocks, budget, node_type=node_type,
+                             n_image_blocks=n_image_blocks, spec_ngram_k=0,
+                             multi_step_decode=1, parallel="pp")
+            boot_s = time.perf_counter() - t0
+            rounds[pp] = _pp_round(engine, [
+                Request(request_id=f"{name}{pp}_{i}", prompt=r.prompt, image=r.image,
+                        sampling_params=r.sampling_params) for i, r in enumerate(reqs)],
+                k3, split)
+            if split is not None:
+                rounds[pp]["micro_shapes"] = {k: sorted(v) for k, v in split.shapes.items()}
+        finally:
+            for spy_ in (k3, split):
+                if spy_ is not None:
+                    spy_.restore()
+        rounds[pp].update(boot_s=boot_s, peak_memory_bytes=torch.cuda.max_memory_allocated())
+        engines[pp] = engine
+        parts[f"pp{pp}"] = time.perf_counter() - t0
+    lm2 = engines[PP_SIZE].node.worker.language_model
+    two = rounds[PP_SIZE]
+    two["stages"] = [{"device": str(st.device), "layers": [st.first, st.first + st.n_layers - 1]}
+                     for st in lm2.stages.stages]
+    if step_ms:
+        t0 = time.perf_counter()
+        two["step_ms"] = _pp_step_ms(lm1, engines[1].node.kv_cache_manager.cache_array, lm2,
+                                     engines[PP_SIZE])
+        two["step_ms"]["pp1_key_replay_ms"] = rounds[1]["decode_step_device_ms"]
+        parts["step_ms"] = time.perf_counter() - t0
+    del engines, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    one = rounds[1]
+    t0 = time.perf_counter()
+    tie = _near_tie(lm1, f1.getTokenizer(), reqs, two["tokens"], one["tokens"], dev,
+                    vision=vision)
+    parts["near_tie"] = time.perf_counter() - t0
+    counts, vocab = two["launches"], lm1.cfg.vocab_size
+    micro = two["micro_shapes"]
+    checks = {"tokens": _tokens_ok(one["tokens"], n_tokens, vocab)
+              and _tokens_ok(two["tokens"], n_tokens, vocab),
+              "near_tie": tie["ok"],
+              "both_forms_ran": two["steps"]["relay"] > 0 and two["steps"]["micro"] > 0,
+              "launched": all(counts[k] > 0 for k in must_run),
+              "micro_launched": all(two["launches_by_form"]["micro"].get(k, 0) > 0
+                                    for k in ("mha_decode", "kv_writer", "quant_matmul")),
+              "micro_shapes": all(len(reqs) // PP_SIZE in micro[k]
+                                  for k in ("mha_decode", "kv_writer", "quant_matmul")),
+              "graphs_replayed": two["graph_replays"] > 0 and one["graph_replays"] > 0}
+    differ = tie["divergences"]
+    return ({"ok": all(checks.values()), "checks": checks,
+             "pp1": {k: v for k, v in one.items() if k != "tokens"},
+             f"pp{PP_SIZE}": {k: v for k, v in two.items() if k != "tokens"},
+             "tokens_identical": one["tokens"] == two["tokens"],
+             "near_tie_requests": len(differ),
+             "first_flip_top2_gap": differ[0]["top2_gap"] if differ else None,
+             "near_tie": tie, "parts_s": parts},
+            counts, one["tokens"])
+
+
+def phase_pp(dev="cuda") -> tuple:
+    """Pipeline parallelism (parallel/pipeline.py) at pp_size PP_SIZE, both
+    stages on the one card (the cluster's wrap-around rule), decode from
+    CUDA graphs; on one card it tests function, not speed:
+    1. llava-7b-lm (32 layers x 4096; int8 weights, int8 KV at 0.05) on one
+       PD node at pp 1 (K = 1 windows) and then at pp 2 over the same seeded
+       tensors (stage 0 layers 0-15, stage 1 16-31): 8 requests x 128-token
+       prompts x 64 tokens, budget 256. Both step forms run (the relay for
+       prefill and mixed steps, the microbatched decode for pure decode
+       steps: 2 microbatches of 4 sequences), K1-K4 launch (inside the
+       microbatched form K1 over 4 sequences, K4 at M 4), the tokens equal
+       pp 1's or first differ at a near tie, and one decode step is timed
+       from graphs at pp 1 and in both forms at pp 2 (_pp_step_ms);
+    2. Qwen2-VL-2B's EPD node (bf16 ViT through K5, int8 LM, M-RoPE; 14 of
+       28 layers a stage) on the vlm phase's 8 images x 32 tokens at pp 1
+       and pp 2, under the same rule;
+    3. a P node at pp 2 hands off to a D node at pp 1 on llava-7b-lm (the KV
+       blocks gathered from the two stages' layer runs): part 1's
+       requests, whose tokens equal part 1's pp-1 tokens or first differ
+       at a near tie.
+    Returns (result, {"pp": part 1's pp-2 launch counts})."""
+    import gc
+    from dataclasses import replace
+    import numpy as np
+    import torch
+    from hydrainfer_tpu_torch.models.random_init import RandomWeightFactory
+    dev = torch.device(dev)
+    result, counts, parts = {"phase": "pp", "gpu": gpu_name_and_limit(),
+                             "pp_size": PP_SIZE}, {}, {}
+    reqs = _requests(np.random.default_rng(SEED + 10), TP_REQUESTS, TP_PROMPT, TP_TOKENS,
+                     "pp")
+
+    # 1. llava-7b-lm at pp 1, then pp 2 over the same tensors
+    t0 = time.perf_counter()
+    llava = dict(dtype=torch.bfloat16, quantization="int8", kv_scale=0.05, device=dev,
+                 seed=SEED)
+    f1 = RandomWeightFactory("llava-7b-lm", **llava)
+    f2 = RandomWeightFactory("llava-7b-lm", weights=f1.getLanguageModel().weights, **llava)
+    torch.cuda.synchronize()
+    parts["llava_init"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    try:
+        result["llava"], counts["pp"], pp1_tokens = _pp_compare(
+            "llava", f1, f2, dev, reqs, TP_BUDGET, SERVE_KERNELS, step_ms=True)
+        parts["llava"] = time.perf_counter() - t0
+
+        # 3. P at pp 2 -> D at pp 1, on the same two models
+        t0 = time.perf_counter()
+        result["migration"] = _tp_migration(f2, f1, dev, reqs, pp1_tokens, parallel="pp",
+                                            size=PP_SIZE)
+        parts["migration"] = time.perf_counter() - t0
+    except Exception as e:      # a failed part fails the phase; the next still runs
+        traceback.print_exc()
+        result.setdefault("llava", {"ok": False, "error": repr(e)})
+        result.setdefault("migration", {"ok": False, "error": repr(e)})
+    del f1, f2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. Qwen2-VL-2B's EPD node at pp 1, then pp 2 over the same tensors
+    t0 = time.perf_counter()
+    try:
+        v1 = _qwen2vl_factory(dev)
+        lm2 = RandomWeightFactory(VLM_ARCH, dtype=torch.bfloat16, quantization="int8",
+                                  kv_scale=0.05, device=dev, seed=SEED,
+                                  weights=v1.getLanguageModel().weights)
+        lm2.cfg = replace(lm2.cfg, mrope_section=VLM_MROPE)
+        v2 = _mm_factory(lm2, v1.getVisionModel(), v1.getVisionModelConfig(),
+                         v1.getProcessor())
+        parts["vlm_init"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        vreqs = _vlm_requests(np.random.default_rng(SEED + 11), PP_VLM_TOKENS, "ppv")
+        result["vlm"], _, _ = _pp_compare("vlm", v1, v2, dev, vreqs, 2048, VLM_KERNELS,
+                                          node_type="EPD", n_blocks=512, n_image_blocks=64,
+                                          vision=v1)
+        result["vlm"]["model"] = ("Qwen2-VL-2B: ViT {depth} x {embed_dim}, {num_heads} "
+                                  "heads; LM ".format(**VLM_VISION) + VLM_ARCH)
+        del v1, v2, lm2
+    except Exception as e:
+        traceback.print_exc()
+        result["vlm"] = {"ok": False, "error": repr(e)}
+    parts["vlm"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    result["parts_s"] = parts
+    result["ok"] = bool(all(result[k]["ok"] for k in ("llava", "migration", "vlm")))
+    save("pp.json", result)
+    return result, counts
+
+
 def gpu_name_and_limit() -> str:
     try:
         out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6637,7 +6976,7 @@ def main() -> int:
     ap.add_argument("--phases",
                     default="build,kernels,tiny,serve,quant,quality,spec,sample,vlm,llava,"
                             "disagg,process,"
-                            "llavanext,internvl,mla,deepseek,vl2,mixtral,gpt2,tp,online")
+                            "llavanext,internvl,mla,deepseek,vl2,mixtral,gpt2,tp,pp,online")
     ap.add_argument("--out-dir", default=OUT_DIR,
                     help="where the detail files go")
     args = ap.parse_args()
@@ -6664,7 +7003,7 @@ def main() -> int:
                                            "next13b": {}, "internvl": {}, "mla": {},
                                            "deepseek": {}, "vl2": {}, "mixtral": {},
                                            "gpt2": {}, "quant_int4": {}, "quant_fp8": {},
-                                           "quality": {}, "tp": {}, "tp_mla": {}}
+                                           "quality": {}, "tp": {}, "tp_mla": {}, "pp": {}}
     process_counts = None       # the process phase's, summed over its node processes
     why = {}                    # a failed phase: what failed in it
     for phase in phases:
@@ -6724,6 +7063,9 @@ def main() -> int:
             elif phase == "tp":
                 res, tp_counts = phase_tp()
                 counts.update(tp_counts)
+            elif phase == "pp":
+                res, pp_counts = phase_pp()
+                counts.update(pp_counts)
             elif phase == "online":
                 res = phase_online()
             else:

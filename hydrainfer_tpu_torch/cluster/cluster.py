@@ -20,15 +20,18 @@ else build each from a `model_factory_provider`, else each its own from
 `config.node.model`. Nodes with auto-sized caches size them in turn from
 the free memory of their card, so on a shared card set the block counts.
 
-Tensor parallelism (`tp_size` > 1): each node owns a group of tp_size
-devices, taken by the JAX cluster's wrap-around rule (group g's rank i is
-devices[(g * tp_size + i) % len(devices)]), and shards its language model
-and KV cache over them (cluster/node.py); the preset topologies are resolved
-over len(devices) // tp_size groups. On one card or on the CPU every rank of
+Tensor parallelism (`tp_size` > 1) and pipeline parallelism (`pp_size` >
+1): each node owns a group of tp_size * pp_size devices, taken by the JAX
+cluster's wrap-around rule (group g's device i is devices[(g * n + i) %
+len(devices)], n the group size), and shards its language model and KV cache
+over them (cluster/node.py): one rank a device under TP, one stage of
+contiguous layers a device under PP. Both at once are refused, as the JAX
+cluster refuses them (TP inside pipeline stages exists at function level
+only, parallel/pipeline.py). The preset topologies are resolved over
+len(devices) // n groups. On one card or on the CPU every rank or stage of
 every node shares the one device. Nodes that share a factory share its
 model, sharded once, so a shared factory needs every node on the same
-devices: elsewhere pass a `model_factory_provider`. Pipeline parallelism
-(`pp_size` > 1) waits for queue 1, item 9b. The `process` deployment (one
+devices: elsewhere pass a `model_factory_provider`. The `process` deployment (one
 OS process per node) and `attach_addr` belong to
 cluster/process_node.py:ProcessCluster, which EntryPoint builds for
 `deployment: process`; this class refuses both, where the JAX `Cluster`
@@ -86,7 +89,9 @@ class ClusterConfig:
     # tensor-parallel ranks a node: its LM weights and KV cache sharded over
     # tp_size devices (the wrap-around rule; one card: all on it)
     tp_size: int = 1
-    pp_size: int = 1                    # > 1: not ported yet (queue 1, item 9b)
+    # pipeline stages a node: its LM layers and their KV cache split over
+    # pp_size devices, as for tp_size; not with tp_size > 1
+    pp_size: int = 1
     # "inprocess" = asyncio actors in this process; "process" = one OS
     # process per node (cluster/process_node.py:ProcessCluster, which
     # EntryPoint builds)
@@ -145,17 +150,20 @@ class Cluster(RequestObserver):
                                       "the nodes in this process; one process a node is "
                                       "ProcessCluster's (cluster/process_node.py), which "
                                       "EntryPoint builds for deployment=process")
-        if config.pp_size > 1:
-            raise NotImplementedError("pipeline parallelism (pp_size > 1) is not ported "
-                                      "yet (ROADMAP.md queue 1, item 9b)")
+        if config.pp_size > 1 and config.tp_size > 1:
+            # the JAX cluster's assertion (hydrainfer_tpu/cluster/cluster.py)
+            raise NotImplementedError("pp_size > 1 with tp_size > 1: a node is either "
+                                      "tensor- or pipeline-parallel (TP inside pipeline "
+                                      "stages is parallel/pipeline.py's, at function "
+                                      "level only)")
         if config.xla_flags:
             logger.warning(f"cluster.xla_flags is TPU-only and has no effect here: "
                            f"{config.xla_flags!r}")
         self.config = config
         devices = devices if devices is not None else cluster_devices(config)
-        tp = max(1, config.tp_size)
+        n = max(1, config.tp_size) * max(1, config.pp_size)
         specs = config.nodes or resolve_cluster_topology(config.cluster_type,
-                                                         max(1, len(devices) // tp))
+                                                         max(1, len(devices) // n))
         if any(spec.attach_addr for spec in specs):
             raise NotImplementedError("attach_addr: Cluster builds the nodes in this "
                                       "process; attaching to a running node is "
@@ -168,11 +176,12 @@ class Cluster(RequestObserver):
                 idx = name_counts.get(spec.node_type, 0)
                 name_counts[spec.node_type] = idx + 1
                 g = len(self.nodes)
-                group = [devices[(g * tp + i) % len(devices)] for i in range(tp)]
-                device = group if tp > 1 else group[0]
+                group = [devices[(g * n + i) % len(devices)] for i in range(n)]
+                device = group if n > 1 else group[0]
                 node = AsyncEPDNode(spec_node_config(config.node, spec), NodeContext(
                     name=f"{spec.node_type.lower()}{idx}",
-                    node_type=NodeType(spec.node_type), device=device))
+                    node_type=NodeType(spec.node_type), device=device,
+                    parallel="pp" if config.pp_size > 1 else "tp"))
                 node.spec = spec
                 self.nodes.append(node)
         for node in self.nodes:

@@ -2,12 +2,14 @@
 node type: E, P, D and their unions EP, ED, PD, EPD).
 
 One node runs on one device, which other nodes of the same process may
-share, or, given a list of devices, on one tensor-parallel rank a device
-(ranks may share one): its language model shards its weights over them
-(models/llama.py:shard_to, parallel/mesh.py) and its KV cache holds one
-shard a rank, while the token table, the image cache and the vision tower
-stay on rank 0's device. Decode graphs need all ranks on one card
-(`check_graph_devices`). It holds the models its type runs (the vision tower
+share, or, given a list of devices, on one tensor-parallel rank a device or,
+with `NodeContext.parallel` "pp", one pipeline stage a device (ranks and
+stages may share one): its language model shards its weights over them
+(models/llama.py:shard_to and shard_to_pp, parallel/mesh.py and
+parallel/pipeline.py) and its KV cache holds one shard a rank (its heads) or
+a stage (its layers), while the token table, the image cache and the vision
+tower stay on the first device. Decode graphs need all ranks and stages on
+one card (`check_graph_devices`). It holds the models its type runs (the vision tower
 to encode, the language model to prefill or decode) and the caches they
 need: the KV pool when it prefills or decodes, the image-feature cache when
 it encodes or prefills. An encode-only node has no KV pool, no fill executor
@@ -95,6 +97,7 @@ from ..engine.worker import VanillaWorker, WorkerConfig
 from ..memory import TokenCacheBlockManager, TokenCacheBlockManagerConfig
 from ..models.factory import ModelFactory, ModelFactoryConfig, getModelFactory
 from ..ops import cuda as kernels
+from ..parallel.mesh import CacheShard
 from ..utils import hostprof
 from ..utils.device import resolve_device
 from ..utils.logger import getLogger
@@ -200,15 +203,18 @@ class NodeContext:
     # (ranks may share one), as the JAX node's device list forms its mesh
     device: Optional[object] = None
     migrate_graph: Optional[MigrateGraph] = None
+    # what a device list shards: "tp" (heads, one rank a device) or "pp"
+    # (layers, one pipeline stage a device)
+    parallel: str = "tp"
 
 
 def check_graph_devices(devices, cuda_graphs: bool) -> None:
-    """A decode graph captures one device's stream: ranks on different cards
-    cannot run from one graph, so such a node must turn cuda_graphs off
-    rather than run eagerly unasked."""
+    """A decode graph captures one device's stream: ranks or pipeline stages
+    on different cards cannot run from one graph, so such a node must turn
+    cuda_graphs off rather than run eagerly unasked."""
     if cuda_graphs and len(set(devices)) > 1 and any(d.type == "cuda" for d in devices):
         raise NotImplementedError(
-            f"cuda_graphs with tensor-parallel ranks on different devices "
+            f"cuda_graphs with tensor-parallel ranks or pipeline stages on different devices "
             f"{[str(d) for d in devices]}: a decode graph captures one card's stream "
             "(cross-card graphs are ROADMAP.md queue 1, item 11); set cuda_graphs=false")
 
@@ -235,11 +241,12 @@ def adaptive_postprocess_k(n_running: int, n_waiting: int, max_running: int,
 
 
 
-def _heads_per_device(shards) -> dict:
-    """{device: the cache heads its ranks hold} of [(device, first, n)]."""
+def _block_share_per_device(shards, n_layers: int, n_heads: int) -> dict:
+    """{device: the share of a KV block its shards hold} of a CacheShard
+    list (heads times layers over the whole block's)."""
     out = {}
-    for dev, _, n in shards:
-        out[dev] = out.get(dev, 0) + n
+    for dev, _, n, _, layers in shards:
+        out[dev] = out.get(dev, 0.0) + n * (layers or n_layers) / (n_heads * n_layers)
     return out
 
 
@@ -254,6 +261,8 @@ class AsyncEPDNode:
         # image cache and the vision tower
         self.devices = [resolve_device(d) for d in devices]
         self.device = self.devices[0]
+        if context.parallel not in ("tp", "pp"):
+            raise ValueError(f"NodeContext.parallel is 'tp' or 'pp', not {context.parallel!r}")
         check_graph_devices(self.devices, config.cuda_graphs)
         tpu_only = tpu_only_settings(config)
         if tpu_only:
@@ -351,21 +360,25 @@ class AsyncEPDNode:
                     f"budgets: {image_budget} images, {token_budget} tokens)")
 
     def _shard_language_model(self) -> None:
-        """Tensor parallelism over the node's devices: the language model
-        shards its weights (its shard_to), and the KV cache follows in
-        _init_caches. A node without a language model (E) runs its tower on
-        rank 0's device."""
+        """Tensor or pipeline parallelism over the node's devices: the
+        language model shards its weights (its shard_to, or shard_to_pp when
+        the context says "pp"), and the KV cache follows in _init_caches. A
+        node without a language model (E) runs its tower on the first
+        device."""
         lm = self.worker.language_model
         if lm is None:
             return
-        if not hasattr(lm, "shard_to"):
+        pp = self.context.parallel == "pp"
+        method, what, size = (("shard_to_pp", "pipeline-parallel", "pp_size") if pp
+                              else ("shard_to", "tensor-parallel", "tp_size"))
+        if not hasattr(lm, method):
             # the JAX node quietly runs such a model on its first device
             raise NotImplementedError(
-                f"{type(lm).__name__} has no tensor-parallel form (GPT-2's layer loop "
-                f"is its own): serve it with tp_size 1, not on {len(self.devices)} ranks")
-        lm.shard_to(self.devices)
-        logger.info(f"{self.name} tensor-parallel over {len(self.devices)} ranks on "
-                    f"{[str(d) for d in self.devices]}")
+                f"{type(lm).__name__} has no {what} form (GPT-2's layer loop is its "
+                f"own): serve it with {size} 1, not on {len(self.devices)} devices")
+        getattr(lm, method)(self.devices)
+        logger.info(f"{self.name} {what} over {len(self.devices)} "
+                    f"{'stages' if pp else 'ranks'} on {[str(d) for d in self.devices]}")
 
     def _init_caches(self) -> None:
         """The caches of the node's type: the KV pool where it prefills or
@@ -407,9 +420,9 @@ class AsyncEPDNode:
                 block_size=block,
                 n_heads=1, head_dim=lc.hidden_size,
                 dtype=model_dtype)
-        # a tensor-parallel model's KV cache: one shard a rank
-        shards = (lm.weights.cache_shards()
-                  if kv_cfg is not None and getattr(lm, "tp_size", 1) > 1 else None)
+        # a tensor- or pipeline-parallel model's KV cache: one shard a rank
+        # or stage
+        shards = lm.cache_shards() if kv_cfg is not None and len(self.devices) > 1 else None
         auto_kv = kv_cfg is not None and self.config.n_kv_blocks == -1
         auto_img = with_images and self.config.n_image_blocks == -1
         if auto_kv or auto_img:
@@ -426,13 +439,15 @@ class AsyncEPDNode:
                     img_frac, kv_frac = (frac, 0.0) if with_images else (0.0, frac)
                 free = torch.cuda.mem_get_info(self.device)[0] * self.config.hbm_utilization
                 if auto_kv:
-                    # the ranks that share a card divide its share: a block
-                    # costs each card its ranks' heads
+                    # the ranks and stages that share a card divide its
+                    # share: a block costs each card its shards' heads and
+                    # layers
                     kv_cfg.n_blocks = max(1, min(
                         int(torch.cuda.mem_get_info(dev)[0] * self.config.hbm_utilization
-                            * kv_frac) * kv_cfg.n_heads // (kv_cfg.block_nbytes * heads)
-                        for dev, heads in _heads_per_device(
-                            shards or [(self.device, 0, kv_cfg.n_heads)]).items()))
+                            * kv_frac / (kv_cfg.block_nbytes * share))
+                        for dev, share in _block_share_per_device(
+                            shards or [CacheShard(self.device, 0, kv_cfg.n_heads)],
+                            kv_cfg.n_layers, kv_cfg.n_heads).items()))
                 if auto_img:
                     img_cfg.n_blocks = max(1, TokenCacheBlockManager.compute_n_blocks(
                         img_cfg, int(free * img_frac)))

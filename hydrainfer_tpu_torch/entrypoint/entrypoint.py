@@ -11,8 +11,9 @@ node (cluster/process_node.py:ProcessCluster: spawned children, or nodes
 attached by `attach_addr`), in which case this process builds the model
 factory only for its tokenizer and vision config and holds nothing on the
 card. `cluster.tp_size=2` makes every in-process node tensor-parallel over
-two devices (on one card, or with `cluster.platform=cpu`, both ranks share
-the one device). SIGTERM or SIGINT stops the cluster and the server, and the
+two devices, and `cluster.pp_size=2` pipeline-parallel over two stages (on
+one card, or with `cluster.platform=cpu`, both share the one device).
+SIGTERM or SIGINT stops the cluster and the server, and the
 process exits 0.
 """
 import argparse
@@ -39,16 +40,14 @@ class EntryPoint:
         self.config = config
         c = config.cluster
         if c.deployment == "process":
-            if c.pp_size > 1:
-                raise NotImplementedError("pipeline parallelism (pp_size > 1) is not "
-                                          "ported yet (ROADMAP.md queue 1, item 9b)")
-            if c.tp_size > 1:
-                # the JAX ProcessCluster ignores tp_size and runs each node on
-                # one device
-                raise NotImplementedError(
-                    "tp_size > 1 with deployment=process: a node process runs on one "
-                    "device; tensor parallelism is the in-process Cluster's "
-                    "(deployment=inprocess)")
+            for size in ("tp_size", "pp_size"):
+                if getattr(c, size) > 1:
+                    # the JAX ProcessCluster ignores both and runs each node
+                    # on one device
+                    raise NotImplementedError(
+                        f"{size} > 1 with deployment=process: a node process runs on one "
+                        "device; tensor and pipeline parallelism are the in-process "
+                        "Cluster's (deployment=inprocess)")
             if c.xla_flags:
                 logger.warning(f"cluster.xla_flags is TPU-only and has no effect here: "
                                f"{c.xla_flags!r}")

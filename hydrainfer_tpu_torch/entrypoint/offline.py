@@ -5,7 +5,8 @@ One node with a self-pointing migrate graph, driven to completion. It runs
 on the card unless the caller passes device="cpu". A list of devices
 (`device=["cuda:0", "cuda:0"]`, or `["cpu"] * 4`), as the JAX
 `OfflineEngine(devices=...)` takes it, makes the node tensor-parallel: one
-rank a device.
+rank a device; with `parallel="pp"`, pipeline-parallel: one stage of
+contiguous layers a device.
 """
 import asyncio
 import time
@@ -22,9 +23,9 @@ from ..request import OfflineInferenceOutput, Request
 
 class OfflineEngine:
     def __init__(self, config: NodeConfig, model_factory: ModelFactory,
-                 node_type: str = "PD", device=None):
+                 node_type: str = "PD", device=None, parallel: str = "tp"):
         context = NodeContext(name="offline0", node_type=NodeType(node_type),
-                              device=device)
+                              device=device, parallel=parallel)
         self.node = AsyncEPDNode(config, context)
         self.node.init(model_factory)
         builder = MigrateGraphBuilder()

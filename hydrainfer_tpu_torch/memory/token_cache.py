@@ -14,13 +14,15 @@ cache's dtype. Both are queued on the current stream, so on one card a copy
 is ordered after the source's earlier writes and before the destination's
 later reads, with no event.
 
-A tensor-parallel node's cache (`shards` = [(device, first head, count)], one
-a rank) is a list of per-rank tensors over the same blocks, each holding its
-rank's run of the head axis (whole K/V pairs; a latent plane is copied on
-every rank). The payload keeps the single-device layout either way: a
-gather concatenates the ranks' heads on rank 0's device (each head from the
-first rank that holds it), a scatter gives every rank its run. So blocks
-move between nodes of any two TP degrees.
+A tensor- or pipeline-parallel node's cache (`shards`, a list of
+parallel/mesh.py:CacheShard) is a list of tensors over the same blocks, one
+a shard: a tensor-parallel rank's holds its run of the head axis (whole K/V
+pairs; a latent plane is copied on every rank), a pipeline stage's its run
+of the layer axis, a rank of a stage both. The payload keeps the
+single-device layout either way: a gather puts the shards' heads and layer
+runs together on the first shard's device (each head from the first rank
+that holds it), a scatter gives every shard its runs. So blocks move between
+nodes of any two TP or PP degrees.
 """
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence
@@ -87,10 +89,11 @@ class TokenCacheBlockManager:
         shape = (config.n_layers, config.n_tensors, config.n_blocks,
                  config.block_size, config.n_heads, config.head_dim)
         if shards:
-            # one tensor a rank, its run of the head axis
-            self.cache_array = [torch.zeros(shape[:-2] + (n, shape[-1]), dtype=self.dtype,
-                                            device=resolve_device(dev))
-                                for dev, _, n in shards]
+            # one tensor a shard: its run of the layer axis and of the head axis
+            self.cache_array = [
+                torch.zeros((layers or shape[0],) + shape[1:-2] + (n, shape[-1]),
+                            dtype=self.dtype, device=resolve_device(dev))
+                for dev, _, n, _, layers in shards]
         else:
             self.cache_array = torch.zeros(shape, dtype=self.dtype, device=self.device)
         self.block_allocator = BlockAllocator(config.n_blocks)
@@ -183,12 +186,12 @@ class TokenCacheBlockManager:
 
     def gather_blocks(self, block_ids: Sequence[int]) -> torch.Tensor:
         """The blocks as one (n, layers, tensors, block, heads, dim) payload,
-        a copy on this cache's (rank 0's) device, in the single-device
-        layout."""
+        a copy on this cache's (the first shard's) device, in the
+        single-device layout."""
         if self.shards is None:
             return self._gather(self.cache_array, block_ids)
         return merge_kv_shards([self._gather(a, block_ids) for a in self.cache_array],
-                               self.shards)
+                               self.shards, layer_dim=1)
 
     def scatter_blocks(self, block_ids: Sequence[int], blocks) -> None:
         """Write a gather_blocks payload (a tensor on any device, or an
@@ -197,7 +200,7 @@ class TokenCacheBlockManager:
         if self.shards is None:
             self._scatter(self.cache_array, block_ids, blocks)
             return
-        for a, part in zip(self.cache_array, shard_kv_cache(blocks, self.shards)):
+        for a, part in zip(self.cache_array, shard_kv_cache(blocks, self.shards, layer_dim=1)):
             self._scatter(a, block_ids, part)
 
     def _scatter(self, a: torch.Tensor, block_ids: Sequence[int], blocks: torch.Tensor):

@@ -413,28 +413,35 @@ def decoder_forward(weights: dict, cache: torch.Tensor, batch: LanguageModelBatc
     splice. Under TP `weights` is ShardedWeights and `cache` the list of its
     ranks' shards; the batch and the tables live on rank 0's device."""
     if input_embeds is None:
-        src = batch.token_src_slots
-        token_ids = torch.where(src >= 0, token_table[src.clamp(min=0).long()],
-                                batch.token_ids)
-        x = _splice_images(_embed(weights, token_ids), batch)
+        x = _splice_images(_embed(weights, _input_ids(batch, token_table)), batch)
     else:
         x = input_embeds
-    if cfg.mrope_section and batch.positions_hw is not None:
-        cos, sin = mrope_gather(cos_tab, sin_tab, batch.positions,
-                                batch.positions_hw[0], batch.positions_hw[1],
-                                cfg.mrope_section)
-    else:
-        cos = cos_tab[batch.positions.long()]
-        sin = sin_tab[batch.positions.long()]
+    cos, sin = _rope_rows(cos_tab, sin_tab, batch, cfg)
     ranks, group, rank_weights = _ranks(weights, cache, batch, cos, sin)
     if group is not None:
         cfg = weights.cfg
     for layer_id in range(cfg.n_layers - 1):
         x = _rank_layer(x, ranks, [w["layers"][layer_id] for w in rank_weights],
                         layer_id, cfg, max_q, group)
-    return _last_layer_and_head(weights, x, ranks, [w["layers"][-1] for w in rank_weights],
-                                cfg, max_q, token_table, return_logits, spec, generator,
-                                group)
+    x = _last_layer(x, ranks, [w["layers"][-1] for w in rank_weights], cfg.n_layers - 1,
+                    cfg, max_q, group, spec)
+    return _head(weights, x, batch, cfg, token_table, return_logits, spec, generator)
+
+
+def _input_ids(batch: LanguageModelBatch, token_table: torch.Tensor) -> torch.Tensor:
+    """The step's input token of each row: from the token table where the
+    row names a slot (the previous step's sampled token), else as packed."""
+    src = batch.token_src_slots
+    return torch.where(src >= 0, token_table[src.clamp(min=0).long()], batch.token_ids)
+
+
+def _rope_rows(cos_tab, sin_tab, batch: LanguageModelBatch, cfg: DecoderConfig):
+    """The (T, rope_dim // 2) cos and sin rows of the step's positions (under
+    M-RoPE gathered from the three position streams)."""
+    if cfg.mrope_section and batch.positions_hw is not None:
+        return mrope_gather(cos_tab, sin_tab, batch.positions, batch.positions_hw[0],
+                            batch.positions_hw[1], cfg.mrope_section)
+    return cos_tab[batch.positions.long()], sin_tab[batch.positions.long()]
 
 
 def _splice_images(x: torch.Tensor, batch: LanguageModelBatch) -> torch.Tensor:
@@ -451,22 +458,26 @@ def _splice_images(x: torch.Tensor, batch: LanguageModelBatch) -> torch.Tensor:
     return x[:T]
 
 
-def _last_layer_and_head(weights, x, ranks, lws, cfg: DecoderConfig, max_q: int,
-                         token_table, return_logits: bool, spec: int = 0,
-                         generator=None, group=None):
-    # the last layer's attention sees all T tokens (their KV must be written);
-    # then only the sampled rows continue through the MLP and the head. (The
-    # JAX MLA last layer runs its MLP over all T rows and discards after it;
-    # the MLP is row-wise, and so is a MoE layer's routing, so discarding
-    # first gives the same numbers.)
-    batch = ranks[0].batch
-    x = _layer_attention(x, ranks, lws, cfg.n_layers - 1, cfg, max_q, group)
+def _last_layer(x, ranks, lws, layer_id: int, cfg: DecoderConfig, max_q: int, group=None,
+                spec: int = 0):
+    """The last layer. Its attention sees all T tokens (their KV must be
+    written); then only the sampled rows continue through the MLP (every
+    row in a speculative verify step, whose every next token matters). (The
+    JAX MLA last layer runs its MLP over all T rows and discards after it;
+    the MLP is row-wise, and so is a MoE layer's routing, so discarding
+    first gives the same numbers.)"""
+    x = _layer_attention(x, ranks, lws, layer_id, cfg, max_q, group)
+    if spec == 0:
+        x = x[ranks[0].batch.sample_token_idx.clamp(min=0).long()]      # token discard
+    return _layer_mlp(x, ranks, lws, cfg, group)
+
+
+def _head(weights, x, batch: LanguageModelBatch, cfg: DecoderConfig, token_table,
+          return_logits: bool, spec: int = 0, generator=None):
+    """The step's head on the last layer's rows: the verify head of a
+    speculative step, else the tokens (and the logits if asked)."""
     if spec > 0:
-        # speculative verify: every row's next token matters, so no discard
-        x = _layer_mlp(x, ranks, lws, cfg, group)
         return _spec_verify_head(weights, x, batch, cfg, token_table, spec, generator)
-    x = x[batch.sample_token_idx.clamp(min=0).long()]          # token discard
-    x = _layer_mlp(x, ranks, lws, cfg, group)
     tokens, logits = _final_head(weights, x, batch, cfg, token_table, generator)
     return (tokens, logits) if return_logits else tokens
 

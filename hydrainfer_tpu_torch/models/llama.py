@@ -13,11 +13,15 @@ jitted programs). A step whose dims carry `spec` > 0 is a verify step (the
 counterpart of the JAX model's `_flat_spec`); the sampling draws come from
 the caller's generator. The caller's weight dict is not consumed.
 
-`shard_to(devices)` makes the model tensor-parallel (every family served
-through this class: Llama, Qwen2, Mixtral, DeepSeek and the language towers
-of LLaVA, LLaVA-NeXT, InternVL, Qwen2-VL and DeepSeek-VL2; their vision
-towers stay whole on rank 0's device). Its cache is then a list of per-rank
-shards.
+`shard_to(devices)` makes the model tensor-parallel and `shard_to_pp(devices)`
+pipeline-parallel (every family served through this class: Llama, Qwen2,
+Mixtral, DeepSeek and the language towers of LLaVA, LLaVA-NeXT, InternVL,
+Qwen2-VL and DeepSeek-VL2; their vision towers stay whole on the first
+device). Its cache is then a list of shards (`cache_shards`). A
+pipeline-parallel model takes, as the JAX model does, the microbatched
+decode for pure single-token decode steps and the stage relay for every
+other step (parallel/pipeline.py), runs no fused window or verify step
+(supports_multi_step is False) and has no `forward` / `forward_with_logits`.
 """
 from dataclasses import replace
 from typing import Optional
@@ -26,6 +30,7 @@ import torch
 
 from ..ops.quant import quantize_tree
 from ..parallel.mesh import RankGroup, ShardedWeights, shard_decoder_weights
+from ..parallel.pipeline import PipelineStages, pp_stages, pp_step, step_form
 from .decoder import (DecoderConfig, decoder_forward, decoder_forward_multi,
                       init_rope_tables)
 from .factory import (FillDims, LanguageModel, LanguageModelBatch, LanguageModelOutput,
@@ -84,6 +89,8 @@ def convert_llama_weights(store: WeightStore, cfg: DecoderConfig,
 
 class LlamaForCausalLM(LanguageModel):
     supports_multi_step = True
+    # the pipeline stages (shard_to_pp); None on one device or under TP
+    stages: Optional[PipelineStages] = None
 
     def __init__(self, weights: dict, cfg: DecoderConfig,
                  quantization: str = "none", kv_scale: Optional[float] = None):
@@ -113,12 +120,59 @@ class LlamaForCausalLM(LanguageModel):
                 return
             raise ValueError(f"the model is already sharded over {self.weights.group.devices}; "
                              f"a node on {group.devices} needs a model of its own")
+        self._single_device("tensor-parallel", group.devices)
         self.weights = shard_decoder_weights(self.weights, self.cfg, group)
+
+    def shard_to_pp(self, devices) -> None:
+        """Pipeline-parallel placement over `devices` (port of the JAX
+        shard_to_pp; parallel/pipeline.py): one stage of contiguous layers a
+        device. The node gives forward_flat one KV-cache shard a stage
+        (`cache_shards`). Embed, norm, lm_head and the rope tables stay on
+        the first device. The unsharded weight dict is let go, as the JAX
+        model lets it go: the stages hold its tensors. Call before the
+        first forward; the same devices again is a no-op."""
+        devices = tuple(torch.device(d) for d in devices)
+        if self.stages is not None:
+            if self.stages.devices == devices:
+                return
+            raise ValueError(f"the model is already pipeline-parallel over "
+                             f"{self.stages.devices}; a node on {devices} needs a model of "
+                             "its own")
+        self._single_device("pipeline-parallel", devices)
+        self.stages = pp_stages(self.weights, self.cfg, devices)
+        self.weights = None
+        self.device = devices[0]
+        self.cos_tab, self.sin_tab = self.cos_tab.to(self.device), self.sin_tab.to(self.device)
+        # the relay and the microbatched decode are single steps
+        self.supports_multi_step = False
+
+    def _single_device(self, what: str, devices) -> None:
+        if self.stages is not None or isinstance(self.weights, ShardedWeights):
+            raise ValueError(f"a {what} node on {devices} needs a model of its own: this "
+                             "one is already sharded")
+
+    def cache_shards(self):
+        """The KV-cache shards forward_flat takes (parallel/mesh.py:
+        CacheShard), one a rank or stage; None for one device."""
+        if self.stages is not None:
+            return self.stages.cache_shards()
+        if isinstance(self.weights, ShardedWeights):
+            return self.weights.cache_shards()
+        return None
+
+    def _whole(self, what: str) -> None:
+        if self.stages is not None:
+            # the JAX model's forward reads self.weights, which its
+            # shard_to_pp sets to None
+            raise NotImplementedError(
+                f"{what} under pipeline parallelism: the stages hold the weights and the "
+                "whole dict is let go; serve through forward_flat (the node)")
 
     def forward(self, cache: torch.Tensor, token_table: torch.Tensor,
                 batch: LanguageModelBatch, max_q: int) -> LanguageModelOutput:
         """One greedy step on a caller-built batch: the cache and the token
         table are updated in place and returned with the (S,) tokens."""
+        self._whole("forward")
         tokens = decoder_forward(self.weights, cache, batch, self.cos_tab, self.sin_tab,
                                  self.cfg, max_q, token_table)
         return LanguageModelOutput(sample_token_ids=tokens, cache=cache,
@@ -131,6 +185,7 @@ class LlamaForCausalLM(LanguageModel):
         a single slot: rows with sample_dst_slots -1 (every row, where a
         batch samples all its positions) all land in it, and it is never
         read, since the batch's token_src_slots must be -1."""
+        self._whole("forward_with_logits")
         table = torch.zeros(1, dtype=torch.int32, device=self.device)
         tokens, logits = decoder_forward(self.weights, cache, batch, self.cos_tab,
                                          self.sin_tab, self.cfg, max_q, table,
@@ -151,7 +206,10 @@ class LlamaForCausalLM(LanguageModel):
         batch carries image features; `generator` only when it samples. With
         `graphs` (a node's StepGraphs), an all-decode or verify step runs
         from its CUDA graph, and flat and fused_k must be that key's
-        buffers."""
+        buffers. A pipeline-parallel step counts its form in
+        `stages.steps`."""
+        if self.stages is not None:
+            self.stages.steps[step_form(dims, self.stages.pp)] += 1
         if graphs is not None and graphed(dims):
             tokens = graphs.run(self._step, cache, token_table, flat, dims, n_steps,
                                 fused_k, generator)
@@ -163,6 +221,11 @@ class LlamaForCausalLM(LanguageModel):
     def _step(self, cache, token_table, flat, dims: FillDims, n_steps: int,
               fused_k=None, image_cache=None, generator=None) -> torch.Tensor:
         batch = unpack_fill_batch(flat, dims, image_cache, self.cfg.hidden_size)
+        if self.stages is not None:
+            if n_steps > 1 or dims.spec > 0:
+                raise ValueError("a pipeline-parallel model runs single fill steps only")
+            return pp_step(self.stages, cache, batch, self.cos_tab, self.sin_tab, dims,
+                           token_table, generator).reshape(-1)
         if n_steps > 1:
             tokens = decoder_forward_multi(self.weights, cache, batch, self.cos_tab,
                                            self.sin_tab, self.cfg, n_steps,

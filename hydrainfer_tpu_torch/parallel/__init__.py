@@ -1,1 +1,2 @@
-"""Tensor and expert parallelism over one node's devices (parallel/mesh.py)."""
+"""Tensor and expert parallelism (parallel/mesh.py) and pipeline parallelism
+(parallel/pipeline.py) over one node's devices."""

@@ -30,6 +30,12 @@ with `.to` and added there, and each rank reads the sum with `.to` of its
 own device. Where ranks share a device the copies do nothing, so one card,
 the CPU and a many-card box run the same code.
 
+A node's KV cache is one tensor a CacheShard: a rank's run of the head axis
+of every layer here, a pipeline stage's run of the layer axis
+(parallel/pipeline.py), or both for a rank inside a stage.
+`shard_kv_cache` and `merge_kv_shards` move a cache or a migration's block
+payload between that list and the single-device layout.
+
 Weights are sharded after quantization. A column split takes the columns'
 scales with it; a row split keeps per-column scales whole and splits a
 group scale (K/g, N) with its rows, so K/tp must stay a multiple of the
@@ -43,7 +49,7 @@ other split that is not even is refused at load, naming the shape: q heads,
 vocabulary, MLP widths, experts, int4 groups.
 """
 from dataclasses import dataclass, replace
-from typing import List, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -144,6 +150,20 @@ def rank_config(cfg, layout: TPLayout):
                    n_kv_heads=1 if layout.single_plane else layout.kv_heads)
 
 
+class CacheShard(NamedTuple):
+    """One tensor of a node's KV cache: its device, its run of the combined
+    head axis (first, count) and its run of the layer axis (layer0, layers;
+    None = every layer). A tensor-parallel rank holds a head run of every
+    layer, a pipeline stage every head of a layer run
+    (parallel/pipeline.py), a rank of a stage both. A (device, first, count)
+    tuple is a shard of every layer."""
+    device: torch.device
+    first: int
+    count: int
+    layer0: int = 0
+    layers: Optional[int] = None
+
+
 @dataclass
 class ShardedWeights:
     """A decoder's weights over a RankGroup: one weight dict a rank (the
@@ -153,9 +173,9 @@ class ShardedWeights:
     layout: TPLayout
     cfg: object
 
-    def cache_shards(self) -> List[Tuple[torch.device, int, int]]:
-        """(device, first head, head count) of each rank's KV-cache shard."""
-        return [(dev, *self.layout.cache_heads(r))
+    def cache_shards(self) -> List[CacheShard]:
+        """Each rank's KV-cache shard: its head run of every layer."""
+        return [CacheShard(dev, *self.layout.cache_heads(r))
                 for r, dev in enumerate(self.group.devices)]
 
 
@@ -243,6 +263,15 @@ def _to(w, device: torch.device):
     return None if w is None else w.to(device)
 
 
+def shard_layers(layers: Sequence[dict], cfg, group: RankGroup,
+                 layout: TPLayout) -> List[List[dict]]:
+    """Rank r's dicts of decoder layers under DECODER_WEIGHT_RULES, each on
+    its rank's device, one list a rank."""
+    return [[{k: _to(_shard(k, v, DECODER_WEIGHT_RULES[k], r, cfg, layout), dev)
+              for k, v in lw.items()} for lw in layers]
+            for r, dev in enumerate(group.devices)]
+
+
 def shard_decoder_weights(weights: dict, cfg, group: RankGroup) -> ShardedWeights:
     """One weight dict a rank from the single-device decoder dict
     ({"embed", "layers", "norm", "lm_head"}, quantized or not) under
@@ -252,35 +281,44 @@ def shard_decoder_weights(weights: dict, cfg, group: RankGroup) -> ShardedWeight
     layout = tp_layout(cfg, group.size)
     _per_rank(weights["embed"].shape[0], group.size, "the vocabulary")
     ranks = []
-    for r, dev in enumerate(group.devices):
+    for r, (dev, layers) in enumerate(zip(group.devices, shard_layers(
+            weights["layers"], cfg, group, layout))):
         rank = {k: _to(_shard(k, weights[k], rule, r, cfg, layout), dev)
                 for k, rule in HEAD_WEIGHT_RULES.items()}
-        rank["layers"] = [
-            {k: _to(_shard(k, v, DECODER_WEIGHT_RULES[k], r, cfg, layout), dev)
-             for k, v in lw.items()}
-            for lw in weights["layers"]]
+        rank["layers"] = layers
         ranks.append(rank)
     return ShardedWeights(ranks, group, layout, rank_config(cfg, layout))
 
 
-def shard_kv_cache(cache: torch.Tensor, shards) -> List[torch.Tensor]:
-    """A single-device cache (..., heads, head_dim), or a migration's block
-    payload in that layout, as per-rank copies of their head runs, `shards` = [(device, first, count)] (a latent plane:
+def shard_kv_cache(cache: torch.Tensor, shards, layer_dim: int = 0) -> List[torch.Tensor]:
+    """A single-device cache (layers, ..., heads, head_dim), or a
+    migration's block payload in that layout (layer_dim 1), as copies of
+    each shard's head run of its layer run on its device (a latent plane:
     every rank a whole copy)."""
     out = []
-    for dev, first, n in shards:
+    for dev, first, n, layer0, layers in map(lambda s: CacheShard(*s), shards):
         part = cache.narrow(-2, first, n)
+        if layers is not None:
+            part = part.narrow(layer_dim, layer0, layers)
         out.append(torch.empty(part.shape, dtype=part.dtype, device=dev).copy_(part))
     return out
 
 
-def merge_kv_shards(parts: Sequence[torch.Tensor], shards, dim: int = -2) -> torch.Tensor:
-    """The inverse of shard_kv_cache along `dim`: each head from the first
-    rank that holds it, on rank 0's device."""
+def merge_kv_shards(parts: Sequence[torch.Tensor], shards, dim: int = -2,
+                    layer_dim: int = 0) -> torch.Tensor:
+    """The inverse of shard_kv_cache, on the first shard's device: each
+    head from the first shard of its layer run that holds it (along `dim`),
+    the layer runs in order along `layer_dim`."""
     dev = parts[0].device
-    out, covered = [], 0
-    for part, (_, first, n) in zip(parts, shards):
-        if first + n > covered:
-            out.append(part.narrow(dim, covered - first, first + n - covered).to(dev))
-            covered = first + n
-    return out[0] if len(out) == 1 else torch.cat(out, dim=dim)
+    runs = {}
+    for part, shard in zip(parts, map(lambda s: CacheShard(*s), shards)):
+        runs.setdefault(shard.layer0, []).append((part, shard))
+    out = []
+    for layer0 in sorted(runs):
+        heads, covered = [], 0
+        for part, (_, first, n, _, _) in runs[layer0]:
+            if first + n > covered:
+                heads.append(part.narrow(dim, covered - first, first + n - covered).to(dev))
+                covered = first + n
+        out.append(heads[0] if len(heads) == 1 else torch.cat(heads, dim=dim))
+    return out[0] if len(out) == 1 else torch.cat(out, dim=layer_dim)

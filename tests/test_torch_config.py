@@ -224,17 +224,20 @@ def test_spec_ngram_k_builds_a_node(override):
 @pytest.mark.parametrize("override,refusal", [
     (("cluster.deployment=process", "cluster.tp_size=2"),
      "tp_size > 1 with deployment=process"),
-    ("cluster.pp_size=2", "queue 1, item 9b"),
+    # pipeline parallelism is ported; with tensor parallelism it is refused,
+    # as the JAX cluster refuses it (the case keeps its first id)
+    pytest.param(("cluster.pp_size=2", "cluster.tp_size=2"), "pp_size > 1 with tp_size > 1",
+                 id="cluster.pp_size=2-queue 1, item 9b"),
     ("cluster.deployment=process", "ProcessCluster"),
     ("cluster.nodes=[{node_type: P, attach_addr: 'tcp://127.0.0.1:5555'}, "
      "{node_type: D}]", "ProcessCluster")])
 def test_cluster_refuses_what_is_not_ported(override, refusal):
-    """The in-process Cluster refuses pipeline parallelism (not ported yet)
-    and the process deployment's settings, which belong to ProcessCluster
-    (the JAX Cluster ignores them and builds the nodes in process); the
-    entry point refuses tp_size > 1 with deployment=process, whose node
-    processes run on one device each (the JAX ProcessCluster ignores
-    tp_size). With deployment=process, EntryPoint builds a ProcessCluster
+    """The in-process Cluster refuses pipeline parallelism together with
+    tensor parallelism (as the JAX Cluster does) and the process
+    deployment's settings, which belong to ProcessCluster (the JAX Cluster
+    ignores them and builds the nodes in process); the entry point refuses
+    tp_size > 1 with deployment=process, whose node processes run on one
+    device each (the JAX ProcessCluster ignores tp_size). With deployment=process, EntryPoint builds a ProcessCluster
     whose nodes have the JAX ProcessCluster's names and types (one EPD node
     for a cluster_type preset, as the JAX one resolves it); an attach spec
     spawns nothing and takes its name from the node's first ping."""

@@ -59,7 +59,10 @@ batch) on tiny-lm and mla-tiny-lm at int8, int4 and fp8 weights over the
 int8 KV cache, bf16 and f32, agrees with the plain versions (1e-2 x
 max|logit| in f32: an int8 KV entry may round one step apart; 3e-2 in bf16),
 and K4 runs the lm_head at every position of a 512-token sequence (M 512, N
-32064, f32 out) in its three forms within 1e-4.
+32064, f32 out) in its three forms within 1e-4. A pipeline-parallel
+microbatched decode step (tiny-lm over two stages on the card) replays from
+its CUDA graph bit for bit as it runs eagerly, and a node refuses decode
+graphs over stages on two cards.
 """
 import numpy as np
 import pytest
@@ -1252,3 +1255,92 @@ def test_k6_at_tp_shard_heads(dev, form):
                                        192 ** -0.5, SCALE)
     torch.cuda.synchronize()
     hold_bf16(got, ref, int(cu[-1]))
+
+
+def _pp_decode_case(dev, S=8, bs=16, n_blocks=64, seed=21):
+    """tiny-lm (bf16, int8 weights, int8 KV) over two pipeline stages on
+    the card, a pure decode batch of S rows (the last two padding, kv_len
+    0) over a random int8 cache, as the stages' shards."""
+    from hydrainfer_tpu_torch.models.factory import LanguageModelBatch
+    from hydrainfer_tpu_torch.models.random_init import RandomWeightFactory
+    from hydrainfer_tpu_torch.ops.attention import PagedAttentionParams
+    from hydrainfer_tpu_torch.parallel.mesh import shard_kv_cache
+    lm = RandomWeightFactory("tiny-lm", dtype=torch.bfloat16, quantization="int8",
+                             kv_scale=SCALE, device=dev, seed=0).getLanguageModel()
+    lm.shard_to_pp([dev, dev])
+    cfg = lm.cfg
+    rng = np.random.default_rng(seed)
+    kv_lens = np.array([5, 17, 33, 9, 40, 2, 0, 0][:S], np.int32)
+    mb = -(-int(kv_lens.max()) // bs)
+    tables = np.full((S, mb), -1, np.int32)
+    perm = rng.permutation(n_blocks)
+    for s, n in enumerate(kv_lens):
+        tables[s, :-(-int(n) // bs)] = perm[s * mb:s * mb + -(-int(n) // bs)]
+    live = kv_lens > 0
+    pos = np.where(live, kv_lens - 1, 0).astype(np.int32)
+    slots = np.where(live, tables[np.arange(S), pos // bs] * bs + pos % bs, -1).astype(np.int32)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(dev)  # noqa: E731
+    batch = LanguageModelBatch(
+        token_ids=t(rng.integers(3, cfg.vocab_size, S)), positions=t(pos),
+        attention=PagedAttentionParams(
+            q_seq_ids=t(np.where(live, np.arange(S), -1)), q_local_ids=t(np.zeros(S)),
+            positions=t(pos), kv_lens=t(kv_lens), block_tables=t(tables),
+            new_kv_slot_ids=t(slots), cu_q_lens=t(np.minimum(np.arange(S + 1), live.sum())),
+            num_seqs=t([live.sum()])),
+        sample_token_idx=t(np.arange(S)), token_src_slots=t(np.full(S, -1)),
+        sample_dst_slots=t(np.where(live, np.arange(S), -1)))
+    cache = torch.from_numpy(rng.integers(-127, 128, (cfg.n_layers, 1, n_blocks, bs,
+                                                      2 * cfg.n_kv_heads, cfg.head_dim),
+                                          dtype=np.int8)).to(dev)
+    return lm, batch, (lambda: shard_kv_cache(cache, lm.stages.cache_shards()))
+
+
+def test_pp_microbatched_decode_graph_equals_eager(dev):
+    """A pp-2 microbatched decode step (2 microbatches of 4 rows, both stages
+    on the card) captured in a CUDA graph: its replay gives the eager step's
+    tokens, token table and stage caches bit for bit, and it launched K1, K3
+    and K4 inside the capture."""
+    from hydrainfer_tpu_torch.ops.cuda import launch_counts
+    from hydrainfer_tpu_torch.parallel.pipeline import decoder_forward_pp_decode
+    lm, batch, caches = _pp_decode_case(dev)
+
+    def step(cs, table):
+        return decoder_forward_pp_decode(lm.stages, cs, batch, lm.cos_tab, lm.sin_tab, table, 2)
+
+    eager_caches, eager_table = caches(), torch.zeros(16, dtype=torch.int32, device=dev)
+    eager = step(eager_caches, eager_table)
+    graph_caches, graph_table = caches(), torch.zeros(16, dtype=torch.int32, device=dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):            # warm up off the capturing stream
+        step(graph_caches, graph_table)
+    torch.cuda.current_stream().wait_stream(side)
+    for c, c0 in zip(graph_caches, caches()):
+        c.copy_(c0)
+    graph_table.zero_()
+    before = launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = step(graph_caches, graph_table)
+    captured = {k: n - before[k] for k, n in launch_counts().items()}
+    assert all(captured[k] > 0 for k in ("mha_decode", "kv_writer", "quant_matmul"))
+    assert captured["paged_attention"] == 0
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager) and torch.equal(graph_table, eager_table)
+    assert all(torch.equal(a, b) for a, b in zip(graph_caches, eager_caches))
+
+
+def test_pp_graphs_refuse_stages_on_two_cards(dev):
+    """A decode graph captures one card's stream: a node whose pipeline
+    stages sit on two cards refuses cuda_graphs before it touches either;
+    with graphs off, or with both stages on one card, it is built."""
+    from hydrainfer_tpu_torch.cluster.migrate import NodeType
+    from hydrainfer_tpu_torch.cluster.node import AsyncEPDNode, NodeConfig, NodeContext
+    two = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    with pytest.raises(NotImplementedError, match="pipeline stages on different devices"):
+        AsyncEPDNode(NodeConfig(cuda_graphs=True), NodeContext(
+            node_type=NodeType("PD"), device=two, parallel="pp"))
+    for devices, graphs in ((two, False), ([dev, dev], True)):
+        AsyncEPDNode(NodeConfig(cuda_graphs=graphs), NodeContext(
+            node_type=NodeType("PD"), device=devices, parallel="pp"))
