@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases build,quality    # the quality scripts on the card
     python3 chip_smoke.py --phases build,kernels,tp  # tensor and expert parallelism
     python3 chip_smoke.py --phases build,kernels,pp  # pipeline parallelism
+    python3 chip_smoke.py --phases build,drivers    # the speed drivers, the host packer
 
 Phases, each printing one JSON line:
   build    compile the Hopper kernels of hydrainfer_tpu_torch/csrc (nvcc,
@@ -296,7 +297,7 @@ Phases, each printing one JSON line:
   tp       tensor and expert parallelism at tp_size 2, both ranks on the
            card (parallel/mesh.py), decode from CUDA graphs: llava-7b-lm
            (int8 weights, int8 KV) on one PD node at tp 1 and then at tp 2
-           over the same seeded tensors, 8 x 128 x 64: K1-K4 launch at the
+           over the same seeded tensors, 8 x 128 x 32: K1-K4 launch at the
            shard shapes (16 q / 16 kv heads x d128; K4 at 4096 x 6144, 2048
            x 4096, 4096 x 11008, 5504 x 4096 and the lm_head's 4096 x 16032,
            as each wrapper records them), the tokens equal tp 1's or first
@@ -318,7 +319,7 @@ Phases, each printing one JSON line:
            (parallel/pipeline.py), decode from CUDA graphs: llava-7b-lm
            (int8 weights, int8 KV) on one PD node at pp 1 (K = 1 windows)
            and then at pp 2 over the same seeded tensors (layers 0-15 and
-           16-31), 8 x 128 x 64: both step forms run (the relay for prefill
+           16-31), 8 x 128 x 32: both step forms run (the relay for prefill
            and mixed steps, the microbatched decode for pure decode steps),
            K1-K4 launch (counted by form; inside the microbatched form K1
            over 4 sequences and K4 at M 4, as each wrapper records them),
@@ -331,6 +332,23 @@ Phases, each printing one JSON line:
            the two stages' layer runs) under the same token rule. The
            kernels phase holds K1-K4 at the microbatch shapes (path pp: K1
            over 4 sequences, K3 4 rows, K4 at M 4);
+  drivers  the port's engine-driven speed drivers (hydrainfer_tpu_torch/
+           evaluation) at published widths: interference.run_analysis on
+           Qwen2-VL-2B (the vlm phase's factory: bf16 ViT, int8 LM and KV;
+           batch 8, prompt 128, gen 16: decode alone, encodes alone, the
+           colocated mix), ab_bench on llava-7b-lm ("int8;quant=int8;
+           kv_int8=1" against "fp8;quant=fp8;kv_int8=1", 2 interleaved rounds
+           of 8 x 128 x 16; every request of both variants finishes) and
+           spec_bench on llava-7b-lm (the A/B's int8 weights, batch 2, one
+           round; speculation's tokens equal greedy's or first differ at a
+           near tie), each driver's launches counted (K1-K5 and K4's fp8
+           form must launch); then the native host packer
+           (csrc/hostops.cpp): whether it built and its build seconds, and
+           the mean microseconds of one build() against the Python packer's,
+           timed on the host over the plans of one serve-shaped round
+           (llava-7b-lm int8, 8 x 128 x 16, budget 256, K = 16 windows), by
+           decode and prefill plan, each native buffer equal to the Python
+           packer's bit for bit. None of its numbers is a claim;
   online   serve llava-7b-lm (full width, int8 weights, int8 KV) online
            through the real entry point, run as a child process: `python -m
            hydrainfer_tpu_torch.entrypoint.entrypoint --config
@@ -539,13 +557,15 @@ VL2_TINY_LM = {
 VL2_IMAGES = [(384, 384), (768, 768), (384, 1152), (768, 384)] * 2
 VL2_KV_BLOCKS, VL2_IMAGE_BLOCKS = 1024, 32
 # the tp phase: tensor and expert parallelism at TP_SIZE ranks, both on the
-# one card. llava-7b-lm (int8 weights, int8 KV) at 8 x 128 x 64 with budget
+# one card. llava-7b-lm (int8 weights, int8 KV) at 8 x 128 x 32 with budget
 # 256, and DeepSeek-V2-Lite at full width and depth at 8 x 128 x 32 with
 # budget 1024 (one prefill step), each served at tp 1 and then at tp 2 on
 # the same seeded weights; then a P node at tp 2 hands off to a D node at tp
 # 1 on llava-7b-lm
 TP_SIZE = 2
-TP_REQUESTS, TP_PROMPT, TP_TOKENS, TP_MLA_TOKENS = 8, 128, 64, 32
+# (64 tokens a request before the drivers phase joined the script: the
+# script keeps inside its time limit)
+TP_REQUESTS, TP_PROMPT, TP_TOKENS, TP_MLA_TOKENS = 8, 128, 32, 32
 TP_BUDGET, TP_MLA_BUDGET = 256, 1024
 # the pp phase: pipeline parallelism at PP_SIZE stages, both on the one
 # card. llava-7b-lm (int8 weights, int8 KV) on the tp phase's traffic at pp
@@ -6941,6 +6961,201 @@ def phase_pp(dev="cuda") -> tuple:
     return result, counts
 
 
+# the drivers phase: interference's and ab_bench's traffic (batch x prompt x
+# generated tokens), the A/B's variants and rounds, spec_bench's batch
+DRIVERS_BATCH, DRIVERS_PROMPT, DRIVERS_GEN = 8, 128, 16
+DRIVERS_AB = ("int8;quant=int8;kv_int8=1", "fp8;quant=fp8;kv_int8=1")
+DRIVERS_AB_ROUNDS = 2
+DRIVERS_SPEC_BATCH, DRIVERS_SPEC_TOKENS = 2, 48
+DRIVERS_PACK_REPEATS = 5
+# the kernels each driver must launch: Qwen2-VL's LM and tower, the A/B's
+# int8 and fp8 forms, the spec A/B over the int8 weights
+DRIVERS_KERNELS = {"interference": VLM_KERNELS,
+                   "ab_bench": SERVE_KERNELS + ("quant_matmul_fp8",),
+                   "spec_bench": SERVE_KERNELS}
+
+
+class PackTimer:
+    """Times each fill plan's packing while installed: after the engine's
+    own build() of a contiguous batch, the native packer and the Python
+    packer each pack the same plan DRIVERS_PACK_REPEATS times on the host's
+    clock, and the two buffers are compared bit for bit."""
+
+    def __init__(self):
+        self.rows = []
+
+    def __enter__(self):
+        import numpy as np
+        from hydrainfer_tpu_torch.engine import params_builder
+        self.cls = params_builder.LanguageModelBatchBuilder
+        self.orig = self.cls.build
+        timer = self
+
+        def build(builder, *a, **k):
+            plan = timer.orig(builder, *a, **k)
+            if builder._contiguous:
+                d, times = plan.dims, {}
+                for name, fn in (("native", builder._build_native),
+                                 ("python", builder._build_python)):
+                    t0 = time.perf_counter()
+                    for _ in range(DRIVERS_PACK_REPEATS):
+                        out = fn(d)
+                    times[name] = (time.perf_counter() - t0) / DRIVERS_PACK_REPEATS
+                    times[name + "_flat"] = out
+                timer.rows.append({
+                    "form": "decode" if d.max_q == 1 else "prefill", "T": d.T, "S": d.S,
+                    "MB": d.MB, "native_us": 1e6 * times["native"],
+                    "python_us": 1e6 * times["python"],
+                    "equal": bool(np.array_equal(times["native_flat"],
+                                                 times["python_flat"]))})
+            return plan
+        self.cls.build = build
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.build = self.orig
+
+    def report(self) -> dict:
+        out = {}
+        for form in ("decode", "prefill"):
+            rows = [r for r in self.rows if r["form"] == form]
+            if rows:
+                out[form] = {"plans": len(rows),
+                             "shapes": sorted({(r["T"], r["S"], r["MB"]) for r in rows}),
+                             "native_us": sum(r["native_us"] for r in rows) / len(rows),
+                             "python_us": sum(r["python_us"] for r in rows) / len(rows)}
+        out["all_equal"] = bool(self.rows) and all(r["equal"] for r in self.rows)
+        return out
+
+
+def _driver_launches(name, counts) -> dict:
+    want = DRIVERS_KERNELS[name]
+    return {"launches": {k: counts[k] for k in want},
+            "launched": all(counts[k] > 0 for k in want)}
+
+
+def phase_drivers(dev="cuda") -> dict:
+    """The drivers phase (see the module docstring). Every driver runs on
+    the card through its own public function, with the kernel launch counts
+    zeroed before it and read after it."""
+    import numpy as np
+    import torch
+    from hydrainfer_tpu_torch.engine import hostops
+    from hydrainfer_tpu_torch.evaluation import ab_bench, interference, spec_bench
+    from hydrainfer_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    result, parts, checks = {"phase": "drivers", "gpu": gpu_name_and_limit()}, {}, {}
+
+    # the packer: built by the first engine of this process, or here
+    t0 = time.perf_counter()
+    try:
+        lib = hostops.load().__file__
+        result["packer"] = {"built": True, "build_s": hostops.build_seconds,
+                            "library": os.path.basename(lib)}
+    except Exception as e:
+        traceback.print_exc()
+        result["packer"] = {"built": False, "error": repr(e)}
+    checks["packer_built"] = result["packer"]["built"]
+    parts["packer_build"] = time.perf_counter() - t0
+
+    # 1. interference on Qwen2-VL-2B
+    t0 = time.perf_counter()
+    try:
+        vlm = _qwen2vl_factory(dev)
+        reset_launch_counts()
+        r = interference.run_analysis(VLM_ARCH, batch=DRIVERS_BATCH,
+                                      prompt_len=DRIVERS_PROMPT, gen=DRIVERS_GEN,
+                                      device=dev, factories=(vlm.lm_factory, vlm))
+        r.update(_driver_launches("interference", launch_counts()))
+        r["markdown"] = interference.to_markdown(r)
+        result["interference"] = r
+        checks["interference_launched"] = r["launched"]
+        checks["interference_finished"] = all(
+            s["tokens_per_s"] > 0 for s in r["stages"].values())
+        del vlm
+    except Exception as e:
+        traceback.print_exc()
+        result["interference"] = {"ok": False, "error": repr(e)}
+        checks["interference_finished"] = False
+    parts["interference"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. ab_bench on llava-7b-lm; run_ab asserts that every request of every
+    # round finishes with its tokens
+    t0 = time.perf_counter()
+    engines = []
+    try:
+        reset_launch_counts()
+        r = ab_bench.run_ab("llava-7b-lm", DRIVERS_AB, rounds=DRIVERS_AB_ROUNDS,
+                            n_requests=DRIVERS_BATCH, prompt_len=DRIVERS_PROMPT,
+                            max_tokens=DRIVERS_GEN, device=dev, log=lambda s: None,
+                            keep=engines)
+        r.update(_driver_launches("ab_bench", launch_counts()))
+        result["ab_bench"] = r
+        checks["ab_finished"] = sorted(r["variants"]) == sorted(
+            v.split(";")[0] for v in DRIVERS_AB)
+        checks["ab_launched"] = r["launched"]
+    except Exception as e:
+        traceback.print_exc()
+        result["ab_bench"] = {"ok": False, "error": repr(e)}
+        checks["ab_finished"] = False
+    parts["ab_bench"] = time.perf_counter() - t0
+
+    # 3. spec_bench over the A/B's int8 weights; then the packer's timing round
+    t0 = time.perf_counter()
+    try:
+        factory = engines[0].node.model_factory
+        del engines[1:]
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_launch_counts()
+        keep = {}
+        r = spec_bench.run_spec_bench("llava-7b-lm", batch=DRIVERS_SPEC_BATCH,
+                                      max_tokens=DRIVERS_SPEC_TOKENS, rounds=1, device=dev,
+                                      factory=factory, log=lambda s: None, keep=keep)
+        r.update(_driver_launches("spec_bench", launch_counts()))
+        (base, spec), = keep["outs"]
+        reqs = spec_bench.make_requests(DRIVERS_SPEC_BATCH, spec_bench.PROMPT,
+                                        DRIVERS_SPEC_TOKENS, "s0")
+        r["near_tie"] = _near_tie(factory.getLanguageModel(), keep["spec"].tokenizer, reqs,
+                                  [o.output_token_ids for o in spec],
+                                  [o.output_token_ids for o in base], dev)
+        result["spec_bench"] = r
+        checks["spec_tokens"] = r["near_tie"]["ok"]
+        checks["spec_finished"] = all(len(o.output_token_ids) == DRIVERS_SPEC_TOKENS
+                                      for o in base + spec)
+        checks["spec_launched"] = r["launched"]
+        del keep
+        parts["spec_bench"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        n_blocks = 2 * DRIVERS_BATCH * (DRIVERS_PROMPT + DRIVERS_GEN) // 16
+        engine = _engine(factory, dev, DRIVERS_BATCH, 16, n_blocks, 256)
+        with PackTimer() as timer:
+            outs = engine.generate(_requests(np.random.default_rng(SEED + 12), DRIVERS_BATCH,
+                                             DRIVERS_PROMPT, DRIVERS_GEN, "pack"))
+        result["packer"]["timing"] = timer.report()
+        checks["packer_equal"] = result["packer"]["timing"]["all_equal"]
+        checks["packer_both_forms"] = {"decode", "prefill"} <= set(
+            result["packer"]["timing"])
+        checks["packer_round_finished"] = all(len(o.output_token_ids) == DRIVERS_GEN
+                                              for o in outs)
+        del engine
+        parts["packer_round"] = time.perf_counter() - t0
+    except Exception as e:
+        traceback.print_exc()
+        result.setdefault("spec_bench", {"ok": False, "error": repr(e)})
+        checks["spec_or_packer_round"] = False
+    del engines
+    gc.collect()
+    torch.cuda.empty_cache()
+    result["parts_s"] = parts
+    result["checks"] = checks
+    result["ok"] = bool(checks) and all(checks.values())
+    save("drivers.json", result)
+    return result
+
+
 def gpu_name_and_limit() -> str:
     try:
         out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6976,7 +7191,7 @@ def main() -> int:
     ap.add_argument("--phases",
                     default="build,kernels,tiny,serve,quant,quality,spec,sample,vlm,llava,"
                             "disagg,process,"
-                            "llavanext,internvl,mla,deepseek,vl2,mixtral,gpt2,tp,pp,online")
+                            "llavanext,internvl,mla,deepseek,vl2,mixtral,gpt2,tp,pp,drivers,online")
     ap.add_argument("--out-dir", default=OUT_DIR,
                     help="where the detail files go")
     args = ap.parse_args()
@@ -7066,6 +7281,8 @@ def main() -> int:
             elif phase == "pp":
                 res, pp_counts = phase_pp()
                 counts.update(pp_counts)
+            elif phase == "drivers":
+                res = phase_drivers()
             elif phase == "online":
                 res = phase_online()
             else:

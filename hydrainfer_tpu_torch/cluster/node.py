@@ -132,7 +132,8 @@ class NodeConfig:
     n_image_blocks: int = -1
     hbm_utilization: float = 0.9
     kv_cache_ref: bool = True         # TPU-only
-    # per-request latency breakdown logs: not ported yet (queue 1, item 10)
+    # log each finished request's stage spans (engine/metric.py:
+    # log_latency_breakdown): queueing, execute, transfer
     log_latency_breakdown: bool = False
     tpot_slo: float = 0.4
     # the serving loop's pause between steps, and the perf log's period
@@ -678,6 +679,14 @@ class AsyncEPDNode:
             return
         backlog_steps = max(self.config.async_pipeline_depth,
                             self._load_k(self.config.postprocess_batch_steps))
+        if hostprof.events_enabled:
+            # the window-completion probe: a window's first drain that finds
+            # its tokens landed
+            for f in self._pending_fills:
+                if (getattr(f, "win_id", None) is not None
+                        and not getattr(f, "seen_ready", False) and f.is_ready()):
+                    f.seen_ready = True
+                    hostprof.event("ready", f.win_id)
         # completed windows first (their read is a bare copy)...
         with hostprof.span("node.drain_ready"):
             while self._pending_fills and self._pending_fills[0].is_ready():

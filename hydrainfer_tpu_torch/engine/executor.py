@@ -85,6 +85,9 @@ class FillFuture(Future):
         # called once the tokens are on the host and postprocessed (the
         # node's latency-breakdown stamp)
         self.on_read = None
+        # a fill window's id (FillExecutor.execute), the tag of its
+        # hostprof timeline events; verify steps carry none, as in JAX
+        self.win_id = None
         self._done = False
         if sampled_dev.device.type == "cuda":
             # queued on the stream right behind the step: when the step was a
@@ -112,10 +115,14 @@ class FillFuture(Future):
         if self._done:
             return
         self._done = True
+        if self.win_id is not None:
+            hostprof.event("read_start", self.win_id)
         with hostprof.span("fill.d2h_read"):
             if self._event is not None:
                 self._event.synchronize()
             sampled = self._host.numpy()
+        if self.win_id is not None:
+            hostprof.event("read_done", self.win_id)
         with hostprof.span("fill.postprocess"):
             self.postprocess(self.plan, sampled)
         if self.on_read is not None:
@@ -526,7 +533,13 @@ class FillExecutor:
                         rows[s][i] = rcb.current_instruction()
                         rcb.step()
                 plan.step_insts = rows
-        return FillFuture(plan, out.sample_token_ids, n_steps)
+        fut = FillFuture(plan, out.sample_token_ids, n_steps)
+        FillExecutor._win_counter += 1
+        fut.win_id = FillExecutor._win_counter
+        hostprof.event("dispatched", fut.win_id)
+        return fut
+
+    _win_counter = 0
 
 
 class ImageEmbedExecutor:

@@ -12,8 +12,13 @@ sequence samples (temperature > 0) the sampling tail (`sampling_tail`).
 the key of a step's CUDA graph (models/step_graphs.py), as they are the key
 of a compiled program in the JAX package, so the floors bound the graph-key
 set: without them a draining batch walks S back down the buckets and growing
-contexts walk MB up through every power of two, each a new capture. The
-native C++ packer (csrc/hostops.cpp) is a later slice.
+contexts walk MB up through every power of two, each a new capture.
+
+A batch whose requests each fill a run of consecutive positions and cache
+slots is packed by the native C++ packer (csrc/hostops.cpp, built at first
+use by engine/hostops.py); the Python packer `_build_python` is its oracle
+and the path of the other batches, as in the JAX package. Unlike JAX, a
+packer that fails to build raises instead of falling back.
 """
 import bisect
 from dataclasses import dataclass
@@ -22,7 +27,8 @@ from typing import List, Optional
 import numpy as np
 
 from ..memory import TokenCacheBlockManager
-from ..models.factory import FillDims, pack_fill_batch
+from ..models.factory import FillDims, fill_sizes, pack_fill_batch
+from . import hostops
 from .isa import Fill, ImageEmbedFill
 from .rcb import BatchRequest, RequestControlBlock
 
@@ -77,6 +83,10 @@ def sampling_tail(seq_rcbs, S: int) -> np.ndarray:
     return np.concatenate([temps.view(np.int32), top_ks, top_ps.view(np.int32), seed])
 
 
+def _is_range(ids: List[int]) -> bool:
+    return len(ids) == 1 or ids[-1] - ids[0] == len(ids) - 1
+
+
 def samples(seq_rcbs) -> bool:
     """Whether any of the sequences samples stochastically."""
     return any(r.sampling_params is not None and r.sampling_params.temperature > 0
@@ -101,6 +111,7 @@ class LanguageModelBatchBuilder:
         self._n_tokens = 0
         self._max_q = 1
         self._max_blocks = 1
+        self._contiguous = True
 
     def add(self, rcb: RequestControlBlock, inst: Fill) -> None:
         n = len(inst.position_ids)
@@ -118,6 +129,8 @@ class LanguageModelBatchBuilder:
         self._n_tokens += n
         self._max_q = max(self._max_q, n)
         self._max_blocks = max(self._max_blocks, len(rcb.virtual_kv_cache.block_table))
+        if not (_is_range(inst.cache_ids) and _is_range(inst.position_ids)):
+            self._contiguous = False
 
     def add_batch(self, batch: BatchRequest) -> None:
         for rcb, inst in batch:
@@ -144,12 +157,41 @@ class LanguageModelBatchBuilder:
                     bucket_of(ti_floor, TOKEN_BUCKETS) if ti_floor else 0)
                 if self.image_slot_ids else 0),
             mrope=self._mrope, sampling=samples(self.seq_rcbs))
-        flat = self._build_python(dims)
+        flat = self._build_native(dims) if self._contiguous else self._build_python(dims)
         if dims.sampling:
             flat = np.concatenate([flat, sampling_tail(self.seq_rcbs, dims.S)])
         return FillBatchPlan(flat=flat, dims=dims,
                              seq_rcbs=self.seq_rcbs, seq_insts=self.seq_insts,
                              n_tokens=self._n_tokens, n_seqs=n_seqs)
+
+    def native_seqs(self) -> list:
+        """One tuple per sequence, as csrc/hostops.cpp:pack_fill_batch takes
+        it (the JAX `_build_native`'s tuples)."""
+        seqs = []
+        for rcb, inst in zip(self.seq_rcbs, self.seq_insts):
+            n = len(inst.position_ids)
+            unresolved = n == 1 and inst.token_ids[0] < 0
+            dst = rcb.token_slot if (inst.sample and inst.sample_dst is not None) else -1
+            seqs.append((None if unresolved else inst.token_ids,
+                         inst.position_ids[0], n, rcb.token_slot,
+                         inst.cache_ids[-1] + 1, dst,
+                         rcb.virtual_kv_cache.block_table, inst.cache_ids[0]))
+        return seqs
+
+    def _build_native(self, dims: FillDims) -> np.ndarray:
+        """The core fields in one C pass, then the M-RoPE streams."""
+        T = dims.T
+        core = sum(fill_sizes(dims)[:14])
+        flat = np.empty(core + (2 * T if self._mrope else 0), np.int32)
+        hostops.load().pack_fill_batch(flat[:core], T, dims.S, dims.MB, dims.Ti,
+                                       self.kv.block_size, self.native_seqs(),
+                                       self.image_slot_ids, self.image_dst_idx)
+        if self._mrope:
+            hw = flat[core:].reshape(2, T)
+            hw[:] = 0
+            hw[0, :len(self._pos_h)] = self._pos_h
+            hw[1, :len(self._pos_w)] = self._pos_w
+        return flat
 
     def _build_python(self, dims: FillDims) -> np.ndarray:
         T, S, MB, Ti = dims.T, dims.S, dims.MB, dims.Ti

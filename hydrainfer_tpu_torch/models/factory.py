@@ -379,8 +379,13 @@ def getModelFactory(config: ModelFactoryConfig, device=None) -> ModelFactory:
         from .fake import FakeModelFactory
         return FakeModelFactory(config, device=device)
     if not os.path.isdir(config.path):
-        raise FileNotFoundError(f"no checkpoint directory at {config.path!r} (the "
-                                "port downloads nothing)")
+        # an "org/name" repository id downloads where HYDRAINFER_ALLOW_DOWNLOAD=1
+        from .downloader import ensure_local_model
+        config.path = ensure_local_model(config.path)
+    if not os.path.isdir(config.path):
+        raise FileNotFoundError(
+            f"no checkpoint directory at {config.path!r} (a Hugging Face "
+            "repository id downloads only with HYDRAINFER_ALLOW_DOWNLOAD=1)")
     with open(os.path.join(config.path, "config.json"), encoding="utf-8") as f:
         json_config = json.load(f)
     architecture = (json_config.get("architectures") or [None])[0]

@@ -28,6 +28,7 @@ class TextOnlyModelFactory(ModelFactory):
         if self._lm is None:
             store = WeightStore(self.config.path, self.config.dtype, self.device)
             weights = convert_llama_weights(store, self.decoder_cfg)
+            store.assert_consumed()
             kv_scale = (self.config.kv_scale if self.config.kv_cache_dtype == "int8"
                         else None)
             self._lm = LlamaForCausalLM(weights, self.decoder_cfg,

@@ -3,7 +3,8 @@
 Every *.safetensors shard of a checkpoint directory is opened through the
 safetensors numpy framework (imported when a store is made, so the package
 imports without it); converters take tensors by name. Linear weights are
-stored (in, out) for x @ W.
+stored (in, out) for x @ W. The store records every tensor it hands out, and
+`assert_consumed` logs the checkpoint's tensors that no converter read.
 """
 import glob
 import os
@@ -13,6 +14,9 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from ..utils.logger import getLogger
+
+logger = getLogger(__name__)
 
 _CAST = {None: None, "auto": None, "bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
          "fp32": torch.float32, "float32": torch.float32, "f32": torch.float32,
@@ -39,6 +43,10 @@ class WeightStore:
             self._handles[f] = h
             for k in h.keys():
                 self._key_to_file[k] = f
+        self._used = set()
+
+    def keys(self) -> List[str]:
+        return list(self._key_to_file)
 
     def has(self, name: str) -> bool:
         return name in self._key_to_file
@@ -46,6 +54,7 @@ class WeightStore:
     def get_np(self, name: str) -> np.ndarray:
         """The stored array; bf16 comes back as its uint16 bit pattern."""
         assert name in self._key_to_file, f"missing tensor {name} in {self.path}"
+        self._used.add(name)
         return self._handles[self._key_to_file[name]].get_tensor(name)
 
     def to_tensor(self, a: np.ndarray) -> torch.Tensor:
@@ -78,3 +87,13 @@ class WeightStore:
         if not self.has(prefixes[0] + ".bias"):
             return w, None
         return w, torch.cat([self.get(p + ".bias") for p in prefixes])
+
+    def assert_consumed(self, ignore_prefixes: tuple = ()) -> None:
+        """Log (at warning level, as the JAX store does) the checkpoint's
+        tensors that were never read: a misnamed key would else pass
+        silently."""
+        left = [k for k in self._key_to_file
+                if k not in self._used and not k.startswith(ignore_prefixes)]
+        if left:
+            logger.warning(f"unconsumed checkpoint tensors: {left[:20]}"
+                           + ("..." if len(left) > 20 else ""))

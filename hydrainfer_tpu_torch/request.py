@@ -1,6 +1,6 @@
 """Request types (port of hydrainfer_tpu/request.py)."""
 from dataclasses import dataclass, field
-from typing import List, Optional, Union
+from typing import List, Literal, Optional, Union
 
 
 @dataclass
@@ -14,12 +14,24 @@ class SamplingParameters:
 
 
 @dataclass
+class TokenParameters:
+    """Per-request token-level policies. Inert: nothing in the engine reads
+    them, as in the JAX package; they keep `Request(token_params=...)` valid."""
+    kv_cache_eviction_policy: Literal[None, "random", "streamingllm"] = None
+    window_size: int = 28
+    attention_sink_size: int = 4
+    token_pruning_policy: Literal[None, "focal"] = None
+    n_embed_output_tokens: int = 64
+
+
+@dataclass
 class Request:
     request_id: Union[int, str] = 0
     prompt: str = ""
     image: Optional[object] = None              # PIL.Image
     image_base64: Optional[str] = None
     sampling_params: SamplingParameters = field(default_factory=SamplingParameters)
+    token_params: TokenParameters = field(default_factory=TokenParameters)
 
 
 @dataclass

@@ -4,15 +4,26 @@ hydrainfer_tpu/utils/hostprof.py).
 Spans wrap each host phase of the fill path (schedule, batch build, H2D,
 dispatch, token read, postprocess, cursor walk) and accumulate totals, to
 attribute the gap between device-busy time and wall time. Enabled by
-HYDRAINFER_HOST_PROF=1; when off, a span costs one attribute check.
+HYDRAINFER_HOST_PROF=1; when off, a span costs one attribute check. Level 2
+also records a (name, tag, time) timeline of each fill window's life:
+`dispatched` (engine/executor.py, the step queued), `ready` (cluster/node.py,
+the first drain that finds its tokens landed), `read_start` and `read_done`
+(the host read), each tagged with the window's id.
 """
 import os
 import time
 from collections import defaultdict
 
 enabled = bool(int(os.environ.get("HYDRAINFER_HOST_PROF", "0") or "0"))
+events_enabled = (os.environ.get("HYDRAINFER_HOST_PROF", "0") or "0") == "2"
 totals = defaultdict(float)
 counts = defaultdict(int)
+events = []
+
+
+def event(name: str, tag=None) -> None:
+    if events_enabled:
+        events.append((name, tag, time.perf_counter()))
 
 
 class span:
@@ -36,6 +47,7 @@ class span:
 def reset() -> None:
     totals.clear()
     counts.clear()
+    events.clear()
 
 
 def report() -> dict:

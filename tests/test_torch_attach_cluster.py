@@ -8,6 +8,7 @@ address instead of spawning: peers and the token plane are wired over RPC
 at cluster start. Also: a node killed mid-flight has its in-flight
 requests terminated by the parent's health monitor instead of hanging.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import asyncio
 import os
 import signal

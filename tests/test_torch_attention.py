@@ -11,6 +11,7 @@ in interpret mode; the dispatcher and `paged_attention_plain` against
 K1 has its own file, test_torch_mha_decode.py; the kernels themselves are
 held against these plain versions on the card in test_torch_kernels_cuda.py.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -14,6 +14,7 @@ JAX package, on the CPU.
   its first delta does not stop its request; it runs to max_tokens on the
   port's server, as on the JAX server (the fake model behind each).
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import json
 import logging
 import socket

@@ -10,6 +10,7 @@ request, are the JAX node's; every span is non-negative and fits inside the
 request's wall time (arrival to the last log). The port's execute spans end
 where a step's tokens reach the host (cluster/node.py:_stamp_execute_end).
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import time
 
 import pytest

@@ -12,6 +12,7 @@ flight the decode window is at most encode_chunk_window, image batches
 scheduled meanwhile go back to the scheduler, and the serving loop takes no
 pause between steps.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

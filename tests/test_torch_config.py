@@ -12,6 +12,7 @@ and every preset builds its cluster on the CPU: the multi-node ones (general
 E / P / D, hybrid EP + D, explicit node lists and replicas) with the JAX
 cluster's node names, types and migrate tables.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import dataclasses
 import glob
 import os

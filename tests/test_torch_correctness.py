@@ -7,6 +7,7 @@
   the greedy token ids equal the JAX script's run_generate on the same
   directory, through each package's OfflineEngine at its defaults.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import json
 
 import numpy as np

@@ -10,6 +10,7 @@ logits, tokens and cache. The block
 allocator, prefix cache and cache manager must make the same choices as the
 JAX ones for the same call sequence.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -29,6 +29,7 @@ mscale_all_dim = 0.707.
   windows (K = 4), f32 and int8 weights with an int8 KV cache, on the
   q-LoRA and the V2-Lite-shaped checkpoints; the K = 4 tokens equal K = 1's.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import json
 import os
 import shutil

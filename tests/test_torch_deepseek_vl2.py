@@ -20,13 +20,15 @@ weight bridge; exactly: the token calculator and the processor (the card
 phase's sizes at the default candidates included). The gate: the port's
 EPD OfflineEngine gives the JAX engine's greedy tokens (an image request
 whose prompt is over an 8-token budget, and a text request; K = 1 and 4;
-f32 and int8 weights with an int8 KV cache), and an in-process EP + D
+f32 and int8 weights with an int8 KV cache; the JAX engine serves each
+format once, at K = 1), and an in-process EP + D
 Cluster gives the EPD node's. A VL2 checkpoint over an MLA LM (kv_lora 16):
 the port serves it on the single-plane latent cache with hidden-wide image
 slots; the JAX VL2 factory asks for two cache planes, and the JAX node's
 image slots are heads x the latent width, so an image request raises there
 (test_mla_language_model); a text request gives the same tokens in both.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import asyncio
 import json
 import os
@@ -293,6 +295,18 @@ def port_config(k):
         spec_ngram_k=0)
 
 
+# The JAX engine serves each format once a module, at K = 1, and every port
+# setting is held to those tokens: the JAX package's own tests hold its
+# tokens equal across K (tests/engine/test_multi_step_engine.py).
+_JAX_TOKENS = {}
+
+
+def jax_tokens(key, run):
+    if key not in _JAX_TOKENS:
+        _JAX_TOKENS[key] = run()
+    return _JAX_TOKENS[key]
+
+
 def run_port(factory, k):
     engine = OfflineEngine(port_config(k), model_factory=factory, node_type="EPD",
                            device="cpu")
@@ -310,7 +324,7 @@ def test_epd_engine_matches_jax_engine(ckpt, quant, kv_int8, k, monkeypatch):
     assert n_image == 6 and n_image + 5 - 1 > BUDGET
     got = run_port(pf, k)
     assert [len(t) for t in got] == [8, 8]
-    assert got == run_jax(jf, k, kv_int8)
+    assert got == jax_tokens(quant, lambda: run_jax(jf, 1, kv_int8))
 
 
 async def _cluster_tokens(cluster, reqs):

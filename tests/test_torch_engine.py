@@ -7,6 +7,7 @@ int8 weights and an int8 KV cache. The traffic covers mixed prefill/decode
 batches, chunked prefill (a 24-token budget), a prefix-cache hit (a second
 call re-sending a served prompt) and fused K=16 decode windows.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

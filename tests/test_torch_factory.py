@@ -11,6 +11,7 @@ an architecture neither package has raises. A tiny Llama
 checkpoint built in process with transformers goes through both packages'
 getModelFactory(path) and serves the same greedy tokens on a PD node.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import json
 
 import pytest

@@ -22,6 +22,7 @@ attention.
   node refuses a request with temperature > 0, which JAX would decode
   greedily.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import numpy as np
 import pytest
 import torch

@@ -17,6 +17,7 @@ they bound the JAX package's compile keys:
   (g) graph captures and token waits from other threads never overlap,
       under contention (a stand-in event).
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

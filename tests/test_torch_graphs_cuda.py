@@ -26,6 +26,7 @@ reseeding the generator repeats the replays' draws.
 With several nodes in one process, a node's token wait (another thread) and
 another node's capture are ordered: neither begins while the other runs.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import gc
 from dataclasses import replace
 

@@ -6,6 +6,7 @@ everything chip_smoke.py imports must load no `jax*` module, nothing of the
 JAX package and nothing of the JAX package's `evaluation` scripts. The entry points default to the card: without one they
 raise, unless the caller passes device="cpu".
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import json
 import os
 import subprocess

@@ -9,6 +9,7 @@ bf16 kernel adds) stays inside that bound, and a reference that misses one kv
 tile, or one split of a split-KV decode, of one sequence falls outside it.
 So the card tests would catch a kernel that skips a tile or a split.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import numpy as np
 import pytest
 import torch

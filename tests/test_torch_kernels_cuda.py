@@ -64,6 +64,7 @@ microbatched decode step (tiny-lm over two stages on the card) replays from
 its CUDA graph bit for bit as it runs eagerly, and a node refuses decode
 graphs over stages on two cards.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import numpy as np
 import pytest
 import torch

@@ -15,6 +15,7 @@ the plan's width and the same constants, writes what the plain version
 writes; and on "meta" tensors, which hold no data, the wrapper reaches
 build.launch with the plan's arguments.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import numpy as np
 import pytest
 import torch

@@ -9,6 +9,7 @@ steps' logits, each against HF's full forward over the same tokens, and a
 prefill in two chunks (6 + 4 tokens) against HF's whole-prompt logits, all
 within 2e-3 (the JAX test's bound); every greedy token is HF's argmax.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import numpy as np
 import pytest
 import torch

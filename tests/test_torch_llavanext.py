@@ -18,10 +18,12 @@ weights the port's bf16 tower is held beside JAX's f32-promoting one. The
 gates: the port's EPD OfflineEngine gives the JAX engine's greedy tokens (an
 image request whose 24 image tokens exceed a 16-token budget, so its prefill
 spans chunks, and a text request; K = 1 and 4; f32 and int8 weights with an
-int8 KV cache; budget 16 and 2048); the layer-chunked encode stays off (the
+int8 KV cache; budget 16 and 2048; the JAX engine serves each format once,
+at K = 1 and budget 2048); the layer-chunked encode stays off (the
 tower is not fixed-resolution); and an in-process EP + D Cluster gives the
 EPD node's tokens.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import asyncio
 import time
 from types import SimpleNamespace
@@ -324,6 +326,19 @@ def run_jax(factory, k, kv_int8, budget):
                                                         timeout_s=600)]
 
 
+# The JAX engine serves each format once a module, at K = 1 with the whole prompt in one step (budget 2048), and every port
+# setting is held to those tokens: the JAX package's own tests hold its
+# tokens equal across K (tests/engine/test_multi_step_engine.py), and test_over_budget_prompt_prefills_in_chunks holds the port's
+# chunked prefill to its whole one.
+_JAX_TOKENS = {}
+
+
+def jax_tokens(key, run):
+    if key not in _JAX_TOKENS:
+        _JAX_TOKENS[key] = run()
+    return _JAX_TOKENS[key]
+
+
 def port_config(k, budget):
     return NodeConfig(
         profiler=BatchSchedulerProfilerConfig(enabled=False, default_token_budget=budget),
@@ -358,7 +373,7 @@ def test_epd_engine_matches_jax_engine(ckpt, quant, kv_int8, k, budget, monkeypa
         .get_num_image_tokens((50, 50))
     assert n_prompt == 29 and (n_prompt > budget) == (budget == 16)
     got = run_port(pf, k, budget)
-    ref = run_jax(jf, k, kv_int8, budget)
+    ref = jax_tokens(quant, lambda: run_jax(jf, 1, kv_int8, 2048))
     assert [len(t) for t in got] == [8, 8]
     assert got == ref
 

@@ -22,6 +22,7 @@ the port against the JAX package, on the CPU.
 - gelu_and_mul and new_gelu within 1e-6 of JAX's; PrintOutputTokenProcessor
   logs JAX's line.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import logging
 
 import numpy as np

@@ -8,6 +8,7 @@ table wider than 64 pages. Tolerance 1e-4 on an f32 cache (summation order
 only); 1e-2 on an int8 cache, because the JAX kernel computes int8-cache
 scores and P.V with bf16 operands.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

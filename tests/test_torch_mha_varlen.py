@@ -9,6 +9,7 @@ hydrainfer_tpu/ops/attention.py:paged_attention_varlen_prefill builds it,
 and the `return_scores` form. Tolerance 2e-5 (f32, summation order only), as
 the JAX test of the kernel uses; padded rows must be finite.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

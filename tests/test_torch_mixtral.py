@@ -17,6 +17,7 @@ both packages' getModelFactory(path); the JAX side runs its jnp attention.
 - The weight bridge carries the JAX converter's tree leaf for leaf, and a
   model built on it gives the port loader's logits.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import numpy as np
 import pytest
 import torch

@@ -20,6 +20,7 @@ JAX package, on the CPU.
   chunked prefill (16-token budget), single steps (K=1) and fused windows
   (K=4), f32 and int8 weights + int8 KV: identical greedy tokens.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -14,6 +14,7 @@ with an expert that no token picked. tests/ops/test_moe.py's first four
 tests are mirrored (normalized softmax top-k, the group limit, the dense
 oracle, the jitted step: here the dispatch with no host read).
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -29,6 +29,7 @@ the default and is counted. IncrementalDecoder equals the JAX decoder on the
 surrogate streams of tests/models/test_streaming_detokenizer.py and on
 multi-byte characters split across byte tokens.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import asyncio
 import base64
 import http.client

@@ -9,6 +9,7 @@ own file, test_torch_mha_varlen.py). The ViT's layer_norm, quick_gelu and
 exact GELU, and the image-feature scatter write_token_cache, are held here
 too.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -10,6 +10,7 @@ process with transformers.
   within 5% of the f32 baseline's (the JAX test's bounds, int4 added).
 - make_full_logit_batch equal to the JAX script's, field by field.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import numpy as np
 import pytest
 

@@ -20,6 +20,7 @@ microbatched decode (pure decode steps of an even S). Also:
   shape; the JAX pp_pack_weights asserts the same), and `forward` and
   `forward_with_logits` of a pipeline-parallel model.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import asyncio
 import time
 

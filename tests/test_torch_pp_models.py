@@ -6,6 +6,7 @@ stages, both on the one CPU; the requests, node settings and JAX references
 of tests/test_torch_mla.py and tests/test_torch_mixtral.py. The tokens must
 equal the JAX engine's, and both step forms must run.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

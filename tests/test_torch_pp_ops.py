@@ -22,6 +22,7 @@ numpy.
 
 Tokens and the token table must match exactly, the cache within 1e-5.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

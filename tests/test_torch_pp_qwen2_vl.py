@@ -7,6 +7,7 @@ an image request and a text request, K = 1 windows (a pipeline-parallel
 node runs single steps). The tokens must equal the JAX engine's, with the
 image prefill through the relay and the decode steps microbatched.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import pytest
 
 pytest.importorskip("transformers")

@@ -22,6 +22,7 @@
     same tokens, over a real PUSH/PULL pair (utils/zmq_utils.py); the
     node's token socket takes sends from many threads at once.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import asyncio
 import itertools
 import pickle

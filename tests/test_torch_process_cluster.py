@@ -10,6 +10,7 @@ weightless fake model from their config. Port-only: a decode node killed
 mid-decode has the requests it holds (which entered at the P node)
 terminated, and is respawned and rewired.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import asyncio
 import time
 

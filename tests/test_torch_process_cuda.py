@@ -16,6 +16,7 @@ blocks from it through a PeerNodeProxy into caches of its own on the card:
     the source's and this process's allocated card memory where it was: no
     exported buffer is left behind in either process.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import asyncio
 from types import SimpleNamespace
 

@@ -11,6 +11,7 @@ the caches live on the CPU). In f32 and with int8 weights and an int8 KV
 cache, the greedy tokens equal the JAX E + P + D nodes' (in process, as
 tests/test_torch_disagg.py wires them) on the same checkpoint.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import numpy as np
 import pytest
 import torch

@@ -16,6 +16,7 @@ tests/test_torch_process_llava.py, which shares these helpers):
     tests/entrypoint/test_api_server.py::test_api_server_over_process_cluster):
     a chat, a streamed chat and /metrics with both nodes' rows.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import asyncio
 import string
 import time

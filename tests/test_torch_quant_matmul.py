@@ -14,6 +14,7 @@ and rejects one that lost a K slice, so the card tests would catch a dropped
 split. The wrapper passes the plan to the launch without reading data: on
 "meta" tensors, which hold none, any host read would raise.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -15,6 +15,7 @@ engine's greedy tokens on tiny-lm and mla-tiny-lm at both modes, f32 and
 int8 KV, fused windows K = 1 and 4. The round trips and the tree layout
 mirror tests/ops/test_quant.py.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -15,6 +15,7 @@
   (either package, the config or the baseline), a top-2 gap within twice
   the largest logit difference between the packages.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import numpy as np
 import pytest
 

@@ -14,6 +14,7 @@ OfflineEngine against the JAX one over the same checkpoint, an image request
 and a text request, fused windows K=1 and K=4, in f32 and with int8 weights
 plus an int8 KV cache: the greedy tokens must be identical.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import numpy as np
 import pytest
 import torch

@@ -13,6 +13,7 @@ spec-sampling theorem (the first emitted token of a rejection-sampled verify
 follows the target distribution whether the draft is accepted or not). The
 cases of tests/ops/test_sampling.py are mirrored on the port.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

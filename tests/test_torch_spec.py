@@ -12,6 +12,7 @@ port's own tokens must not change when speculation is turned off, and a
 sampled batch (temperature 0.8, top-k 8, top-p 0.95) must speculate and end
 with its token counts.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -11,6 +11,7 @@ summation order), empty pieces included; and the wrappers pick their form and
 split count from shapes alone: on "meta" tensors, which hold no data, any
 read of kv_lens or cu_q_lens on the host would raise.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import math
 
 import numpy as np

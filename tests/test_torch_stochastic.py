@@ -7,6 +7,7 @@ deterministic, temperature varies the output, top-k 1 at temperature 0.8
 gives the greedy tokens (the JAX engine's, over the same checkpoint), and in
 a batch mixing a greedy and a sampled request the greedy one is unaffected.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import pytest
 import torch
 

@@ -8,6 +8,7 @@ so the means are exact and no tie hangs on summation order), both strategies,
 with and without the class-token query, and the scores of a real CLIP tower
 (return_last_layer_attention).
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

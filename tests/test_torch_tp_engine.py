@@ -18,6 +18,7 @@ tensor-parallel form, is refused on a device list. The JAX engine serves
 the module's tiny-lm requests (PROMPTS and SPEC_PROMPTS) in one run a
 format.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import asyncio
 import time
 

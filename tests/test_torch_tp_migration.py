@@ -9,6 +9,7 @@ must give the JAX single-device engine's greedy tokens on the same requests
 and node settings (its run once a module), and those of one PD node of the
 port on one device. Every rank is on the CPU.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import asyncio
 import time
 

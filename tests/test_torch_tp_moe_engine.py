@@ -13,6 +13,7 @@ The requests, node settings and JAX references are those of
 tests/test_torch_deepseek.py and tests/test_torch_mixtral.py, run once a
 module.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import pytest
 
 from hydrainfer_tpu_torch.request import Request, SamplingParameters

@@ -16,6 +16,7 @@ on a list of CPU devices):
   shard_decoder_weights does with the same shapes;
 - the node's check that keeps decode graphs to ranks on one card.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 from types import SimpleNamespace
 
 import jax

@@ -11,6 +11,7 @@ JAX's do, and its report has the same lines; statistic's sparsity and
 image_utils' random image equal the JAX functions' on the same inputs, and
 the plots write their files.
 """
+import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
 import os
 
 import jax
