@@ -1096,7 +1096,7 @@ def check_quant_forms(gen, dev, mode: str) -> dict:
                 ref, 1e-2 * scale_ref)
             out_bytes = 4 if out_dtype == torch.float32 else 2
             b_ms, b_by = bound_ms(M * K * 2 + w_bytes + M * N * out_bytes, 2.0 * M * K * N)
-            p = qmm.plan(M, K, N)
+            p = qmm.plan(M, K, N, fmt)
             rows.append({"proj": name, "M": M, "K": K, "N": N, "fmt": fmt, "group": group,
                          "weight_bytes": w_bytes, "form": p.form, "bn": p.bn,
                          "splits": p.splits, "max_abs_err": err, "tol": tol,
@@ -2775,7 +2775,7 @@ def check_quality_k4(gen, dev) -> list:
                 lambda: lambda: torch.mm(x, w_bf), lambda o: o)}, ref, 1e-2 * scale_ref)
         w_bytes = quant_weight_bytes(K, N, fmt, qt.group)
         b_ms, b_by = bound_ms(M * K * 2 + w_bytes + M * N * 4, 2.0 * M * K * N)
-        p = qmm.plan(M, K, N)
+        p = qmm.plan(M, K, N, fmt)
         rows.append({"name": name, "path": "quality", "ok": err <= 1e-4 * scale_ref,
                      "max_abs_err": err, "tolerance": "1e-4 x max|plain| (f32 logits)",
                      "shape": f"{QUALITY_ARCH} lm_head at every position: M={M} x K={K} x "

@@ -1,6 +1,7 @@
 // K4, fp8 weights: the forms of quant_matmul.cuh over (K, N) float8_e4m3fn,
-// converted to bf16 exactly in registers, with a per-column scale or one per
-// (group, column). Replaces no pallas_call: the JAX package's fp8
+// converted to bf16 exactly in registers (cvt in the skinny and wide forms,
+// bit placement in the tma form), with a per-column scale or one per (group,
+// column). Replaces no pallas_call: the JAX package's fp8
 // (hydrainfer_tpu/ops/quant.py:107 quantize_fp8) runs through XLA's
 // dequant-in-dot (ops/quant.py:169-203). Bound at decode: the weight read,
 // int8's bytes.

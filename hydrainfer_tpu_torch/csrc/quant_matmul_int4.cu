@@ -3,7 +3,8 @@
 // (group, column). Replaces no pallas_call: the JAX package's int4
 // (hydrainfer_tpu/ops/quant.py:86 quantize_int4) runs through XLA's
 // dequant-in-dot (ops/quant.py:169-203). Bound at decode: the packed read,
-// half of int8's bytes, plus the group scales.
+// half of int8's bytes, plus the group scales; its skinny K tile is 128 deep,
+// so a stage carries int8's bytes.
 #include "quant_matmul.cuh"
 
 // The dynamic shared memory of a bf16 launch (form, bn) at M rows, with or

@@ -2,7 +2,7 @@
 
 In a fresh interpreter, importing every module of hydrainfer_tpu_torch (its
 quality scripts under hydrainfer_tpu_torch/evaluation included) and
-everything chip_smoke.py imports must load no `jax*` module, nothing of the
+everything chip_smoke.py and k4_plan_sweep.py import must load no `jax*` module, nothing of the
 JAX package and nothing of the JAX package's `evaluation` scripts. The entry points default to the card: without one they
 raise, unless the caller passes device="cpu".
 """
@@ -35,6 +35,7 @@ names = [m.name for m in pkgutil.walk_packages(hydrainfer_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke   # its phases import only modules of the walk above
+import k4_plan_sweep
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "hydrainfer_tpu" or m.startswith("hydrainfer_tpu.")

@@ -41,10 +41,19 @@ test_torch_quant_matmul.py); two calls agree bit for bit, and so do two
 replays of a CUDA graph that captured it. K4's int4 and fp8 forms (weights
 from the port's own quantize_int4 / quantize_fp8, group 0, 32, 64 and 128)
 are held to their plain versions (JAX's arithmetic: with a group the weight
-is rounded to x's dtype before the product) at M 1, 16, 64, 65 and 256, N
-201 (no row 16-byte aligned) and 256, bf16 and f32 x, within the int8
-form's bounds, at the llava-7b-lm projections, bit for bit across two calls
-and two graph replays; their shared-memory plans equal the kernels'. The block migration between two
+is rounded to x's dtype before the product) at M 1, 16, 64, 65, 128, 256
+and 512 (the skinny form, and above 64 the tma form or, at N 201, where no
+row is 16-byte aligned, the cp.async wide form), K 384 and 320 (whole and
+ragged against int4's 128-deep skinny tile; groups of 32 and 64 several to
+a tile), N 201 and 256, bf16 and f32 x, within the int8 form's bounds, at
+the llava-7b-lm projections (M 16, 256, 512), bit for bit across two calls
+and two graph replays, and across replays of a graph that captured the tma
+form over rotating weight copies, each launch giving its own weight's
+result; their shared-memory plans equal the kernels'; their e4m3 bit
+placement equals the cvt conversion bit for bit over all 256 codes; and a
+ragged last K tile gives the same result after every SM's shared memory was
+filled with NaN bytes (the group-scale rows it reaches past the last group
+are written as zeros). The block migration between two
 caches on the card (gather_blocks, then scatter_blocks) moves int8 and bf16
 KV, MLA plane and image blocks bit for bit and touches no other block. K5
 also runs at SigLIP's 16 heads of 72 padded to 80 (DeepSeek-VL2), its
@@ -442,20 +451,24 @@ def _check_k4_form(dev, fmt, group, M, K, N, x_dtype, out_dtype, seed=11):
     (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
     (torch.float32, torch.float32)], ids=["bf16", "bf16_f32out", "f32"])
 @pytest.mark.parametrize("N", [201, 256])
-@pytest.mark.parametrize("M", [1, 16, 64, 65, 256])
-@pytest.mark.parametrize("group", [0, 32, 64, 128])
+@pytest.mark.parametrize("M", [1, 16, 64, 65, 128, 256, 512])
+@pytest.mark.parametrize("K,group", [(384, 0), (384, 32), (384, 64), (384, 128), (320, 0),
+                                     (320, 32), (320, 64)])
 @pytest.mark.parametrize("fmt", list(K4_FORMS))
-def test_k4_int4_fp8_forms(dev, fmt, group, M, N, x_dtype, out_dtype):
-    """K = 384 (six K tiles; 12, 6 or 3 groups), N = 201 (odd: no weight or
-    scale row 16-byte aligned, masked loads at every row) and 256."""
-    _check_k4_form(dev, fmt, group, M, 384, N, x_dtype, out_dtype)
+def test_k4_int4_fp8_forms(dev, fmt, K, group, M, N, x_dtype, out_dtype):
+    """K = 384 (six 64-deep K tiles, three of int4's 128-deep skinny ones;
+    12, 6 or 3 groups) and 320 (2.5 of int4's tiles: a ragged last tile;
+    groups of 32 and 64 several to a tile), N = 201 (odd: no weight or scale
+    row 16-byte aligned, masked loads at every row; above M 64 the cp.async
+    wide form) and 256 (above M 64 the tma form)."""
+    _check_k4_form(dev, fmt, group, M, K, N, x_dtype, out_dtype)
 
 
 # llava-7b-lm's projections: the int4 and fp8 forms serve them in the quant phase
 _LLAVA_K4 = {k: v for k, v in int8_matmul_shapes(ARCH_CONFIGS["llava-7b-lm"]).items()}
 
 
-@pytest.mark.parametrize("M", [16, 256])
+@pytest.mark.parametrize("M", [16, 256, 512])
 @pytest.mark.parametrize("proj", list(_LLAVA_K4))
 @pytest.mark.parametrize("fmt,group", [("int4", 128), ("fp8", 0), ("fp8", 128)])
 def test_k4_forms_at_llava_shapes(dev, fmt, group, proj, M):
@@ -493,18 +506,187 @@ def test_k4_forms_deterministic_and_graph_replay(dev, fmt, group):
 @pytest.mark.parametrize("M", [1, 8, 16, 17, 32, 64, 65, 256, 2048])
 @pytest.mark.parametrize("fmt", list(K4_FORMS))
 def test_k4_forms_plan_states_the_kernels_shared_memory(dev, fmt, M):
+    """The format's plan (int4's 128-deep skinny tile; the tma form above M
+    64 and, for shapes TMA cannot address, the wide form) at every strip
+    width of its form, with and without group scales."""
     import ctypes
     from hydrainfer_tpu_torch.ops.cuda import build
     name = f"quant_matmul_{fmt}"
     build.build_all([name])
     smem = getattr(ctypes.CDLL(str(build.library_path(name))), f"hydra_{name}_smem")
     smem.argtypes, smem.restype = [ctypes.c_int] * 4, ctypes.c_int
-    form = plan(M, 4096, 4096).form
-    for bn in ((64, 128, 256) if form == "skinny" else (128,)):
-        p = plan(M, 4096, 4096)._replace(bn=bn)
-        for grouped in (False, True):
-            assert smem(FORM_CODES[form], bn, M, int(grouped)) == \
-                p.smem_bytes(M, fmt, grouped), (p, grouped)
+    plans = [plan(M, 4096, 4096, fmt)] + ([plan(M, 4100, 4096, fmt)] if M > 64 else [])
+    for q in plans:
+        for bn in {"skinny": (64, 128, 256), "wide": (128,), "tma": (128,)}[q.form]:
+            p = q._replace(bn=bn)
+            for grouped in (False, True):
+                assert smem(FORM_CODES[p.form], bn, M, int(grouped)) == \
+                    p.smem_bytes(M, fmt, grouped), (p, grouped)
+
+
+@pytest.mark.parametrize("fmt,group", [("int4", 128), ("int4", 0), ("fp8", 0), ("fp8", 64)])
+def test_k4_tma_graph_replays_follow_rotating_weights(dev, fmt, group):
+    """One CUDA graph captures the tma form (M 256, K 4096, N 4096: 4
+    slices) over three weight copies of different values, each with its own
+    x, as a benchmark over rotating copies does: each launch's TMA
+    descriptors are made for its own operands, so every replay gives each
+    output the eager result of its own weight, bit for bit."""
+    _, kernel, _ = K4_FORMS[fmt]
+    M, K, N = 256, 4096, 4096
+    assert plan(M, K, N, fmt).form == "tma"
+    cases = []
+    for seed in (31, 32, 33):
+        x, qt = _k4_form_case(fmt, group, M, K, N, seed=seed)
+        cases.append((x.to(dev, torch.bfloat16), qt.q.to(dev), qt.scale.to(dev), qt.group))
+    eager = [kernel(*c) for c in cases]
+    assert not torch.equal(eager[0], eager[1])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for c in cases:
+            kernel(*c)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [kernel(*c) for c in cases]
+    for _ in range(2):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, e) for o, e in zip(outs, eager))
+
+
+# Two test-only kernels beside K4's templates: built here from this source
+# (the libraries' nvcc flags, csrc/ on the include path) into the build
+# directory, never part of the port's libraries.
+_K4_PROBES = r"""
+#include "quant_matmul.cuh"
+
+// Every word of each block's dynamic shared memory set to `word` (volatile:
+// the stores stay, though nothing reads them).
+__global__ void fill_smem_kernel(int words, uint32_t word) {
+  extern __shared__ uint32_t buf[];
+  volatile uint32_t* v = buf;
+  for (int i = threadIdx.x; i < words; i += blockDim.x) v[i] = word;
+}
+
+extern "C" int hydra_fill_smem(int bytes, unsigned word, int blocks, void* stream) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      fill_smem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  fill_smem_kernel<<<blocks, 1024, bytes, static_cast<cudaStream_t>(stream)>>>(bytes / 4, word);
+  return launch_status();
+}
+
+// Code c in the first half of a pair and 255 - c in the second: placed[c]
+// is the tma form's conversion (e4m3_place_bf16x2), cvt[c] the skinny and
+// wide forms' (e4m3pair_to_bf16x2: __nv_cvt_fp8x2_to_halfraw2, then f16 ->
+// f32 -> bf16).
+__global__ void fp8_conversions_kernel(uint32_t* placed, uint32_t* cvt) {
+  const uint32_t c = threadIdx.x;
+  placed[c] = e4m3_place_bf16x2(c | ((255u - c) << 16), 0xA280u);
+  cvt[c] = e4m3pair_to_bf16x2(c | ((255u - c) << 8));
+}
+
+extern "C" int hydra_fp8_conversions(void* placed, void* cvt, void* stream) {
+  fp8_conversions_kernel<<<1, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint32_t*>(placed), static_cast<uint32_t*>(cvt));
+  return launch_status();
+}
+"""
+_k4_probe_lib = []
+
+
+def _k4_probes():
+    """The probe library (ctypes), built on first use; a failed build fails
+    the test with nvcc's output."""
+    import ctypes
+    import hashlib
+    import os
+    import subprocess
+    from hydrainfer_tpu_torch.ops.cuda import build
+    if _k4_probe_lib:
+        return _k4_probe_lib[0]
+    h = hashlib.sha256(_K4_PROBES.encode() + " ".join(build.NVCC_FLAGS).encode())
+    for header in sorted(build.CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    out = build.BUILD_DIR / f"k4_probes-{h.hexdigest()[:16]}.so"
+    if not out.exists():
+        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        src = out.with_suffix(f".{os.getpid()}.cu")
+        src.write_text(_K4_PROBES)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        run = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-I", str(build.CSRC_DIR),
+                              "-o", str(tmp), str(src)], capture_output=True, text=True)
+        src.unlink()
+        assert run.returncode == 0, run.stdout + run.stderr
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    lib.hydra_fill_smem.argtypes = [ctypes.c_int, ctypes.c_uint, ctypes.c_int, ctypes.c_void_p]
+    lib.hydra_fp8_conversions.argtypes = [ctypes.c_void_p] * 3
+    lib.hydra_fill_smem.restype = lib.hydra_fp8_conversions.restype = ctypes.c_int
+    _k4_probe_lib.append(lib)
+    return lib
+
+
+def test_k4_fp8_bit_placement_matches_cvt(dev):
+    """The tma form's e4m3 conversion (sign, exponent and mantissa placed in
+    bf16's bit positions, times 2^120 in bf16; NaN codes to bf16's NaN)
+    against the skinny and wide forms' (__nv_cvt_fp8x2_to_halfraw2, then f16
+    -> f32 -> bf16) over all 256 codes, each code in both halves of a pair,
+    bit for bit; and the finite codes against torch's own float8_e4m3fn ->
+    bfloat16 cast."""
+    lib = _k4_probes()
+    placed = torch.zeros(256, dtype=torch.int32, device=dev)
+    cvt = torch.zeros(256, dtype=torch.int32, device=dev)
+    assert lib.hydra_fp8_conversions(placed.data_ptr(), cvt.data_ptr(),
+                                     torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(placed, cvt), [
+        (c, hex(a & 0xFFFFFFFF), hex(b & 0xFFFFFFFF))
+        for c, (a, b) in enumerate(zip(placed.tolist(), cvt.tolist())) if a != b]
+    codes = torch.arange(256, dtype=torch.int32)
+    low = (placed.cpu() & 0xFFFF).to(torch.int16).view(torch.bfloat16)
+    high = ((placed.cpu() >> 16) & 0xFFFF).to(torch.int16).view(torch.bfloat16)
+    ref = codes.to(torch.uint8).view(torch.float8_e4m3fn).to(torch.bfloat16)
+    finite = (codes & 0x7F) != 0x7F
+    assert torch.equal(low[finite].view(torch.int16), ref[finite].view(torch.int16))
+    assert torch.equal(high.flip(0)[finite].view(torch.int16), ref[finite].view(torch.int16))
+    assert bool(low[~finite].isnan().all()) and bool(high[~finite.flip(0)].isnan().all())
+
+
+@pytest.mark.parametrize("M,K,N,group", [
+    (16, 320, 256, 32), (16, 320, 256, 64), (16, 160, 256, 32), (128, 160, 201, 32),
+    (128, 160, 256, 32)])
+@pytest.mark.parametrize("fmt", list(K4_FORMS))
+def test_k4_ragged_k_ignores_stale_shared_memory(dev, fmt, M, K, N, group):
+    """A ragged last K tile runs all its K steps, past the last group too;
+    the group-scale rows it reaches there must be zeros, not what an earlier
+    launch left in shared memory. So every SM's shared memory is first
+    filled with 0xFF bytes (f32 NaN), then the form runs, twice: the skinny
+    form at K 320 (int4's 128-deep tile ends half full: groups of 32 and 64
+    past K) and 160 (int4's tile a quarter full, the 8-bit formats' 64-deep
+    tile half full),
+    the cp.async wide form (N 201) and the tma form (N 256) at K 160 with
+    groups of 32. K 160 takes at most three K tiles, so the last one lands in
+    a ring slot that no earlier tile of the launch wrote. The f32 result
+    holds no NaN and agrees with the plain version within 1e-4."""
+    lib = _k4_probes()
+    _, kernel, plain = K4_FORMS[fmt]
+    x, qt = _k4_form_case(fmt, group, M, K, N)
+    x, w, scale = x.to(dev, torch.bfloat16), qt.q.to(dev), qt.scale.to(dev)
+    ref = plain(x, w, scale, group, torch.float32)
+    props = torch.cuda.get_device_properties(dev)
+    smem = getattr(props, "shared_memory_per_block_optin", 227 * 1024)
+    stream = torch.cuda.current_stream().cuda_stream
+    for _ in range(2):
+        assert lib.hydra_fill_smem(smem, 0xFFFFFFFF, 2 * props.multi_processor_count,
+                                   stream) == 0
+        got = kernel(x, w, scale, group, torch.float32)
+        torch.cuda.synchronize()
+        assert not bool(got.isnan().any()), int(got.isnan().sum())
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
 
 
 def test_k4_forms_count_their_launches(dev):

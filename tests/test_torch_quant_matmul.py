@@ -1,11 +1,14 @@
 """K4's plan and split-K arithmetic on the CPU (hydrainfer_tpu_torch/ops/cuda/quant_matmul.py).
 
-The kernel (csrc/quant_matmul.cu) takes its form, column strip and split
-count from `plan`, from shapes only. Here: `plan` gives the skinny form at
-M <= 64 and the wide form above it, at least 132 blocks at every decode shape
-of the three serving paths, at most 8 splits (one portable cluster) and a
-block's shared memory within 227 KB; the K tiles of the splits cover every
-tile once; the kernel's arithmetic in PyTorch (`quant_matmul_int8_split_plain`:
+The kernel (csrc/quant_matmul.cuh) takes its form, column strip, split count
+and K tile from `plan(M, K, N, fmt)`, from shapes and the weight format only.
+Here: `plan` gives the skinny form at M <= 64 (int4 in 128-deep K tiles, the
+others in 64-deep ones), and above it the tma form for int4 and fp8 where
+TMA can address the rows, else the wide form; at least 132 blocks at every
+decode shape of the three serving paths, at most 8 splits (one portable
+cluster) and a block's shared memory within 227 KB in every form, strip,
+format and M, with and without group scales; the K tiles of the splits
+cover every tile once, and the split partials follow each format's K tile; the kernel's arithmetic in PyTorch (`quant_matmul_int8_split_plain`:
 K slices summed in a fixed order, then scaled and cast) gives the plain
 version within f32 rounding and the JAX Pallas kernel in interpret mode on the
 same numpy inputs; and the card tests' bf16 bound (2e-2, relative and
@@ -32,22 +35,86 @@ PATH_SHAPES = {f"{path}_{name}": kn for path, arch in SERVING_ARCHS.items()
 M_SWEEP = [1, 8, 16, 17, 32, 64, 65, 256, 2048]
 
 
+FORMS = ["int8", "int4", "fp8"]
+FORM_BNS = {"skinny": (64, 128, 256), "wide": (128,), "tma": (128,)}
+
+
+@pytest.mark.parametrize("fmt", FORMS)
 @pytest.mark.parametrize("M", M_SWEEP)
 @pytest.mark.parametrize("shape", list(PATH_SHAPES))
-def test_plan_on_the_path_shapes(shape, M):
+def test_plan_on_the_path_shapes(shape, M, fmt):
     K, N = PATH_SHAPES[shape]
-    p = qmm.plan(M, K, N)
+    p = qmm.plan(M, K, N, fmt)
     form, bn, splits = p.form, p.bn, p.splits
-    assert form == ("skinny" if M <= 64 else "wide")
-    assert bn in ((64, 128, 256) if form == "skinny" else (128,))
+    assert form == ("skinny" if M <= 64 else "wide" if fmt == "int8" else "tma")
+    assert bn in FORM_BNS[form]
+    assert p.bk == (128 if form == "skinny" and fmt == "int4" else 64)
     assert 1 <= splits <= qmm.MAX_SPLITS
     if M <= 64:
         assert p.blocks(M, N) >= qmm.SMS
-    assert p.smem_bytes(M) <= qmm.MAX_SMEM
+    for grouped in (False, True):
+        assert p.smem_bytes(M, fmt, grouped) <= qmm.MAX_SMEM
     # every split keeps at least one K tile
-    tiles = -(-K // qmm.BK)
+    tiles = -(-K // p.bk)
     assert all(qmm.split_tiles(tiles, splits, i)[1] > qmm.split_tiles(tiles, splits, i)[0]
                for i in range(splits))
+
+
+@pytest.mark.parametrize("M", M_SWEEP)
+@pytest.mark.parametrize("shape", list(PATH_SHAPES))
+def test_int4_skinny_plan_keeps_int8s_bytes_in_flight(shape, M):
+    """At M <= 64 an int4 K tile is 128 deep, so a stage holds int8's 64
+    weight byte rows: int4 takes int8's strip and split count (a slice keeps
+    K 256 at least: two of its tiles), so the blocks, their stages and the
+    bytes in flight are int8's. fp8 plans as int8 at every M <= 64."""
+    if M > 64:
+        return
+    K, N = PATH_SHAPES[shape]
+    p8, p4, pf = (qmm.plan(M, K, N, fmt) for fmt in FORMS)
+    assert pf == p8
+    assert p4 == p8._replace(bk=qmm.INT4_SKINNY_BK)
+    assert p4.smem_bytes(M, "int4") == p8.smem_bytes(M, "int8") + qmm.STAGES * p8.rows(M) * 128
+
+
+@pytest.mark.parametrize("M", [65, 128, 256, 512, 2048])
+@pytest.mark.parametrize("K,N", [(4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096),
+                                 (4096, 32064), (1536, 151936), (384, 256)])
+def test_tma_plan_splits_to_the_fewest_waves(M, K, N):
+    """The tma form (one block an SM): the split count of 1, 2 or 3 that
+    finishes in the fewest waves of tile-slices (3 keeps 126 blocks
+    resident), the fewest such splits within 2%."""
+    p = qmm.plan(M, K, N, "int4")
+    assert (p.form, p.bn, p.bk) == ("tma", qmm.TMA_COLS, qmm.BK)
+    rows = 256 if M > 128 else 128
+    assert p.rows(M) == rows
+    tiles = -(-N // qmm.TMA_COLS) * -(-M // rows)
+    most = -(-K // qmm.BK) // qmm.MIN_SLICE_TILES
+    waves = {s: -(-tiles * s // r) / s for s, r in qmm.TMA_RESIDENT.items() if s <= most}
+    best = min(waves.values())
+    assert p.splits in waves and waves[p.splits] <= 1.02 * best
+    assert all(waves[s] > 1.02 * best for s in waves if s < p.splits)
+    assert p.blocks(M, N) == p.splits * tiles
+    assert qmm.plan(M, K, N, "fp8") == p
+
+
+@pytest.mark.parametrize("M,K,N,splits", [(256, 4096, 12288, 1), (256, 4096, 4096, 3),
+                                          (256, 4096, 22016, 2), (256, 11008, 4096, 3),
+                                          (512, 4096, 12288, 2), (512, 4096, 4096, 2),
+                                          (512, 4096, 22016, 1), (512, 11008, 4096, 2)])
+def test_tma_plan_at_llava_prefill_shapes(M, K, N, splits):
+    """llava-7b-lm's four projections at M 256 and 512: the split counts
+    that timed fastest on an H100 (1, 2 and 3 tried against 4, 6 and 8)."""
+    assert qmm.plan(M, K, N, "fp8") == qmm.Plan("tma", 128, splits)
+
+
+@pytest.mark.parametrize("K,N", [(4100, 4096), (4096, 4104), (4096, 201), (200, 256)])
+def test_shapes_tma_cannot_address_take_the_wide_form(K, N):
+    """x rows of K bf16 and weight rows of N bytes need 16-byte strides:
+    K % 8 and N % 16, else the cp.async wide form."""
+    assert qmm.tma_ok(K, N) == (K % 8 == 0 and N % 16 == 0)
+    for fmt in ("int4", "fp8"):
+        p = qmm.plan(256, K, N, fmt)
+        assert p.form == ("tma" if qmm.tma_ok(K, N) else "wide")
 
 
 @pytest.mark.parametrize("tiles", [1, 3, 24, 86, 172])
@@ -145,21 +212,24 @@ FORM_PLAIN = {"int4": qmm.quant_matmul_int4_plain, "fp8": qmm.quant_matmul_fp8_p
 
 @pytest.mark.parametrize("grouped", [False, True])
 @pytest.mark.parametrize("fmt", ["int8", "int4", "fp8"])
-@pytest.mark.parametrize("M", M_SWEEP)
+@pytest.mark.parametrize("M", M_SWEEP + [3, 40])
 def test_every_forms_shared_memory_fits_a_block(M, fmt, grouped):
-    """Every strip width of the form at M: the ring (half-height packed
-    tiles for int4, 4 scale rows a stage with groups) within 227 KB, and the
-    merge tile within the ring."""
-    form = qmm.plan(M, 4096, 4096).form
-    for bn in ((64, 128, 256) if form == "skinny" else (128,)):
-        p = qmm.Plan(form, bn, 1)
-        smem = p.smem_bytes(M, fmt, grouped)
-        assert smem <= qmm.MAX_SMEM
-        rows = (8 * (1 if M <= 8 else 2 if M <= 16 else 4 if M <= 32 else 8)
-                if form == "skinny" else qmm.WIDE_ROWS)
-        assert rows * (bn + 4) * 4 <= smem
+    """Every strip width of the format's form at M (and, above 64, the
+    cp.async wide form that shapes TMA cannot address take): the ring
+    (int4's 128-deep skinny tiles and bk / 16 scale rows a stage with
+    groups; the tma form's 5 or 6 stages) within 227 KB, and the merge tile
+    within what the block asks for."""
+    p = qmm.plan(M, 4096, 4096, fmt)
+    forms = [p] + ([qmm.plan(M, 4100, 4096, fmt)] if M > 64 else [])
+    for q in forms:
+        for bn in FORM_BNS[q.form]:
+            smem = q._replace(bn=bn, splits=1).smem_bytes(M, fmt, grouped)
+            assert smem <= qmm.MAX_SMEM
+            rows = (8 * (1 if M <= 8 else 2 if M <= 16 else 4 if M <= 32 else 8)
+                    if q.form == "skinny" else 256 if q.form == "tma" and M > 128 else 128)
+            assert q.rows(M) == rows and rows * (bn + 4) * 4 <= smem
     if fmt == "int8" and not grouped:
-        assert qmm.Plan(form, bn, 1).smem_bytes(M) == smem      # int8's default
+        assert qmm.Plan(p.form, bn, 1).smem_bytes(M) == smem    # int8's default
 
 
 def _form_case(fmt, M, K, N, group, seed=0):
@@ -197,11 +267,11 @@ def test_forms_bf16_bound_catches_a_missing_split(fmt, M, K, N, group):
     ref = FORM_PLAIN[fmt](x, qt.q, qt.scale, qt.group, torch.float32)
     got = qmm.quant_matmul_split_plain(x, qt.q, qt.scale, fmt, qt.group, torch.bfloat16)
     torch.testing.assert_close(got.float(), ref, rtol=2e-2, atol=2e-2)
-    splits = qmm.plan(M, K, N).splits
+    splits = qmm.plan(M, K, N, fmt).splits
     assert splits > 1
     w_eff = (qmm.dequantize_weight(qt.q, qt.scale, fmt, qt.group, x.dtype) if qt.group
              else qmm.weight_values(qt.q, fmt))
-    parts = qmm.split_partials(x, w_eff)
+    parts = qmm.split_partials(x, w_eff, fmt)
     for drop in range(splits):
         kept = [parts[i] for i in range(splits) if i != drop]
         miss = sum(kept[1:], kept[0])
@@ -226,7 +296,7 @@ def test_forms_launch_the_plan_from_shapes(monkeypatch, fmt, group, M, K, N):
     out = FORM_KERNEL[fmt](torch.empty((M, K), dtype=torch.bfloat16, **meta), w, scale, group,
                            torch.bfloat16)
     (name, args), = calls
-    p = qmm.plan(M, K, N)
+    p = qmm.plan(M, K, N, fmt)
     # (x, w, scale, out, M, K, N, group, x dtype, out dtype, form, bn, splits)
     assert name == f"quant_matmul_{fmt}"
     assert args[4:] == (M, K, N, group, 1, 1, qmm.FORM_CODES[p.form], p.bn, p.splits)
@@ -244,3 +314,46 @@ def test_forms_refuse_what_the_kernel_does_not_take(fmt):
     with pytest.raises(ValueError, match="scale"):
         FORM_KERNEL[fmt](x, w, torch.empty((2, 64), dtype=torch.float32, **meta), 32)
     assert not qmm.group_ok(48) and qmm.group_ok(192) and qmm.group_ok(16)
+
+
+@pytest.mark.parametrize("fmt", ["int4", "fp8"])
+def test_misaligned_views_take_the_wide_form(monkeypatch, fmt):
+    """TMA reads 16-byte aligned bases: an x that starts one element into
+    its storage (a view) takes the cp.async wide form at the tma form's
+    shape, with its own split count; aligned operands take the tma form."""
+    calls = []
+    monkeypatch.setattr(build, "launch", lambda name, *args: calls.append(args))
+    meta = dict(device="meta")
+    M, K, N = 256, 4096, 4096
+    w = (torch.empty((K // 2, N), dtype=torch.int8, **meta) if fmt == "int4"
+         else torch.empty((K, N), dtype=torch.float8_e4m3fn, **meta))
+    scale = torch.empty((N,), dtype=torch.float32, **meta)
+    x = torch.empty((M * K + 1,), dtype=torch.bfloat16, **meta)
+    FORM_KERNEL[fmt](x[:M * K].view(M, K), w, scale)
+    FORM_KERNEL[fmt](x[1:].view(M, K), w, scale)
+    wide = qmm.plan(M, K, N, "int8")
+    assert calls[0][10:] == (qmm.FORM_CODES["tma"], qmm.TMA_COLS, qmm.plan(M, K, N, fmt).splits)
+    assert calls[1][10:] == (qmm.FORM_CODES["wide"], 128, wide.splits)
+
+
+@pytest.mark.parametrize("M,K,N,group", [(16, 1000, 72, 0), (1, 4096, 256, 128),
+                                         (40, 11008, 128, 64), (16, 2048, 256, 32)])
+def test_int4_split_partials_follow_its_128_deep_tile(M, K, N, group):
+    """int4's skinny slices are cut in 128-deep K tiles: every slice but the
+    last starts and ends on a multiple of 128, the slices cover K once, and
+    their partials sum to the whole product."""
+    x, qt = _form_case("int4", M, K, N, group, seed=3)
+    p = qmm.plan(M, K, N, "int4")
+    assert p.bk == 128
+    tiles = -(-K // 128)
+    bounds = [qmm.split_tiles(tiles, p.splits, i) for i in range(p.splits)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == tiles
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    w_eff = qmm.weight_values(qt.q, "int4")
+    parts = qmm.split_partials(x, w_eff, "int4")
+    assert parts.shape == (p.splits, M, N)
+    for (lo, hi), part in zip(bounds, parts):
+        k0, k1 = lo * 128, min(K, hi * 128)
+        torch.testing.assert_close(part, x[:, k0:k1] @ w_eff[k0:k1], rtol=0, atol=1e-4)
+    torch.testing.assert_close(parts.sum(0), x @ w_eff, rtol=0, atol=1e-3)
+
