@@ -11,7 +11,7 @@
     python3 chip_smoke.py --phases build,quality    # the quality scripts on the card
     python3 chip_smoke.py --phases build,kernels,tp  # tensor and expert parallelism
     python3 chip_smoke.py --phases build,kernels,pp  # pipeline parallelism
-    python3 chip_smoke.py --phases build,drivers    # the speed drivers, the host packer
+    python3 chip_smoke.py --phases build,drivers    # the drivers (speed, SLO sweep, batch analysis)
 
 Phases, each printing one JSON line:
   build    compile the Hopper kernels of hydrainfer_tpu_torch/csrc (nvcc,
@@ -348,7 +348,19 @@ Phases, each printing one JSON line:
            timed on the host over the plans of one serve-shaped round
            (llava-7b-lm int8, 8 x 128 x 16, budget 256, K = 16 windows), by
            decode and prefill plan, each native buffer equal to the Python
-           packer's bit for bit. None of its numbers is a claim;
+           packer's bit for bit; then slo_run on llava-7b-lm (the A/B's int8
+           weights, int8 KV; the API server over one PD node of max batch 64,
+           the repo's `benchmark` client on the same event loop): 32
+           synthetic text requests (prompts 32-256, outputs 32-128), two
+           uniform warm-up passes, then Poisson at 8 and 32 req/s, each
+           rate's attainment, goodput and p50 / p99 TTFT and TPOT printed
+           (TTFT 5 s, TPOT 0.1 s); every request of every rate must finish
+           with its tokens and K1-K4 must launch in the timed sweep (counted
+           from the node's metrics, beside the graph keys it minted); then
+           batch_analysis on qwen2-vl-2b-lm (bf16 weights and KV) at batches
+           1, 8 and 32, prompt 128, gen 64, each measured row printed beside
+           its analytic roofline row, every vs_roofline at most 1.05 and
+           K1-K3 launched. None of its numbers is a claim;
   online   serve llava-7b-lm (full width, int8 weights, int8 KV) online
            through the real entry point, run as a child process: `python -m
            hydrainfer_tpu_torch.entrypoint.entrypoint --config
@@ -430,6 +442,10 @@ KERNEL_SOURCES = {
 QUANT_MODES = ("int4", "fp8")
 QUANT_ARCH = "llava-7b-lm"
 QUANT_EAGER_REQUESTS, QUANT_EAGER_TOKENS = 2, 8
+# tokens a request of the graphs-off A/B's warm-up round (serve, deepseek,
+# mixtral, gpt2; the measured round's count, 32, before the drivers phase
+# took on slo_run and batch_analysis: the script keeps inside its time limit)
+EAGER_WARM_TOKENS = 4
 # the quality phase: the quant_quality script's two checkpoints trained on
 # the card (its 400 steps, 8 held-out sequences), its six configs on
 # llava-7b-lm at full width (4 x 512 tokens), and the correctness dumps of
@@ -2466,7 +2482,9 @@ def _eager_round(factory, dev, n_blocks, token_budget, reqs, ref_outs, phase,
     n, max_tokens = len(reqs), reqs[0].sampling_params.max_tokens
     rng = np.random.default_rng(SEED + 1)
     engine = _engine(factory, dev, n, 16, n_blocks, token_budget, cuda_graphs=False)
-    engine.generate(_requests(rng, n, len(reqs[0].prompt), max_tokens, "warm_eager"),
+    # the warm-up meets the prefill shapes and sets up cuBLAS and the
+    # allocator; without graphs its decode steps key nothing, so it stops early
+    engine.generate(_requests(rng, n, len(reqs[0].prompt), EAGER_WARM_TOKENS, "warm_eager"),
                     timeout_s=600)
     again = [Request(request_id=f"eager{i}", prompt=r.prompt,
                      sampling_params=SamplingParameters(max_tokens=max_tokens,
@@ -6968,11 +6986,23 @@ DRIVERS_AB = ("int8;quant=int8;kv_int8=1", "fp8;quant=fp8;kv_int8=1")
 DRIVERS_AB_ROUNDS = 2
 DRIVERS_SPEC_BATCH, DRIVERS_SPEC_TOKENS = 2, 48
 DRIVERS_PACK_REPEATS = 5
+# slo_run: llava-7b-lm int8 / int8-KV (the A/B's int8 weights), synthetic
+# text requests at the JAX driver's lengths (prompts 32-256, outputs
+# 32-128), Poisson arrivals at each rate, max batch 64, the default SLOs
+# (TTFT 5 s, TPOT 0.1 s)
+DRIVERS_SLO_REQUESTS, DRIVERS_SLO_RATES, DRIVERS_SLO_MAX_BATCH = 32, (8, 32), 64
+# batch_analysis: its default arch, qwen2-vl-2b-lm, bf16 weights and KV, at
+# these batches; no measured run may beat the byte bound by more than 5%
+DRIVERS_BA_BATCHES, DRIVERS_BA_PROMPT, DRIVERS_BA_GEN = (1, 8, 32), 128, 64
+DRIVERS_ROOFLINE_MAX = 1.05
 # the kernels each driver must launch: Qwen2-VL's LM and tower, the A/B's
-# int8 and fp8 forms, the spec A/B over the int8 weights
+# int8 and fp8 forms, the spec A/B over the int8 weights, the SLO sweep's
+# int8 server (counted over its timed sweep), the bf16 batch sweep (no K4)
 DRIVERS_KERNELS = {"interference": VLM_KERNELS,
                    "ab_bench": SERVE_KERNELS + ("quant_matmul_fp8",),
-                   "spec_bench": SERVE_KERNELS}
+                   "spec_bench": SERVE_KERNELS,
+                   "slo_run": SERVE_KERNELS,
+                   "batch_analysis": ("mha_decode", "paged_attention", "kv_writer")}
 
 
 class PackTimer:
@@ -7103,6 +7133,7 @@ def phase_drivers(dev="cuda") -> dict:
 
     # 3. spec_bench over the A/B's int8 weights; then the packer's timing round
     t0 = time.perf_counter()
+    factory = None
     try:
         factory = engines[0].node.model_factory
         del engines[1:]
@@ -7149,11 +7180,130 @@ def phase_drivers(dev="cuda") -> dict:
     del engines
     gc.collect()
     torch.cuda.empty_cache()
+
+    # 4. slo_run over the A/B's int8 weights: the server, the client and the
+    # node's loop on one event loop; launches and graph keys over the timed
+    # sweep from the node's metrics
+    t0 = time.perf_counter()
+    try:
+        result["slo_run"] = r = _drivers_slo(factory, dev)
+        checks["slo_finished"] = r["finished"]
+        checks["slo_launched"] = r["launched"]
+    except Exception as e:
+        traceback.print_exc()
+        result["slo_run"] = {"ok": False, "error": repr(e)}
+        checks["slo_finished"] = False
+    del factory
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts["slo_run"] = time.perf_counter() - t0
+
+    # 5. batch_analysis: the measured sweep beside the analytic roofline
+    t0 = time.perf_counter()
+    try:
+        result["batch_analysis"] = r = _drivers_batch_analysis(dev)
+        checks["ba_launched"] = r["launched"]
+        checks["ba_within_roofline"] = r["within_roofline"]
+    except Exception as e:
+        traceback.print_exc()
+        result["batch_analysis"] = {"ok": False, "error": repr(e)}
+        checks["ba_within_roofline"] = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts["batch_analysis"] = time.perf_counter() - t0
     result["parts_s"] = parts
     result["checks"] = checks
     result["ok"] = bool(checks) and all(checks.values())
     save("drivers.json", result)
     return result
+
+
+def _drivers_slo(factory, dev) -> dict:
+    """slo_run on llava-7b-lm int8 / int8-KV over `factory` (built here when
+    None): every request of every rate must finish with the tokens it asked
+    for, and K1-K4 must launch in the timed sweep. Prints each rate's
+    attainment, goodput and p50 / p99 TTFT and TPOT."""
+    from hydrainfer_tpu_torch.evaluation import slo_run
+    from hydrainfer_tpu_torch.models.random_init import RandomWeightFactory
+    if factory is None:
+        factory = RandomWeightFactory("llava-7b-lm", quantization="int8", kv_scale=0.05,
+                                      device=dev)
+    args = slo_run.parse_args([
+        "--arch", "llava-7b-lm", "--quant", "int8", "--kv-int8",
+        "--num-requests", str(DRIVERS_SLO_REQUESTS),
+        "--rates", *map(str, DRIVERS_SLO_RATES),
+        "--max-batch", str(DRIVERS_SLO_MAX_BATCH), "--device", str(dev),
+        "--out", os.path.join(OUT_DIR, "slo_run")])
+    report = asyncio.run(slo_run.amain(args, factory=factory))
+    asked = [e.max_tokens for e in report["entries"]]
+    rates = {}
+    for row in report["rows"]:
+        rate = row["request_rate"]
+        outs = report["results"][rate].outputs
+        rates[rate] = {
+            "finished": [o.success for o in outs] == [True] * len(asked)
+            and [o.total_tokens for o in outs] == asked,
+            "attainment": row["slo"]["attainment"],
+            "goodput_tokens_per_s": row["slo"]["goodput_tokens_per_s"],
+            "token_throughput": row["token_throughput"],
+            "duration_s": row["duration_s"],
+            **{f"{m}_{q}_s": row[m][k] for m in ("ttft", "tpot")
+               for q, k in (("p50", "median"), ("p99", "p99"))}}
+        r = rates[rate]
+        print(f"drivers slo_run llava-7b-lm int8/int8-KV, {len(asked)} requests, "
+              f"Poisson {rate} req/s: attainment {r['attainment']}, goodput "
+              f"{r['goodput_tokens_per_s']} tokens/s, TTFT p50 {r['ttft_p50_s']} p99 "
+              f"{r['ttft_p99_s']} s, TPOT p50 {r['tpot_p50_s']} p99 {r['tpot_p99_s']} s "
+              "(client clock, one event loop with the server)", flush=True)
+    (name, before), = report["sweep_metrics"]["before"].items()
+    after = report["sweep_metrics"]["after"][name]
+    launches = {k: after["launches"][k] - before["launches"][k]
+                for k in DRIVERS_KERNELS["slo_run"]}
+    minted = [k for k in after.get("graph_keys", []) if k not in before.get("graph_keys", [])]
+    return {"arch": "llava-7b-lm", "weights": "int8", "kv_cache": "int8 (scale 0.05)",
+            "requests": len(asked), "max_batch": DRIVERS_SLO_MAX_BATCH,
+            "ttft_slo_s": args.ttft_slo, "tpot_slo_s": args.tpot_slo, "rates": rates,
+            "table": report["table"],
+            "finished": all(r["finished"] for r in rates.values()),
+            "sweep_launches": launches, "launched": all(v > 0 for v in launches.values()),
+            "graph_keys_before_sweep": before.get("graph_keys"),
+            "graph_keys_minted_in_sweep": minted,
+            "graph_captures_in_sweep": (after.get("graph_captures", 0)
+                                        - before.get("graph_captures", 0)),
+            "kv_total_blocks": after.get("kv_total_blocks"),
+            "token_budget": after.get("token_budget")}
+
+
+def _drivers_batch_analysis(dev) -> dict:
+    """batch_analysis's measured sweep on VLM_ARCH (bf16) at the drivers
+    batches beside its analytic rows; every vs_roofline must be at most
+    DRIVERS_ROOFLINE_MAX. Prints each batch's row beside its analytic row."""
+    from hydrainfer_tpu_torch.evaluation import batch_analysis
+    from hydrainfer_tpu_torch.models.random_init import ARCH_CONFIGS
+    from hydrainfer_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    rows = batch_analysis.measured_sweep(VLM_ARCH, DRIVERS_BA_BATCHES, DRIVERS_BA_PROMPT,
+                                         DRIVERS_BA_GEN, device=dev)
+    r = _driver_launches("batch_analysis", launch_counts())
+    cfg = ARCH_CONFIGS[VLM_ARCH]
+    wbytes = batch_analysis.weight_bytes(cfg)
+    analytic = {b: batch_analysis.analytic_decode_model(
+        cfg, b, DRIVERS_BA_PROMPT + DRIVERS_BA_GEN // 2, wbytes) for b in DRIVERS_BA_BATCHES}
+    for row in rows:
+        a = analytic[row["batch"]]
+        print(f"drivers batch_analysis {VLM_ARCH} bf16, prompt {DRIVERS_BA_PROMPT}, gen "
+              f"{DRIVERS_BA_GEN}, batch {row['batch']}: measured {row['tokens_per_s']} "
+              f"tokens/s ({row['vs_roofline']} of the roofline), p50 TBT "
+              f"{row['p50_tbt_s']} s; analytic {a['roofline_tokens_per_s']} tokens/s "
+              f"({a['bound']}-bound, {a['compute_intensity']} flop/B)", flush=True)
+    r.update(arch=VLM_ARCH, prompt_len=DRIVERS_BA_PROMPT, gen=DRIVERS_BA_GEN,
+             measured=rows, analytic=analytic,
+             markdown=batch_analysis.markdown(VLM_ARCH, list(DRIVERS_BA_BATCHES),
+                                              DRIVERS_BA_PROMPT, DRIVERS_BA_GEN,
+                                              analytic, rows),
+             within_roofline=all(row["vs_roofline"] <= DRIVERS_ROOFLINE_MAX
+                                 for row in rows))
+    return r
 
 
 def gpu_name_and_limit() -> str:

@@ -60,15 +60,19 @@ def parse_variant(spec: str) -> dict:
     return v
 
 
-def build_engine(arch, v, n_requests, prompt_len, max_tokens, token_budget, device=None):
+def build_engine(arch, v, n_requests, prompt_len, max_tokens, token_budget, device=None,
+                 factory=None):
+    """A PD engine of variant v on `factory`, or on random weights at `arch`
+    in v's weight and KV formats."""
     from ..cluster.node import NodeConfig
     from ..engine.profiler import BatchSchedulerProfilerConfig
     from ..engine.request_processor import RequestProcessorConfig
     from ..engine.scheduler import BatchSchedulerConfig
     from ..entrypoint.offline import OfflineEngine
     from ..models.random_init import RandomWeightFactory
-    factory = RandomWeightFactory(arch, quantization=v["quant"],
-                                  kv_scale=0.05 if v["kv_int8"] else None, device=device)
+    if factory is None:
+        factory = RandomWeightFactory(arch, quantization=v["quant"],
+                                      kv_scale=0.05 if v["kv_int8"] else None, device=device)
     bs = v["block_size"]
     cfg = NodeConfig(
         batch_scheduler=BatchSchedulerConfig(max_running_requests=n_requests,

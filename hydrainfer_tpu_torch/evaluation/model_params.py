@@ -56,6 +56,11 @@ def card_name_and_limit() -> str:
         return f"nvidia-smi unavailable ({e})"
 
 
+def device_label(device: str) -> str:
+    """"cpu", or the card's name and power limit."""
+    return "cpu" if device == "cpu" else card_name_and_limit()
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None, help="random-weight arch preset")

@@ -2,8 +2,9 @@
 
 In a fresh interpreter, importing every module of hydrainfer_tpu_torch (its
 quality scripts under hydrainfer_tpu_torch/evaluation included) and
-everything chip_smoke.py and k4_plan_sweep.py import must load no `jax*` module, nothing of the
-JAX package and nothing of the JAX package's `evaluation` scripts. The entry points default to the card: without one they
+everything chip_smoke.py and k4_plan_sweep.py import, and the root `benchmark`
+client's modules that evaluation/slo_run.py loads, must load no `jax*` module,
+nothing of the JAX package and nothing of the JAX package's `evaluation` scripts. The entry points default to the card: without one they
 raise, unless the caller passes device="cpu".
 """
 import torch_threads  # noqa: F401  (first: caps torch's threads per xdist worker)
@@ -36,11 +37,15 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke   # its phases import only modules of the walk above
 import k4_plan_sweep
+# the root benchmark client's modules that evaluation.slo_run loads when it runs
+import benchmark.benchmark, benchmark.metric, benchmark.performance_analyzer
+import benchmark.synthetic_dataset
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "hydrainfer_tpu" or m.startswith("hydrainfer_tpu.")
              or m == "evaluation" or m.startswith("evaluation."))
-print(json.dumps({"imported": names, "bad": bad}))
+print(json.dumps({"imported": names, "bad": bad,
+                  "client": sorted(m for m in sys.modules if m.startswith("benchmark."))}))
 """
 
 
@@ -59,8 +64,11 @@ def test_port_and_chip_smoke_import_no_jax():
                  "models.deepseek_vl2", "models.mixtral", "models.gpt2", "utils.debug",
                  "utils.profiler", "utils.statistic", "utils.image_utils",
                  "evaluation", "evaluation.perplexity", "evaluation.quant_quality",
-                 "evaluation.test_correctness", "evaluation.model_params"):
+                 "evaluation.test_correctness", "evaluation.model_params",
+                 "evaluation.slo_run", "evaluation.batch_analysis"):
         assert "hydrainfer_tpu_torch." + name in res["imported"]
+    assert {"benchmark.benchmark", "benchmark.metric", "benchmark.performance_analyzer",
+            "benchmark.synthetic_dataset"} <= set(res["client"])
     assert res["bad"] == []
 
 
